@@ -341,10 +341,9 @@ class Smoke:
                     for k in before}
         kern = ("fused_push_add" if spec.make(**spec.defaults).combiner.name
                 == "add" else "fused_push_min")
-        if eng.dispatch["kernel"] == "cuda":
-            if launched[kern] != iters or sum(launched.values()) != iters:
-                raise AssertionError(f"{name}: {launched} launches for "
-                                     f"{iters} supersteps")
+        if launched[kern] != iters or sum(launched.values()) != iters:
+            raise AssertionError(f"{name}: {launched} launches for "
+                                 f"{iters} supersteps")
         t0 = time.perf_counter()
         if name == "labelprop":
             ref = self._components(graph)

@@ -15,10 +15,12 @@ quiescence test).
 
 ``push_fn="auto"`` prices the layout's band table
 (``blocks.choose_push``) exactly as the reference does and records the
-decision in ``Engine.dispatch``; on a CUDA device a ``"fused"`` choice
-installs the CUDA push kernels, anything else runs the plain torch staged
-pipeline (the reference installs its Pallas kernels only on TPU and runs
-its jnp pipeline elsewhere).
+decision in ``Engine.dispatch``, then installs the fused push hook whatever
+the choice: on the card it launches the CUDA kernels (which are correct for
+any band table; the band only lets them skip empty edge blocks), on the CPU
+it runs their plain version.  The staged pipeline (``push_fn=None``) is
+plain torch and runs only on the CPU until the staged kernels are ported
+(ROADMAP queue 2, items 3-6).
 """
 
 from __future__ import annotations
@@ -64,10 +66,10 @@ def resolve_device(device=None) -> torch.device:
 class Engine:
     """Runs vertex programs on a partitioned graph with a chosen strategy.
 
-    ``push_fn`` accepts ``"auto"`` (default: staged-vs-fused chosen from the
-    measured band occupancy, recorded in ``self.dispatch``), ``None``
-    (explicit staged pipeline), or a callable hook (``ops.make_push_fn``,
-    used as given on any device).
+    ``push_fn`` accepts ``"auto"`` (default: the fused hook, with the
+    reference's staged-vs-fused choice from the measured band occupancy
+    recorded in ``self.dispatch``), ``None`` (explicit staged pipeline, CPU
+    only), or a callable hook (``ops.make_push_fn``, used as given).
     """
 
     pg: PartitionedGraph
@@ -113,9 +115,9 @@ class Engine:
         """Resolve ``push_fn='auto'`` against the bound layout's bands.
 
         Returns the recorded decision; sets ``self.push_fn`` to the callable
-        the strategies will actually receive.  The choice is always computed
-        and recorded; the CUDA kernels are installed only when it is
-        ``"fused"`` and the engine runs on CUDA.
+        the strategies will actually receive.  The choice is computed and
+        recorded as the reference does; the fused hook is installed for
+        either choice, since no staged kernel is ported yet.
         """
         if self._push_request != "auto":
             self.push_fn = self._push_request
@@ -126,15 +128,12 @@ class Engine:
         emax = self.pg.edge_valid.shape[1]
         choice, occ = blocks.choose_push(band, emax, self._K,
                                          self._C * self._K)
-        if choice == "fused" and self.device.type == "cuda":
-            from repro_torch.kernels import ops
+        from repro_torch.kernels import ops
 
-            self.push_fn = ops.make_push_fn()
-        else:
-            self.push_fn = None
+        self.push_fn = ops.make_push_fn()
         return {"choice": choice, "mode": "auto", "layout": layout,
                 "threshold": blocks.BAND_OCC_FUSED_MAX,
-                "kernel": "cuda" if self.push_fn is not None else "plain",
+                "kernel": "cuda" if self.device.type == "cuda" else "plain",
                 **occ}
 
     def _propagate(self, vals, program):

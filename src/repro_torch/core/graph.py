@@ -85,7 +85,9 @@ class Graph:
             # sort + drop repeats: the keys np.unique returns; np.unique of
             # numpy 2.3 took ~40x as long as this on 117M int64 keys
             keys = np.sort(np.concatenate([fwd, rev]))
-            keys = keys[np.concatenate(([True], keys[1:] != keys[:-1]))]
+            first = np.ones(len(keys), dtype=bool)
+            first[1:] = keys[1:] != keys[:-1]
+            keys = keys[first]
             w = None
         else:
             both = np.concatenate([fwd, rev])

@@ -50,7 +50,7 @@ class VertexProgram:
     # means the canonical semiring transform over the layout's edge weights
     # (multiply for add, saturating add for min), "unit" the same with w=1
     # (BFS's hop count).  None + an edge_value means the transform is not
-    # kernel-expressible and a push_fn hook falls back to the staged path.
+    # kernel-expressible and runs the plain staged path (CPU only).
     edge_semiring: str | None = None
     fixed_iters: int | None = None
     max_iters: int = 10_000

@@ -106,7 +106,8 @@ def _dense_contrib(vals, src_local, dst_global, edge_valid, edge_weight,
     same with w=1.  A program whose ``edge_value`` is not declared
     kernel-expressible runs the staged path below instead.  Without a hook
     the staged path is plain torch: gather, ``edge_value``, mask, segment
-    combine.
+    combine.  It takes CPU tensors only: on the card the staged pipeline
+    needs the staged kernels, which are not ported yet.
     """
     S = num_chunks * chunk_size
     if push_fn is not None and (edge_value is None or edge_semiring):
@@ -116,6 +117,11 @@ def _dense_contrib(vals, src_local, dst_global, edge_valid, edge_weight,
         return push_fn(vals, src_local, dst_global, edge_valid, weight, S,
                        combine=combiner.name, band=band, unit=unit,
                        init=init)
+    if vals.device.type != "cpu":
+        raise NotImplementedError(
+            f"the staged push on {vals.device} (push_fn=None, or an "
+            "edge_value without a declared edge_semiring) needs the staged "
+            "kernels, not ported yet (ROADMAP queue 2, items 3-6)")
     C, E = src_local.shape
     tail = tuple(vals.shape[2:])
     gathered = vals.reshape((-1,) + tail).index_select(

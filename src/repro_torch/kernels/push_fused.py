@@ -86,6 +86,9 @@ def fused_push(band, src, dst, valid, weight, vals, num_segments, *,
     if vals.is_cuda:
         return _launch(band, src, dst, valid, weight, vals, shape, combine,
                        mode, out_dtype, init)
+    if vals.device.type != "cpu":
+        raise ValueError(f"fused_push runs on CUDA or CPU tensors, not on "
+                         f"{vals.device}")
     return fused_push_plain(band, src, dst, valid, weight, vals, num_segments,
                             combine=combine, unit_weight=unit_weight,
                             init=init)

@@ -122,9 +122,9 @@ def test_library_builds_into_ignored_dir(cuda):
 @pytest.mark.parametrize("strategy", ("sortdest", "reduction", "pairs"))
 @pytest.mark.parametrize("name", PROGRAMS)
 def test_engine_on_cuda_matches_cpu(cuda, name, strategy, chares):
-    """The engine on the card (CUDA kernels installed where the dispatch
-    picks "fused") agrees with the same engine on the CPU, and launches its
-    kernel once per superstep."""
+    """The engine on the card (CUDA kernels installed whatever the dispatch
+    picks) agrees with the same engine on the CPU, and launches its kernel
+    once per superstep."""
     spec = get_spec(name)
     g = G.rmat(11, 14 << 11, seed=1)
     if spec.weighted:
@@ -141,8 +141,36 @@ def test_engine_on_cuda_matches_cpu(cuda, name, strategy, chares):
         np.testing.assert_array_equal(got, want)
     else:
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
-    if dev_eng.dispatch["choice"] == "fused":
-        assert dev_eng.dispatch["kernel"] == "cuda"
-        assert launched == iters
+    assert dev_eng.dispatch["kernel"] == "cuda"
+    assert launched == iters
+
+
+@pytest.mark.parametrize("name", PROGRAMS)
+def test_engine_on_cuda_launches_for_a_staged_choice(cuda, name):
+    """A near-uniform graph makes the dispatch choose "staged"; the engine
+    on the card still runs the CUDA kernels (the band table only lets them
+    skip empty blocks), never the plain torch pipeline."""
+    spec = get_spec(name)
+    g = G.erdos_renyi(512, 20000, seed=3)
+    if spec.weighted:
+        g = G.random_weights(g, seed=5)
+    pg = G.partition(spec.prepare_graph(g), 1)
+    dev_eng = Engine(pg)
+    assert dev_eng.dispatch["choice"] == "staged"
+    push_fused.reset_launch_counts()
+    got, iters = dev_eng.run(name)
+    assert sum(push_fused.launch_counts.values()) == iters
+    want, want_iters = Engine(pg, device="cpu").run(name)
+    assert iters == want_iters
+    if spec.exact:
+        np.testing.assert_array_equal(got, want)
     else:
-        assert launched == 0
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_staged_pipeline_on_cuda_raises(cuda):
+    """push_fn=None asks for the staged pipeline, whose kernels are not
+    ported: on the card it raises instead of running plain torch."""
+    pg = G.partition(G.rmat(8, 2000, seed=1), 2)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Engine(pg, push_fn=None).run("bfs")

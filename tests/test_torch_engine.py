@@ -167,9 +167,9 @@ def test_phase1_rows_equal_reference_shards(name, strategy, hook):
 @pytest.mark.parametrize("chares", (1, 2, 8))
 @pytest.mark.parametrize("name", PROGRAMS)
 def test_push_hook_on_cpu_equals_staged(name, chares):
-    """The engine's kernel path (the push hook, whose CUDA kernel falls back
-    to nothing: on the CPU it is the plain version) agrees with the staged
-    pipeline the CPU runs by default."""
+    """The engine's kernel path (the push hook: on the CPU, the kernels'
+    plain version) agrees with the plain staged pipeline that
+    ``push_fn=None`` runs on the CPU."""
     spec = get_spec(name)
     pg = TG.partition(port_graph(name, "rmat6"), chares)
     params = source_params(spec)
@@ -209,6 +209,60 @@ def test_dispatch_decision_equals_reference(gname, strategy):
     assert d4["choice"] == choice
     for k in keys[1:]:
         assert d4[k] == occ[k], k
+
+
+@pytest.mark.parametrize("gname", ("rmat10", "ring13"))
+def test_auto_dispatch_installs_the_hook_for_either_choice(gname):
+    """Whatever ``choose_push`` picks, the engine runs the fused hook (the
+    CUDA kernels on the card, their plain version here); the choice is only
+    recorded.  rmat10 prices "fused" and ring13 "staged"."""
+    rg = graph(gname)
+    want = REngine(RG.partition(rg, 1), strategy="sortdest").dispatch
+    eng = Engine(TG.partition(to_port(rg), 1), device="cpu")
+    assert eng.dispatch["choice"] == want["choice"]
+    assert eng.push_fn is not None
+    got, iters = eng.run("bfs", source=0)
+    ref, ref_iters = RPROG.bfs_serial(rg, source=0)
+    np.testing.assert_array_equal(got, ref)
+    assert iters == ref_iters
+
+
+def test_staged_pipeline_takes_cpu_tensors_only():
+    """The plain staged pipeline runs only on the CPU: given tensors on
+    another device (``meta`` here, standing in for the card) it raises
+    instead of running plain torch there."""
+    from repro_torch.core import strategies as TS
+
+    pg = TG.partition(port_graph("bfs", "rmat6"), 2)
+    arrs = {k: v.to("meta")
+            for k, v in pg.device_arrays("sd", "cpu").items()}
+    vals = torch.zeros((2, pg.chunk_size), dtype=torch.int32, device="meta")
+    prog = TPROG.make_program("bfs")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TS.sortdest_phase1(vals, arrs, prog.combiner, 2, pg.chunk_size,
+                           edge_value=prog.edge_value, push_fn=None,
+                           edge_semiring=prog.edge_semiring)
+    with pytest.raises(ValueError, match="meta"):
+        TS.sortdest_phase1(vals, arrs, prog.combiner, 2, pg.chunk_size,
+                           edge_value=prog.edge_value,
+                           push_fn=ops.make_push_fn(),
+                           edge_semiring=prog.edge_semiring)
+
+
+@pytest.mark.parametrize("chares", (1, 2))
+@pytest.mark.parametrize("gname", ("single_vertex", "isolated_vertices"))
+def test_labelprop_on_degenerate_graphs(gname, chares):
+    """labelprop symmetrizes its graph first; graphs with no edges or with
+    edgeless vertices go through ``to_undirected`` and the engine, and
+    agree with the reference engine and the components oracle."""
+    rg = program_graph("labelprop", gname)
+    got, iters = Engine(TG.partition(to_port(graph(gname)).to_undirected(),
+                                     chares), device="cpu").run("labelprop")
+    np.testing.assert_array_equal(got, rlabelprop.components_oracle(rg))
+    if chares == 1:
+        want, ref_iters = REngine(RG.partition(rg, 1)).run("labelprop")
+        np.testing.assert_array_equal(got, np.asarray(want))
+        assert iters == ref_iters
 
 
 def test_engine_shares_device_arrays():

@@ -164,6 +164,15 @@ def test_generators_identical(make):
     assert_graphs_equal(make(TG), make(RG))
 
 
+@pytest.mark.parametrize("gname", DEGENERATE_GRAPHS)
+def test_to_undirected_degenerate_equals_reference(gname):
+    """Graphs with no edges or with edgeless vertices symmetrize as the
+    reference's do, unweighted and weighted."""
+    for ref_g in (graph(gname), weighted(gname)):
+        assert_graphs_equal(to_port(ref_g).to_undirected(),
+                            ref_g.to_undirected())
+
+
 def test_dataset_registry_equal():
     assert TG.dataset_names() == RG.dataset_names()
     assert TG._DATASETS == RG._DATASETS
