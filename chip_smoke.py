@@ -2,33 +2,56 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
     python3 chip_smoke.py [--scale 22] [--chare-scale 18] [--chares 8]
+                          [--staged-scale 22]
 
 Phases, each printing one JSON line with its seconds:
 
   device     the card's name and power limit; refuses to run without CUDA
   build      nvcc builds every kernel source under
              src/repro_torch/kernels/csrc/ (one nvcc per source, together)
-  kernels    each CUDA kernel against its plain torch version on the card,
-             over the operand matrix (add x {f32, i32} x {no weight,
-             weight}; min x {i32, f32} x {none, weight, unit}; with and
-             without a [B=4] plane and an init seed; all-invalid,
-             empty-edge-block, saturation and negative-weight cases)
+  kernels    each CUDA kernel against its plain torch version on the card.
+             Fused: add x {f32, i32} x {no weight, weight}; min x {i32,
+             f32} x {none, weight, unit}; with and without a [B=4] plane and
+             an init seed; all-invalid, empty-edge-block, saturation and
+             negative-weight cases.  Staged: gather sum x {f32, i32, bf16},
+             gather min x {i32, f32 with sentinel-range values}, scatter
+             sum x {f32, i32 past 2^24}, scatter min x {i32, f32 with
+             negatives}, each with and without [B=4], in chare-row and 1-D
+             form; all-invalid edges; then ops.push(fused=False) against
+             ops.push() over the fused matrix, and its int saturation
   graph      the soc-LiveJournal1 stand-in (RMAT, 2^scale vertices, 14
              edges per vertex) and its partitions, built on the host
   main       the main path: Engine(pg, "sortdest") at C=1 runs pagerank,
              pagerank_weighted, sssp, bfs (source 0) and labelprop, checked
              against the serial references (connected components from scipy
              for labelprop); launch counts are zeroed before and read after
+  staged_main  the same graphs and programs through Engine(pg, "basic")
+             and Engine(pg, "sortdest", push_fn=None): one gather and one
+             scatter launch per superstep, no fused launch; counts zeroed
+             before and read after; the serial references of main reused
   profile    device time by kernel over one pagerank and one bfs run of
-             the main path (torch.profiler) and the device's busy share
+             the main path and of the staged path (torch.profiler) and the
+             device's busy share
   kernel_time  each kernel at the main path's shapes against its plain
-             version: CUDA-event times and the memory bound
-  kernels_main  the kernels phase's operand matrix again on the main
+             version: CUDA-event times, the memory bound and, where one
+             PyTorch call computes the same function, that call's time
+  kernels_main  the kernels phase's operand matrices again on the main
              path's edge layout
-  chares     2^chare-scale vertices at C chares for sortdest, reduction
-             and pairs, against the serial references
+  chares     2^chare-scale vertices at C chares for sortdest, reduction,
+             pairs and basic, and a near-uniform graph
+             (erdos_renyi(2^staged-scale, 2^(staged-scale+1)), the
+             reference's staged-choice contrast) at C chares, whose
+             dispatch must choose the staged pair; all against the serial
+             references
+  push_choice  one fused push against one staged pair on the main layout
+             and on the staged-choice layout (is choose_push's pick the
+             faster one on this card?), and program seconds on the
+             staged-choice graph with either hook
+  quickstart  python -m repro_torch.quickstart's main() on the card; all
+             its checks must hold
 
-Then one JSON line with every kernel's numbers, the ``nvidia-smi`` name and
+Then one JSON line with every kernel's numbers (launches from the main
+path for the fused pair, from staged_main for the staged four), the ``nvidia-smi`` name and
 power limit, and as the last line ``{"ok": true, "device": {...}}``.  Any
 failure exits non-zero and prints no ok line.  Min programs and int32 sums
 must be bit-equal; float sums agree within rtol=1e-5, atol=1e-6*max|out|
@@ -62,6 +85,7 @@ class Smoke:
     def __init__(self, args):
         self.args = args
         self.kernel_rows = {}
+        self.refs = {}  # (graph key, program) -> serial reference
 
     # -- helpers -------------------------------------------------------------
 
@@ -209,6 +233,115 @@ class Smoke:
                         cases += 1
         return cases
 
+    STAGED_CASES = (  # (kernel, value dtype name)
+        ("gather_sum", "float32"), ("gather_sum", "int32"),
+        ("gather_sum", "bfloat16"), ("gather_min", "int32"),
+        ("gather_min", "float32"), ("scatter_sum", "float32"),
+        ("scatter_sum", "int32"), ("scatter_min", "int32"),
+        ("scatter_min", "float32"))
+
+    def _staged_matrix(self, src, dst, valid, V, S, seed):
+        """The four staged kernels against their plain versions on one edge
+        layout (``[C, E]`` rows): every (kernel, dtype) of STAGED_CASES,
+        with and without a [B=4] plane, in chare-row form and on one row
+        (1-D form).  Float sums draw from [0, 1), as PageRank's mass does;
+        float min values include negatives, +inf and the sentinel range;
+        int sums start past 2^24.  Returns (cases, max abs err)."""
+        import torch
+
+        from repro_torch.kernels import push_staged
+        from repro_torch.kernels.push_fused import SENTINEL, SENTINEL_F32
+
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        C, E = src.shape
+        cases, worst = 0, 0.0
+
+        def draw(kernel, dtype, shape):
+            if dtype == "int32":
+                lo, hi = ((1 << 24, 1 << 26) if kernel.endswith("sum")
+                          else (0, 1 << 30))
+                x = torch.randint(lo, hi, shape, generator=gen,
+                                  device="cuda", dtype=torch.int32)
+                if kernel.endswith("min"):
+                    x[..., ::9] = SENTINEL
+                return x
+            if kernel.endswith("sum"):
+                x = torch.rand(shape, generator=gen, device="cuda")
+                return x.to(torch.bfloat16) if dtype == "bfloat16" else x
+            x = torch.randn(shape, generator=gen, device="cuda") * 100
+            x[..., ::7] = SENTINEL_F32 * 1.5  # above the sentinel: unreached
+            x[..., 3::11] = float("inf")
+            return x
+
+        for kernel, dtype in self.STAGED_CASES:
+            gather = kernel.startswith("gather")
+            fn = getattr(push_staged, kernel)
+            plain = getattr(push_staged, kernel + "_plain")
+            combine = "add" if kernel == "scatter_sum" else "min"
+            for B in (None, 4):
+                tail = () if B is None else (B,)
+                x = draw(kernel, dtype, (C, V if gather else E) + tail)
+                for rows in (slice(None), C - 1):  # chare rows, one row
+                    idx = (src if gather else dst)[rows]
+                    args = ((idx, valid[rows], x[rows]) if gather
+                            else (idx, x[rows], S))
+                    got, want = fn(*args), plain(*args)
+                    torch.cuda.synchronize()
+                    worst = max(worst, self.compare(
+                        got, want, combine,
+                        f"{kernel}/{dtype}/B={B}/rows={rows}"))
+                    cases += 1
+                del x
+        return cases, worst
+
+    def _unfused_matrix(self, src, dst, valid, V, S, seed):
+        """ops.push(fused=False) -- the staged pair -- against ops.push()
+        -- the fused kernel -- on the same operands: add x {f32, i32} x
+        {no weight, weight}, min x {i32, f32} x {none, weight, unit}, with
+        and without [B=4] and an init seed.  Returns the number of cases."""
+        import torch
+
+        from repro_torch.kernels import ops
+
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        C, E = src.shape
+        ints = lambda lo, hi, shape: torch.randint(
+            lo, hi, shape, generator=gen, device="cuda", dtype=torch.int32)
+        matrix = [("add", torch.float32, m) for m in ("none", "array")] \
+            + [("add", torch.int32, m) for m in ("none", "array")] \
+            + [("min", dt, m) for dt in (torch.int32, torch.float32)
+               for m in ("none", "array", "unit")]
+        cases = 0
+        for combine, dtype, mode in matrix:
+            for B in (None, 4):
+                shape = (C, V) + (() if B is None else (B,))
+                if dtype == torch.float32:
+                    vals = torch.rand(shape, generator=gen, device="cuda")
+                    if combine == "min":
+                        vals = vals * 100
+                        vals[..., ::5] = float("inf")
+                    w = torch.rand((C, E), generator=gen, device="cuda") \
+                        * 3.5 + 0.5
+                elif combine == "add":
+                    vals, w = ints(1 << 24, 1 << 26, shape), ints(0, 3, (C, E))
+                else:
+                    vals, w = ints(0, 10_000, shape), ints(0, 9, (C, E))
+                kw = dict(combine=combine,
+                          weight=w if mode == "array" else None,
+                          unit_weight=mode == "unit")
+                for seeded in (False, True):
+                    init = (ops.push(vals, src, dst, valid, S,
+                                     combine=combine) if seeded else None)
+                    got = ops.push(vals, src, dst, valid, S, fused=False,
+                                   init=init, **kw)
+                    want = ops.push(vals, src, dst, valid, S, init=init, **kw)
+                    torch.cuda.synchronize()
+                    self.compare(got, want, combine,
+                                 f"unfused {combine}/{dtype}/{mode}/B={B}/"
+                                 f"init={seeded}")
+                    cases += 1
+        return cases
+
     def kernels(self):
         import numpy as np
         import torch
@@ -276,7 +409,29 @@ class Smoke:
                        combine="min", weight=torch.ones(3, device=dev))
         if got.tolist() != [3.5, float("inf"), 1.0]:
             raise AssertionError(f"ops.push float min: {got.tolist()}")
-        return {"cases": cases}
+        staged, _ = self._staged_matrix(s, d, v, V, S, seed=2)
+        unfused = self._unfused_matrix(s, d, v, V, S, seed=3)
+        # staged edge cases: all-invalid edges gather the identity; the
+        # unfused push saturates at the sentinel headroom, never wraps
+        from repro_torch.kernels import push_staged
+
+        for fn in (push_staged.gather_sum, push_staged.gather_min):
+            for x in (vals.float() + 0.5, vals):  # vals is int32 here
+                got = fn(s, zero, x)
+                plain = getattr(push_staged, fn.__name__ + "_plain")
+                self.compare(got, plain(s, zero, x), "min",
+                             f"{fn.__name__}/all-invalid/{x.dtype}")
+                staged += 1
+        for w, unit in ((sw, False), (None, True)):
+            out = ops.push(sat, sidx, sidx, sval, 256, combine="min",
+                           weight=w, unit_weight=unit, fused=False)
+            want = ([SENTINEL, SENTINEL, SENTINEL - 2, 8] if unit
+                    else [SENTINEL, SENTINEL, SENTINEL, 12])
+            if out[:4].tolist() != want:
+                raise AssertionError(f"unfused saturation: {out[:4].tolist()}")
+            staged += 1
+        return {"cases": cases, "staged_cases": staged,
+                "unfused_cases": unfused}
 
     def kernels_main(self):
         """The kernel matrix again on the main path's sd layout (58.6M edges
@@ -292,7 +447,12 @@ class Smoke:
             a["sd_edge_valid"], K, K, seed=1,
             float_vals=lambda shape, gen: torch.rand(
                 shape, generator=gen, device="cuda"))
-        return {"cases": cases, "edges": int(a["sd_edge_valid"].sum())}
+        staged, err = self._staged_matrix(
+            a["sd_src_local"], a["sd_dst_global"], a["sd_edge_valid"], K, K,
+            seed=4)
+        return {"cases": cases, "staged_cases": staged,
+                "staged_max_abs_err": err,
+                "edges": int(a["sd_edge_valid"].sum())}
 
     def graph(self):
         import numpy as np
@@ -321,9 +481,48 @@ class Smoke:
                 "sd_emax": int(self.pgw.edge_valid.shape[1]),
                 "mean_degree_check": float(np.mean(g.out_degrees))}
 
-    def _check_program(self, eng, name, graph, C):
+    @staticmethod
+    def _expected_launches(eng, combine, iters):
+        """The launches one run of ``eng`` must make: the fused kernel of
+        the monoid once per superstep, or -- for ``basic``, ``push_fn=None``
+        or the staged hook -- one gather and one scatter kernel of the
+        monoid per superstep; no other kernel."""
+        from repro_torch.kernels import push_fused
+
+        want = dict.fromkeys(push_fused.launch_counts, 0)
+        fused = (eng.strategy != "basic" and eng.push_fn is not None
+                 and getattr(eng.push_fn, "fused", True))
+        if fused:
+            want[f"fused_push_{combine}"] = iters
+        else:
+            half = "sum" if combine == "add" else "min"
+            want[f"gather_{half}"] = want[f"scatter_{half}"] = iters
+        return want
+
+    def _reference(self, name, graph, key, labelprop_iters=False):
+        """The serial reference of one program on one graph, computed once
+        per ``key`` and cached: (result, supersteps or None, seconds).
+        labelprop's is the connected components (scipy), with the serial
+        labelprop's superstep count only where ``labelprop_iters`` asks."""
+        from repro_torch.core import programs as P
+        from repro_torch.core.labelprop import labelprop_serial
+
+        if (key, name) not in self.refs:
+            spec = P.get_spec(name)
+            t0 = time.perf_counter()
+            if name == "labelprop":
+                ref = self._components(graph)
+                it = labelprop_serial(graph)[1] if labelprop_iters else None
+            else:
+                out = spec.serial(graph, **spec.defaults)
+                ref, it = out if spec.returns_iters else (out, None)
+            self.refs[(key, name)] = (ref, it, time.perf_counter() - t0)
+        return self.refs[(key, name)]
+
+    def _check_program(self, eng, name, graph, C, key,
+                       labelprop_iters=False):
         """Warm run + timed run of one program; checks against the serial
-        reference and the launch count; returns a result row."""
+        reference and the launch counts; returns a result row."""
         import numpy as np
         import torch
 
@@ -339,31 +538,24 @@ class Smoke:
         secs = time.perf_counter() - t0
         launched = {k: push_fused.launch_counts[k] - before[k]
                     for k in before}
-        kern = ("fused_push_add" if spec.make(**spec.defaults).combiner.name
-                == "add" else "fused_push_min")
-        if launched[kern] != iters or sum(launched.values()) != iters:
-            raise AssertionError(f"{name}: {launched} launches for "
-                                 f"{iters} supersteps")
-        t0 = time.perf_counter()
-        if name == "labelprop":
-            ref = self._components(graph)
-            ref_iters = None
-        else:
-            out = spec.serial(graph, **spec.defaults)
-            ref, ref_iters = out if spec.returns_iters else (out, None)
-        t_ref = time.perf_counter() - t0
+        combine = spec.make(**spec.defaults).combiner.name
+        if launched != self._expected_launches(eng, combine, iters):
+            raise AssertionError(f"{name}/{eng.strategy}: {launched} "
+                                 f"launches for {iters} supersteps")
+        ref, ref_iters, t_ref = self._reference(name, graph, key,
+                                                labelprop_iters)
         if not spec.matches(got, ref):
-            raise AssertionError(f"{name} at C={C}: does not match the "
-                                 "serial reference")
+            raise AssertionError(f"{name}/{eng.strategy} at C={C}: does not "
+                                 "match the serial reference")
         if ref_iters is not None and iters != ref_iters:
-            raise AssertionError(f"{name}: {iters} supersteps, serial "
-                                 f"{ref_iters}")
+            raise AssertionError(f"{name}/{eng.strategy}: {iters} "
+                                 f"supersteps, serial {ref_iters}")
         err = (0.0 if spec.exact or name == "labelprop" else
                float(np.max(np.abs(np.asarray(got, np.float64) - ref))))
         return {"program": name, "seconds": round(secs, 4),
                 "supersteps": iters, "serial_supersteps": ref_iters,
-                "launches": launched[kern], "max_abs_err": err,
-                "reference_s": round(t_ref, 3)}
+                "launches": {k: n for k, n in launched.items() if n},
+                "max_abs_err": err, "reference_s": round(t_ref, 3)}
 
     @staticmethod
     def _components(graph):
@@ -400,10 +592,11 @@ class Smoke:
         for name in ("pagerank", "pagerank_weighted", "sssp", "bfs",
                      "labelprop"):
             graph = self.gu if name == "labelprop" else self.gw
-            rows.append(self._check_program(engines[name], name, graph, 1))
+            rows.append(self._check_program(engines[name], name, graph, 1,
+                                            "main"))
         self.main_launches = dict(push_fused.launch_counts)
-        for k, n in self.main_launches.items():
-            if n == 0:
+        for k in ("fused_push_add", "fused_push_min"):
+            if self.main_launches[k] == 0:
                 raise AssertionError(f"{k} was not launched on the main path")
         self.engines = engines
         return {"programs": rows, "launches": self.main_launches,
@@ -411,18 +604,68 @@ class Smoke:
                              .dispatch.items() if not isinstance(v, dict)},
                 "peak_device_bytes": torch.cuda.max_memory_allocated()}
 
+    def staged_main(self):
+        """The main path's graphs and programs through the staged pair:
+        ``basic`` (pairwise layout, gather kernel on the send side, scatter
+        kernel on the receive side) and ``sortdest`` with ``push_fn=None``
+        (gather kernel, torch edge transform, scatter kernel)."""
+        import torch
+
+        from repro_torch.core import Engine
+        from repro_torch.kernels import push_fused
+
+        t0 = time.perf_counter()
+        engines = {
+            "basic": (Engine(self.pgw, "basic"), Engine(self.pgu, "basic")),
+            "sortdest/push_fn=None": (
+                Engine(self.pgw, "sortdest", push_fn=None),
+                Engine(self.pgu, "sortdest", push_fn=None)),
+        }
+        setup_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        rows = []
+        push_fused.reset_launch_counts()
+        for how, (ew, eu) in engines.items():
+            for name in ("pagerank", "pagerank_weighted", "sssp", "bfs",
+                         "labelprop"):
+                e, graph = (eu, self.gu) if name == "labelprop" \
+                    else (ew, self.gw)
+                row = self._check_program(e, name, graph, 1, "main")
+                row.update(engine=how, choice=e.dispatch["choice"])
+                rows.append(row)
+        self.staged_launches = dict(push_fused.launch_counts)
+        for k in ("gather_sum", "scatter_sum", "gather_min", "scatter_min"):
+            if self.staged_launches[k] == 0:
+                raise AssertionError(f"{k} was not launched on the staged "
+                                     "main path")
+        for k in ("fused_push_add", "fused_push_min"):
+            if self.staged_launches[k]:
+                raise AssertionError(f"{k} launched on the staged main path")
+        self.staged_engines = engines
+        return {"programs": rows, "launches": self.staged_launches,
+                "pairwise_pair_max": int(
+                    engines["basic"][0].arrays["pb_valid"].shape[-1]),
+                "engine_setup_s": round(setup_s, 3),
+                "peak_device_bytes": torch.cuda.max_memory_allocated()}
+
     def profile(self):
         """Device time by kernel over one run each of pagerank and bfs on the
-        main path (torch.profiler, CUDA activity), and the device's busy
-        share of the run's wall time.  Kernels and copies run on one stream,
-        so their summed time is the time the device was busy."""
+        main path and on the staged path (basic pagerank, push_fn=None bfs)
+        (torch.profiler, CUDA activity), and the device's busy share of the
+        run's wall time.  Kernels and copies run on one stream, so their
+        summed time is the time the device was busy."""
         import torch
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
         out = {}
-        for name in ("pagerank", "bfs"):
-            eng = self.engines[name]
+        runs = (("pagerank", "pagerank", self.engines["pagerank"]),
+                ("bfs", "bfs", self.engines["bfs"]),
+                ("pagerank/basic", "pagerank",
+                 self.staged_engines["basic"][0]),
+                ("bfs/push_fn=None", "bfs",
+                 self.staged_engines["sortdest/push_fn=None"][0]))
+        for label, name, eng in runs:
             eng.run(name)  # warm
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CPU,
@@ -436,7 +679,7 @@ class Smoke:
                            if e.device_type == DeviceType.CUDA),
                           key=lambda r: -r[1])
             busy_ms = sum(r[1] for r in rows)
-            out[name] = {
+            out[label] = {
                 "wall_ms": wall_ms, "device_busy_ms": busy_ms,
                 "device_busy_share": busy_ms / wall_ms if busy_ms else None,
                 "by_kernel": [{"name": k[:90], "device_ms": ms, "calls": n}
@@ -507,7 +750,113 @@ class Smoke:
                 "ms": r["ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": "bytes",
                 "library_ms": None, "timed_call": prog}
-        return {"calls": rows}
+        return {"calls": rows, "staged_calls": self._staged_time()}
+
+    def _staged_time(self):
+        """The staged kernels at the main path's shapes -- the sd layout
+        (push_fn=None) and the pairwise layout (basic) of the scale-22
+        weighted graph -- against their plain versions, with CUDA-event
+        times and the byte bound.  A gather reads src and valid (8 B per
+        edge) and vals (4 B per vertex) and writes c (4 B per edge); a
+        scatter reads dst and c (8 B per edge) and writes out (4 B per
+        segment).  Scatter rows also time the one PyTorch call that
+        computes the same function (``index_add_`` into zeros,
+        ``scatter_reduce_(amin)`` into the sentinel); gather rows time
+        ``index_select`` as a yardstick only (it has no valid mask)."""
+        import torch
+
+        from repro_torch.kernels import push_staged as ps
+        from repro_torch.kernels.push_fused import SENTINEL_F32
+
+        sd = self.engines["pagerank"].arrays
+        pw = self.staged_engines["basic"][0].arrays
+        K = self.pgw.chunk_size
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        fvals = torch.rand((1, K), generator=gen, device="cuda")
+        # sssp-like distances: half the vertices unreached
+        dist = torch.where(torch.rand((1, K), generator=gen, device="cuda")
+                           < 0.5, fvals * 100, SENTINEL_F32)
+        layouts = {
+            "sd": (sd["sd_src_local"], sd["sd_dst_global"],
+                   sd["sd_edge_valid"]),
+            "pairwise": tuple(pw[k].reshape(1, -1) for k in
+                              ("pb_src_local", "pb_dst_local", "pb_valid")),
+        }
+        rows = []
+        for layout, (src, dst, valid) in layouts.items():
+            E = src.numel()
+            for half, vals, prog in (("sum", fvals, "pagerank"),
+                                     ("min", dist, "sssp")):
+                gather = getattr(ps, f"gather_{half}")
+                gplain = getattr(ps, f"gather_{half}_plain")
+                c = gather(src, valid, vals)
+                want = gplain(src, valid, vals)
+                torch.cuda.synchronize()
+                err = self.compare(c, want, "min", f"gather_{half}/{layout}")
+                del want
+                src64 = src.reshape(-1).long()
+                nbytes = 12 * E + 4 * K
+                rows.append({
+                    "kernel": f"gather_{half}", "layout": layout,
+                    "program": prog, "edges": E,
+                    "ms": self.cuda_ms(lambda: gather(src, valid, vals), 20),
+                    "plain_ms": self.cuda_ms(
+                        lambda: gplain(src, valid, vals), 3),
+                    "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                    "bytes": nbytes, "max_abs_err": err,
+                    "library_ms": None,
+                    "yardstick_ms": self.cuda_ms(
+                        lambda: vals[0].index_select(0, src64), 20)})
+                del src64
+                scatter = getattr(ps, f"scatter_{half}")
+                splain = getattr(ps, f"scatter_{half}_plain")
+                combine = "add" if half == "sum" else "min"
+                got = scatter(dst, c, K)
+                want = splain(dst, c, K)
+                torch.cuda.synchronize()
+                err = self.compare(got, want, combine,
+                                   f"scatter_{half}/{layout}")
+                del got, want
+                dst64, cflat = dst.reshape(-1).long(), c.reshape(-1)
+                if half == "sum":
+                    out = torch.zeros(K, device="cuda")
+                    lib = lambda: out.index_add_(0, dst64, cflat)
+                else:
+                    out = torch.full((K,), SENTINEL_F32, device="cuda")
+                    lib = lambda: out.scatter_reduce_(
+                        0, dst64, cflat, reduce="amin", include_self=True)
+                nbytes, ops = 8 * E + 4 * K, E
+                rows.append({
+                    "kernel": f"scatter_{half}", "layout": layout,
+                    "program": prog, "edges": E,
+                    "ms": self.cuda_ms(lambda: scatter(dst, c, K), 20),
+                    "plain_ms": self.cuda_ms(lambda: splain(dst, c, K), 3),
+                    "bound_ms": max(nbytes / HBM_BYTES_PER_S,
+                                    ops / FP32_OPS_PER_S) * 1e3,
+                    "bytes": nbytes, "max_abs_err": err,
+                    "library_ms": self.cuda_ms(lib, 20)})
+                del dst64, cflat, out, c
+        replaces = {
+            "gather_sum": "src/repro/kernels/push_sum.py:31",
+            "scatter_sum": "src/repro/kernels/push_sum.py:46",
+            "gather_min": "src/repro/kernels/push_min.py:22",
+            "scatter_min": "src/repro/kernels/push_min.py:37",
+        }
+        for kern, where in replaces.items():
+            r = next(r for r in rows
+                     if r["kernel"] == kern and r["layout"] == "sd")
+            self.kernel_rows[kern] = {
+                "name": kern, "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/push_staged.cu",
+                "replaces": where,
+                "launches": self.staged_launches[kern],
+                "max_abs_err": max(x["max_abs_err"] for x in rows
+                                   if x["kernel"] == kern),
+                "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": "bytes",
+                "library_ms": r["library_ms"],
+                "timed_call": f"{r['program']}/sd"}
+        return rows
 
     @staticmethod
     def _bound(a, vals, S, weighted):
@@ -555,27 +904,126 @@ class Smoke:
         pgw, pgu = G.partition(gw, a.chares), G.partition(gu, a.chares)
         rows = []
         push_fused.reset_launch_counts()
-        for strategy in ("sortdest", "reduction", "pairs"):
+        for strategy in ("sortdest", "reduction", "pairs", "basic"):
             eng, engu = Engine(pgw, strategy), Engine(pgu, strategy)
             for name in ("pagerank", "pagerank_weighted", "sssp", "bfs",
                          "labelprop"):
                 e, graph = (engu, gu) if name == "labelprop" else (eng, gw)
-                row = self._check_program(e, name, graph, a.chares)
-                if name == "labelprop":  # the serial labelprop is cheap here
-                    from repro_torch.core.labelprop import labelprop_serial
-
-                    _, ref_iters = labelprop_serial(gu)
-                    if row["supersteps"] != ref_iters:
-                        raise AssertionError(
-                            f"labelprop/{strategy}: {row['supersteps']} "
-                            f"supersteps, serial {ref_iters}")
-                    row["serial_supersteps"] = ref_iters
+                # the serial labelprop's superstep count is cheap here
+                row = self._check_program(e, name, graph, a.chares, "chares",
+                                          labelprop_iters=True)
                 row.update(strategy=strategy, choice=e.dispatch["choice"],
                            kernel=e.dispatch["kernel"])
                 rows.append(row)
+        launches = dict(push_fused.launch_counts)
+        staged = self._staged_choice()
         return {"vertices": g.num_vertices, "edges": g.num_edges,
-                "chares": a.chares, "runs": rows,
+                "chares": a.chares, "runs": rows, "launches": launches,
+                "staged_choice": staged}
+
+    def _staged_choice(self):
+        """The near-uniform contrast graph at C chares: its dispatch must
+        choose the staged pair, which then runs on the card."""
+        from repro_torch.core import Engine
+        from repro_torch.core import graph as G
+        from repro_torch.kernels import push_fused
+
+        a = self.args
+        t0 = time.perf_counter()
+        n = 1 << a.staged_scale
+        g = G.erdos_renyi(n, 2 * n, seed=1)
+        gw = G.random_weights(g, seed=5)
+        gu = g.to_undirected()
+        pgw, pgu = G.partition(gw, a.chares), G.partition(gu, a.chares)
+        eng, engu = Engine(pgw), Engine(pgu)
+        setup_s = time.perf_counter() - t0
+        for e in (eng, engu):
+            if e.dispatch["choice"] != "staged" or \
+                    e.dispatch["kernel"] != "cuda":
+                raise AssertionError(f"staged-choice graph: dispatch "
+                                     f"{e.dispatch}")
+        rows = []
+        push_fused.reset_launch_counts()
+        for name in ("pagerank", "pagerank_weighted", "sssp", "bfs",
+                     "labelprop"):
+            e, graph = (engu, gu) if name == "labelprop" else (eng, gw)
+            rows.append(self._check_program(e, name, graph, a.chares,
+                                            "staged_choice"))
+        self.er = (pgw, eng)
+        return {"vertices": n, "edges": g.num_edges,
+                "undirected_edges": gu.num_edges,
+                "dispatch": {k: v for k, v in eng.dispatch.items()
+                             if not isinstance(v, dict)},
+                "setup_s": round(setup_s, 3), "runs": rows,
                 "launches": dict(push_fused.launch_counts)}
+
+    def push_choice(self):
+        """One fused push against one staged pair, through the hooks the
+        dispatch chooses between, on the main layout (dispatch: fused) and
+        on the staged-choice layout (dispatch: staged); then program seconds
+        on the staged-choice graph with either hook.  A measurement only:
+        the rule stays as it is."""
+        import torch
+
+        from repro_torch.core import Engine
+        from repro_torch.kernels import ops
+
+        fused, staged = ops.make_push_fn(), ops.make_push_fn(fused=False)
+        layouts = (("main", self.engines["pagerank"]),
+                   ("staged_choice", self.er[1]))
+        calls = []
+        for label, eng in layouts:
+            a = eng.arrays
+            C, K = eng._C, eng._K
+            gen = torch.Generator(device="cuda").manual_seed(3)
+            fvals = torch.rand((C, K), generator=gen, device="cuda")
+            ivals = (fvals * 1e6).to(torch.int32)
+            for prog, combine, vals, weighted, unit in (
+                    ("pagerank", "add", fvals, False, False),
+                    ("sssp", "min", fvals * 100, True, False),
+                    ("bfs", "min", ivals, False, True)):
+                args = (vals, a["sd_src_local"], a["sd_dst_global"],
+                        a["sd_edge_valid"],
+                        a["sd_edge_weight"] if weighted else None, C * K)
+                kw = dict(combine=combine, band=a["sd_band"], unit=unit)
+                got_s, got_f = staged(*args, **kw), fused(*args, **kw)
+                torch.cuda.synchronize()
+                self.compare(got_s, got_f, combine, f"{label}/{prog}")
+                f1 = self.cuda_ms(lambda: fused(*args, **kw), 10)
+                s1 = self.cuda_ms(lambda: staged(*args, **kw), 10)
+                s2 = self.cuda_ms(lambda: staged(*args, **kw), 10)
+                f2 = self.cuda_ms(lambda: fused(*args, **kw), 10)
+                calls.append({"layout": label, "program": prog,
+                              "dispatch": eng.dispatch["choice"],
+                              "max_occupancy": eng.dispatch["max_occupancy"],
+                              "fused_ms": min(f1, f2),
+                              "staged_ms": min(s1, s2),
+                              "faster": "fused" if min(f1, f2) < min(s1, s2)
+                              else "staged"})
+        pgw, eng = self.er
+        forced = Engine(pgw, push_fn=fused)
+        programs = []
+        for name in ("pagerank", "sssp", "bfs"):
+            secs = {}
+            for how, e in (("auto_staged", eng), ("fused", forced),
+                           ("fused_again", forced),
+                           ("auto_staged_again", eng)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                e.run(name)
+                secs[how] = time.perf_counter() - t0
+            programs.append({"program": name, **secs})
+        return {"calls": calls, "staged_choice_programs": programs}
+
+    def quickstart(self):
+        """The port's quickstart twin on the card, at its default scale."""
+        from repro_torch import quickstart
+
+        checks = quickstart.main([])
+        failed = [k for k, ok in checks.items() if not ok]
+        if failed:
+            raise AssertionError(f"quickstart checks failed: {failed}")
+        return {"checks": checks}
 
 
 def main(argv=None) -> int:
@@ -585,6 +1033,8 @@ def main(argv=None) -> int:
     ap.add_argument("--chare-scale", type=int, default=18,
                     help="log2 vertices of the chare-axis graph")
     ap.add_argument("--chares", type=int, default=8)
+    ap.add_argument("--staged-scale", type=int, default=22,
+                    help="log2 vertices of the staged-choice graph")
     args = ap.parse_args(argv)
     if not (PORT / "kernels" / "csrc").is_dir():
         print(f"chip_smoke: {PORT} not found; run from a checkout of the "
@@ -594,7 +1044,8 @@ def main(argv=None) -> int:
     smoke = Smoke(args)
     try:
         for name in ("device", "build", "kernels", "graph", "main",
-                     "profile", "kernel_time", "kernels_main", "chares"):
+                     "staged_main", "profile", "kernel_time", "kernels_main",
+                     "chares", "push_choice", "quickstart"):
             smoke.phase(name, getattr(smoke, name))
     except Exception:  # report the failing phase, print no ok line
         traceback.print_exc()

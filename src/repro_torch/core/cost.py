@@ -55,7 +55,7 @@ class CostReport:
 
 
 def run_cost(graph: Graph, algorithm: str = "pagerank",
-             strategies=("reduction", "sortdest", "pairs"),
+             strategies=("reduction", "sortdest", "basic", "pairs"),
              pe_counts=(1, 2, 4, 8), repeats: int = 3,
              partitioners=("contiguous",), device=None,
              **algo_params) -> CostReport:

@@ -2,9 +2,11 @@
 
 The twin of the resident, barrier-synchronized ``Engine.run`` of
 ``repro/core/engine.py``.  Per superstep each chare (i) scans its local
-edges and aggregates outgoing data (phase 1: one fused push over every
-chare's ``[Emax]`` row at once), (ii) exchanges messages (phase 2: a
-reduction over the chare axis), (iii) applies the received payloads to its
+edges and aggregates outgoing data (phase 1: one push -- a fused launch or
+a gather and a scatter launch -- over every chare's ``[Emax]`` row at
+once), (ii) exchanges messages (phase 2: a reduction over the chare axis,
+or for ``basic`` a swap of the chare axes and one scatter launch), (iii)
+applies the received payloads to its
 vertex state, with quiescence detection between supersteps.
 
 Fixed-iteration programs (PageRank) run a plain loop; convergence programs
@@ -14,13 +16,14 @@ combiner identity.  The loop is Python with one host sync per superstep (the
 quiescence test).
 
 ``push_fn="auto"`` prices the layout's band table
-(``blocks.choose_push``) exactly as the reference does and records the
-decision in ``Engine.dispatch``, then installs the fused push hook whatever
-the choice: on the card it launches the CUDA kernels (which are correct for
-any band table; the band only lets them skip empty edge blocks), on the CPU
-it runs their plain version.  The staged pipeline (``push_fn=None``) is
-plain torch and runs only on the CPU until the staged kernels are ported
-(ROADMAP queue 2, items 3-6).
+(``blocks.choose_push``) exactly as the reference does, records the
+decision in ``Engine.dispatch`` and installs the matching hook: the fused
+push for a ``fused`` choice, the staged pair (``make_push_fn(fused=False)``)
+for a ``staged`` one.  On the card either launches the CUDA kernels; on the
+CPU it runs their plain version.  ``push_fn=None`` runs the staged pipeline
+without a hook (the staged gather and scatter kernels on the card, plain
+torch on the CPU), with its segment combine through ``segment_fn`` when one
+is given.  ``basic`` reads the pairwise layout and has no push loop to hook.
 """
 
 from __future__ import annotations
@@ -40,12 +43,8 @@ _LATER = {
     "gate": "frontier gating is not ported yet (ROADMAP queue 1, item 8)",
     "stream": "residency='stream' is not ported yet (ROADMAP queue 1, "
               "item 9)",
-    "segment_fn": "the segment_fn hook needs the staged kernels, not ported "
-                  "yet (ROADMAP queue 2, items 3-6)",
     "batch": "the batched query plane (run_batch, personalized PageRank, "
              "betweenness) is not ported yet (ROADMAP queue 1, item 7)",
-    "basic": "the 'basic' strategy needs the pairwise layout and the staged "
-             "kernels, not ported yet (ROADMAP queue 2, items 3-6)",
     "grid2d": "grid(R,C) partitions and the grid2d strategy are not ported "
               "yet (ROADMAP queue 1, item 6)",
 }
@@ -66,10 +65,12 @@ def resolve_device(device=None) -> torch.device:
 class Engine:
     """Runs vertex programs on a partitioned graph with a chosen strategy.
 
-    ``push_fn`` accepts ``"auto"`` (default: the fused hook, with the
-    reference's staged-vs-fused choice from the measured band occupancy
-    recorded in ``self.dispatch``), ``None`` (explicit staged pipeline, CPU
-    only), or a callable hook (``ops.make_push_fn``, used as given).
+    ``push_fn`` accepts ``"auto"`` (default: the reference's staged-vs-fused
+    choice from the measured band occupancy, recorded in ``self.dispatch``),
+    ``None`` (explicit staged pipeline), or a callable hook
+    (``ops.make_push_fn``, used as given).  ``segment_fn``
+    (``ops.make_segment_fn``) takes the local segment combine wherever no
+    push hook does, ``basic``'s receive side included.
     """
 
     pg: PartitionedGraph
@@ -80,14 +81,12 @@ class Engine:
     residency: str = "resident"
 
     def __post_init__(self):
-        if self.segment_fn is not None:
-            raise NotImplementedError(_LATER["segment_fn"])
         if self.residency == "stream":
             raise NotImplementedError(_LATER["stream"])
         if self.residency != "resident":
             raise ValueError(f"unknown residency {self.residency!r}")
-        if self.strategy in ("basic", "grid2d"):
-            raise NotImplementedError(_LATER[self.strategy])
+        if self.strategy == "grid2d":
+            raise NotImplementedError(_LATER["grid2d"])
         if self.strategy not in strat.PHASES:
             raise ValueError(f"unknown strategy {self.strategy!r}; "
                              f"choose from {sorted(strat.PHASES)}")
@@ -95,6 +94,10 @@ class Engine:
             raise ValueError(
                 f"push_fn must be 'auto', None, or a callable hook "
                 f"(ops.make_push_fn), got {self.push_fn!r}")
+        if not (self.segment_fn is None or callable(self.segment_fn)):
+            raise ValueError(f"segment_fn must be None or a callable hook "
+                             f"(ops.make_segment_fn), got "
+                             f"{self.segment_fn!r}")
         self.device = resolve_device(self.device)
         self._push_request = self.push_fn
         self._bind(self.pg)
@@ -105,8 +108,9 @@ class Engine:
         self.pg = pg
         # layouts are uploaded once per (partition, device) and shared:
         # engines of a strategy sweep alias the same tensors
-        self.arrays = pg.device_arrays(strat.STRATEGY_LAYOUT[self.strategy],
-                                       self.device)
+        layout = strat.STRATEGY_LAYOUT[self.strategy]
+        self.arrays = (pg.device_pairwise(self.device) if layout == "pairwise"
+                       else pg.device_arrays(layout, self.device))
         self.aux = pg.device_aux(self.device)
         self._C, self._K = pg.num_chunks, pg.chunk_size
         self.dispatch = self._resolve_dispatch()
@@ -115,25 +119,29 @@ class Engine:
         """Resolve ``push_fn='auto'`` against the bound layout's bands.
 
         Returns the recorded decision; sets ``self.push_fn`` to the callable
-        the strategies will actually receive.  The choice is computed and
-        recorded as the reference does; the fused hook is installed for
-        either choice, since no staged kernel is ported yet.
+        the strategies will actually receive: the fused hook for a
+        ``fused`` choice, the staged pair for a ``staged`` one.  ``kernel``
+        records whether they run as CUDA kernels or as their plain version.
         """
+        kernel = "cuda" if self.device.type == "cuda" else "plain"
         if self._push_request != "auto":
             self.push_fn = self._push_request
             choice = "explicit" if callable(self._push_request) else "staged"
-            return {"choice": choice, "mode": "explicit"}
+            return {"choice": choice, "mode": "explicit", "kernel": kernel}
         layout = strat.STRATEGY_LAYOUT[self.strategy]
+        if layout == "pairwise":
+            self.push_fn = None
+            return {"choice": "staged", "mode": "auto", "kernel": kernel,
+                    "reason": "basic strategy has no push loop to fuse"}
         band = self.pg.sd_band if layout == "sd" else self.pg.band
         emax = self.pg.edge_valid.shape[1]
         choice, occ = blocks.choose_push(band, emax, self._K,
                                          self._C * self._K)
         from repro_torch.kernels import ops
 
-        self.push_fn = ops.make_push_fn()
+        self.push_fn = ops.make_push_fn(fused=choice == "fused")
         return {"choice": choice, "mode": "auto", "layout": layout,
-                "threshold": blocks.BAND_OCC_FUSED_MAX,
-                "kernel": "cuda" if self.device.type == "cuda" else "plain",
+                "threshold": blocks.BAND_OCC_FUSED_MAX, "kernel": kernel,
                 **occ}
 
     def _propagate(self, vals, program):
@@ -142,9 +150,11 @@ class Engine:
         p1, p2 = strat.PHASES[self.strategy]
         comb = program.combiner
         partial = p1(vals, self.arrays, comb, self._C, self._K,
+                     segment_fn=self.segment_fn,
                      edge_value=program.edge_value, push_fn=self.push_fn,
                      edge_semiring=program.edge_semiring)
-        return p2(partial, self.arrays, comb, self._C, self._K)
+        return p2(partial, self.arrays, comb, self._C, self._K,
+                  segment_fn=self.segment_fn)
 
     def run(self, program, replan=None, sync="barrier", gate=None,
             residency=None, **params) -> tuple:

@@ -30,8 +30,10 @@ def pagerank_serial(graph: Graph, alpha: float = 0.85, iters: int = 20
 
 def pagerank_parallel(graph: Graph, num_pes: int, strategy: str = "sortdest",
                       alpha: float = 0.85, iters: int = 20,
+                      segment_fn=None,
                       partitioner: str = "contiguous",
                       device=None) -> np.ndarray:
     pg = partition(graph, num_pes, partitioner=partitioner)
-    eng = Engine(pg, strategy=strategy, device=device)
+    eng = Engine(pg, strategy=strategy, segment_fn=segment_fn,
+                 device=device)
     return eng.pagerank(alpha=alpha, iters=iters)

@@ -119,14 +119,15 @@ def make_program(name: str, **params) -> VertexProgram:
 
 
 def run_parallel(graph: Graph, algorithm: str, num_pes: int = 1,
-                 strategy: str = "sortdest", push_fn="auto",
+                 strategy: str = "sortdest", segment_fn=None, push_fn="auto",
                  partitioner: str = "contiguous", device=None, **params):
     """Partition + engine + run, in one call (tests and examples)."""
     from repro_torch.core.engine import Engine
     from repro_torch.core.graph import partition
 
     eng = Engine(partition(graph, num_pes, partitioner=partitioner),
-                 strategy=strategy, push_fn=push_fn, device=device)
+                 strategy=strategy, push_fn=push_fn, segment_fn=segment_fn,
+                 device=device)
     return eng.run(algorithm, **params)
 
 

@@ -20,9 +20,21 @@ collective is a tensor op on that axis:
   pairs      ring ``ppermute`` reduce-scatter          -> ``roll`` hops that
                                                           fold in the same
                                                           order
+  basic      (dst, value) pairs, ``all_to_all``        -> a swap of the two
+                                                          chare axes of the
+                                                          [C, C, Pmax] pair
+                                                          buffers
 
-``basic`` (pairwise layout + the staged segment kernels) and ``grid2d`` are
-not ported yet (ROADMAP queue 1, items 6 and the queue-2 staged kernels).
+Without a push hook, phase 1's local combine is staged: gather, edge
+transform, mask, segment combine.  On the CPU the gather and segment
+combine are plain torch (the reference's XLA gather and
+``segment_sum``/``segment_min``); on the card they are the staged CUDA
+kernels (``push_staged``), one gather and one scatter launch over every
+chare row, with the kernels' semantics: float-min values at or above
+``float(SENTINEL)`` read as unreached.  A ``segment_fn`` hook
+(``ops.make_segment_fn``) takes the segment combine on either device.
+
+``grid2d`` is not ported yet (ROADMAP queue 1, item 6).
 """
 
 from __future__ import annotations
@@ -32,7 +44,7 @@ from typing import Callable
 
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import ops, push_staged, ref
 
 _INT_SENTINEL = ref.SENTINEL
 
@@ -90,24 +102,58 @@ def _row_offsets(idx, width):
     return (idx.long() + rows[:, None] * width).reshape(-1)
 
 
+def _gather(vals, src_local, edge_valid, combiner):
+    """Every chare row's ``vals[r, src_local[r]]``: ``[C, E(, B)]``.  On the
+    card the gather kernel of the monoid (invalid edges read the identity;
+    the mask after the edge transform decides either way)."""
+    if vals.device.type == "cpu":
+        C, E = src_local.shape
+        tail = tuple(vals.shape[2:])
+        return vals.reshape((-1,) + tail).index_select(
+            0, _row_offsets(src_local, vals.shape[1])).reshape((C, E) + tail)
+    if combiner.name == "add":
+        return push_staged.gather_sum(src_local, edge_valid, vals)
+    return push_staged.gather_min(src_local, edge_valid, vals)
+
+
+def _segment(combiner, segment_fn, data, seg_ids, num_segments):
+    """Every chare row's local combine: ``data`` ``[C, E(, B)]`` by
+    ``seg_ids`` ``[C, E]`` -> ``[C, S(, B)]``.  A ``segment_fn`` hook
+    receives the rows as they are and the active monoid via the ``combine``
+    keyword (dtype inference cannot tell float add, PageRank, from float
+    min, SSSP).  Without one: the combiner's segment op on the CPU, the
+    scatter kernel on the card."""
+    if segment_fn is not None:
+        return segment_fn(data, seg_ids, num_segments, combine=combiner.name)
+    if data.device.type != "cpu":
+        return ops.segment_reduce(data, seg_ids, num_segments,
+                                  combine=combiner.name)
+    C, E = seg_ids.shape
+    tail = tuple(data.shape[2:])
+    out = combiner.segment(data.reshape((C * E,) + tail),
+                           _row_offsets(seg_ids, num_segments),
+                           C * num_segments)
+    return out.reshape((C, num_segments) + tail)
+
+
 def _dense_contrib(vals, src_local, dst_global, edge_valid, edge_weight,
-                   combiner, num_chunks, chunk_size, edge_value=None,
-                   push_fn=None, band=None, edge_semiring=None, init=None):
+                   combiner, num_chunks, chunk_size, segment_fn=None,
+                   edge_value=None, push_fn=None, band=None,
+                   edge_semiring=None, init=None):
     """Every chare's local per-destination combine into a dense [C*K]
     buffer: ``vals`` ``[C, K(, B)]``, edges ``[C, Emax]`` -> ``[C, C*K(, B)]``,
     row c being what the reference computes on shard c.
 
     A ``push_fn`` hook (``ops.make_push_fn``) takes over the WHOLE loop --
-    gather, semiring edge transform, segment combine -- as one fused launch
-    over all chare rows, fed by the layout's ``band`` table.  The transform
-    is chosen by the program's *declared* ``edge_semiring``: ``None`` (no
-    ``edge_value``) sends the vertex value untransformed, ``"weight"``
-    applies the canonical transform over the layout weights, ``"unit"`` the
-    same with w=1.  A program whose ``edge_value`` is not declared
-    kernel-expressible runs the staged path below instead.  Without a hook
-    the staged path is plain torch: gather, ``edge_value``, mask, segment
-    combine.  It takes CPU tensors only: on the card the staged pipeline
-    needs the staged kernels, which are not ported yet.
+    gather, semiring edge transform, segment combine -- over all chare rows
+    (one fused launch, or the staged pair), fed by the layout's ``band``
+    table.  The transform is chosen by the program's *declared*
+    ``edge_semiring``: ``None`` (no ``edge_value``) sends the vertex value
+    untransformed, ``"weight"`` applies the canonical transform over the
+    layout weights, ``"unit"`` the same with w=1.  A program whose
+    ``edge_value`` is not declared kernel-expressible runs the staged path
+    below instead: gather, ``edge_value``, mask, segment combine (through
+    ``segment_fn`` when given).
     """
     S = num_chunks * chunk_size
     if push_fn is not None and (edge_value is None or edge_semiring):
@@ -117,44 +163,38 @@ def _dense_contrib(vals, src_local, dst_global, edge_valid, edge_weight,
         return push_fn(vals, src_local, dst_global, edge_valid, weight, S,
                        combine=combiner.name, band=band, unit=unit,
                        init=init)
-    if vals.device.type != "cpu":
-        raise NotImplementedError(
-            f"the staged push on {vals.device} (push_fn=None, or an "
-            "edge_value without a declared edge_semiring) needs the staged "
-            "kernels, not ported yet (ROADMAP queue 2, items 3-6)")
-    C, E = src_local.shape
-    tail = tuple(vals.shape[2:])
-    gathered = vals.reshape((-1,) + tail).index_select(
-        0, _row_offsets(src_local, vals.shape[1])).reshape((C, E) + tail)
+    gathered = _gather(vals, src_local, edge_valid, combiner)
     contrib = _edge_transform(gathered, edge_weight, edge_value)
     contrib = combiner.mask(contrib, edge_valid)
-    out = combiner.segment(contrib.reshape((C * E,) + tail),
-                           _row_offsets(dst_global, S), C * S)
-    out = out.reshape((C, S) + tail)
+    out = _segment(combiner, segment_fn, contrib, dst_global, S)
     return out if init is None else combiner.merge(init, out)
 
 
 # --------------------------------------------------------------------------
 # Strategies, split into the reference's two phases:
 #
-#   phase1(vals, arrs, combiner, C, K, edge_value=, push_fn=,
-#          edge_semiring=)                      -> partial  [C, C*K(, B)]
-#   phase2(partial, arrs, combiner, C, K)       -> incoming [C, K(, B)]
+#   phase1(vals, arrs, combiner, C, K, segment_fn=, edge_value=, push_fn=,
+#          edge_semiring=)                      -> partial
+#   phase2(partial, arrs, combiner, C, K, segment_fn=)
+#                                               -> incoming [C, K(, B)]
 #
 # Phase 1 is every chare's local half (gather + transform + segment
-# combine); phase 2 is the combine across chares.
+# combine, or for basic the gathered pair payloads); phase 2 is the combine
+# across chares.
 # --------------------------------------------------------------------------
 
 
 def reduction_phase1(vals, arrs, combiner, num_chunks, chunk_size,
-                     edge_value=None, push_fn=None, edge_semiring=None):
+                     segment_fn=None, edge_value=None, push_fn=None,
+                     edge_semiring=None):
     return _dense_contrib(vals, arrs["src_local"], arrs["dst_global"],
                           arrs["edge_valid"], arrs["edge_weight"], combiner,
-                          num_chunks, chunk_size, edge_value, push_fn,
-                          arrs["band"], edge_semiring)
+                          num_chunks, chunk_size, segment_fn, edge_value,
+                          push_fn, arrs["band"], edge_semiring)
 
 
-def reduction_phase2(dense, arrs, combiner, num_chunks, chunk_size):
+def reduction_phase2(dense, arrs, combiner, num_chunks, chunk_size,
+                     segment_fn=None):
     """``psum``/``pmin`` of every chare's dense buffer, each chare then
     slicing out its own chunk."""
     full = (dense.sum(dim=0, dtype=dense.dtype) if combiner.name == "add"
@@ -163,14 +203,16 @@ def reduction_phase2(dense, arrs, combiner, num_chunks, chunk_size):
 
 
 def sortdest_phase1(vals, arrs, combiner, num_chunks, chunk_size,
-                    edge_value=None, push_fn=None, edge_semiring=None):
+                    segment_fn=None, edge_value=None, push_fn=None,
+                    edge_semiring=None):
     return _dense_contrib(vals, arrs["sd_src_local"], arrs["sd_dst_global"],
                           arrs["sd_edge_valid"], arrs["sd_edge_weight"],
-                          combiner, num_chunks, chunk_size, edge_value,
-                          push_fn, arrs["sd_band"], edge_semiring)
+                          combiner, num_chunks, chunk_size, segment_fn,
+                          edge_value, push_fn, arrs["sd_band"], edge_semiring)
 
 
-def sortdest_phase2(dense, arrs, combiner, num_chunks, chunk_size):
+def sortdest_phase2(dense, arrs, combiner, num_chunks, chunk_size,
+                    segment_fn=None):
     """``psum_scatter`` (add) or one block per destination chunk +
     ``all_to_all`` + merge (min): chare c receives block c of every chare's
     buffer and folds them."""
@@ -181,7 +223,39 @@ def sortdest_phase2(dense, arrs, combiner, num_chunks, chunk_size):
     return blocks.amin(dim=0)
 
 
-def pairs_phase2(dense, arrs, combiner, num_chunks, chunk_size):
+def basic_phase1(vals, pw_arrays, combiner, num_chunks, chunk_size,
+                 segment_fn=None, edge_value=None, push_fn=None,
+                 edge_semiring=None):
+    """Every chare's (dst, value) pair payloads, ``[C, C, Pmax(, B)]``: row
+    ``[c, k]`` is what chare c sends chare k.  ``push_fn`` does not apply:
+    nothing is combined before sending, so the kernel route for this
+    variant is the receive side's segment combine."""
+    C = num_chunks
+    src = pw_arrays["pb_src_local"].reshape(C, -1)
+    valid = pw_arrays["pb_valid"].reshape(C, -1)
+    payload = _edge_transform(_gather(vals, src, valid, combiner),
+                              pw_arrays["pb_weight"].reshape(C, -1),
+                              edge_value)
+    payload = combiner.mask(payload, valid)
+    return payload.reshape(pw_arrays["pb_src_local"].shape
+                           + tuple(payload.shape[2:]))
+
+
+def basic_phase2(payload, pw_arrays, combiner, num_chunks, chunk_size,
+                 segment_fn=None):
+    """The ``all_to_all`` of the pair buffers is a swap of the two chare
+    axes: receiver k gets row ``[c, k]`` of every sender c.  Then one
+    segment combine over all C receiving rows applies the pairs (the
+    payloads arrive masked, so no second mask)."""
+    C = num_chunks
+    tail = tuple(payload.shape[3:])
+    got = payload.transpose(0, 1).reshape((C, -1) + tail)
+    got_dst = pw_arrays["pb_dst_local"].transpose(0, 1).reshape(C, -1)
+    return _segment(combiner, segment_fn, got, got_dst, chunk_size)
+
+
+def pairs_phase2(dense, arrs, combiner, num_chunks, chunk_size,
+                 segment_fn=None):
     """The ring reduce-scatter: chare m starts from its own block for chunk
     m-1, and at hop s receives its predecessor's running block (``roll``)
     and folds in its own block for chunk m-2-s -- the reference's
@@ -201,16 +275,19 @@ def pairs_phase2(dense, arrs, combiner, num_chunks, chunk_size):
 PHASES = {
     "reduction": (reduction_phase1, reduction_phase2),
     "sortdest": (sortdest_phase1, sortdest_phase2),
+    "basic": (basic_phase1, basic_phase2),
     "pairs": (sortdest_phase1, pairs_phase2),
 }
 
 
 def _compose(phase1, phase2):
     def strategy(vals, arrs, combiner, num_chunks, chunk_size,
-                 edge_value=None, push_fn=None, edge_semiring=None):
+                 segment_fn=None, edge_value=None, push_fn=None,
+                 edge_semiring=None):
         partial = phase1(vals, arrs, combiner, num_chunks, chunk_size,
-                         edge_value, push_fn, edge_semiring)
-        return phase2(partial, arrs, combiner, num_chunks, chunk_size)
+                         segment_fn, edge_value, push_fn, edge_semiring)
+        return phase2(partial, arrs, combiner, num_chunks, chunk_size,
+                      segment_fn)
 
     return strategy
 
@@ -219,9 +296,11 @@ def _compose(phase1, phase2):
 STRATEGIES = {name: _compose(*ph) for name, ph in PHASES.items()}
 
 # Which edge layout each strategy's local combine reads -- the engine's
-# adaptive dispatch prices the matching band table.
+# adaptive dispatch prices the matching band table ("pairwise" has no push
+# loop to hook: basic's receive side combines already-gathered payloads).
 STRATEGY_LAYOUT = {
     "reduction": "basic",
     "sortdest": "sd",
     "pairs": "sd",
+    "basic": "pairwise",
 }

@@ -3,9 +3,9 @@
 Each ``csrc/*.cu`` source compiles on first use into a shared library with a
 plain C interface (``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 -Xcompiler -fPIC``) under ``build/kernels/<source-hash>/`` at the root of the
-checkout, a directory ``.gitignore`` lists.  The hash covers the source and
-the flags, so an edited kernel rebuilds and an unchanged one loads the
-library already there.  A missing ``nvcc`` or a failed build raises: there
+checkout, a directory ``.gitignore`` lists.  The hash covers the source,
+the shared ``csrc/*.cuh`` headers and the flags, so an edited kernel or
+header rebuilds and an unchanged one loads the library already there.  A missing ``nvcc`` or a failed build raises: there
 is no fallback.
 """
 
@@ -42,9 +42,14 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> pathlib.Path:
-    """Where ``csrc/<name>.cu`` builds to: keyed by a hash of source+flags."""
-    source = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    """Where ``csrc/<name>.cu`` builds to: keyed by a hash of the source,
+    every shared ``csrc/*.cuh`` header and the flags, so an edited header
+    rebuilds the sources too."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return BUILD_ROOT / digest[:16] / f"lib{name}.so"
 
 

@@ -38,6 +38,8 @@
 
 #include <cuda_runtime.h>
 
+#include "atomics.cuh"
+
 namespace {
 
 constexpr int kBlockE = 256;            // blocks.BLOCK_E
@@ -82,14 +84,7 @@ struct MinFloat {
   // values above the sentinel are "unreached": clamp to float(SENTINEL)
   __device__ static T gather(T v) { return v > kSentinelF ? kSentinelF : v; }
   __device__ static T transform(T c, T w) { return c + w; }
-  __device__ static void combine(T* p, T v) {
-    const int bits = __float_as_int(v);
-    if (bits >= 0) {
-      atomicMin(reinterpret_cast<int*>(p), bits);
-    } else {
-      atomicMax(reinterpret_cast<unsigned*>(p), static_cast<unsigned>(bits));
-    }
-  }
+  __device__ static void combine(T* p, T v) { atomic_min_float(p, v); }
 };
 
 template <class Op, int kWeight>

@@ -1,0 +1,229 @@
+// Staged push kernels for Hopper (sm_90a): the two halves of the push, with
+// the per-edge intermediate c between them in device memory,
+//
+//     gather:   c[r, e, b]   = vals[r, src[r, e], b]   if valid[r, e] and
+//                                                      0 <= src[r, e] < V,
+//                              the identity otherwise
+//     scatter:  out[r, s, b] = combine(out[r, s, b],
+//                                      combine_{e: dst[r, e] == s} c[r, e, b])
+//
+// for every chare row r of a [rows, E] edge layout, with an optional
+// trailing batch axis B on vals/c/out (one query column each).  The
+// identity is 0 for add and the int32 sentinel for min; for float min it is
+// float(int32 max) = 2^31, and values at or above it read as unreached
+// (gathered values and scattered contributions are clamped to it), as the
+// TPU kernels' sentinel fill makes them.
+//
+// Replaces the TPU kernels in repro/kernels/push_sum.py and push_min.py:
+//   gather_sum   <- push_sum._gather_sum_kernel   (one-hot MXU matmul)
+//   scatter_sum  <- push_sum._scatter_sum_kernel  (one-hot MXU matmul)
+//   gather_min   <- push_min._gather_min_kernel   (VPU mask-and-reduce)
+//   scatter_min  <- push_min._scatter_min_kernel  (VPU mask-and-reduce)
+//
+// What bounds them on this card: memory.  Per edge and column the gather
+// reads src and valid (8 B, shared by the B columns), gathers one vals
+// element and writes one c element (4 B); the scatter reads dst (4 B) and
+// one c element and does one atomic read-modify-write on out.  There is no
+// arithmetic to speak of.  The vertex planes of the main path (16.8 MB at
+// 2^22 vertices) fit the 50 MB L2, so the gathers and atomics mostly hit L2
+// and the edge streams from HBM dominate.
+//
+// What the design does about it: the TPU kernels are one-hot matmuls and
+// mask-and-reduce tiles over dense (edge block x vertex block) grids only
+// because the TPU has no fast gather or scatter; Hopper has both.  One
+// thread takes one (edge, column) item; neighbouring threads read
+// neighbouring edges and write neighbouring c elements, so the edge streams
+// are coalesced; vals are read through the read-only data path; the scatter
+// combines with one atomic per item and skips items equal to the identity
+// (they cannot change out).  A grid-stride loop covers all chare rows and
+// columns in one launch.  No padding of edges or vertices is needed.
+//
+// Exactness: int32 add and min use atomicAdd/atomicMin, exact in any order
+// (int add wraps as XLA's int32 does).  Float min uses the sign-split
+// atomics of atomics.cuh, exact in any order, negatives included.  Float
+// add uses f32 atomicAdd, whose order varies from run to run.  The gather
+// is a copy and exact; bfloat16 values widen exactly to float32.
+//
+// Built by repro_torch/kernels/_build.py with nvcc into a shared library with
+// a plain C interface, loaded through ctypes.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include "atomics.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kSentinel = 2147483647;        // int32 max
+constexpr float kSentinelF = 2147483648.0f;  // float(int32 max), as JAX rounds it
+
+// read-only loads of one vals element, widened to the output type
+__device__ __forceinline__ float load(const float* p) { return __ldg(p); }
+__device__ __forceinline__ int load(const int* p) { return __ldg(p); }
+__device__ __forceinline__ float load(const __nv_bfloat16* p) {
+  return __bfloat162float(__ushort_as_bfloat16(
+      __ldg(reinterpret_cast<const unsigned short*>(p))));
+}
+
+template <typename T, bool kMin>
+__device__ __forceinline__ T identity();
+template <>
+__device__ __forceinline__ float identity<float, false>() { return 0.0f; }
+template <>
+__device__ __forceinline__ int identity<int, false>() { return 0; }
+template <>
+__device__ __forceinline__ float identity<float, true>() { return kSentinelF; }
+template <>
+__device__ __forceinline__ int identity<int, true>() { return kSentinel; }
+
+// min's clamp to the identity: float values above 2^31 are unreached
+__device__ __forceinline__ float clamp_min(float v) {
+  return v > kSentinelF ? kSentinelF : v;
+}
+__device__ __forceinline__ int clamp_min(int v) { return v; }
+
+__device__ __forceinline__ void combine_add(float* p, float v) {
+  if (v != 0.0f) atomicAdd(p, v);
+}
+__device__ __forceinline__ void combine_add(int* p, int v) {
+  if (v != 0) atomicAdd(p, v);
+}
+__device__ __forceinline__ void combine_min(float* p, float v) {
+  if (v < kSentinelF) atomic_min_float(p, v);
+}
+__device__ __forceinline__ void combine_min(int* p, int v) {
+  if (v != kSentinel) atomicMin(p, v);
+}
+
+template <typename In, typename Out, bool kMin>
+__global__ void __launch_bounds__(kThreads) gather_kernel(
+    const int* __restrict__ src, const int* __restrict__ valid,
+    const In* __restrict__ vals, Out* __restrict__ c, long long rows,
+    long long E, long long V, int B) {
+  const long long n = rows * E * B;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       i < n; i += stride) {
+    const long long re = i / B;  // row * E + edge
+    const int b = static_cast<int>(i - re * B);
+    const int s = src[re];
+    Out v = identity<Out, kMin>();
+    if (valid[re] != 0 && s >= 0 && s < V) {
+      const long long row = re / E;
+      v = load(vals + (row * V + s) * B + b);
+      if (kMin) v = clamp_min(v);
+    }
+    c[i] = v;
+  }
+}
+
+template <typename T, bool kMin>
+__global__ void __launch_bounds__(kThreads) scatter_kernel(
+    const int* __restrict__ dst, const T* __restrict__ c, T* __restrict__ out,
+    long long rows, long long E, long long S, int B) {
+  const long long n = rows * E * B;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       i < n; i += stride) {
+    const long long re = i / B;
+    const int b = static_cast<int>(i - re * B);
+    const int d = dst[re];
+    if (d < 0 || d >= S) continue;  // no such segment: dropped
+    const long long row = re / E;
+    T* p = out + (row * S + d) * B + b;
+    if (kMin) {
+      combine_min(p, clamp_min(c[i]));
+    } else {
+      combine_add(p, c[i]);
+    }
+  }
+}
+
+cudaError_t grid_for(long long n, unsigned* grid) {
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  const long long blocks = (n + kThreads - 1) / kThreads;
+  const long long cap = static_cast<long long>(sms) * 32;
+  *grid = static_cast<unsigned>(blocks < cap ? blocks : cap);
+  return cudaSuccess;
+}
+
+template <typename In, typename Out, bool kMin>
+cudaError_t gather(const int* src, const int* valid, const void* vals,
+                   void* c, long long rows, long long E, long long V, int B,
+                   cudaStream_t stream) {
+  unsigned grid = 0;
+  cudaError_t err = grid_for(rows * E * B, &grid);
+  if (err != cudaSuccess) return err;
+  gather_kernel<In, Out, kMin><<<grid, kThreads, 0, stream>>>(
+      src, valid, static_cast<const In*>(vals), static_cast<Out*>(c), rows, E,
+      V, B);
+  return cudaGetLastError();
+}
+
+template <typename T, bool kMin>
+cudaError_t scatter(const int* dst, const void* c, void* out, long long rows,
+                    long long E, long long S, int B, cudaStream_t stream) {
+  unsigned grid = 0;
+  cudaError_t err = grid_for(rows * E * B, &grid);
+  if (err != cudaSuccess) return err;
+  scatter_kernel<T, kMin><<<grid, kThreads, 0, stream>>>(
+      dst, static_cast<const T*>(c), static_cast<T*>(out), rows, E, S, B);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// combine: 0 = add (gather_sum), 1 = min (gather_min).  in_type: 0 =
+// float32, 1 = int32, 2 = bfloat16 (add only; c is then float32).  src and
+// valid are [rows, E] int32, vals [rows, V, B], c [rows, E, B] of the output
+// type (float32 for float inputs, int32 for int32).  Returns
+// cudaGetLastError() after the launch (0 on success); launches nothing when
+// there are no items.
+extern "C" int staged_gather_launch(int combine, int in_type, const int* src,
+                                    const int* valid, const void* vals,
+                                    void* c, long long rows, long long E,
+                                    long long V, int B, void* stream) {
+  if (B < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (rows * E == 0) return static_cast<int>(cudaSuccess);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (combine == 0) {
+    if (in_type == 0) err = gather<float, float, false>(src, valid, vals, c, rows, E, V, B, s);
+    if (in_type == 1) err = gather<int, int, false>(src, valid, vals, c, rows, E, V, B, s);
+    if (in_type == 2) err = gather<__nv_bfloat16, float, false>(src, valid, vals, c, rows, E, V, B, s);
+  } else if (combine == 1) {
+    if (in_type == 0) err = gather<float, float, true>(src, valid, vals, c, rows, E, V, B, s);
+    if (in_type == 1) err = gather<int, int, true>(src, valid, vals, c, rows, E, V, B, s);
+  }
+  return static_cast<int>(err);
+}
+
+// combine: 0 = add (scatter_sum), 1 = min (scatter_min).  is_float: 0 =
+// int32, 1 = float32 (c and out share it).  dst is [rows, E] int32, c
+// [rows, E, B], out [rows, S, B], already holding the identity.  Returns
+// cudaGetLastError() after the launch (0 on success); launches nothing when
+// there are no items.
+extern "C" int staged_scatter_launch(int combine, int is_float,
+                                     const int* dst, const void* c, void* out,
+                                     long long rows, long long E, long long S,
+                                     int B, void* stream) {
+  if (B < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (rows * E == 0) return static_cast<int>(cudaSuccess);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (combine == 0) {
+    err = is_float ? scatter<float, false>(dst, c, out, rows, E, S, B, s)
+                   : scatter<int, false>(dst, c, out, rows, E, S, B, s);
+  } else if (combine == 1) {
+    err = is_float ? scatter<float, true>(dst, c, out, rows, E, S, B, s)
+                   : scatter<int, true>(dst, c, out, rows, E, S, B, s);
+  }
+  return static_cast<int>(err);
+}

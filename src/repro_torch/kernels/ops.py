@@ -1,15 +1,20 @@
 """Wrappers for the push kernels: padding, the sentinel encoding, engine hooks.
 
-The twin of ``repro/kernels/ops.py``.  ``push`` takes arbitrary (unpadded)
-shapes, pads them to the kernel's block geometry, maps float ``+inf`` to the
-int32 sentinel and back, and calls ``push_fused.fused_push`` -- the CUDA
-kernel for tensors on the card, its plain torch version for tensors on the
-CPU.  Edge operands may be one layout row (``[E]``) or every chare row at
-once (``[C, E]`` with ``vals`` ``[C, V(, B)]``), see ``push_fused``.
+The twin of ``repro/kernels/ops.py``.  Two kernel paths serve the push:
 
-The staged two-kernel path (``fused=False``), ``segment_reduce`` and
-``make_segment_fn`` come with the port of the staged kernels (ROADMAP
-queue 2, items 3-6).
+  * ``fused`` (default) -- ``push_fused.fused_push``, one launch: ``push``
+    pads the operands to the kernel's block geometry, maps float ``+inf``
+    to the int32 sentinel and back.
+  * ``staged`` (``fused=False``) -- ``push_staged``'s gather kernel, the
+    weight transform as a torch elementwise op, then its scatter kernel,
+    with the ``[E]`` intermediate between them.  These kernels need no
+    padding.
+
+Each kernel is the CUDA kernel for tensors on the card and its plain torch
+version for tensors on the CPU.  Edge operands may be one layout row
+(``[E]``) or every chare row at once (``[C, E]`` with ``vals``
+``[C, V(, B)]``).  ``segment_reduce``/``make_segment_fn`` expose the
+scatter half alone (the engine's ``segment_fn`` hook).
 """
 
 from __future__ import annotations
@@ -17,11 +22,10 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import push_fused as fused_mod
+from repro_torch.kernels import push_staged as staged
 from repro_torch.kernels.blocks import BLOCK_E, BLOCK_S, BLOCK_V
 
 SENTINEL = fused_mod.SENTINEL
-_STAGED = ("the staged push kernels (push_sum/push_min) are not ported yet "
-           "(ROADMAP queue 2, items 3-6)")
 
 
 def _pad_to(x, mult, fill, dim=0):
@@ -36,13 +40,19 @@ def _pad_to(x, mult, fill, dim=0):
                                     device=x.device)], dim=dim)
 
 
+def _per_edge(w, c):
+    """A per-edge ``[..., E]`` operand broadcast against ``c`` ``[..., E(,
+    B)]``."""
+    return w.reshape(w.shape + (1,) * (c.dim() - w.dim()))
+
+
 def _sat_add(c, w):
     """Saturating add for the min semiring: never wraps past the sentinel.
 
     Ints clamp the (non-negative) weight to the headroom below SENTINEL;
     floats ride on inf arithmetic (>= SENTINEL is "unreached" either way).
     """
-    w = w.to(c.dtype)
+    w = _per_edge(w.to(c.dtype), c)
     if c.dtype.is_floating_point:
         return c + w
     return c + torch.minimum(w, SENTINEL - c)
@@ -94,10 +104,12 @@ def push(vals, src, dst, valid, num_segments, combine="add", weight=None,
     ``band`` is the layout's precomputed table, derived on the fly when
     absent; ``unit_weight`` applies the transform with a constant 1.
     ``init`` (optional, ``[num_segments(, B)]``) seeds the accumulator with a
-    prior partial instead of the combiner identity.
+    prior partial instead of the combiner identity.  ``fused=False`` runs
+    the staged pair (``band`` unused).
     """
     if not fused:
-        raise NotImplementedError(_STAGED)
+        return _push_staged(vals, src, dst, valid, num_segments, combine,
+                            weight, unit_weight, init)
     rowed = src.dim() == 2
     vdim = 1 if rowed else 0
     identity = 0 if combine == "add" else SENTINEL
@@ -130,20 +142,81 @@ def push(vals, src, dst, valid, num_segments, combine="add", weight=None,
     return _min_restore_identity(out)
 
 
+def _push_staged(vals, src, dst, valid, num_segments, combine, weight,
+                 unit_weight, init):
+    """The staged pair: gather kernel, weight transform (a torch elementwise
+    op, as it is an XLA op between the Pallas kernels in the reference),
+    scatter kernel.  The kernels have no seed operand: ``init`` is folded
+    in afterwards with the combiner."""
+    if combine == "add":
+        c = staged.gather_sum(src, valid, vals)
+        if weight is not None:
+            c = c * _per_edge(weight.to(c.dtype), c)
+        out = staged.scatter_sum(dst, c, num_segments)
+    else:
+        if unit_weight and weight is None:
+            weight = torch.ones_like(valid)  # the staged pair streams ones
+        c = staged.gather_min(src, valid, vals)
+        if weight is not None:
+            c = _sat_add(c, weight)
+        out = staged.scatter_min(dst, c, num_segments)
+    if init is not None:
+        ip = init.to(out.dtype)
+        if combine == "add":
+            out = out + ip
+        else:
+            if ip.dtype.is_floating_point:  # +inf -> sentinel
+                ip = torch.clamp(ip, max=fused_mod.SENTINEL_F32)
+            out = torch.minimum(out, ip)
+    if combine == "add":
+        return out.to(vals.dtype)
+    return _min_restore_identity(out)
+
+
 def segment_reduce(data, seg_ids, num_segments, combine="add"):
-    """Scatter half only (data already gathered): not ported yet."""
-    raise NotImplementedError(_STAGED)
+    """Scatter half only (data already gathered): the engine's segment hook.
+
+    ``data`` ``[E(, B)]`` with ``seg_ids`` ``[E]``, or every chare row at
+    once (``[C, E(, B)]`` with ``[C, E]`` ids -> ``[C, S(, B)]``).  Integer
+    add data accumulates in its own integer dtype (a float32 cast rounds
+    sums above 2^24), float add in at least float32; the result has
+    ``data``'s dtype.  Float min reads values at or above the int32
+    sentinel as unreached and returns them, and empty segments, as +inf.
+    """
+    if combine == "add":
+        acc = staged.gather_sum_dtype(data.dtype)
+        out = staged.scatter_sum(seg_ids, data.to(acc), num_segments)
+        return out.to(data.dtype)
+    if combine != "min":
+        raise ValueError(f"unknown combine {combine!r}")
+    return _min_restore_identity(staged.scatter_min(seg_ids, data,
+                                                    num_segments))
 
 
 def make_segment_fn(combine=None):
-    """Adapter for ``Engine(segment_fn=...)``: not ported yet."""
-    raise NotImplementedError(_STAGED)
+    """Adapter for ``Engine(segment_fn=...)``: routes the local combines of
+    any strategy through the scatter kernels.
+
+    The strategies pass the active program's monoid via the ``combine``
+    keyword (the segment_fn contract), so one hook serves PageRank (add),
+    labelprop (int min) and SSSP (float min) alike.  The ``combine``
+    constructor argument forces a fixed monoid; otherwise a call without
+    the keyword falls back to dtype inference (float -> add, int -> min).
+    """
+
+    def fn(data, seg_ids, num_segments, combine=combine):
+        if combine is None:
+            combine = "add" if data.dtype.is_floating_point else "min"
+        return segment_reduce(data, seg_ids, num_segments, combine=combine)
+
+    return fn
 
 
 def make_push_fn(fused=True):
     """Adapter for the engine's push hook: the whole per-chare hot loop --
-    gather, edge-value transform, segment combine -- as one fused launch
-    over every chare row, fed by the layout's band table.
+    gather, edge-value transform, segment combine -- over every chare row:
+    one fused launch fed by the layout's band table, or (``fused=False``)
+    the staged gather and scatter launches.
 
     Contract (see ``strategies._dense_contrib``): strategies call
 
@@ -152,12 +225,12 @@ def make_push_fn(fused=True):
 
     with ``weight=None`` when the program has no edge transform.
     """
-    if not fused:
-        raise NotImplementedError(_STAGED)
 
     def fn(vals, src, dst, valid, weight, num_segments, combine, band=None,
            unit=False, init=None):
         return push(vals, src, dst, valid, num_segments, combine=combine,
-                    weight=weight, band=band, unit_weight=unit, init=init)
+                    weight=weight, band=band, fused=fused, unit_weight=unit,
+                    init=init)
 
+    fn.fused = fused  # which path the hook runs, for callers to inspect
     return fn

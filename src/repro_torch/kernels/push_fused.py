@@ -29,8 +29,11 @@ SENTINEL = 2147483647
 # float(SENTINEL) in float32: the value JAX compares and fills float min with
 SENTINEL_F32 = float(np.float32(SENTINEL))
 
-# launches of each CUDA kernel since the last reset (CPU calls do not count)
-launch_counts = {"fused_push_add": 0, "fused_push_min": 0}
+# launches of each CUDA push kernel since the last reset (CPU calls do not
+# count): the fused pair here, the staged four in push_staged
+launch_counts = {"fused_push_add": 0, "fused_push_min": 0,
+                 "gather_sum": 0, "scatter_sum": 0,
+                 "gather_min": 0, "scatter_min": 0}
 
 
 def reset_launch_counts() -> None:

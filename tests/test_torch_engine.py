@@ -1,7 +1,8 @@
 """The torch port's engine against the JAX reference and the serial programs.
 
-The 5 ported programs x {reduction, sortdest, pairs} x 4 partitioners x
-C in {1, 2, 8}, on the equivalence trio, with the port on the CPU:
+The 5 ported programs x {reduction, sortdest, basic, pairs} x 4
+partitioners x C in {1, 2, 8}, on the equivalence trio, with the port on
+the CPU:
 
 * at C=1 the port is held against ``repro``'s ``Engine.run`` in-process:
   min programs bit-equal in values and iteration counts, add programs
@@ -36,7 +37,8 @@ from repro_torch.core import programs as TPROG
 from repro_torch.kernels import ops
 
 PROGRAMS = ("bfs", "labelprop", "pagerank", "pagerank_weighted", "sssp")
-STRATEGIES = ("reduction", "sortdest", "pairs")
+STRATEGIES = ("reduction", "sortdest", "pairs")  # the dense-layout ones
+ALL_STRATEGIES = STRATEGIES + ("basic",)
 
 
 def to_port(g):
@@ -80,7 +82,7 @@ def assert_same(name, got, want, tol):
 
 
 @pytest.mark.parametrize("partitioner", ALL_PARTITIONERS)
-@pytest.mark.parametrize("strategy", STRATEGIES)
+@pytest.mark.parametrize("strategy", ALL_STRATEGIES)
 @pytest.mark.parametrize("gname", sorted(EQUIV_GRAPHS))
 @pytest.mark.parametrize("name", PROGRAMS)
 def test_engine_matches_reference_at_one_chare(name, gname, strategy,
@@ -97,7 +99,7 @@ def test_engine_matches_reference_at_one_chare(name, gname, strategy,
 
 @pytest.mark.parametrize("chares", (2, 8))
 @pytest.mark.parametrize("partitioner", ALL_PARTITIONERS)
-@pytest.mark.parametrize("strategy", STRATEGIES)
+@pytest.mark.parametrize("strategy", ALL_STRATEGIES)
 @pytest.mark.parametrize("gname", sorted(EQUIV_GRAPHS))
 @pytest.mark.parametrize("name", PROGRAMS)
 def test_engine_chare_axis(name, gname, strategy, partitioner, chares):
@@ -213,14 +215,15 @@ def test_dispatch_decision_equals_reference(gname, strategy):
 
 @pytest.mark.parametrize("gname", ("rmat10", "ring13"))
 def test_auto_dispatch_installs_the_hook_for_either_choice(gname):
-    """Whatever ``choose_push`` picks, the engine runs the fused hook (the
-    CUDA kernels on the card, their plain version here); the choice is only
-    recorded.  rmat10 prices "fused" and ring13 "staged"."""
+    """``choose_push``'s choice picks the hook: the fused push for "fused"
+    (rmat10), the staged pair for "staged" (ring13) -- the CUDA kernels on
+    the card, their plain version here."""
     rg = graph(gname)
     want = REngine(RG.partition(rg, 1), strategy="sortdest").dispatch
     eng = Engine(TG.partition(to_port(rg), 1), device="cpu")
     assert eng.dispatch["choice"] == want["choice"]
     assert eng.push_fn is not None
+    assert eng.push_fn.fused == (want["choice"] == "fused")
     got, iters = eng.run("bfs", source=0)
     ref, ref_iters = RPROG.bfs_serial(rg, source=0)
     np.testing.assert_array_equal(got, ref)
@@ -229,8 +232,8 @@ def test_auto_dispatch_installs_the_hook_for_either_choice(gname):
 
 def test_staged_pipeline_takes_cpu_tensors_only():
     """The plain staged pipeline runs only on the CPU: given tensors on
-    another device (``meta`` here, standing in for the card) it raises
-    instead of running plain torch there."""
+    another device (``meta`` here) the staged kernels' wrappers raise
+    instead of running plain torch there, hook or no hook."""
     from repro_torch.core import strategies as TS
 
     pg = TG.partition(port_graph("bfs", "rmat6"), 2)
@@ -238,15 +241,11 @@ def test_staged_pipeline_takes_cpu_tensors_only():
             for k, v in pg.device_arrays("sd", "cpu").items()}
     vals = torch.zeros((2, pg.chunk_size), dtype=torch.int32, device="meta")
     prog = TPROG.make_program("bfs")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TS.sortdest_phase1(vals, arrs, prog.combiner, 2, pg.chunk_size,
-                           edge_value=prog.edge_value, push_fn=None,
-                           edge_semiring=prog.edge_semiring)
-    with pytest.raises(ValueError, match="meta"):
-        TS.sortdest_phase1(vals, arrs, prog.combiner, 2, pg.chunk_size,
-                           edge_value=prog.edge_value,
-                           push_fn=ops.make_push_fn(),
-                           edge_semiring=prog.edge_semiring)
+    for hook in (None, ops.make_push_fn(), ops.make_push_fn(fused=False)):
+        with pytest.raises(ValueError, match="meta"):
+            TS.sortdest_phase1(vals, arrs, prog.combiner, 2, pg.chunk_size,
+                               edge_value=prog.edge_value, push_fn=hook,
+                               edge_semiring=prog.edge_semiring)
 
 
 @pytest.mark.parametrize("chares", (1, 2))
@@ -362,12 +361,14 @@ def test_wire_model_equals_reference(pes, partitioner):
 def test_run_cost_on_cpu():
     rep = cost.run_cost(port_graph("pagerank", "rmat6"), "pagerank",
                         pe_counts=(1, 2), repeats=1, device="cpu", iters=2)
+    # the reference's default sweep: its four strategies
     assert set(rep.parallel_s) == {("contiguous", s, p)
-                                   for s in STRATEGIES for p in (1, 2)}
+                                   for s in ALL_STRATEGIES for p in (1, 2)}
     assert rep.serial_s > 0
-    assert set(rep.cost) == {("contiguous", s) for s in STRATEGIES}
+    assert set(rep.cost) == {("contiguous", s) for s in ALL_STRATEGIES}
+    assert rep.dispatch[("contiguous", "basic", 2)]["choice"] == "staged"
     rows = list(rep.rows())
-    assert rows[0][0] == "serial" and len(rows) == 7
+    assert rows[0][0] == "serial" and len(rows) == 9
 
 
 # ---------------------------------------------------------------------------
@@ -386,10 +387,8 @@ def test_unported_options_raise():
         lambda: eng.run("personalized_pagerank"),
         lambda: eng.run("betweenness"),
         lambda: eng.run_batch("bfs", sources=[0, 1]),
-        lambda: Engine(pg, strategy="basic", device="cpu"),
         lambda: Engine(pg, strategy="grid2d", device="cpu"),
         lambda: Engine(pg, device="cpu", residency="stream"),
-        lambda: Engine(pg, device="cpu", segment_fn=lambda *a, **k: None),
         lambda: TG.partition(port_graph("sssp", "rmat6"), 4,
                              partitioner="grid(2,2)"),
     ]
@@ -398,6 +397,8 @@ def test_unported_options_raise():
             case()
     with pytest.raises(ValueError):
         Engine(pg, strategy="nope", device="cpu")
+    with pytest.raises(ValueError, match="segment_fn"):
+        Engine(pg, device="cpu", segment_fn="kernel")
     with pytest.raises(ValueError):
         eng.run("sssp", sync="bogus")
 

@@ -88,6 +88,24 @@ def test_partition_layouts_equal_reference(gname, partitioner, chares):
                                       rp.plan.chunk_counts)
 
 
+@pytest.mark.parametrize("chares", CHARES)
+@pytest.mark.parametrize("partitioner", ALL_PARTITIONERS)
+def test_build_pairwise_equals_reference(partitioner, chares):
+    """The basic variant's pairwise layout, array for array, on weighted
+    graphs with hubs (rmat10), with edgeless vertices and with V % C != 0."""
+    for gname in ("rmat10", "isolated_vertices", "ring13"):
+        ref_g = weighted(gname)
+        rp = RG.partition(ref_g, chares, partitioner=partitioner)
+        tp = TG.partition(to_port(ref_g), chares, partitioner=partitioner)
+        want, got = RG.build_pairwise(rp), TG.build_pairwise(tp)
+        assert got.pair_max == want.pair_max
+        for name in ("pb_src_local", "pb_dst_local", "pb_valid",
+                     "pb_weight"):
+            a, b = getattr(got, name), getattr(want, name)
+            assert a.dtype == b.dtype, name
+            np.testing.assert_array_equal(a, b, err_msg=f"{gname}/{name}")
+
+
 @pytest.mark.parametrize("partitioner", ALL_PARTITIONERS)
 def test_partition_stats_equal_reference(partitioner):
     ref_g = graph("rmat10")
@@ -256,6 +274,17 @@ def test_device_arrays_cpu():
     assert aux["out_degree"].dtype == torch.int32
 
 
+def test_device_pairwise_cpu():
+    tp = TG.partition(to_port(weighted("rmat10")), 4)
+    arrs = tp.device_pairwise("cpu")
+    assert arrs is tp.device_pairwise(torch.device("cpu"))  # cached
+    pw = TG.build_pairwise(tp)
+    for name, t in arrs.items():
+        assert t.device.type == "cpu"
+        np.testing.assert_array_equal(t.numpy(), getattr(pw, name))
+    assert int(arrs["pb_valid"].sum()) == tp.graph.num_edges
+
+
 # ---------------------------------------------------------------------------
 # Package rule: no JAX, no reference package
 # ---------------------------------------------------------------------------
@@ -264,7 +293,8 @@ def test_device_arrays_cpu():
 def test_import_leaves_jax_and_repro_out():
     code = ("import sys, repro_torch, repro_torch.core, "
             "repro_torch.kernels.ops, repro_torch.kernels.push_fused, "
-            "repro_torch.kernels._build, repro_torch.core.cost\n"
+            "repro_torch.kernels.push_staged, repro_torch.kernels._build, "
+            "repro_torch.core.cost, repro_torch.quickstart\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.'))\n"

@@ -297,17 +297,8 @@ def test_cpu_calls_do_not_count_as_launches(rng):
     ops.push(torch.ones(50), src, dst, valid, 50)
     ops.push(torch.ones(50, dtype=torch.int32), src, dst, valid, 50,
              combine="min")
-    assert push_fused.launch_counts == {"fused_push_add": 0,
-                                        "fused_push_min": 0}
-
-
-def test_staged_path_not_ported():
-    z = torch.zeros(4, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.push(z, z, z, z, 4, fused=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.segment_reduce(z, z, 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.make_segment_fn()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.make_push_fn(fused=False)
+    ops.push(torch.ones(50), src, dst, valid, 50, fused=False)
+    ops.segment_reduce(torch.ones(300), dst, 50)
+    assert push_fused.launch_counts == dict.fromkeys(
+        ("fused_push_add", "fused_push_min", "gather_sum", "scatter_sum",
+         "gather_min", "scatter_min"), 0)
