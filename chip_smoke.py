@@ -2,7 +2,6 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
     python3 chip_smoke.py [--scale 22] [--chare-scale 18] [--chares 8]
-                          [--staged-scale 22]
 
 Phases, each printing one JSON line with its seconds:
 
@@ -39,10 +38,10 @@ Phases, each printing one JSON line with its seconds:
              path's edge layout
   chares     2^chare-scale vertices at C chares for sortdest, reduction,
              pairs and basic, and a near-uniform graph
-             (erdos_renyi(2^staged-scale, 2^(staged-scale+1)), the
-             reference's staged-choice contrast) at C chares, whose
-             dispatch must choose the staged pair; all against the serial
-             references
+             (erdos_renyi(2^scale, 2^(scale+1)), the reference's
+             staged-choice contrast at the main path's vertex count) at C
+             chares, whose dispatch must choose the staged pair; all
+             against the serial references
   push_choice  one fused push against one staged pair on the main layout
              and on the staged-choice layout (is choose_push's pick the
              faster one on this card?), and program seconds on the
@@ -930,7 +929,7 @@ class Smoke:
 
         a = self.args
         t0 = time.perf_counter()
-        n = 1 << a.staged_scale
+        n = 1 << a.scale
         g = G.erdos_renyi(n, 2 * n, seed=1)
         gw = G.random_weights(g, seed=5)
         gu = g.to_undirected()
@@ -1033,8 +1032,6 @@ def main(argv=None) -> int:
     ap.add_argument("--chare-scale", type=int, default=18,
                     help="log2 vertices of the chare-axis graph")
     ap.add_argument("--chares", type=int, default=8)
-    ap.add_argument("--staged-scale", type=int, default=22,
-                    help="log2 vertices of the staged-choice graph")
     args = ap.parse_args(argv)
     if not (PORT / "kernels" / "csrc").is_dir():
         print(f"chip_smoke: {PORT} not found; run from a checkout of the "

@@ -314,14 +314,19 @@ class PartitionedGraph:
     def device_pairwise(self, device="cuda") -> dict:
         """Device-resident pairwise (edge-bucketed) layout for the basic
         variant: ``pb_*`` ``[C, C, Pmax]`` tensors, built and uploaded on
-        first use per device, then shared."""
+        first use per device, then shared.  ``pb_recv_dst`` ``[C, C*Pmax]``
+        is ``pb_dst_local`` receiver-major (row k: every sender's pairs for
+        chare k), the segment ids of basic's receive side."""
         key = ("pairwise", _device_key(device))
         if key not in self._dev:
             pw = build_pairwise(self)
-            self._dev[key] = {
-                k: _upload(getattr(pw, k), device)
-                for k in ("pb_src_local", "pb_dst_local", "pb_valid",
-                          "pb_weight")}
+            arrs = {k: _upload(getattr(pw, k), device)
+                    for k in ("pb_src_local", "pb_dst_local", "pb_valid",
+                              "pb_weight")}
+            arrs["pb_recv_dst"] = _upload(np.ascontiguousarray(
+                pw.pb_dst_local.transpose(1, 0, 2)).reshape(
+                    self.num_chunks, -1), device)
+            self._dev[key] = arrs
         return self._dev[key]
 
     def device_aux(self, device="cuda") -> dict:

@@ -246,12 +246,13 @@ def basic_phase2(payload, pw_arrays, combiner, num_chunks, chunk_size,
     """The ``all_to_all`` of the pair buffers is a swap of the two chare
     axes: receiver k gets row ``[c, k]`` of every sender c.  Then one
     segment combine over all C receiving rows applies the pairs (the
-    payloads arrive masked, so no second mask)."""
+    payloads arrive masked, so no second mask); their segment ids are the
+    layout's receiver-major ``pb_recv_dst``, built once with the layout."""
     C = num_chunks
     tail = tuple(payload.shape[3:])
     got = payload.transpose(0, 1).reshape((C, -1) + tail)
-    got_dst = pw_arrays["pb_dst_local"].transpose(0, 1).reshape(C, -1)
-    return _segment(combiner, segment_fn, got, got_dst, chunk_size)
+    return _segment(combiner, segment_fn, got, pw_arrays["pb_recv_dst"],
+                    chunk_size)
 
 
 def pairs_phase2(dense, arrs, combiner, num_chunks, chunk_size,

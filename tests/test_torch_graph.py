@@ -279,10 +279,16 @@ def test_device_pairwise_cpu():
     arrs = tp.device_pairwise("cpu")
     assert arrs is tp.device_pairwise(torch.device("cpu"))  # cached
     pw = TG.build_pairwise(tp)
+    recv = arrs["pb_recv_dst"]
     for name, t in arrs.items():
         assert t.device.type == "cpu"
-        np.testing.assert_array_equal(t.numpy(), getattr(pw, name))
+        if name != "pb_recv_dst":
+            np.testing.assert_array_equal(t.numpy(), getattr(pw, name))
     assert int(arrs["pb_valid"].sum()) == tp.graph.num_edges
+    # receiver-major segment ids: row k is every sender's row [c, k]
+    assert recv.is_contiguous() and recv.shape == (4, 4 * pw.pair_max)
+    np.testing.assert_array_equal(
+        recv.numpy(), pw.pb_dst_local.transpose(1, 0, 2).reshape(4, -1))
 
 
 # ---------------------------------------------------------------------------
