@@ -23,7 +23,10 @@ Phases, each printing one JSON line with its seconds:
   main       the main path: Engine(pg, "sortdest") at C=1 runs pagerank,
              pagerank_weighted, sssp, bfs (source 0) and labelprop, checked
              against the serial references (connected components from scipy
-             for labelprop); launch counts are zeroed before and read after
+             for labelprop); launch counts are zeroed before and read after,
+             and the add must have taken the tiled path (no atomic launch)
+  reproducible  pagerank and pagerank_weighted of the main path run twice
+             more: the results must be bit-identical
   staged_main  the same graphs and programs through Engine(pg, "basic")
              and Engine(pg, "sortdest", push_fn=None): one gather and one
              scatter launch per superstep, no fused launch; counts zeroed
@@ -33,11 +36,16 @@ Phases, each printing one JSON line with its seconds:
              device's busy share
   kernel_time  each kernel at the main path's shapes against its plain
              version: CUDA-event times, the memory bound and, where one
-             PyTorch call computes the same function, that call's time
+             PyTorch call computes the same function, that call's time.
+             The tiled fused add is timed against the atomic path it
+             replaces, and scatter_sum against index_add_, in turns in the
+             same call; the tiled add's repeated calls and the columns of a
+             [B=4] call against one-column calls must be bit-identical
   kernels_main  the kernels phase's operand matrices again on the main
              path's edge layout
   chares     2^chare-scale vertices at C chares for sortdest, reduction,
-             pairs and basic, and a near-uniform graph
+             pairs and basic (the add tiled on sortdest and pairs, atomic on
+             reduction's basic layout), and a near-uniform graph
              (erdos_renyi(2^scale, 2^(scale+1)), the reference's
              staged-choice contrast at the main path's vertex count) at C
              chares, whose dispatch must choose the staged pair; all
@@ -50,11 +58,15 @@ Phases, each printing one JSON line with its seconds:
              its checks must hold
 
 Then one JSON line with every kernel's numbers (launches from the main
-path for the fused pair, from staged_main for the staged four), the ``nvidia-smi`` name and
-power limit, and as the last line ``{"ok": true, "device": {...}}``.  Any
-failure exits non-zero and prints no ok line.  Min programs and int32 sums
-must be bit-equal; float sums agree within rtol=1e-5, atol=1e-6*max|out|
-(atomic float adds run in no fixed order).
+path for the fused pair, from staged_main for the staged four), the
+``nvidia-smi`` name and power limit, and as the last line ``{"ok": true,
+"device": {...}}``.  Any failure exits non-zero and prints no ok line.  Min
+programs and int32 sums must be bit-equal to the plain versions; float sums
+agree with them within rtol=1e-5, atol=1e-6*max|out| (the plain version sums
+in another order).  Float sums are fixed-order on seg-sorted rows (the
+tiled fused add): repeated calls and runs must match bit for bit there.
+The atomic paths (the fused add on other rows, scatter_sum) add floats in
+no fixed order.
 """
 
 from __future__ import annotations
@@ -483,9 +495,11 @@ class Smoke:
     @staticmethod
     def _expected_launches(eng, combine, iters):
         """The launches one run of ``eng`` must make: the fused kernel of
-        the monoid once per superstep, or -- for ``basic``, ``push_fn=None``
-        or the staged hook -- one gather and one scatter kernel of the
-        monoid per superstep; no other kernel."""
+        the monoid once per superstep -- for add, with the path its layout's
+        band table gives each row: the tiled kernel and its merge pass, the
+        atomic kernel, or both -- or, for ``basic``, ``push_fn=None`` or the
+        staged hook, one gather and one scatter kernel of the monoid per
+        superstep; no other kernel."""
         from repro_torch.kernels import push_fused
 
         want = dict.fromkeys(push_fused.launch_counts, 0)
@@ -493,6 +507,16 @@ class Smoke:
                  and getattr(eng.push_fn, "fused", True))
         if fused:
             want[f"fused_push_{combine}"] = iters
+            if combine == "add":
+                band = eng.arrays["band" if eng.strategy == "reduction"
+                                  else "sd_band"]
+                plan = push_fused.tile_plan(band)
+                if plan.num_tiled:
+                    want["fused_push_add_tiled"] = iters
+                    merges = plan.merge_tiles.numel()
+                    want["fused_push_add_merge"] = iters if merges else 0
+                if plan.num_tiled < band.shape[0]:
+                    want["fused_push_add_atomic"] = iters
         else:
             half = "sum" if combine == "add" else "min"
             want[f"gather_{half}"] = want[f"scatter_{half}"] = iters
@@ -594,14 +618,34 @@ class Smoke:
             rows.append(self._check_program(engines[name], name, graph, 1,
                                             "main"))
         self.main_launches = dict(push_fused.launch_counts)
-        for k in ("fused_push_add", "fused_push_min"):
+        for k in ("fused_push_add", "fused_push_min", "fused_push_add_tiled",
+                  "fused_push_add_merge"):
             if self.main_launches[k] == 0:
                 raise AssertionError(f"{k} was not launched on the main path")
+        if self.main_launches["fused_push_add_atomic"]:
+            raise AssertionError("the main path's add took the atomic path")
         self.engines = engines
         return {"programs": rows, "launches": self.main_launches,
                 "dispatch": {k: v for k, v in engines["pagerank"]
                              .dispatch.items() if not isinstance(v, dict)},
                 "peak_device_bytes": torch.cuda.max_memory_allocated()}
+
+    def reproducible(self):
+        """The main path's float sums are fixed-order: pagerank and
+        pagerank_weighted run twice more give the same bits."""
+        import numpy as np
+
+        out = {}
+        for name in ("pagerank", "pagerank_weighted"):
+            eng = self.engines[name]
+            a, _ = eng.run(name)
+            b, _ = eng.run(name)
+            a, b = np.asarray(a), np.asarray(b)
+            if a.shape != b.shape or a.tobytes() != b.tobytes():
+                raise AssertionError(f"{name}: two runs differ in "
+                                     f"{int((a != b).sum())} elements")
+            out[name] = {"bit_identical": True, "vertices": int(a.size)}
+        return out
 
     def staged_main(self):
         """The main path's graphs and programs through the staged pair:
@@ -721,7 +765,14 @@ class Smoke:
             torch.cuda.synchronize()
             err = self.compare(got, want, combine, f"{prog} at main shape")
             del want
-            ms = self.cuda_ms(lambda: push_fused.fused_push(*args, **kw), 20)
+            extra = {}
+            if combine == "add":
+                extra = self._tiled_add_checks(args, got, prog)
+                ms = extra.pop("tiled_ms")
+            else:
+                ms = self.cuda_ms(
+                    lambda: push_fused.fused_push(*args, **kw), 20)
+            del got
             plain_ms = self.cuda_ms(
                 lambda: push_fused.fused_push_plain(*args, **kw), 3)
             bound_ms, nbytes, ops = self._bound(a, vals, S, weighted)
@@ -731,7 +782,8 @@ class Smoke:
             rows.append({"program": prog, "kernel": kern, "ms": ms,
                          "plain_ms": plain_ms, "bound_ms": bound_ms,
                          "bytes": nbytes, "operations": ops,
-                         "max_abs_err": err, "yardstick_ms": yard_ms})
+                         "max_abs_err": err, "yardstick_ms": yard_ms,
+                         **extra})
         # one line per kernel: its heaviest main-path call (weighted f32)
         pick = {"fused_push_add": "pagerank_weighted",
                 "fused_push_min": "sssp"}
@@ -749,7 +801,53 @@ class Smoke:
                 "ms": r["ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": "bytes",
                 "library_ms": None, "timed_call": prog}
+            if kern == "fused_push_add":
+                self.kernel_rows[kern].update(
+                    path="tiled (tile pass + merge pass)",
+                    atomic_ms=r["atomic_ms"])
         return {"calls": rows, "staged_calls": self._staged_time()}
+
+    def _tiled_add_checks(self, args, got, what):
+        """The tiled fused add at the main shape against the atomic path it
+        replaces: both timed in turns (tiled, atomic, atomic, tiled; each
+        the mean of 20 launches, the better of its two turns kept), the
+        atomic result held to the tiled one within the plain version's
+        tolerance, a repeated
+        tiled call bit-identical, and each column of a [B=4] call
+        bit-identical to the one-column call on it."""
+        import torch
+
+        from repro_torch.kernels import push_fused
+
+        band, src, dst, valid, w, vals, S = args
+        fp = push_fused.fused_push
+        if push_fused.tile_plan(band).num_tiled != band.shape[0]:
+            raise AssertionError(f"{what}: the sd layout is not seg-sorted")
+        atomic = fp(*args, path="atomic")
+        again = fp(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(again.view(torch.int32), got.view(torch.int32)):
+            raise AssertionError(f"{what}: two tiled calls differ")
+        err = self.compare(atomic, got, "add", f"{what} atomic vs tiled")
+        del atomic, again
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        vals4 = torch.rand(vals.shape + (4,), generator=gen, device="cuda")
+        wide = fp(band, src, dst, valid, w, vals4, S)
+        for b in range(4):
+            one = fp(band, src, dst, valid, w, vals4[..., b].contiguous(), S)
+            if not torch.equal(wide[..., b].contiguous().view(torch.int32),
+                               one.view(torch.int32)):
+                raise AssertionError(f"{what}: column {b} of a B=4 call "
+                                     "differs from its one-column call")
+        del vals4, wide, one
+        t1 = self.cuda_ms(lambda: fp(*args), 20)
+        a1 = self.cuda_ms(lambda: fp(*args, path="atomic"), 20)
+        a2 = self.cuda_ms(lambda: fp(*args, path="atomic"), 20)
+        t2 = self.cuda_ms(lambda: fp(*args), 20)
+        return {"tiled_ms": min(t1, t2), "atomic_ms": min(a1, a2),
+                "turns_ms": {"tiled": [t1, t2], "atomic": [a1, a2]},
+                "atomic_vs_tiled_max_abs_err": err,
+                "bit_identical": {"repeat": True, "columns_of_B4": True}}
 
     def _staged_time(self):
         """The staged kernels at the main path's shapes -- the sd layout
@@ -825,15 +923,20 @@ class Smoke:
                     lib = lambda: out.scatter_reduce_(
                         0, dst64, cflat, reduce="amin", include_self=True)
                 nbytes, ops = 8 * E + 4 * K, E
+                # kernel and library call in turns: k, lib, lib, k
+                k1 = self.cuda_ms(lambda: scatter(dst, c, K), 20)
+                l1, l2 = self.cuda_ms(lib, 20), self.cuda_ms(lib, 20)
+                k2 = self.cuda_ms(lambda: scatter(dst, c, K), 20)
                 rows.append({
                     "kernel": f"scatter_{half}", "layout": layout,
                     "program": prog, "edges": E,
-                    "ms": self.cuda_ms(lambda: scatter(dst, c, K), 20),
+                    "ms": min(k1, k2),
                     "plain_ms": self.cuda_ms(lambda: splain(dst, c, K), 3),
                     "bound_ms": max(nbytes / HBM_BYTES_PER_S,
                                     ops / FP32_OPS_PER_S) * 1e3,
                     "bytes": nbytes, "max_abs_err": err,
-                    "library_ms": self.cuda_ms(lib, 20)})
+                    "library_ms": min(l1, l2),
+                    "turns_ms": {"kernel": [k1, k2], "library": [l1, l2]}})
                 del dst64, cflat, out, c
         replaces = {
             "gather_sum": "src/repro/kernels/push_sum.py:31",
@@ -915,6 +1018,16 @@ class Smoke:
                            kernel=e.dispatch["kernel"])
                 rows.append(row)
         launches = dict(push_fused.launch_counts)
+        # the add's path: tiled on the sd layout, atomic on the basic one
+        for row in rows:
+            if row["strategy"] == "basic" or \
+                    "fused_push_add" not in row["launches"]:
+                continue
+            want = ("fused_push_add_atomic" if row["strategy"] == "reduction"
+                    else "fused_push_add_tiled")
+            if row["launches"].get(want) != row["launches"]["fused_push_add"]:
+                raise AssertionError(f"{row['program']}/{row['strategy']}: "
+                                     f"launches {row['launches']}")
         staged = self._staged_choice()
         return {"vertices": g.num_vertices, "edges": g.num_edges,
                 "chares": a.chares, "runs": rows, "launches": launches,
@@ -965,7 +1078,7 @@ class Smoke:
         import torch
 
         from repro_torch.core import Engine
-        from repro_torch.kernels import ops
+        from repro_torch.kernels import ops, push_fused
 
         fused, staged = ops.make_push_fn(), ops.make_push_fn(fused=False)
         layouts = (("main", self.engines["pagerank"]),
@@ -992,13 +1105,19 @@ class Smoke:
                 s1 = self.cuda_ms(lambda: staged(*args, **kw), 10)
                 s2 = self.cuda_ms(lambda: staged(*args, **kw), 10)
                 f2 = self.cuda_ms(lambda: fused(*args, **kw), 10)
-                calls.append({"layout": label, "program": prog,
-                              "dispatch": eng.dispatch["choice"],
-                              "max_occupancy": eng.dispatch["max_occupancy"],
-                              "fused_ms": min(f1, f2),
-                              "staged_ms": min(s1, s2),
-                              "faster": "fused" if min(f1, f2) < min(s1, s2)
-                              else "staged"})
+                row = {"layout": label, "program": prog,
+                       "dispatch": eng.dispatch["choice"],
+                       "max_occupancy": eng.dispatch["max_occupancy"],
+                       "fused_ms": min(f1, f2), "staged_ms": min(s1, s2),
+                       "faster": "fused" if min(f1, f2) < min(s1, s2)
+                       else "staged"}
+                if combine == "add":  # the fused add's atomic path, too
+                    call = (a["sd_band"], *args[1:4], None, vals, C * K)
+                    atomic = lambda: push_fused.fused_push(*call,
+                                                           path="atomic")
+                    row["fused_atomic_ms"] = min(self.cuda_ms(atomic, 10),
+                                                 self.cuda_ms(atomic, 10))
+                calls.append(row)
         pgw, eng = self.er
         forced = Engine(pgw, push_fn=fused)
         programs = []
@@ -1041,7 +1160,8 @@ def main(argv=None) -> int:
     smoke = Smoke(args)
     try:
         for name in ("device", "build", "kernels", "graph", "main",
-                     "staged_main", "profile", "kernel_time", "kernels_main",
+                     "reproducible", "staged_main", "profile", "kernel_time",
+                     "kernels_main",
                      "chares", "push_choice", "quickstart"):
             smoke.phase(name, getattr(smoke, name))
     except Exception:  # report the failing phase, print no ok line

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import partitioners as part_mod
-from repro_torch.kernels import blocks
+from repro_torch.kernels import blocks, push_fused
 
 INT = np.int32
 WEIGHT = np.float32
@@ -290,7 +290,8 @@ class PartitionedGraph:
         The edge planes are widened to whole BLOCK_E edge blocks (padding
         edges invalid, source/destination 0, weight 1) -- the shape the band
         table already describes -- so the per-superstep push never has to
-        copy them to pad.
+        copy them to pad.  On CUDA the band table's add path and tile
+        schedule (``push_fused.tile_plan``) are learned here, once.
         """
         if layout == "both":
             return {**self.device_arrays("basic", device),
@@ -304,11 +305,15 @@ class PartitionedGraph:
         key = (f"dense:{layout}", _device_key(device))
         if key not in self._dev:
             fill = {"edge_weight": 1, "sd_edge_weight": 1}
-            self._dev[key] = {
+            arrs = {
                 k: _upload(getattr(self, k) if k.endswith("band")
                            else _pad_edges(getattr(self, k), fill.get(k, 0)),
                            device)
                 for k in names}
+            band = arrs[names[-1]]
+            if band.is_cuda:  # the add's kernel path, learned before any run
+                push_fused.tile_plan(band)
+            self._dev[key] = arrs
         return self._dev[key]
 
     def device_pairwise(self, device="cuda") -> dict:

@@ -7,42 +7,74 @@
 // trailing batch axis B on vals/out (one query column each).
 //
 // Replaces the TPU kernels in repro/kernels/push_fused.py:
-//   fused_push_add_kernel  <- _fused_push_add_kernel (one-hot MXU matmuls)
-//   fused_push_min_kernel  <- _fused_push_min_kernel (VPU mask-and-reduce)
+//   tiled_add_kernel + merge_kernel, and fused_push_kernel<Add*> on rows
+//                            <- _fused_push_add_kernel (one-hot MXU matmuls)
+//   fused_push_kernel<Min*>  <- _fused_push_min_kernel (VPU mask-and-reduce)
 //
 // What bounds it on this card: memory.  Per edge it reads src, dst, valid
 // (12 B) and, with a weight operand, 4 B more, then gathers one vals element
-// and does one atomic read-modify-write on out.  The vertex planes of the
-// main path (16.8 MB each at 2^22 vertices) fit the 50 MB L2, so the gather
-// and the atomics mostly hit L2 and the edge stream from HBM dominates;
-// there is next to no arithmetic.
+// and combines one contribution into out.  The vertex planes of the main
+// path (16.8 MB each at 2^22 vertices) fit the 50 MB L2, so the gather and
+// the combine mostly hit L2 and the edge stream from HBM dominates; there is
+// next to no arithmetic.
 //
 // What the design does about it: the TPU kernels needed one-hot matmuls and
 // mask-and-reduce tiles because the TPU has no fast gather or scatter; Hopper
-// has both, so each thread takes one (edge, batch column) item, gathers
-// directly and combines with one atomic.  Edge reads are coalesced (256
-// consecutive edges per block).  The band table stays an operand only so
-// empty (all-padding) edge blocks, band hi == -1, are skipped without
-// reading their edges; the valid mask alone decides which edges count.
-// Grid-stride over (row, edge block) pairs covers all chare rows in one
-// launch.
+// has both, so threads gather directly.  How they combine depends on the
+// row:
 //
-// Exactness: int32 min and add use atomicMin/atomicAdd, exact in any order.
-// Float min uses the sign-split trick (int atomicMin on the bit pattern for
-// values with the sign bit clear, unsigned atomicMax for values with it set),
-// which orders every non-NaN float exactly, negatives included.  Float add
-// uses f32 atomicAdd, whose order varies from run to run.
+// * Add over a seg-sorted row (band seg ranges that never decrease along the
+//   row: every row of the sd layout) takes the tiled path.  One CTA takes a
+//   chunk of consecutive edge blocks; each warp streams its
+//   half blocks with 16-byte loads (four edges a lane, two blocks in flight)
+//   and adds the contributions into its own shared-memory tile over a
+//   window of the chunk's segment range, lanes with the same destination in
+//   lane order; then the eight warp tiles are summed in warp order.  (A
+//   chunk spread over more segment blocks than that suits -- a sparse row
+//   -- shares one wider tile, which the warps add into in turn.)  Segment
+//   blocks inside the chunk's range belong to it alone (the ranges are
+//   monotone) and are added to out directly; the first and last segment
+//   block may be shared with neighbouring chunks, so they go to a scratch
+//   buffer, and merge_kernel adds, per segment block, the partials of the
+//   chunks that cover it in chunk order.  A hub block is so split over many
+//   CTAs.  No global atomics.
+// * Min, and add over any other row (the basic layout, arbitrary edges),
+//   take fused_push_kernel: one thread per (edge, batch column), one atomic
+//   per item, grid-stride over (row, edge block) pairs.
+//
+// In both, the band table lets a CTA skip empty (all-padding) edge blocks,
+// band hi == -1; the valid mask alone decides which edges count.
+//
+// Exactness: int32 min and add are exact in any order.  Float min uses the
+// sign-split trick (int atomicMin on the bit pattern for values with the
+// sign bit clear, unsigned atomicMax for values with it set), which orders
+// every non-NaN float exactly, negatives included.  Float add on the tiled
+// path sums in an order fixed by the data alone (a warp's edges in the
+// order it loads them, warps in order, chunks in order),
+// with __fadd_rn/__fmul_rn so nothing is contracted: the same operands give
+// the same bits on every run, and column b of a [B] plane the bits of a
+// one-column call on that column.  Float add on the atomic path uses f32
+// atomicAdd, whose order varies from run to run.
 //
 // Built by repro_torch/kernels/_build.py with nvcc into a shared library with
 // a plain C interface, loaded through ctypes.
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 #include "atomics.cuh"
 
 namespace {
 
 constexpr int kBlockE = 256;            // blocks.BLOCK_E
+constexpr int kBlockS = 256;            // blocks.BLOCK_S
+constexpr int kWarps = kBlockE / 32;
+constexpr int kWarpWords = 1024;        // one warp's tile: 4 KB of 4-byte words
+constexpr int kTags = 128;              // a warp's destination tag slots
+constexpr int kRounds = 2;              // edge blocks a warp keeps in flight
+constexpr int kWarpTileBlocks = 8;      // widest chunk range on warp tiles
+constexpr unsigned kFullMask = 0xffffffffu;
 constexpr int kSentinel = 2147483647;   // int32 max
 constexpr float kSentinelF = 2147483648.0f;  // float(int32 max), as JAX rounds it
 
@@ -61,7 +93,7 @@ struct AddInt {
 struct AddFloat {
   using T = float;
   __device__ static T gather(T v) { return v; }
-  __device__ static T transform(T c, T w) { return c * w; }
+  __device__ static T transform(T c, T w) { return __fmul_rn(c, w); }
   __device__ static void combine(T* p, T v) { atomicAdd(p, v); }
 };
 
@@ -114,6 +146,306 @@ __global__ void __launch_bounds__(kBlockE) fused_push_kernel(
       if (kWeight == kUnit) c = Op::transform(c, static_cast<T>(1));
       Op::combine(orow + static_cast<long long>(dst[e]) * B + b, c);
     }
+  }
+}
+
+// Float and int adds the compiler may not contract or reorder: each float
+// add rounds once, in the order written; int adds wrap as XLA's int32 does.
+__device__ __forceinline__ float add_fixed(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ int add_fixed(int a, int b) {
+  return static_cast<int>(static_cast<unsigned>(a) + static_cast<unsigned>(b));
+}
+
+__device__ __forceinline__ int lane_of(const int4& v, int t) {
+  return t == 0 ? v.x : (t == 1 ? v.y : (t == 2 ? v.z : v.w));
+}
+template <typename T>
+__device__ __forceinline__ T from_bits(int x);
+template <>
+__device__ __forceinline__ float from_bits<float>(int x) {
+  return __int_as_float(x);
+}
+template <>
+__device__ __forceinline__ int from_bits<int>(int x) {
+  return x;
+}
+
+// 16 edges' worth of one int32 edge plane, streamed past the caches (the
+// edges are read once; L2 is kept for vals and out)
+__device__ __forceinline__ int4 load_edges(const void* plane, long long e) {
+  return __ldcs(reinterpret_cast<const int4*>(
+      static_cast<const int*>(plane) + e));
+}
+
+// Adds c (BG columns, ncol of them live) into acc[key * BG + j] for every
+// lane whose key is not -1, lanes with the same key in lane order: each
+// round, every lane still waiting marks its key's tag slot with
+// atomicMin(lane), and the lowest lane of each slot adds.  The whole warp
+// calls it; tags is the warp's own kTags slots.
+template <typename T, int BG>
+__device__ __forceinline__ void ordered_add(T* acc, int* tags, int key,
+                                            const T (&c)[BG], int ncol) {
+  const int lane = threadIdx.x & 31;
+  bool waiting = key >= 0;
+  int* tag = tags + (key & (kTags - 1));
+  while (__any_sync(kFullMask, waiting)) {
+    if (waiting) *tag = 32;
+    __syncwarp();
+    if (waiting) atomicMin(tag, lane);
+    __syncwarp();
+    if (waiting && *tag == lane) {  // the lowest waiting lane of its slot
+#pragma unroll
+      for (int j = 0; j < BG; ++j) {
+        if (j < ncol) {
+          T* p = acc + key * BG + j;
+          *p = add_fixed(*p, c[j]);
+        }
+      }
+      waiting = false;
+    }
+    __syncwarp();
+  }
+}
+
+// The tiled add's operands and schedule (fused_push_add_tiled_launch).
+struct Tiled {
+  const int* band;
+  const int* src;
+  const int* dst;
+  const int* valid;
+  const void* weight;
+  const void* vals;
+  void* out;
+  const int* chunk_blocks;
+  const int* tile_chunks;
+  const int* merge_tiles;
+  void* scratch;
+  long long rows, E, NB, K, NC, V, S, NT, NM;
+  int B;
+};
+
+// One CTA per (row, chunk): the chunk's edge blocks [i0, i1) reduced over
+// its segment blocks [blo, bhi] (chunk_blocks, from the wrapper's schedule;
+// bhi < blo for a chunk with nothing to do).  Columns go in groups of BG,
+// the segment range in windows.  The edge blocks go in groups of kGroup;
+// in a group, warp w takes the half (w & 1) of blocks w / 2 and
+// w / 2 + kWarps / 2, four consecutive edges a lane (16-byte loads).
+//
+// A chunk whose range spans at most kWarpTileBlocks segment blocks (dense:
+// many edges per segment) gives each warp its own tile: no barrier until
+// the window's warp tiles are summed in warp order.  A wider chunk (sparse)
+// shares one tile eight times as wide, and the warps add into it in turn,
+// warp 0 first, a barrier after each; zeroing and summing the tiles costs
+// per segment, and this keeps that cost to one tile.  Both orders depend on
+// the data alone, never on B.
+//
+// A segment of block blo goes to scratch slot 0, of block bhi (when it
+// differs) to slot 1, any other straight into out.
+template <class Op, int kWeight, int BG>
+__global__ void __launch_bounds__(kBlockE) tiled_add_kernel(const Tiled a) {
+  using T = typename Op::T;
+  const int* __restrict__ src = a.src;
+  const int* __restrict__ dst = a.dst;
+  const int* __restrict__ valid = a.valid;
+  const T* __restrict__ weight = static_cast<const T*>(a.weight);
+  const long long E = a.E, NB = a.NB, K = a.K, NC = a.NC, V = a.V, S = a.S;
+  const int B = a.B;
+  constexpr int kHalf = kWarps / 2;  // blocks a load round of the CTA covers
+  constexpr int kGroup = kHalf * kRounds;
+  __shared__ T tile[kWarps * kWarpWords];
+  __shared__ int tags[kWarps * kTags];
+  const long long chunk = blockIdx.x;  // row * NC + chunk within the row
+  const int blo = a.chunk_blocks[2 * chunk];
+  const int bhi = a.chunk_blocks[2 * chunk + 1];
+  if (bhi < blo) return;
+  const long long row = chunk / NC;
+  const long long i0 = (chunk - row * NC) * K;
+  const long long i1 = i0 + K < NB ? i0 + K : NB;
+  const int* seg_lo = a.band + (row * 4 + 2) * NB;
+  const int* seg_hi = a.band + (row * 4 + 3) * NB;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const bool turns = bhi - blo >= kWarpTileBlocks;
+  T* acc = turns ? tile : tile + warp * kWarpWords;
+  const int acc_words = turns ? kWarps * kWarpWords : kWarpWords;
+  const int win = acc_words / BG;  // segments a window holds
+  int* my_tags = tags + warp * kTags;
+  const T* vrow = static_cast<const T*>(a.vals) + row * V * B;
+  T* orow = static_cast<T*>(a.out) + row * S * B;
+  T* slots = static_cast<T*>(a.scratch) + chunk * 2 * kBlockS * B;
+  const long long first = static_cast<long long>(blo) * kBlockS;
+  const long long range_end = static_cast<long long>(bhi + 1) * kBlockS;
+  const long long end = range_end < S ? range_end : S;
+  const long long lane_edge = row * E + (warp & 1) * (kBlockE / 2) + lane * 4;
+  for (int g0 = 0; g0 < B; g0 += BG) {
+    const int ncol = B - g0 < BG ? B - g0 : BG;
+    for (long long ws = first; ws < end; ws += win) {
+      const int width = static_cast<int>(end - ws < win ? end - ws : win);
+      // does edge block ib have segments in the window? (hi == -1: empty)
+      const auto meets = [&](long long ib) {
+        const int hi = seg_hi[ib];
+        return hi >= 0 && static_cast<long long>(hi + 1) * kBlockS > ws &&
+               static_cast<long long>(seg_lo[ib]) * kBlockS < ws + width;
+      };
+      if (turns) {
+        for (int x = threadIdx.x; x < width * BG; x += kBlockE) acc[x] = T(0);
+        __syncthreads();
+      } else {
+        for (int x = lane; x < width * BG; x += 32) acc[x] = T(0);
+        __syncwarp();
+      }
+      for (long long gi = i0; gi < i1; gi += kGroup) {
+        // in turns, skip a group none of whose blocks meets the window
+        // (every warp finds the same): its turns would add nothing
+        if (turns && !__any_sync(kFullMask, lane < kGroup &&
+                                                gi + lane < i1 &&
+                                                meets(gi + lane)))
+          continue;
+        int4 d4[kRounds], v4[kRounds], s4[kRounds], w4[kRounds];
+#pragma unroll
+        for (int r = 0; r < kRounds; ++r) {
+          d4[r] = v4[r] = s4[r] = w4[r] = make_int4(0, 0, 0, 0);
+          const long long ib = gi + warp / 2 + r * kHalf;
+          if (ib >= i1 || !meets(ib)) continue;
+          const long long e = lane_edge + ib * kBlockE;
+          d4[r] = load_edges(dst, e);
+          v4[r] = load_edges(valid, e);  // all zero for a skipped block
+          s4[r] = load_edges(src, e);
+          if (kWeight == kArray) w4[r] = load_edges(weight, e);
+        }
+        int key[kRounds][4];
+        T c[kRounds][4][BG];
+#pragma unroll
+        for (int r = 0; r < kRounds; ++r) {
+#pragma unroll
+          for (int t = 0; t < 4; ++t) {
+            // invalid edges carry any dst: drop them before keying
+            const int d = lane_of(d4[r], t);
+            key[r][t] = lane_of(v4[r], t) != 0 && d >= ws && d < ws + width
+                            ? static_cast<int>(d - ws)
+                            : -1;
+#pragma unroll
+            for (int j = 0; j < BG; ++j) c[r][t][j] = T(0);
+            if (key[r][t] < 0) continue;
+            const T* v = vrow + static_cast<long long>(lane_of(s4[r], t)) * B + g0;
+            const T w = from_bits<T>(lane_of(w4[r], t));
+#pragma unroll
+            for (int j = 0; j < BG; ++j) {
+              if (j < ncol) {
+                c[r][t][j] = Op::gather(v[j]);
+                if (kWeight == kArray) c[r][t][j] = Op::transform(c[r][t][j], w);
+              }
+            }
+          }
+        }
+        for (int w = 0; w < (turns ? kWarps : 1); ++w) {
+          if (!turns || warp == w) {
+#pragma unroll
+            for (int r = 0; r < kRounds; ++r) {
+#pragma unroll
+              for (int t = 0; t < 4; ++t)
+                ordered_add<T, BG>(acc, my_tags, key[r][t], c[r][t], ncol);
+            }
+          }
+          if (turns) __syncthreads();
+        }
+      }
+      __syncthreads();
+      for (int x = threadIdx.x; x < width * BG; x += kBlockE) {
+        const int j = x % BG;
+        if (j >= ncol) continue;
+        T sum = tile[x];
+        if (!turns) {
+#pragma unroll
+          for (int w = 1; w < kWarps; ++w)
+            sum = add_fixed(sum, tile[w * kWarpWords + x]);
+        }
+        const long long s = ws + x / BG;
+        const long long sb = s / kBlockS;
+        const long long col = g0 + j;
+        if (sb == blo) {
+          slots[(s - sb * kBlockS) * B + col] = sum;
+        } else if (sb == bhi) {
+          slots[(kBlockS + s - sb * kBlockS) * B + col] = sum;
+        } else {
+          T* p = orow + s * B + col;
+          *p = add_fixed(*p, sum);
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// One CTA per (row, segment block t) of the merge list (merge_tiles, the
+// blocks some chunk's range starts or ends in): the chunks [c0, c1] whose
+// segment ranges cover t (tile_chunks) left their partials of t in scratch
+// unless t lies inside a chunk's range; sum them in chunk order and add the
+// sum to out.
+template <typename T>
+__global__ void __launch_bounds__(kBlockS) merge_kernel(const Tiled a) {
+  const long long NC = a.NC, NT = a.NT, S = a.S;
+  const int B = a.B;
+  const long long tb = a.merge_tiles[blockIdx.x];  // row * NT + t
+  const int c0 = a.tile_chunks[2 * tb];
+  const int c1 = a.tile_chunks[2 * tb + 1];
+  if (c1 < c0) return;
+  const long long row = tb / NT;
+  const int t = static_cast<int>(tb - row * NT);
+  const long long s = static_cast<long long>(t) * kBlockS + threadIdx.x;
+  if (s >= S) return;
+  const int* cb = a.chunk_blocks + row * NC * 2;
+  const T* part = static_cast<const T*>(a.scratch) + row * NC * 2 * kBlockS * B;
+  for (int b = 0; b < B; ++b) {
+    T acc = T(0);
+    bool have = false;
+    for (int c = c0; c <= c1; ++c) {
+      const int lo = cb[2 * c], hi = cb[2 * c + 1];
+      if (hi < lo || (t != lo && t != hi)) continue;  // empty, or inside
+      const int slot = t == lo ? 0 : 1;
+      const T v = part[((2LL * c + slot) * kBlockS + threadIdx.x) * B + b];
+      acc = have ? add_fixed(acc, v) : v;
+      have = true;
+    }
+    if (have) {
+      T* p = static_cast<T*>(a.out) + (row * S + s) * B + b;
+      *p = add_fixed(*p, acc);
+    }
+  }
+}
+
+template <class Op, int kWeight, int BG>
+cudaError_t launch_tiled(const Tiled& a, cudaStream_t stream) {
+  tiled_add_kernel<Op, kWeight, BG>
+      <<<static_cast<unsigned>(a.rows * a.NC), kBlockE, 0, stream>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || a.NM == 0) return err;
+  merge_kernel<typename Op::T>
+      <<<static_cast<unsigned>(a.NM), kBlockS, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <class Op, int kWeight>
+cudaError_t launch_tiled_cols(const Tiled& a, cudaStream_t stream) {
+  // column groups: a tile holds its words / BG segments of BG columns
+  if (a.B == 1) return launch_tiled<Op, kWeight, 1>(a, stream);
+  if (a.B == 2) return launch_tiled<Op, kWeight, 2>(a, stream);
+  if (a.B <= 4) return launch_tiled<Op, kWeight, 4>(a, stream);
+  return launch_tiled<Op, kWeight, 8>(a, stream);
+}
+
+template <class Op>
+cudaError_t launch_tiled_add(int weight_mode, const Tiled& a,
+                             cudaStream_t stream) {
+  switch (weight_mode) {
+    case kNone:
+      return launch_tiled_cols<Op, kNone>(a, stream);
+    case kArray:
+      return launch_tiled_cols<Op, kArray>(a, stream);
+    default:
+      return cudaErrorInvalidValue;
   }
 }
 
@@ -185,5 +517,41 @@ extern "C" int fused_push_launch(int combine, int is_float, int weight_mode,
                    : launch<MinInt>(weight_mode, band, src, dst, valid,
                                     weight, vals, out, rows, E, NB, V, S, B, s);
   }
+  return static_cast<int>(err);
+}
+
+// The tiled add over the seg-sorted rows of a layout.  is_float: 0 = int32,
+// 1 = float32.  weight_mode: 0 none, 1 array.  Operands as for
+// fused_push_launch, plus the wrapper's schedule: chunks of chunk_len edge
+// blocks (push_fused.TILE_CHUNK_BLOCKS; NC = ceil(NB / chunk_len) a row),
+// chunk_blocks [rows, NC, 2]
+// int32, the first and last segment block of each chunk (bhi < blo: skip
+// the chunk), tile_chunks [rows, NT, 2] int32, the first and last chunk
+// whose range covers each segment block (c1 < c0: none), merge_tiles [NM]
+// int32, the blocks r * NT + t that some chunk's range starts or ends in,
+// and scratch [rows, NC, 2, 256, B] of the output type.  Segment blocks
+// must lie in [0, ceil(S / 256)), and src, dst, valid and weight must be
+// 16-byte aligned (they are read four edges at a time).  Launches the tile
+// pass, then the merge pass unless NM == 0; returns cudaGetLastError()
+// after them (0 on success).
+extern "C" int fused_push_add_tiled_launch(
+    int is_float, int weight_mode, const int* band, const int* src,
+    const int* dst, const int* valid, const void* weight, const void* vals,
+    void* out, const int* chunk_blocks, const int* tile_chunks,
+    const int* merge_tiles, void* scratch, long long rows, long long E,
+    long long NB, long long chunk_len, long long V, long long S, long long NT,
+    long long NM, int B, void* stream) {
+  if (rows * NB == 0) return static_cast<int>(cudaSuccess);
+  if (B < 1 || chunk_len < 1 || E != NB * kBlockE)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto bits = [](const void* p) { return reinterpret_cast<uintptr_t>(p); };
+  if ((bits(src) | bits(dst) | bits(valid) | bits(weight)) & 15)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  const Tiled a{band, src, dst, valid, weight, vals, out, chunk_blocks,
+                tile_chunks, merge_tiles, scratch, rows, E, NB, chunk_len,
+                (NB + chunk_len - 1) / chunk_len, V, S, NT, NM, B};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = is_float ? launch_tiled_add<AddFloat>(weight_mode, a, s)
+                                   : launch_tiled_add<AddInt>(weight_mode, a, s);
   return static_cast<int>(err);
 }

@@ -23,26 +23,39 @@
 // What bounds them on this card: memory.  Per edge and column the gather
 // reads src and valid (8 B, shared by the B columns), gathers one vals
 // element and writes one c element (4 B); the scatter reads dst (4 B) and
-// one c element and does one atomic read-modify-write on out.  There is no
-// arithmetic to speak of.  The vertex planes of the main path (16.8 MB at
-// 2^22 vertices) fit the 50 MB L2, so the gathers and atomics mostly hit L2
-// and the edge streams from HBM dominate.
+// one c element and combines it into out.  There is no arithmetic to speak
+// of.  The vertex planes of the main path (16.8 MB at 2^22 vertices) fit the
+// 50 MB L2, so the gathers and the combines mostly hit L2 and the edge
+// streams from HBM dominate.
 //
 // What the design does about it: the TPU kernels are one-hot matmuls and
 // mask-and-reduce tiles over dense (edge block x vertex block) grids only
-// because the TPU has no fast gather or scatter; Hopper has both.  One
-// thread takes one (edge, column) item; neighbouring threads read
-// neighbouring edges and write neighbouring c elements, so the edge streams
-// are coalesced; vals are read through the read-only data path; the scatter
-// combines with one atomic per item and skips items equal to the identity
-// (they cannot change out).  A grid-stride loop covers all chare rows and
-// columns in one launch.  No padding of edges or vertices is needed.
+// because the TPU has no fast gather or scatter; Hopper has both.  The
+// gathers and scatter_min take one (edge, column) item per thread;
+// neighbouring threads read neighbouring edges and write neighbouring c
+// elements, so the edge streams are coalesced; vals are read through the
+// read-only data path; scatter_min combines with one atomic per item and
+// skips items equal to the identity (they cannot change out).  A
+// grid-stride loop covers all chare rows and columns in one launch.
 //
-// Exactness: int32 add and min use atomicAdd/atomicMin, exact in any order
-// (int add wraps as XLA's int32 does).  Float min uses the sign-split
-// atomics of atomics.cuh, exact in any order, negatives included.  Float
-// add uses f32 atomicAdd, whose order varies from run to run.  The gather
-// is a copy and exact; bfloat16 values widen exactly to float32.
+// scatter_sum is tiled instead (scatter_sum_kernel): the row comes from the
+// grid, each CTA takes a chunk of kScatterChunk edges, each thread whole
+// edges and every column of them, so no item needs a 64-bit division.  A
+// block reduction finds the chunk's destination range.  Where range x B
+// fits the shared-memory tile (the sd layout: a chunk spans a segment block
+// or two), contributions go into the tile with shared atomics and each
+// non-zero slot then to out with one global atomic.  Otherwise (the
+// pairwise layout, whose destinations are spread) they go straight to out
+// with global atomics.  Summing lanes with the same destination in the warp
+// first (__match_any_sync) was tried and was slower on the sd layout: a
+// shared atomic costs less than the matching.  No padding of edges or
+// vertices is needed.
+//
+// Exactness: int32 add and min are exact in any order (int add wraps as
+// XLA's int32 does).  Float min uses the sign-split atomics of atomics.cuh,
+// exact in any order, negatives included.  Float add in scatter_sum uses
+// shared and global f32 atomics, whose order varies from run to run.  The gather is a
+// copy and exact; bfloat16 values widen exactly to float32.
 //
 // Built by repro_torch/kernels/_build.py with nvcc into a shared library with
 // a plain C interface, loaded through ctypes.
@@ -55,6 +68,10 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kScatterChunk = 2048;                   // edges per CTA
+constexpr int kPerThread = kScatterChunk / kThreads;  // edges per thread
+constexpr int kTileWords = 8192;                      // 32 KB of 4-byte words
+constexpr unsigned kFullMask = 0xffffffffu;
 constexpr int kSentinel = 2147483647;        // int32 max
 constexpr float kSentinelF = 2147483648.0f;  // float(int32 max), as JAX rounds it
 
@@ -83,12 +100,6 @@ __device__ __forceinline__ float clamp_min(float v) {
 }
 __device__ __forceinline__ int clamp_min(int v) { return v; }
 
-__device__ __forceinline__ void combine_add(float* p, float v) {
-  if (v != 0.0f) atomicAdd(p, v);
-}
-__device__ __forceinline__ void combine_add(int* p, int v) {
-  if (v != 0) atomicAdd(p, v);
-}
 __device__ __forceinline__ void combine_min(float* p, float v) {
   if (v < kSentinelF) atomic_min_float(p, v);
 }
@@ -119,8 +130,8 @@ __global__ void __launch_bounds__(kThreads) gather_kernel(
   }
 }
 
-template <typename T, bool kMin>
-__global__ void __launch_bounds__(kThreads) scatter_kernel(
+template <typename T>
+__global__ void __launch_bounds__(kThreads) scatter_min_kernel(
     const int* __restrict__ dst, const T* __restrict__ c, T* __restrict__ out,
     long long rows, long long E, long long S, int B) {
   const long long n = rows * E * B;
@@ -133,11 +144,81 @@ __global__ void __launch_bounds__(kThreads) scatter_kernel(
     const int d = dst[re];
     if (d < 0 || d >= S) continue;  // no such segment: dropped
     const long long row = re / E;
-    T* p = out + (row * S + d) * B + b;
-    if (kMin) {
-      combine_min(p, clamp_min(c[i]));
-    } else {
-      combine_add(p, c[i]);
+    combine_min(out + (row * S + d) * B + b, clamp_min(c[i]));
+  }
+}
+
+// Tiled scatter_sum: blockIdx.y picks the row, blockIdx.x the chunk of
+// kScatterChunk edges; thread t takes edges t, t + kThreads, ... of the
+// chunk with all their columns.  A destination outside [0, S) is dropped.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) scatter_sum_kernel(
+    const int* __restrict__ dst, const T* __restrict__ c, T* __restrict__ out,
+    long long rows, long long E, long long S, int B) {
+  __shared__ T tile[kTileWords];
+  __shared__ int range[2][kThreads / 32];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const long long base = static_cast<long long>(blockIdx.x) * kScatterChunk;
+  for (long long row = blockIdx.y; row < rows; row += gridDim.y) {
+    const int* drow = dst + row * E;
+    const T* crow = c + row * E * B;
+    T* orow = out + row * S * B;
+    int d[kPerThread];
+    int lo = 0x7fffffff, hi = -1;
+#pragma unroll
+    for (int k = 0; k < kPerThread; ++k) {
+      const long long e = base + k * kThreads + threadIdx.x;
+      d[k] = e < E ? drow[e] : -1;
+      if (d[k] < 0 || d[k] >= S) {
+        d[k] = -1;
+      } else {
+        lo = d[k] < lo ? d[k] : lo;
+        hi = d[k] > hi ? d[k] : hi;
+      }
+    }
+    lo = __reduce_min_sync(kFullMask, lo);
+    hi = __reduce_max_sync(kFullMask, hi);
+    if (lane == 0) {
+      range[0][warp] = lo;
+      range[1][warp] = hi;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int w = 0; w < kThreads / 32; ++w) {
+      lo = range[0][w] < lo ? range[0][w] : lo;
+      hi = range[1][w] > hi ? range[1][w] : hi;
+    }
+    __syncthreads();  // range is rewritten for the next row
+    if (hi < 0) continue;  // no destination in range
+    const long long span = (static_cast<long long>(hi) - lo + 1) * B;
+    const bool tiled = span <= kTileWords;
+    if (tiled) {
+      for (int x = threadIdx.x; x < span; x += kThreads) tile[x] = T(0);
+      __syncthreads();
+    }
+#pragma unroll
+    for (int k = 0; k < kPerThread; ++k) {
+      if (d[k] < 0) continue;
+      const long long e = base + k * kThreads + threadIdx.x;
+      for (int b = 0; b < B; ++b) {
+        const T v = crow[e * B + b];
+        if (v == T(0)) continue;
+        if (tiled) {
+          atomicAdd(tile + static_cast<long long>(d[k] - lo) * B + b, v);
+        } else {
+          atomicAdd(orow + static_cast<long long>(d[k]) * B + b, v);
+        }
+      }
+    }
+    if (tiled) {
+      __syncthreads();
+      T* o = orow + static_cast<long long>(lo) * B;
+      for (int x = threadIdx.x; x < span; x += kThreads) {
+        const T v = tile[x];
+        if (v != T(0)) atomicAdd(o + x, v);
+      }
+      __syncthreads();  // the tile is reused for the next row
     }
   }
 }
@@ -167,13 +248,26 @@ cudaError_t gather(const int* src, const int* valid, const void* vals,
   return cudaGetLastError();
 }
 
-template <typename T, bool kMin>
-cudaError_t scatter(const int* dst, const void* c, void* out, long long rows,
-                    long long E, long long S, int B, cudaStream_t stream) {
+template <typename T>
+cudaError_t scatter_sum(const int* dst, const void* c, void* out,
+                        long long rows, long long E, long long S, int B,
+                        cudaStream_t stream) {
+  const long long chunks = (E + kScatterChunk - 1) / kScatterChunk;
+  const dim3 grid(static_cast<unsigned>(chunks),
+                  static_cast<unsigned>(rows < 65535 ? rows : 65535));
+  scatter_sum_kernel<T><<<grid, kThreads, 0, stream>>>(
+      dst, static_cast<const T*>(c), static_cast<T*>(out), rows, E, S, B);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t scatter_min(const int* dst, const void* c, void* out,
+                        long long rows, long long E, long long S, int B,
+                        cudaStream_t stream) {
   unsigned grid = 0;
   cudaError_t err = grid_for(rows * E * B, &grid);
   if (err != cudaSuccess) return err;
-  scatter_kernel<T, kMin><<<grid, kThreads, 0, stream>>>(
+  scatter_min_kernel<T><<<grid, kThreads, 0, stream>>>(
       dst, static_cast<const T*>(c), static_cast<T*>(out), rows, E, S, B);
   return cudaGetLastError();
 }
@@ -219,11 +313,11 @@ extern "C" int staged_scatter_launch(int combine, int is_float,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   if (combine == 0) {
-    err = is_float ? scatter<float, false>(dst, c, out, rows, E, S, B, s)
-                   : scatter<int, false>(dst, c, out, rows, E, S, B, s);
+    err = is_float ? scatter_sum<float>(dst, c, out, rows, E, S, B, s)
+                   : scatter_sum<int>(dst, c, out, rows, E, S, B, s);
   } else if (combine == 1) {
-    err = is_float ? scatter<float, true>(dst, c, out, rows, E, S, B, s)
-                   : scatter<int, true>(dst, c, out, rows, E, S, B, s);
+    err = is_float ? scatter_min<float>(dst, c, out, rows, E, S, B, s)
+                   : scatter_min<int>(dst, c, out, rows, E, S, B, s);
   }
   return static_cast<int>(err);
 }

@@ -9,6 +9,13 @@ design answers it).  On a CPU tensor it runs ``fused_push_plain``, the plain
 torch version of the same function, which is also what the kernels are
 checked against on the card.
 
+Add has two paths, chosen per layout row by a property of the band table:
+a row whose band segment ranges never decrease (``seg_sorted_rows``; every
+row of the sd layout) takes the fixed-order tiled kernels, any other row
+the atomic kernel.  ``tile_plan`` learns the property and the tiled path's
+chunk schedule once per band table (the engine's layouts at upload) and
+caches them, so the superstep loop never waits on the host for them.
+
 Edge operands are either one layout row (``src``/``dst``/``valid``/``weight``
 ``[E]``, ``band`` ``[4, E/BLOCK_E]``, ``vals`` ``[V(, B)]`` -> ``[S(, B)]``)
 or all chare rows at once (``[C, E]``, ``[C, 4, E/BLOCK_E]``, ``[C, V(, B)]``
@@ -19,19 +26,29 @@ one launch serves every chare of a superstep.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import weakref
 
 import numpy as np
 import torch
 
-from repro_torch.kernels.blocks import BLOCK_E
+from repro_torch.kernels.blocks import BLOCK_E, BLOCK_S
 
 SENTINEL = 2147483647
 # float(SENTINEL) in float32: the value JAX compares and fills float min with
 SENTINEL_F32 = float(np.float32(SENTINEL))
 
+# edge blocks per chunk of the tiled add (one CTA of the tile pass);
+# scripts/torch_tiled_add_sweep.py times other lengths
+TILE_CHUNK_BLOCKS = 16
+
 # launches of each CUDA push kernel since the last reset (CPU calls do not
-# count): the fused pair here, the staged four in push_staged
+# count): the fused pair here (``fused_push_add`` once per call, and the
+# add's path in its own keys: the tiled kernel with its merge pass, or the
+# atomic kernel), the staged four in push_staged
 launch_counts = {"fused_push_add": 0, "fused_push_min": 0,
+                 "fused_push_add_tiled": 0, "fused_push_add_merge": 0,
+                 "fused_push_add_atomic": 0,
                  "gather_sum": 0, "scatter_sum": 0,
                  "gather_min": 0, "scatter_min": 0}
 
@@ -39,6 +56,134 @@ launch_counts = {"fused_push_add": 0, "fused_push_min": 0,
 def reset_launch_counts() -> None:
     for k in launch_counts:
         launch_counts[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# The tiled add's schedule: which rows take it, and how its chunks and
+# segment blocks meet.  Torch ops on the band's device; the CPU tests hold
+# them to a numpy model.
+# ---------------------------------------------------------------------------
+
+
+def _rowed(band):
+    return band if band.dim() == 3 else band[None]
+
+
+def seg_sorted_rows(band):
+    """``[C]`` bool: the rows whose live edge blocks (``band hi >= 0``) have
+    non-negative segment ranges that never decrease along the row, i.e.
+    ``band[2, i] >= band[3, j]`` for consecutive live blocks ``j < i``.
+    ``band`` is ``[C, 4, NB]`` or one row's ``[4, NB]``."""
+    band = _rowed(band)
+    lo, hi = band[:, 2].long(), band[:, 3].long()
+    live = hi >= 0
+    seen = torch.cummax(torch.where(live, hi, -1), dim=1).values
+    before = torch.cat([torch.full_like(seen[:, :1], -1), seen[:, :-1]],
+                       dim=1)  # the largest hi of the blocks before
+    return (~live | ((lo >= before) & (lo >= 0))).all(dim=1)
+
+
+def chunk_blocks(band, rows):
+    """``[C, NC, 2]`` int32: the first and last segment block that the live
+    edge blocks of each chunk (``TILE_CHUNK_BLOCKS`` consecutive edge blocks,
+    ``NC = ceil(NB / TILE_CHUNK_BLOCKS)``) touch, on the rows where ``rows``
+    (``[C]`` bool) is set; ``(0, -1)`` for an empty chunk and for every
+    chunk of the other rows."""
+    band = _rowed(band)
+    C, _, NB = band.shape
+    K = TILE_CHUNK_BLOCKS
+    NC = -(-NB // K)
+    pad = NC * K - NB
+    lo = torch.nn.functional.pad(band[:, 2].long(), (0, pad), value=0)
+    hi = torch.nn.functional.pad(band[:, 3].long(), (0, pad), value=-1)
+    big = torch.iinfo(torch.int64).max
+    clo = torch.where(hi >= 0, lo, big).reshape(C, NC, K).amin(dim=-1)
+    chi = hi.reshape(C, NC, K).amax(dim=-1)
+    empty = (chi < 0) | ~rows[:, None]
+    return torch.stack([torch.where(empty, 0, clo),
+                        torch.where(empty, -1, chi)], dim=-1).to(torch.int32)
+
+
+def tile_chunks(chunks, num_tiles):
+    """``[C, NT, 2]`` int32: for each segment block ``t < num_tiles``, the
+    first and last chunk whose range ``chunks[c] = (lo, hi)`` holds ``t``;
+    ``(0, -1)`` where none does.  The ranges of a seg-sorted row never
+    decrease, so the chunks holding ``t`` are consecutive (empty chunks may
+    lie among them)."""
+    lo, hi = chunks[..., 0].long(), chunks[..., 1].long()
+    live = hi >= lo
+    big = torch.iinfo(torch.int64).max
+    # empty chunks take their neighbours' bounds, so both stay sorted
+    hi_f = torch.cummax(torch.where(live, hi, -1), dim=1).values
+    lo_f = torch.cummin(torch.where(live, lo, big).flip(1), dim=1).values \
+        .flip(1)
+    t = torch.arange(num_tiles, device=chunks.device).expand(
+        chunks.shape[0], num_tiles).contiguous()
+    c0 = torch.searchsorted(hi_f.contiguous(), t)  # first with hi >= t
+    c1 = torch.searchsorted(lo_f.contiguous(), t, right=True) - 1
+    none = c1 < c0
+    return torch.stack([torch.where(none, 0, c0),
+                        torch.where(none, -1, c1)], dim=-1).to(torch.int32)
+
+
+def merge_tiles(chunks, num_tiles):
+    """int32 ``[M]``, ascending: the flat indices ``r * num_tiles + t`` of
+    the segment blocks in which some chunk's range starts or ends -- the
+    blocks whose chunk partials the tile pass leaves in scratch, and so the
+    merge pass's work list."""
+    lo, hi = chunks[..., 0].long(), chunks[..., 1].long()
+    live = hi >= lo
+    base = torch.arange(chunks.shape[0], device=chunks.device)[:, None] \
+        * num_tiles
+    ends = torch.cat([(base + lo)[live], (base + hi)[live]])
+    return torch.unique(ends).to(torch.int32)
+
+
+@dataclasses.dataclass(frozen=True)
+class TilePlan:
+    """The add's path for each row of one band table, with the tiled path's
+    schedule (``tile_plan``)."""
+
+    tiled: torch.Tensor         # [C] bool: the row takes the tiled path
+    chunk_blocks: torch.Tensor  # [C, NC, 2] int32 (``chunk_blocks``)
+    tile_chunks: torch.Tensor   # [C, NT, 2] int32 (``tile_chunks``)
+    merge_tiles: torch.Tensor   # [M] int32 (``merge_tiles``)
+    # for a table with rows on both paths, the band with the tiled rows'
+    # blocks emptied, for the atomic kernel over the others; else None
+    atomic_band: torch.Tensor | None
+    num_tiled: int              # rows on the tiled path
+    num_tiles: int              # NT: one past the last segment block used
+
+
+_plans: dict = {}  # id(band) -> (weak reference to band, its TilePlan)
+
+
+def tile_plan(band) -> TilePlan:
+    """The add's path and schedule for a band table, computed on first use
+    and cached for as long as the table lives.  Computing it reads a few
+    numbers back to the host, so the engine's layouts learn theirs at
+    upload (``PartitionedGraph.device_arrays``), before any superstep."""
+    key = id(band)
+    hit = _plans.get(key)
+    if hit is not None and hit[0]() is band:
+        return hit[1]
+    rowed = _rowed(band)
+    tiled = seg_sorted_rows(rowed)
+    cb = chunk_blocks(rowed, tiled)
+    num_tiled = int(tiled.sum())
+    num_tiles = int(cb[..., 1].max()) + 1 if cb.numel() else 0
+    atomic_band = None
+    if 0 < num_tiled < rowed.shape[0]:
+        atomic_band = rowed.clone()
+        atomic_band[:, 1][tiled] = -1  # src hi: the atomic kernel's skip
+        atomic_band[:, 3][tiled] = -1
+        atomic_band = atomic_band.reshape(band.shape)
+    plan = TilePlan(tiled, cb, tile_chunks(cb, num_tiles),
+                    merge_tiles(cb, num_tiles), atomic_band, num_tiled,
+                    num_tiles)
+    _plans[key] = (weakref.ref(band, lambda _, k=key: _plans.pop(k, None)),
+                   plan)
+    return plan
 
 
 def output_dtype(vals_dtype: torch.dtype, combine: str) -> torch.dtype:
@@ -60,8 +205,9 @@ def _weight_mode(weight, unit_weight, combine) -> str:
 
 
 def fused_push(band, src, dst, valid, weight, vals, num_segments, *,
-               combine="add", unit_weight=False, init=None):
-    """One-launch fused push over pre-padded inputs.
+               combine="add", unit_weight=False, init=None, path=None):
+    """Fused push over pre-padded inputs: one kernel launch (for add on
+    seg-sorted rows, the tile pass and its merge pass).
 
     Shapes: edges padded to BLOCK_E (``band`` from ``blocks.edge_bands``);
     ``num_segments`` the output length S.  ``weight=None`` skips the
@@ -70,10 +216,15 @@ def fused_push(band, src, dst, valid, weight, vals, num_segments, *,
     the saturating ``c + min(w, SENTINEL - c)`` (ints) or ``c + w`` (floats)
     for min; float min values above ``float(SENTINEL)`` count as unreached.
     ``init`` (optional, the output's shape and dtype) seeds the accumulator
-    in place of the combiner identity (0, or SENTINEL for min).
+    in place of the combiner identity (0, or SENTINEL for min).  For add on
+    CUDA, each row takes the kernel its band gives it (``tile_plan``);
+    ``path="atomic"`` puts every row on the atomic kernel instead.  The
+    tiled path needs every valid destination below ``num_segments``.
     """
     if combine not in ("add", "min"):
         raise ValueError(f"unknown combine {combine!r}")
+    if path not in (None, "atomic") or (path and combine != "add"):
+        raise ValueError(f"path {path!r}: None, or 'atomic' for add")
     mode = _weight_mode(weight, unit_weight, combine)
     out_dtype = output_dtype(vals.dtype, combine)
     rowed = src.dim() == 2
@@ -88,7 +239,7 @@ def fused_push(band, src, dst, valid, weight, vals, num_segments, *,
                          f"BLOCK_E={BLOCK_E}")
     if vals.is_cuda:
         return _launch(band, src, dst, valid, weight, vals, shape, combine,
-                       mode, out_dtype, init)
+                       mode, out_dtype, init, path)
     if vals.device.type != "cpu":
         raise ValueError(f"fused_push runs on CUDA or CPU tensors, not on "
                          f"{vals.device}")
@@ -168,6 +319,11 @@ def _library():
         f.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 7
                       + [ctypes.c_longlong] * 5 + [ctypes.c_int,
                                                    ctypes.c_void_p])
+        t = lib.fused_push_add_tiled_launch
+        t.restype = ctypes.c_int
+        t.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 11
+                      + [ctypes.c_longlong] * 8 + [ctypes.c_int,
+                                                   ctypes.c_void_p])
         _lib = lib
     return _lib
 
@@ -184,9 +340,16 @@ def _check(t, name, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
+def _aligned(t):
+    """``t``, or a copy of it on a 16-byte boundary."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _launch(band, src, dst, valid, weight, vals, shape, combine, mode,
-            out_dtype, init):
-    """Check the operands and launch the CUDA kernel on the current stream."""
+            out_dtype, init, path):
+    """Check the operands and launch the CUDA kernels on the current stream:
+    for add, the tiled kernels over the seg-sorted rows and the atomic kernel
+    over the others; for min, the atomic kernel."""
     if out_dtype not in (torch.float32, torch.int32):
         raise TypeError(f"the CUDA push kernels take float32 or int32 "
                         f"values; {combine} over {vals.dtype} gives "
@@ -215,15 +378,50 @@ def _launch(band, src, dst, valid, weight, vals, shape, combine, mode,
     else:
         _check(init, "init", out_dtype, shape, dev)
         out = init.clone()
+    if C * NB == 0:
+        return out
+    plan = None
+    if combine == "add" and path != "atomic":
+        plan = tile_plan(band)
+        if plan.num_tiles > -(-S // BLOCK_S):
+            raise ValueError(f"a valid destination lies past num_segments="
+                             f"{S}")
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _library().fused_push_launch(
-        0 if combine == "add" else 1, int(out_dtype.is_floating_point),
-        _CODES[mode], band.data_ptr(), src.data_ptr(), dst.data_ptr(),
-        valid.data_ptr(), weight.data_ptr() if mode == "array" else None,
-        vals.data_ptr(), out.data_ptr(), C, E, NB, V, S, B, stream)
-    if err != 0:
-        raise RuntimeError(f"fused_push_{combine} kernel launch failed: "
-                           f"cudaError {err}")
-    if C * NB:
-        launch_counts[f"fused_push_{combine}"] += 1
+    lib = _library()
+    atomic_band = (band if plan is None or plan.num_tiled == 0
+                   else plan.atomic_band)
+    if atomic_band is not None:
+        err = lib.fused_push_launch(
+            0 if combine == "add" else 1, int(out_dtype.is_floating_point),
+            _CODES[mode], atomic_band.data_ptr(), src.data_ptr(),
+            dst.data_ptr(), valid.data_ptr(),
+            weight.data_ptr() if mode == "array" else None, vals.data_ptr(),
+            out.data_ptr(), C, E, NB, V, S, B, stream)
+        if err != 0:
+            raise RuntimeError(f"fused_push_{combine} kernel launch failed: "
+                               f"cudaError {err}")
+        if combine == "add":
+            launch_counts["fused_push_add_atomic"] += 1
+    if plan is not None and plan.num_tiled:
+        # the tiled kernel reads the edge planes 16 bytes at a time
+        src, dst, valid = (_aligned(t) for t in (src, dst, valid))
+        if mode == "array":
+            weight = _aligned(weight)
+        scratch = torch.empty((C, plan.chunk_blocks.shape[1], 2, BLOCK_S, B),
+                              dtype=out_dtype, device=dev)
+        err = lib.fused_push_add_tiled_launch(
+            int(out_dtype.is_floating_point), _CODES[mode], band.data_ptr(),
+            src.data_ptr(), dst.data_ptr(), valid.data_ptr(),
+            weight.data_ptr() if mode == "array" else None, vals.data_ptr(),
+            out.data_ptr(), plan.chunk_blocks.data_ptr(),
+            plan.tile_chunks.data_ptr(), plan.merge_tiles.data_ptr(),
+            scratch.data_ptr(), C, E, NB, TILE_CHUNK_BLOCKS, V, S,
+            plan.num_tiles, plan.merge_tiles.numel(), B, stream)
+        if err != 0:
+            raise RuntimeError(f"tiled fused_push_add kernel launch failed: "
+                               f"cudaError {err}")
+        launch_counts["fused_push_add_tiled"] += 1
+        if plan.merge_tiles.numel():
+            launch_counts["fused_push_add_merge"] += 1
+    launch_counts[f"fused_push_{combine}"] += 1
     return out

@@ -8,8 +8,11 @@ the port is installed:
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
 Min and int32 add results must be bit-equal to the plain torch version;
-float add within rtol=1e-5, atol=1e-6*max|out| (float atomics add in no
-fixed order).
+float add within rtol=1e-5, atol=1e-6*max|out| (the plain version and the
+kernels sum in other orders; the atomic paths in no fixed order at all).
+The tiled fused add sums in an order fixed by the data: its results must
+be bit-identical from call to call, and column b of a ``[B]`` plane
+bit-identical to a one-column call on that column.
 """
 
 import numpy as np
@@ -19,7 +22,7 @@ import torch
 from repro_torch.core import Engine, get_spec
 from repro_torch.core import graph as G
 from repro_torch.kernels import _build, ops, push_fused, push_staged
-from repro_torch.kernels.blocks import BLOCK_E
+from repro_torch.kernels.blocks import BLOCK_E, BLOCK_S
 
 pytestmark = pytest.mark.gpu
 
@@ -39,6 +42,25 @@ def staged_launches(combine, iters):
     name = "sum" if combine == "add" else "min"
     want = dict.fromkeys(push_fused.launch_counts, 0)
     want[f"gather_{name}"] = want[f"scatter_{name}"] = iters
+    return want
+
+
+def fused_launches(arrays, layout, combine, iters):
+    """The launch counts of a fused superstep loop over one layout: the
+    fused kernel of the monoid once per superstep and, for add, the path
+    the band table's rows take (tiled with its merge pass, atomic, or
+    both)."""
+    want = dict.fromkeys(push_fused.launch_counts, 0)
+    want[f"fused_push_{combine}"] = iters
+    if combine == "add":
+        band = arrays["sd_band" if layout == "sd" else "band"]
+        plan = push_fused.tile_plan(band)
+        if plan.num_tiled:
+            want["fused_push_add_tiled"] = iters
+            merges = plan.merge_tiles.numel()
+            want["fused_push_add_merge"] = iters if merges else 0
+        if plan.num_tiled < band.shape[0]:
+            want["fused_push_add_atomic"] = iters
     return want
 
 
@@ -259,8 +281,10 @@ def test_engine_on_cuda_matches_cpu(cuda, name, strategy, chares):
     assert eng.dispatch["kernel"] == "cuda"
     combine = get_spec(name).make().combiner.name
     if eng.dispatch["choice"] == "fused":
-        assert launched[f"fused_push_{combine}"] == iters
-        assert sum(launched.values()) == iters
+        layout = "basic" if strategy == "reduction" else "sd"
+        assert launched == fused_launches(eng.arrays, layout, combine, iters)
+        if combine == "add" and layout == "sd":
+            assert launched["fused_push_add_tiled"] == iters
     else:
         assert launched == staged_launches(combine, iters)
 
@@ -294,3 +318,274 @@ def test_staged_engines_on_cuda_match_cpu(cuda, name, how, chares):
     iters, launched = run_both(name, pg, **kw)
     combine = get_spec(name).make().combiner.name
     assert launched == staged_launches(combine, iters)
+
+
+# ---------------------------------------------------------------------------
+# The fixed-order tiled fused add and the tiled scatter_sum
+# ---------------------------------------------------------------------------
+
+
+def sd_layout(cuda, chares=1, scale=13, layout="sd"):
+    """A weighted RMAT partition's layout on the card, as the engine holds
+    it: (src, dst, valid, weight, band, V, S)."""
+    pg = G.partition(G.random_weights(G.rmat(scale, 14 << scale, seed=1),
+                                      seed=5), chares)
+    a = pg.device_arrays(layout, cuda)
+    p = "sd_" if layout == "sd" else ""
+    return (a[p + "src_local"], a[p + "dst_global"], a[p + "edge_valid"],
+            a[p + "edge_weight"], a[p + "band"], pg.chunk_size,
+            pg.num_chunks * pg.chunk_size)
+
+
+def draw_vals(shape, dtype, cuda, seed=0):
+    rng = np.random.default_rng(seed)
+    if dtype == torch.float32:
+        x = rng.uniform(0, 1, shape).astype(np.float32)
+    else:  # past float32's 2^24 integer range, and sums that wrap
+        x = rng.integers(1 << 24, 1 << 30, shape).astype(np.int32)
+    return torch.from_numpy(x).to(cuda)
+
+
+def same_bits(a, b):
+    """Bit-identical, -0.0 and +0.0 told apart."""
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.shape == b.shape and torch.equal(a, b)
+
+
+def tiled_counts(calls=1):
+    want = dict.fromkeys(push_fused.launch_counts, 0)
+    want.update(fused_push_add=calls, fused_push_add_tiled=calls,
+                fused_push_add_merge=calls)
+    return want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("batch", [None, 4])
+@pytest.mark.parametrize("chares", [1, 3])
+def test_tiled_add_matches_plain(cuda, dtype, weighted, batch, chares):
+    """On the sd layout the add takes the tiled kernels (tile pass + merge
+    pass, no atomic launch) and agrees with the plain version: ints exactly
+    (wrapping), floats within rtol=1e-5, atol=1e-6*max|out|; with and
+    without an init seed."""
+    src, dst, valid, w, band, V, S = sd_layout(cuda, chares)
+    tail = () if batch is None else (batch,)
+    vals = draw_vals((chares, V) + tail, dtype, cuda)
+    w = (w if dtype == torch.float32 else (w * 3).to(torch.int32)) \
+        if weighted else None
+    for init in (None, draw_vals((chares, S) + tail, dtype, cuda, seed=1)):
+        push_fused.reset_launch_counts()
+        got = push_fused.fused_push(band, src, dst, valid, w, vals, S,
+                                    init=init)
+        assert push_fused.launch_counts == tiled_counts()
+        want = push_fused.fused_push_plain(band, src, dst, valid, w, vals, S,
+                                           init=init)
+        assert_kernel_equal(got, want, "add")
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_tiled_add_is_bit_reproducible(cuda, weighted):
+    """Two calls on the same operands give the same bits, and so does the
+    one-row (1-D) form."""
+    src, dst, valid, w, band, V, S = sd_layout(cuda)
+    vals = draw_vals((1, V), torch.float32, cuda)
+    w = w if weighted else None
+    a = push_fused.fused_push(band, src, dst, valid, w, vals, S)
+    b = push_fused.fused_push(band, src, dst, valid, w, vals, S)
+    assert same_bits(a, b)
+    row = push_fused.fused_push(band[0], src[0], dst[0], valid[0],
+                                None if w is None else w[0], vals[0], S)
+    assert same_bits(row, a[0])
+    # edge planes off the kernel's 16-byte boundary are copied onto it
+    off = lambda t: torch.cat([t[0, :1], t[0]])[1:]
+    assert off(src).data_ptr() % 16
+    moved = push_fused.fused_push(band[0], off(src), off(dst), off(valid),
+                                  None if w is None else off(w), vals[0], S)
+    assert same_bits(moved, a[0])
+
+
+@pytest.mark.parametrize("batch", [2, 4, 16])
+def test_tiled_add_columns_equal_one_column_calls(cuda, batch):
+    """Column b of a [B] call has the bits of a [V] call on vals[..., b]:
+    the order of the additions does not depend on B (B=16 runs two column
+    groups of eight)."""
+    src, dst, valid, w, band, V, S = sd_layout(cuda, chares=2)
+    vals = draw_vals((2, V, batch), torch.float32, cuda)
+    got = push_fused.fused_push(band, src, dst, valid, w, vals, S)
+    for b in range(batch):
+        one = push_fused.fused_push(band, src, dst, valid, w,
+                                    vals[..., b].contiguous(), S)
+        assert same_bits(got[..., b].contiguous(), one), b
+
+
+def raw_sorted_layout(cuda, dst, V=700, seed=0):
+    """One row of edges with the given (seg-sorted) destinations, padded to
+    whole edge blocks, random sources, a quarter invalid."""
+    rng = np.random.default_rng(seed)
+    E = -(-len(dst) // BLOCK_E) * BLOCK_E
+    d = np.zeros(E, np.int32)
+    d[:len(dst)] = dst
+    valid = np.zeros(E, np.int32)
+    valid[:len(dst)] = rng.integers(0, 4, len(dst)) > 0
+    src = rng.integers(0, V, E).astype(np.int32)
+    t = lambda a: torch.from_numpy(a).to(cuda)
+    src, d, valid = t(src), t(d), t(valid)
+    return src, d, valid, ops._bands_on_device(src, d, valid, E // BLOCK_E)
+
+
+def check_tiled(cuda, src, dst, valid, band, S, batch=None):
+    tail = () if batch is None else (batch,)
+    for dtype in (torch.float32, torch.int32):
+        vals = draw_vals((700,) + tail, dtype, cuda)
+        push_fused.reset_launch_counts()
+        got = push_fused.fused_push(band, src, dst, valid, None, vals, S)
+        again = push_fused.fused_push(band, src, dst, valid, None, vals, S)
+        assert push_fused.launch_counts == tiled_counts(2)
+        assert same_bits(got, again)
+        want = push_fused.fused_push_plain(band, src, dst, valid, None, vals,
+                                           S)
+        assert_kernel_equal(got, want, "add")
+
+
+def test_tiled_add_hub_block_spans_chunks(cuda):
+    """A hub segment block with five chunks' worth of edges: its partials
+    from every chunk are merged in chunk order."""
+    rng = np.random.default_rng(4)
+    n = 5 * push_fused.TILE_CHUNK_BLOCKS * BLOCK_E
+    hub = np.minimum(rng.geometric(0.05, n) - 1, BLOCK_S - 1)  # skewed
+    dst = np.concatenate([hub, np.sort(rng.integers(BLOCK_S, 4 * BLOCK_S,
+                                                    3000))])
+    src, d, valid, band = raw_sorted_layout(cuda, dst)
+    plan = push_fused.tile_plan(band)
+    c0, c1 = plan.tile_chunks[0, 0].tolist()
+    assert c1 - c0 >= 4
+    check_tiled(cuda, src, d, valid, band, 4 * BLOCK_S)
+
+
+@pytest.mark.parametrize("batch", [None, 16])
+def test_tiled_add_chunk_wider_than_a_tile(cuda, batch):
+    """Ten dense chunks, then one chunk whose destinations spread over 40
+    segment blocks (the warps take turns on one wide tile) and one over 6
+    (several windows of the warps' own tiles, more with B=16's narrower
+    ones): the blocks inside a range go straight to out."""
+    rng = np.random.default_rng(5)
+    n = push_fused.TILE_CHUNK_BLOCKS * BLOCK_E
+    parts = [b * BLOCK_S + rng.integers(0, BLOCK_S, n) for b in range(10)]
+    parts.append(np.sort(rng.integers(10 * BLOCK_S, 50 * BLOCK_S, n)))
+    parts.append(np.sort(rng.integers(50 * BLOCK_S, 56 * BLOCK_S, n)))
+    src, d, valid, band = raw_sorted_layout(cuda, np.concatenate(parts))
+    plan = push_fused.tile_plan(band)
+    assert plan.chunk_blocks[0, 10:12].tolist() == [[10, 49], [50, 55]]
+    check_tiled(cuda, src, d, valid, band, 56 * BLOCK_S, batch)
+
+
+def test_tiled_add_on_a_sparse_layout(cuda):
+    """A near-uniform graph at 8 chares: most chunks are wider than a
+    warp's tile (the warps take turns); right, and the same bits from call
+    to call."""
+    pg = G.partition(G.erdos_renyi(1 << 15, 1 << 16, seed=1), 8)
+    a = pg.device_arrays("sd", cuda)
+    args = (a["sd_band"], a["sd_src_local"], a["sd_dst_global"],
+            a["sd_edge_valid"])
+    cb = push_fused.tile_plan(args[0]).chunk_blocks
+    assert bool(((cb[..., 1] - cb[..., 0]) >= 8).any())
+    S = pg.num_chunks * pg.chunk_size
+    vals = draw_vals((8, pg.chunk_size), torch.float32, cuda)
+    got = push_fused.fused_push(*args, None, vals, S)
+    assert same_bits(got, push_fused.fused_push(*args, None, vals, S))
+    assert_kernel_equal(got, push_fused.fused_push_plain(*args, None, vals,
+                                                         S), "add")
+
+
+def test_tiled_add_ints_wrap_exactly(cuda):
+    """int32 sums past 2^31 wrap as the plain version's do, bit for bit."""
+    dst = np.repeat(np.arange(3 * BLOCK_S), 40)
+    src, d, valid, band = raw_sorted_layout(cuda, dst)
+    vals = torch.full((700,), (1 << 30) + 7, dtype=torch.int32, device=cuda)
+    got = push_fused.fused_push(band, src, d, valid, None, vals, 3 * BLOCK_S)
+    want = push_fused.fused_push_plain(band, src, d, valid, None, vals,
+                                       3 * BLOCK_S)
+    assert torch.equal(got, want)
+
+
+def test_basic_layout_keeps_the_atomic_path(cuda):
+    """The basic layout of an RMAT graph at C=1 is not seg-sorted: the add
+    runs the atomic kernel alone, and is still right."""
+    src, dst, valid, w, band, V, S = sd_layout(cuda, scale=12,
+                                               layout="basic")
+    assert push_fused.tile_plan(band).num_tiled == 0
+    vals = draw_vals((1, V), torch.float32, cuda)
+    push_fused.reset_launch_counts()
+    got = push_fused.fused_push(band, src, dst, valid, w, vals, S)
+    want = dict.fromkeys(push_fused.launch_counts, 0)
+    want.update(fused_push_add=1, fused_push_add_atomic=1)
+    assert push_fused.launch_counts == want
+    assert_kernel_equal(got, push_fused.fused_push_plain(
+        band, src, dst, valid, w, vals, S), "add")
+
+
+def test_mixed_rows_take_both_paths(cuda):
+    """A table with a seg-sorted row and an unsorted one: one atomic launch
+    over the unsorted row, the tiled kernels over the other."""
+    src, dst, valid, w, band, V, S = sd_layout(cuda, chares=2)
+    dst = dst.clone()
+    live = int(valid[1].sum())
+    dst[1, :live] = dst[1, :live][torch.randperm(live, device=cuda)]
+    band = ops._bands_on_device(src, dst, valid, band.shape[-1])
+    assert push_fused.tile_plan(band).tiled.tolist() == [True, False]
+    vals = draw_vals((2, V), torch.float32, cuda)
+    push_fused.reset_launch_counts()
+    got = push_fused.fused_push(band, src, dst, valid, w, vals, S)
+    want = tiled_counts()
+    want["fused_push_add_atomic"] = 1
+    assert push_fused.launch_counts == want
+    assert_kernel_equal(got, push_fused.fused_push_plain(
+        band, src, dst, valid, w, vals, S), "add")
+    forced = push_fused.fused_push(band, src, dst, valid, w, vals, S,
+                                   path="atomic")
+    assert_kernel_equal(forced, got, "add")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+@pytest.mark.parametrize("order", ["sorted", "shuffled"])
+@pytest.mark.parametrize("batch", [None, 4])
+@pytest.mark.parametrize("rowed", [False, True])
+def test_scatter_sum_on_layouts(cuda, dtype, order, batch, rowed):
+    """scatter_sum over the sd layout's destinations (the shared-memory
+    tile path) and over the same ids shuffled (the global path), chare rows
+    or one row, with a [B] plane; ints past 2^24 exact, out-of-range ids
+    dropped."""
+    src, dst, valid, w, band, V, S = sd_layout(cuda, chares=3)
+    tail = () if batch is None else (batch,)
+    c = draw_vals(tuple(dst.shape) + tail, dtype, cuda)
+    if dtype == torch.int32:
+        c = c >> 5  # sums of up to ~10^4 terms stay inside int32
+    # padding edges contribute nothing, as gathered values there are 0
+    c = c * valid.reshape(valid.shape + (1,) * len(tail)).to(c.dtype)
+    dst = dst.clone()
+    if order == "shuffled":
+        perm = torch.randperm(dst.shape[1], device=cuda)
+        dst, c = dst[:, perm].contiguous(), c[:, perm].contiguous()
+    dst[:, ::97] = -1
+    dst[:, 5::101] = S + 3
+    if not rowed:
+        dst, c = dst[1], c[1]
+    push_fused.reset_launch_counts()
+    got = push_staged.scatter_sum(dst, c, S)
+    assert push_fused.launch_counts["scatter_sum"] == 1
+    assert_kernel_equal(got, push_staged.scatter_sum_plain(dst, c, S), "add")
+
+
+def test_pagerank_runs_are_bit_identical(cuda):
+    """Engine(pg, "sortdest") PageRank twice on the card: the same bits,
+    through the tiled add."""
+    pg = prepared("pagerank_weighted", G.rmat(12, 14 << 12, seed=1), 1)
+    eng = Engine(pg)
+    push_fused.reset_launch_counts()
+    a, _ = eng.run("pagerank_weighted")
+    b, _ = eng.run("pagerank_weighted")
+    assert push_fused.launch_counts["fused_push_add_tiled"] > 0
+    assert push_fused.launch_counts["fused_push_add_atomic"] == 0
+    assert np.array_equal(np.asarray(a).view(np.int32),
+                          np.asarray(b).view(np.int32))

@@ -300,5 +300,6 @@ def test_cpu_calls_do_not_count_as_launches(rng):
     ops.push(torch.ones(50), src, dst, valid, 50, fused=False)
     ops.segment_reduce(torch.ones(300), dst, 50)
     assert push_fused.launch_counts == dict.fromkeys(
-        ("fused_push_add", "fused_push_min", "gather_sum", "scatter_sum",
-         "gather_min", "scatter_min"), 0)
+        ("fused_push_add", "fused_push_min", "fused_push_add_tiled",
+         "fused_push_add_merge", "fused_push_add_atomic", "gather_sum",
+         "scatter_sum", "gather_min", "scatter_min"), 0)
