@@ -45,7 +45,9 @@ Phases, each printing one JSON line with its seconds:
              path's edge layout
   chares     2^chare-scale vertices at C chares for sortdest, reduction,
              pairs and basic (the add tiled on sortdest and pairs, atomic on
-             reduction's basic layout), and a near-uniform graph
+             reduction's basic layout), the tiled add on that sd layout
+             timed against the atomic one in turns, with the main path's
+             bit checks, and a near-uniform graph
              (erdos_renyi(2^scale, 2^(scale+1)), the reference's
              staged-choice contrast at the main path's vertex count) at C
              chares, whose dispatch must choose the staged pair; all
@@ -821,9 +823,10 @@ class Smoke:
 
         band, src, dst, valid, w, vals, S = args
         fp = push_fused.fused_push
+        fa = push_fused.fused_push_atomic
         if push_fused.tile_plan(band).num_tiled != band.shape[0]:
             raise AssertionError(f"{what}: the sd layout is not seg-sorted")
-        atomic = fp(*args, path="atomic")
+        atomic = fa(*args)
         again = fp(*args)
         torch.cuda.synchronize()
         if not torch.equal(again.view(torch.int32), got.view(torch.int32)):
@@ -841,8 +844,8 @@ class Smoke:
                                      "differs from its one-column call")
         del vals4, wide, one
         t1 = self.cuda_ms(lambda: fp(*args), 20)
-        a1 = self.cuda_ms(lambda: fp(*args, path="atomic"), 20)
-        a2 = self.cuda_ms(lambda: fp(*args, path="atomic"), 20)
+        a1 = self.cuda_ms(lambda: fa(*args), 20)
+        a2 = self.cuda_ms(lambda: fa(*args), 20)
         t2 = self.cuda_ms(lambda: fp(*args), 20)
         return {"tiled_ms": min(t1, t2), "atomic_ms": min(a1, a2),
                 "turns_ms": {"tiled": [t1, t2], "atomic": [a1, a2]},
@@ -1008,6 +1011,8 @@ class Smoke:
         push_fused.reset_launch_counts()
         for strategy in ("sortdest", "reduction", "pairs", "basic"):
             eng, engu = Engine(pgw, strategy), Engine(pgu, strategy)
+            if strategy == "sortdest":
+                sd = eng.arrays
             for name in ("pagerank", "pagerank_weighted", "sssp", "bfs",
                          "labelprop"):
                 e, graph = (engu, gu) if name == "labelprop" else (eng, gw)
@@ -1028,10 +1033,40 @@ class Smoke:
             if row["launches"].get(want) != row["launches"]["fused_push_add"]:
                 raise AssertionError(f"{row['program']}/{row['strategy']}: "
                                      f"launches {row['launches']}")
+        add_paths = self._chare_add_paths(sd, pgw.num_chunks,
+                                          pgw.chunk_size)
         staged = self._staged_choice()
         return {"vertices": g.num_vertices, "edges": g.num_edges,
                 "chares": a.chares, "runs": rows, "launches": launches,
-                "staged_choice": staged}
+                "add_paths": add_paths, "staged_choice": staged}
+
+    def _chare_add_paths(self, a, C, K):
+        """The fused add on the C-chare sd layout (every chare row in one
+        call, as sortdest and pairs make it): the tiled path against the
+        atomic one with ``_tiled_add_checks``, beside the byte bound.  These
+        rows are far sparser per segment block than the main path's."""
+        import torch
+
+        from repro_torch.kernels import push_fused
+
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        vals = torch.rand((C, K), generator=gen, device="cuda")
+        rows = []
+        for prog, weighted in (("pagerank", False),
+                               ("pagerank_weighted", True)):
+            args = (a["sd_band"], a["sd_src_local"], a["sd_dst_global"],
+                    a["sd_edge_valid"], a["sd_edge_weight"] if weighted
+                    else None, vals, C * K)
+            got = push_fused.fused_push(*args)
+            want = push_fused.fused_push_plain(*args)
+            torch.cuda.synchronize()
+            err = self.compare(got, want, "add", f"{prog} at C={C}")
+            row = {"program": prog, "max_abs_err": err,
+                   **self._tiled_add_checks(args, got, f"{prog} at C={C}")}
+            row["bound_ms"] = self._bound(a, vals, C * K, weighted)[0]
+            rows.append(row)
+            del got, want
+        return rows
 
     def _staged_choice(self):
         """The near-uniform contrast graph at C chares: its dispatch must
@@ -1113,8 +1148,7 @@ class Smoke:
                        else "staged"}
                 if combine == "add":  # the fused add's atomic path, too
                     call = (a["sd_band"], *args[1:4], None, vals, C * K)
-                    atomic = lambda: push_fused.fused_push(*call,
-                                                           path="atomic")
+                    atomic = lambda: push_fused.fused_push_atomic(*call)
                     row["fused_atomic_ms"] = min(self.cuda_ms(atomic, 10),
                                                  self.cuda_ms(atomic, 10))
                 calls.append(row)

@@ -37,7 +37,9 @@
 //   block may be shared with neighbouring chunks, so they go to a scratch
 //   buffer, and merge_kernel adds, per segment block, the partials of the
 //   chunks that cover it in chunk order.  A hub block is so split over many
-//   CTAs.  No global atomics.
+//   CTAs; the wide range of a sparse chunk is split the other way, into
+//   pieces of segment blocks, one CTA each, so that no CTA walks hundreds
+//   of segment blocks alone.  No global atomics.
 // * Min, and add over any other row (the basic layout, arbitrary edges),
 //   take fused_push_kernel: one thread per (edge, batch column), one atomic
 //   per item, grid-stride over (row, edge block) pairs.
@@ -74,6 +76,7 @@ constexpr int kWarpWords = 1024;        // one warp's tile: 4 KB of 4-byte words
 constexpr int kTags = 128;              // a warp's destination tag slots
 constexpr int kRounds = 2;              // edge blocks a warp keeps in flight
 constexpr int kWarpTileBlocks = 8;      // widest chunk range on warp tiles
+constexpr int kChunkBlocks = 16;        // push_fused.TILE_CHUNK_BLOCKS
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr int kSentinel = 2147483647;   // int32 max
 constexpr float kSentinelF = 2147483648.0f;  // float(int32 max), as JAX rounds it
@@ -221,15 +224,18 @@ struct Tiled {
   const int* chunk_blocks;
   const int* tile_chunks;
   const int* merge_tiles;
+  const int* work;
   void* scratch;
-  long long rows, E, NB, K, NC, V, S, NT, NM;
+  long long rows, E, NB, NC, V, S, NT, NM, NW;
   int B;
 };
 
-// One CTA per (row, chunk): the chunk's edge blocks [i0, i1) reduced over
-// its segment blocks [blo, bhi] (chunk_blocks, from the wrapper's schedule;
-// bhi < blo for a chunk with nothing to do).  Columns go in groups of BG,
-// the segment range in windows.  The edge blocks go in groups of kGroup;
+// One CTA per work item (chunk, plo, phi): the chunk's edge blocks [i0, i1)
+// reduced over the piece [plo, phi] of its segment blocks [blo, bhi]
+// (chunk_blocks and work, from the wrapper's schedule).  A dense chunk's
+// range is one piece; a sparse chunk's wide range is split over several
+// CTAs, each reading the chunk's edges and keeping those in its piece.
+// Columns go in groups of BG, the piece in windows.  The edge blocks go in groups of kGroup;
 // in a group, warp w takes the half (w & 1) of blocks w / 2 and
 // w / 2 + kWarps / 2, four consecutive edges a lane (16-byte loads).
 //
@@ -239,7 +245,8 @@ struct Tiled {
 // shares one tile eight times as wide, and the warps add into it in turn,
 // warp 0 first, a barrier after each; zeroing and summing the tiles costs
 // per segment, and this keeps that cost to one tile.  Both orders depend on
-// the data alone, never on B.
+// the data alone, never on B, and neither on the pieces and windows, which
+// only choose the segments a pass keeps.
 //
 // A segment of block blo goes to scratch slot 0, of block bhi (when it
 // differs) to slot 1, any other straight into out.
@@ -250,19 +257,20 @@ __global__ void __launch_bounds__(kBlockE) tiled_add_kernel(const Tiled a) {
   const int* __restrict__ dst = a.dst;
   const int* __restrict__ valid = a.valid;
   const T* __restrict__ weight = static_cast<const T*>(a.weight);
-  const long long E = a.E, NB = a.NB, K = a.K, NC = a.NC, V = a.V, S = a.S;
+  const long long E = a.E, NB = a.NB, NC = a.NC, V = a.V, S = a.S;
   const int B = a.B;
   constexpr int kHalf = kWarps / 2;  // blocks a load round of the CTA covers
   constexpr int kGroup = kHalf * kRounds;
   __shared__ T tile[kWarps * kWarpWords];
   __shared__ int tags[kWarps * kTags];
-  const long long chunk = blockIdx.x;  // row * NC + chunk within the row
+  const int* item = a.work + 3LL * blockIdx.x;
+  const long long chunk = item[0];  // row * NC + chunk within the row
   const int blo = a.chunk_blocks[2 * chunk];
   const int bhi = a.chunk_blocks[2 * chunk + 1];
   if (bhi < blo) return;
   const long long row = chunk / NC;
-  const long long i0 = (chunk - row * NC) * K;
-  const long long i1 = i0 + K < NB ? i0 + K : NB;
+  const long long i0 = (chunk - row * NC) * kChunkBlocks;
+  const long long i1 = i0 + kChunkBlocks < NB ? i0 + kChunkBlocks : NB;
   const int* seg_lo = a.band + (row * 4 + 2) * NB;
   const int* seg_hi = a.band + (row * 4 + 3) * NB;
   const int warp = threadIdx.x >> 5;
@@ -275,8 +283,8 @@ __global__ void __launch_bounds__(kBlockE) tiled_add_kernel(const Tiled a) {
   const T* vrow = static_cast<const T*>(a.vals) + row * V * B;
   T* orow = static_cast<T*>(a.out) + row * S * B;
   T* slots = static_cast<T*>(a.scratch) + chunk * 2 * kBlockS * B;
-  const long long first = static_cast<long long>(blo) * kBlockS;
-  const long long range_end = static_cast<long long>(bhi + 1) * kBlockS;
+  const long long first = static_cast<long long>(item[1]) * kBlockS;
+  const long long range_end = static_cast<long long>(item[2] + 1) * kBlockS;
   const long long end = range_end < S ? range_end : S;
   const long long lane_edge = row * E + (warp & 1) * (kBlockE / 2) + lane * 4;
   for (int g0 = 0; g0 < B; g0 += BG) {
@@ -419,7 +427,7 @@ __global__ void __launch_bounds__(kBlockS) merge_kernel(const Tiled a) {
 template <class Op, int kWeight, int BG>
 cudaError_t launch_tiled(const Tiled& a, cudaStream_t stream) {
   tiled_add_kernel<Op, kWeight, BG>
-      <<<static_cast<unsigned>(a.rows * a.NC), kBlockE, 0, stream>>>(a);
+      <<<static_cast<unsigned>(a.NW), kBlockE, 0, stream>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || a.NM == 0) return err;
   merge_kernel<typename Op::T>
@@ -522,34 +530,37 @@ extern "C" int fused_push_launch(int combine, int is_float, int weight_mode,
 
 // The tiled add over the seg-sorted rows of a layout.  is_float: 0 = int32,
 // 1 = float32.  weight_mode: 0 none, 1 array.  Operands as for
-// fused_push_launch, plus the wrapper's schedule: chunks of chunk_len edge
-// blocks (push_fused.TILE_CHUNK_BLOCKS; NC = ceil(NB / chunk_len) a row),
-// chunk_blocks [rows, NC, 2]
-// int32, the first and last segment block of each chunk (bhi < blo: skip
-// the chunk), tile_chunks [rows, NT, 2] int32, the first and last chunk
-// whose range covers each segment block (c1 < c0: none), merge_tiles [NM]
-// int32, the blocks r * NT + t that some chunk's range starts or ends in,
-// and scratch [rows, NC, 2, 256, B] of the output type.  Segment blocks
-// must lie in [0, ceil(S / 256)), and src, dst, valid and weight must be
-// 16-byte aligned (they are read four edges at a time).  Launches the tile
-// pass, then the merge pass unless NM == 0; returns cudaGetLastError()
-// after them (0 on success).
+// fused_push_launch, plus the wrapper's schedule: chunks of kChunkBlocks
+// edge blocks (NC, which must be ceil(NB / kChunkBlocks), a row);
+// chunk_blocks [rows, NC, 2] int32, the first and last segment block of
+// each chunk (bhi < blo: an empty chunk); tile_chunks [rows, NT, 2] int32,
+// the first and last chunk whose range covers each segment block (c1 < c0:
+// none); merge_tiles [NM] int32, the blocks r * NT + t that some chunk's
+// range starts or ends in; work [NW, 3] int32, the tile pass's CTAs (chunk
+// r * NC + c, and the first and last segment block of a piece of its
+// range; a live chunk's pieces partition its range); and scratch
+// [rows, NC, 2, 256, B] of the output type.  Segment blocks must lie in
+// [0, ceil(S / 256)), and src, dst, valid and weight must be 16-byte
+// aligned (they are read four edges at a time).  Launches the tile pass
+// unless NW == 0, then the merge pass unless NM == 0; returns
+// cudaGetLastError() after them (0 on success).
 extern "C" int fused_push_add_tiled_launch(
     int is_float, int weight_mode, const int* band, const int* src,
     const int* dst, const int* valid, const void* weight, const void* vals,
     void* out, const int* chunk_blocks, const int* tile_chunks,
-    const int* merge_tiles, void* scratch, long long rows, long long E,
-    long long NB, long long chunk_len, long long V, long long S, long long NT,
-    long long NM, int B, void* stream) {
-  if (rows * NB == 0) return static_cast<int>(cudaSuccess);
-  if (B < 1 || chunk_len < 1 || E != NB * kBlockE)
+    const int* merge_tiles, const int* work, void* scratch, long long rows,
+    long long E, long long NB, long long NC, long long V, long long S,
+    long long NT, long long NM, long long NW, int B, void* stream) {
+  if (rows * NB == 0 || NW == 0) return static_cast<int>(cudaSuccess);
+  if (B < 1 || E != NB * kBlockE ||
+      NC != (NB + kChunkBlocks - 1) / kChunkBlocks)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto bits = [](const void* p) { return reinterpret_cast<uintptr_t>(p); };
   if ((bits(src) | bits(dst) | bits(valid) | bits(weight)) & 15)
     return static_cast<int>(cudaErrorMisalignedAddress);
   const Tiled a{band, src, dst, valid, weight, vals, out, chunk_blocks,
-                tile_chunks, merge_tiles, scratch, rows, E, NB, chunk_len,
-                (NB + chunk_len - 1) / chunk_len, V, S, NT, NM, B};
+                tile_chunks, merge_tiles, work, scratch, rows, E, NB, NC, V, S,
+                NT, NM, NW, B};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err = is_float ? launch_tiled_add<AddFloat>(weight_mode, a, s)
                                    : launch_tiled_add<AddInt>(weight_mode, a, s);

@@ -101,8 +101,10 @@ def push(vals, src, dst, valid, num_segments, combine="add", weight=None,
     per-edge) applies the semiring transform between gather and combine:
     ``c * w`` for add, saturating ``c + w`` for min.  Float min treats values
     at/above the int32 sentinel as unreached and returns them as +inf.
-    ``band`` is the layout's precomputed table, derived on the fly when
-    absent; ``unit_weight`` applies the transform with a constant 1.
+    ``band`` is the layout's precomputed table; a table derived on the fly
+    (``band=None``) takes the atomic add, so that no tile plan is computed
+    and read back for a table used once.  ``unit_weight`` applies the
+    transform with a constant 1.
     ``init`` (optional, ``[num_segments(, B)]``) seeds the accumulator with a
     prior partial instead of the combiner identity.  ``fused=False`` runs
     the staged pair (``band`` unused).
@@ -122,9 +124,11 @@ def push(vals, src, dst, valid, num_segments, combine="add", weight=None,
         # inf -> sentinel so the kernel's sentinel fills and masks compare
         # consistently; restored to inf on the way out
         vals_p = torch.clamp(vals_p, max=fused_mod.SENTINEL_F32)
+    kernel = fused_mod.fused_push
     if band is None:
         band = _bands_on_device(src_p, dst_p, valid_p,
                                 src_p.shape[-1] // BLOCK_E)
+        kernel = fused_mod.fused_push_atomic
     w_p = None if weight is None else _pad_to(
         weight, BLOCK_E, 1 if combine == "add" else 0, dim=-1)
     init_p = None
@@ -133,9 +137,8 @@ def push(vals, src, dst, valid, num_segments, combine="add", weight=None,
         init_p = _pad_to(init, BLOCK_S, identity, dim=vdim).to(od)
         if combine == "min" and od.is_floating_point:
             init_p = torch.clamp(init_p, max=fused_mod.SENTINEL_F32)
-    out = fused_mod.fused_push(band, src_p, dst_p, valid_p, w_p, vals_p,
-                               nseg_p, combine=combine,
-                               unit_weight=unit_weight, init=init_p)
+    out = kernel(band, src_p, dst_p, valid_p, w_p, vals_p, nseg_p,
+                 combine=combine, unit_weight=unit_weight, init=init_p)
     out = out.narrow(vdim, 0, num_segments)
     if combine == "add":
         return out.to(vals.dtype)

@@ -38,12 +38,18 @@ SENTINEL = 2147483647
 # float(SENTINEL) in float32: the value JAX compares and fills float min with
 SENTINEL_F32 = float(np.float32(SENTINEL))
 
-# edge blocks per chunk of the tiled add (one CTA of the tile pass);
-# scripts/torch_tiled_add_sweep.py times other lengths
+# edge blocks per chunk of the tiled add (one CTA of the tile pass): the
+# schedule's mirror of kChunkBlocks, a compile-time constant of
+# csrc/push_fused.cu (a test holds the two equal)
 TILE_CHUNK_BLOCKS = 16
+# segment blocks of a chunk's range that one CTA of the tile pass takes at
+# most: a wider range (a sparse chunk) is split into pieces of this many
+# (``work_items``); the sums do not depend on it
+TILE_PIECE_BLOCKS = 32
 
 # launches of each CUDA push kernel since the last reset (CPU calls do not
-# count): the fused pair here (``fused_push_add`` once per call, and the
+# count): the fused pair here (``fused_push_add`` once per call that
+# launches, and the
 # add's path in its own keys: the tiled kernel with its merge pass, or the
 # atomic kernel), the staged four in push_staged
 launch_counts = {"fused_push_add": 0, "fused_push_min": 0,
@@ -139,6 +145,24 @@ def merge_tiles(chunks, num_tiles):
     return torch.unique(ends).to(torch.int32)
 
 
+def work_items(chunks):
+    """``[NW, 3]`` int32, the tile pass's CTAs: for each live chunk
+    (``chunks`` ``[C, NC, 2]`` from ``chunk_blocks``), in order, its flat
+    index ``r * NC + c`` and the first and last segment block of each piece
+    of at most ``TILE_PIECE_BLOCKS`` blocks that its range splits into."""
+    flat = chunks.reshape(-1, 2).long()
+    lo, hi = flat[:, 0], flat[:, 1]
+    P = TILE_PIECE_BLOCKS
+    pieces = torch.where(hi >= lo, (hi - lo) // P + 1, 0)
+    chunk = torch.repeat_interleave(
+        torch.arange(flat.shape[0], device=chunks.device), pieces)
+    before = torch.cumsum(pieces, 0) - pieces  # pieces of earlier chunks
+    k = torch.arange(chunk.numel(), device=chunks.device) - before[chunk]
+    plo = lo[chunk] + k * P
+    phi = torch.minimum(plo + P - 1, hi[chunk])
+    return torch.stack([chunk, plo, phi], dim=1).to(torch.int32)
+
+
 @dataclasses.dataclass(frozen=True)
 class TilePlan:
     """The add's path for each row of one band table, with the tiled path's
@@ -148,6 +172,7 @@ class TilePlan:
     chunk_blocks: torch.Tensor  # [C, NC, 2] int32 (``chunk_blocks``)
     tile_chunks: torch.Tensor   # [C, NT, 2] int32 (``tile_chunks``)
     merge_tiles: torch.Tensor   # [M] int32 (``merge_tiles``)
+    work: torch.Tensor          # [NW, 3] int32 (``work_items``)
     # for a table with rows on both paths, the band with the tiled rows'
     # blocks emptied, for the atomic kernel over the others; else None
     atomic_band: torch.Tensor | None
@@ -179,8 +204,8 @@ def tile_plan(band) -> TilePlan:
         atomic_band[:, 3][tiled] = -1
         atomic_band = atomic_band.reshape(band.shape)
     plan = TilePlan(tiled, cb, tile_chunks(cb, num_tiles),
-                    merge_tiles(cb, num_tiles), atomic_band, num_tiled,
-                    num_tiles)
+                    merge_tiles(cb, num_tiles), work_items(cb), atomic_band,
+                    num_tiled, num_tiles)
     _plans[key] = (weakref.ref(band, lambda _, k=key: _plans.pop(k, None)),
                    plan)
     return plan
@@ -205,7 +230,7 @@ def _weight_mode(weight, unit_weight, combine) -> str:
 
 
 def fused_push(band, src, dst, valid, weight, vals, num_segments, *,
-               combine="add", unit_weight=False, init=None, path=None):
+               combine="add", unit_weight=False, init=None):
     """Fused push over pre-padded inputs: one kernel launch (for add on
     seg-sorted rows, the tile pass and its merge pass).
 
@@ -217,14 +242,29 @@ def fused_push(band, src, dst, valid, weight, vals, num_segments, *,
     for min; float min values above ``float(SENTINEL)`` count as unreached.
     ``init`` (optional, the output's shape and dtype) seeds the accumulator
     in place of the combiner identity (0, or SENTINEL for min).  For add on
-    CUDA, each row takes the kernel its band gives it (``tile_plan``);
-    ``path="atomic"`` puts every row on the atomic kernel instead.  The
-    tiled path needs every valid destination below ``num_segments``.
+    CUDA, each row takes the kernel its band gives it (``tile_plan``, cached
+    per band tensor); the tiled path needs every valid destination below
+    ``num_segments``.
     """
+    return _fused_push(band, src, dst, valid, weight, vals, num_segments,
+                       combine, unit_weight, init, atomic=False)
+
+
+def fused_push_atomic(band, src, dst, valid, weight, vals, num_segments, *,
+                      combine="add", unit_weight=False, init=None):
+    """``fused_push`` with every row on the atomic kernel: no tile plan,
+    so no host sync, and float add in no fixed order.  For a band table
+    made for one call (``ops.push`` without a layout's band), whose plan
+    would be computed and read back on every call, and to time the tiled
+    path against the kernel it replaces."""
+    return _fused_push(band, src, dst, valid, weight, vals, num_segments,
+                       combine, unit_weight, init, atomic=True)
+
+
+def _fused_push(band, src, dst, valid, weight, vals, num_segments, combine,
+                unit_weight, init, atomic):
     if combine not in ("add", "min"):
         raise ValueError(f"unknown combine {combine!r}")
-    if path not in (None, "atomic") or (path and combine != "add"):
-        raise ValueError(f"path {path!r}: None, or 'atomic' for add")
     mode = _weight_mode(weight, unit_weight, combine)
     out_dtype = output_dtype(vals.dtype, combine)
     rowed = src.dim() == 2
@@ -239,7 +279,7 @@ def fused_push(band, src, dst, valid, weight, vals, num_segments, *,
                          f"BLOCK_E={BLOCK_E}")
     if vals.is_cuda:
         return _launch(band, src, dst, valid, weight, vals, shape, combine,
-                       mode, out_dtype, init, path)
+                       mode, out_dtype, init, atomic)
     if vals.device.type != "cpu":
         raise ValueError(f"fused_push runs on CUDA or CPU tensors, not on "
                          f"{vals.device}")
@@ -321,8 +361,8 @@ def _library():
                                                    ctypes.c_void_p])
         t = lib.fused_push_add_tiled_launch
         t.restype = ctypes.c_int
-        t.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 11
-                      + [ctypes.c_longlong] * 8 + [ctypes.c_int,
+        t.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 12
+                      + [ctypes.c_longlong] * 9 + [ctypes.c_int,
                                                    ctypes.c_void_p])
         _lib = lib
     return _lib
@@ -346,10 +386,11 @@ def _aligned(t):
 
 
 def _launch(band, src, dst, valid, weight, vals, shape, combine, mode,
-            out_dtype, init, path):
+            out_dtype, init, atomic):
     """Check the operands and launch the CUDA kernels on the current stream:
     for add, the tiled kernels over the seg-sorted rows and the atomic kernel
-    over the others; for min, the atomic kernel."""
+    over the others (over every row if ``atomic``); for min, the atomic
+    kernel."""
     if out_dtype not in (torch.float32, torch.int32):
         raise TypeError(f"the CUDA push kernels take float32 or int32 "
                         f"values; {combine} over {vals.dtype} gives "
@@ -381,7 +422,7 @@ def _launch(band, src, dst, valid, weight, vals, shape, combine, mode,
     if C * NB == 0:
         return out
     plan = None
-    if combine == "add" and path != "atomic":
+    if combine == "add" and not atomic:
         plan = tile_plan(band)
         if plan.num_tiles > -(-S // BLOCK_S):
             raise ValueError(f"a valid destination lies past num_segments="
@@ -390,6 +431,7 @@ def _launch(band, src, dst, valid, weight, vals, shape, combine, mode,
     lib = _library()
     atomic_band = (band if plan is None or plan.num_tiled == 0
                    else plan.atomic_band)
+    launched = False  # a tiled table with no live chunk launches nothing
     if atomic_band is not None:
         err = lib.fused_push_launch(
             0 if combine == "add" else 1, int(out_dtype.is_floating_point),
@@ -400,9 +442,10 @@ def _launch(band, src, dst, valid, weight, vals, shape, combine, mode,
         if err != 0:
             raise RuntimeError(f"fused_push_{combine} kernel launch failed: "
                                f"cudaError {err}")
+        launched = True
         if combine == "add":
             launch_counts["fused_push_add_atomic"] += 1
-    if plan is not None and plan.num_tiled:
+    if plan is not None and plan.work.shape[0]:
         # the tiled kernel reads the edge planes 16 bytes at a time
         src, dst, valid = (_aligned(t) for t in (src, dst, valid))
         if mode == "array":
@@ -415,13 +458,16 @@ def _launch(band, src, dst, valid, weight, vals, shape, combine, mode,
             weight.data_ptr() if mode == "array" else None, vals.data_ptr(),
             out.data_ptr(), plan.chunk_blocks.data_ptr(),
             plan.tile_chunks.data_ptr(), plan.merge_tiles.data_ptr(),
-            scratch.data_ptr(), C, E, NB, TILE_CHUNK_BLOCKS, V, S,
-            plan.num_tiles, plan.merge_tiles.numel(), B, stream)
+            plan.work.data_ptr(), scratch.data_ptr(), C, E, NB,
+            plan.chunk_blocks.shape[1], V, S, plan.num_tiles,
+            plan.merge_tiles.numel(), plan.work.shape[0], B, stream)
         if err != 0:
             raise RuntimeError(f"tiled fused_push_add kernel launch failed: "
                                f"cudaError {err}")
+        launched = True
         launch_counts["fused_push_add_tiled"] += 1
         if plan.merge_tiles.numel():
             launch_counts["fused_push_add_merge"] += 1
-    launch_counts[f"fused_push_{combine}"] += 1
+    if launched:
+        launch_counts[f"fused_push_{combine}"] += 1
     return out

@@ -498,6 +498,34 @@ def test_tiled_add_on_a_sparse_layout(cuda):
                                                          S), "add")
 
 
+@pytest.mark.parametrize("batch", [None, 4])
+def test_tiled_add_pieces_keep_the_bits(cuda, monkeypatch, batch):
+    """A sparse chunk's range is split over several CTAs (the work list's
+    pieces); the sums are the same bits whatever the piece size, from one
+    segment block a CTA to the whole range."""
+    pg = G.partition(G.erdos_renyi(1 << 15, 1 << 16, seed=2), 8)
+    a = pg.device_arrays("sd", cuda)
+    band = a["sd_band"]
+    edges = (a["sd_src_local"], a["sd_dst_global"], a["sd_edge_valid"],
+             a["sd_edge_weight"])
+    S = pg.num_chunks * pg.chunk_size
+    tail = () if batch is None else (batch,)
+    vals = draw_vals((8, pg.chunk_size) + tail, torch.float32, cuda)
+    plan = push_fused.tile_plan(band)
+    live = int((plan.chunk_blocks[..., 1] >= plan.chunk_blocks[..., 0])
+               .sum())
+    assert plan.work.shape[0] > live  # some ranges are split
+    got = push_fused.fused_push(band, *edges, vals, S)
+    for piece in (1, 1 << 20):
+        monkeypatch.setattr(push_fused, "TILE_PIECE_BLOCKS", piece)
+        other = band.clone()  # a new table, so a plan with these pieces
+        n = push_fused.tile_plan(other).work.shape[0]
+        assert n > plan.work.shape[0] if piece == 1 else n == live
+        assert same_bits(push_fused.fused_push(other, *edges, vals, S), got)
+    assert_kernel_equal(got, push_fused.fused_push_plain(band, *edges, vals,
+                                                         S), "add")
+
+
 def test_tiled_add_ints_wrap_exactly(cuda):
     """int32 sums past 2^31 wrap as the plain version's do, bit for bit."""
     dst = np.repeat(np.arange(3 * BLOCK_S), 40)
@@ -525,6 +553,30 @@ def test_basic_layout_keeps_the_atomic_path(cuda):
         band, src, dst, valid, w, vals, S), "add")
 
 
+def test_ops_push_without_a_band_takes_the_atomic_add(cuda):
+    """ops.push derives a band for one call when given none: the add runs
+    the atomic kernel with no tile plan, so the call makes no host sync
+    and caches nothing; the layout's own band takes the tiled path."""
+    src, dst, valid, w, band, V, S = sd_layout(cuda, chares=2, scale=12)
+    vals = draw_vals((2, V), torch.float32, cuda)
+    plans = len(push_fused._plans)
+    push_fused.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = ops.push(vals, src, dst, valid, S, weight=w)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want = dict.fromkeys(push_fused.launch_counts, 0)
+    want.update(fused_push_add=1, fused_push_add_atomic=1)
+    assert push_fused.launch_counts == want
+    assert len(push_fused._plans) == plans
+    push_fused.reset_launch_counts()
+    tiled = ops.push(vals, src, dst, valid, S, weight=w, band=band)
+    assert push_fused.launch_counts == tiled_counts()
+    assert_kernel_equal(got, tiled, "add")
+
+
 def test_mixed_rows_take_both_paths(cuda):
     """A table with a seg-sorted row and an unsorted one: one atomic launch
     over the unsorted row, the tiled kernels over the other."""
@@ -542,8 +594,7 @@ def test_mixed_rows_take_both_paths(cuda):
     assert push_fused.launch_counts == want
     assert_kernel_equal(got, push_fused.fused_push_plain(
         band, src, dst, valid, w, vals, S), "add")
-    forced = push_fused.fused_push(band, src, dst, valid, w, vals, S,
-                                   path="atomic")
+    forced = push_fused.fused_push_atomic(band, src, dst, valid, w, vals, S)
     assert_kernel_equal(forced, got, "add")
 
 

@@ -15,6 +15,8 @@ The kernels themselves run on the card: ``tests/test_torch_cuda.py``.
 """
 
 import gc
+import pathlib
+import re
 
 import numpy as np
 import pytest
@@ -29,6 +31,7 @@ from repro_torch.kernels.blocks import BLOCK_E, BLOCK_S, edge_bands
 GRAPHS = tuple(sorted(EQUIV_GRAPHS + ("rmat10",) + DEGENERATE_GRAPHS))
 CHARES = (1, 2, 4, 8)
 K = PF.TILE_CHUNK_BLOCKS
+P = PF.TILE_PIECE_BLOCKS
 
 
 def to_port(g):
@@ -76,6 +79,16 @@ def model_chunks(band, rows):
     return out
 
 
+def model_work(chunks):
+    """The tile pass's CTAs: (flat chunk, first, last segment block) for
+    each piece of at most P blocks of each live chunk's range, in order."""
+    out = []
+    for c, (lo, hi) in enumerate(chunks.reshape(-1, 2)):
+        for plo in range(lo, hi + 1, P):
+            out.append((c, plo, min(plo + P - 1, hi)))
+    return np.array(out, np.int64).reshape(-1, 3)
+
+
 def model_touching(chunks, r, t):
     """The live chunks of row r whose range holds segment block t."""
     lo, hi = chunks[r, :, 0], chunks[r, :, 1]
@@ -92,6 +105,8 @@ def assert_schedule(band_np, band=None):
     np.testing.assert_array_equal(plan.tiled.numpy(), rows)
     chunks = model_chunks(band_np, rows)
     np.testing.assert_array_equal(plan.chunk_blocks.numpy(), chunks)
+    assert plan.work.dtype == torch.int32
+    np.testing.assert_array_equal(plan.work.numpy(), model_work(chunks))
     assert plan.num_tiled == int(rows.sum())
     assert plan.num_tiles == int(chunks[..., 1].max()) + 1
     tc = plan.tile_chunks.numpy()
@@ -117,11 +132,12 @@ def assert_schedule(band_np, band=None):
 
 
 def tiled_add_model(plan, src, dst, valid, vals, S):
-    """The tiled kernels' data flow in numpy (int64 sums): per chunk, its
-    edges' contributions; segments of the chunk's first and last block to
-    scratch slots 0 and 1, the others straight to out; then per segment
-    block, the scratch partials of the chunks tile_chunks names.  Rows off
-    the tiled path are summed directly."""
+    """The tiled kernels' data flow in numpy (int64 sums): per work item, the
+    contributions of its chunk's edges into the item's piece of the chunk's
+    range; segments of the chunk's first and last block to scratch slots 0
+    and 1, the others straight to out; then per segment block, the scratch
+    partials of the chunks tile_chunks names.  Rows off the tiled path are
+    summed directly."""
     C, E = src.shape
     cb = plan.chunk_blocks.numpy()
     tc = plan.tile_chunks.numpy()
@@ -133,24 +149,28 @@ def tiled_add_model(plan, src, dst, valid, vals, S):
         if not tiled[r]:
             keep = valid[r] != 0
             np.add.at(out[r], dst[r][keep], vals[r][src[r][keep]])
+    for flat, plo, phi in plan.work.numpy():
+        r, c = divmod(int(flat), NC)
+        lo, hi = cb[r, c]
+        assert tiled[r] and lo <= plo <= phi <= hi
+        e = np.arange(c * K * BLOCK_E, min((c + 1) * K * BLOCK_E, E))
+        e = e[valid[r, e] != 0]
+        blk = dst[r, e] // BLOCK_S
+        assert ((lo <= blk) & (blk <= hi)).all()  # the range holds them
+        e = e[(plo <= blk) & (blk <= phi)]
+        part = np.zeros(S, np.int64)
+        np.add.at(part, dst[r, e], vals[r][src[r, e]])
+        for s in np.flatnonzero(part):
+            sb = s // BLOCK_S
+            if sb == lo:
+                scratch[r, c, 0, s % BLOCK_S] = part[s]
+            elif sb == hi:
+                scratch[r, c, 1, s % BLOCK_S] = part[s]
+            else:
+                out[r, s] += part[s]
+    for r in range(C):
+        if not tiled[r]:
             continue
-        for c in range(NC):
-            lo, hi = cb[r, c]
-            if hi < lo:
-                continue
-            e = np.arange(c * K * BLOCK_E, min((c + 1) * K * BLOCK_E, E))
-            e = e[valid[r, e] != 0]
-            part = np.zeros(S, np.int64)
-            np.add.at(part, dst[r, e], vals[r][src[r, e]])
-            for s in np.flatnonzero(part):
-                sb = s // BLOCK_S
-                assert lo <= sb <= hi  # the chunk's range holds its edges
-                if sb == lo:
-                    scratch[r, c, 0, s % BLOCK_S] = part[s]
-                elif sb == hi:
-                    scratch[r, c, 1, s % BLOCK_S] = part[s]
-                else:
-                    out[r, s] += part[s]
         for t in range(tc.shape[1]):
             c0, c1 = tc[r, t]
             for c in range(c0, c1 + 1):
@@ -331,6 +351,11 @@ def test_chunk_wider_than_a_tile():
     plan = assert_schedule(band)
     cb = plan.chunk_blocks.numpy()[0]
     assert cb[10].tolist() == [10, 49] and cb[11].tolist() == [50, 55]
+    # the 40-block range is two CTAs' work, the 6-block one a single CTA's
+    work = plan.work.numpy().tolist()
+    assert [w for w in work if w[0] == 10] == [[10, 10, 10 + P - 1],
+                                               [10, 10 + P, 49]]
+    assert [w for w in work if w[0] == 11] == [[11, 50, 55]]
     lo, hi = cb[10]
     tc = plan.tile_chunks.numpy()[0]
     assert (tc[lo + 1:hi] == [10, 10]).all()
@@ -369,6 +394,7 @@ def test_one_row_band_and_empty_table():
     plan = PF.tile_plan(torch.from_numpy(empty))
     assert plan.num_tiled == 2 and plan.num_tiles == 0
     assert plan.tile_chunks.shape == (2, 0, 2)
+    assert plan.work.shape == (0, 3)
 
 
 def test_tile_plan_is_cached_per_table():
@@ -401,3 +427,34 @@ def test_reference_sd_layout_is_seg_sorted_too():
     for chares in CHARES:
         rp = RG.partition(graph("rmat10"), chares)
         assert model_sorted(np.asarray(rp.sd_band)).all()
+
+
+def test_chunk_length_matches_the_kernels_constant():
+    """The schedule's chunk length mirrors kChunkBlocks, which the tile pass
+    compiles in; the launch also refuses a plan whose chunk count differs."""
+    src = (pathlib.Path(PF.__file__).parent / "csrc" / "push_fused.cu") \
+        .read_text()
+    m = re.search(r"constexpr int kChunkBlocks = (\d+);", src)
+    assert m and int(m.group(1)) == K
+
+
+@pytest.mark.parametrize("chares", CHARES)
+@pytest.mark.parametrize("seed", range(3))
+def test_wide_ranges_split_into_pieces(seed, chares):
+    """On a sparse sd layout the work list splits every chunk range wider
+    than P segment blocks into pieces of at most P blocks, in order and
+    without gaps, and gives every other live chunk one CTA."""
+    tp = TG.partition(TG.erdos_renyi(1 << 15, 1 << 16, seed=seed), chares)
+    plan = PF.tile_plan(torch.from_numpy(tp.sd_band))
+    cb = plan.chunk_blocks.numpy().reshape(-1, 2)
+    work = plan.work.numpy()
+    assert (np.diff(work[:, 0]) >= 0).all()
+    assert (work[:, 2] - work[:, 1] < P).all()
+    live = np.flatnonzero(cb[:, 1] >= cb[:, 0])
+    assert np.array_equal(np.unique(work[:, 0]), live)
+    for c in live:
+        mine = work[work[:, 0] == c]
+        assert mine[0, 1] == cb[c, 0] and mine[-1, 2] == cb[c, 1]
+        assert (mine[1:, 1] == mine[:-1, 2] + 1).all()
+    if chares == 8:
+        assert len(work) > len(live)  # some range is wider than P
