@@ -10,9 +10,12 @@ Phases, each printing one JSON line with its seconds:
              src/repro_torch/kernels/csrc/ (one nvcc per source, together)
   kernels    each CUDA kernel against its plain torch version on the card.
              Fused: add x {f32, i32} x {no weight, weight}; min x {i32,
-             f32} x {none, weight, unit}; with and without a [B=4] plane and
-             an init seed; all-invalid, empty-edge-block, saturation and
-             negative-weight cases.  Staged: gather sum x {f32, i32, bf16},
+             f32} x {none, weight, unit}, a third of the sources
+             unreached; with and without a [B=4] plane and an init seed;
+             all-invalid, empty-edge-block, saturation and negative-weight
+             cases, unreached sources over negative weights and a float
+             init above 2^31 (the min's skip must keep what they send).
+             Staged: gather sum x {f32, i32, bf16},
              gather min x {i32, f32 with sentinel-range values}, scatter
              sum x {f32, i32 past 2^24}, scatter min x {i32, f32 with
              negatives}, each with and without [B=4], in chare-row and 1-D
@@ -24,7 +27,9 @@ Phases, each printing one JSON line with its seconds:
              pagerank_weighted, sssp, bfs (source 0) and labelprop, checked
              against the serial references (connected components from scipy
              for labelprop); launch counts are zeroed before and read after,
-             and the add must have taken the tiled path (no atomic launch)
+             and the add and the min must have taken the tiled path
+             (``fused_push_min_tiled`` once per min superstep, no atomic
+             launch of either)
   reproducible  pagerank and pagerank_weighted of the main path run twice
              more: the results must be bit-identical
   staged_main  the same graphs and programs through Engine(pg, "basic")
@@ -37,25 +42,34 @@ Phases, each printing one JSON line with its seconds:
   kernel_time  each kernel at the main path's shapes against its plain
              version: CUDA-event times, the memory bound and, where one
              PyTorch call computes the same function, that call's time.
-             The tiled fused add is timed against the atomic path it
-             replaces, and scatter_sum against index_add_, in turns in the
-             same call; the tiled add's repeated calls and the columns of a
-             [B=4] call against one-column calls must be bit-identical
+             The tiled fused add and the tiled fused min are timed against
+             the atomic path they replace, and the scatters against
+             index_add_ / scatter_reduce_(amin), in turns in the same call;
+             the tiled add's repeated calls and the columns of a [B=4] call
+             against one-column calls must be bit-identical, the two min
+             paths bit-equal to each other and to the plain version.  The
+             min runs each program's call at B=1 and B=4 and on a sparse
+             frontier (1% of sources reached, the rest at the identity: the
+             skip that the dense calls cannot show); the min pair of the
+             staged path runs at B=1 and B=4.  The fused calls' yardstick
+             is index_add_ / scatter_reduce_(amin) into the identity over
+             values gathered beforehand
   kernels_main  the kernels phase's operand matrices again on the main
              path's edge layout
   chares     2^chare-scale vertices at C chares for sortdest, reduction,
-             pairs and basic (the add tiled on sortdest and pairs, atomic on
-             reduction's basic layout), the tiled add on that sd layout
-             timed against the atomic one in turns, with the main path's
-             bit checks, and a near-uniform graph
+             pairs and basic (add and min tiled on sortdest and pairs,
+             atomic on reduction's basic layout), the tiled add and the
+             tiled min on that sd layout timed against the atomic ones in
+             turns, with the main path's bit checks, and a near-uniform graph
              (erdos_renyi(2^scale, 2^(scale+1)), the reference's
              staged-choice contrast at the main path's vertex count) at C
              chares, whose dispatch must choose the staged pair; all
              against the serial references
   push_choice  one fused push against one staged pair on the main layout
              and on the staged-choice layout (is choose_push's pick the
-             faster one on this card?), and program seconds on the
-             staged-choice graph with either hook
+             faster one on this card?), with the fused kernel's atomic path
+             and the path the fused hook took (add and min), and program
+             seconds on the staged-choice graph with either hook
   quickstart  python -m repro_torch.quickstart's main() on the card; all
              its checks must hold
 
@@ -68,7 +82,7 @@ agree with them within rtol=1e-5, atol=1e-6*max|out| (the plain version sums
 in another order).  Float sums are fixed-order on seg-sorted rows (the
 tiled fused add): repeated calls and runs must match bit for bit there.
 The atomic paths (the fused add on other rows, scatter_sum) add floats in
-no fixed order.
+no fixed order; every min path is exact in any order.
 """
 
 from __future__ import annotations
@@ -201,11 +215,12 @@ class Smoke:
         """Both kernels over every operand combination on one edge layout:
         add x {f32, i32} x {no weight, weight}, min x {i32, f32} x {none,
         weight, unit}, each with and without a [B=4] plane and an init seed
-        (and, for several chare rows, on one row alone).  ``float_vals``
-        draws the float values.  Returns the number of cases."""
+        (and, for several chare rows, on one row alone), a third of the min
+        sources unreached; then ``_min_edge_cases``.  ``float_vals`` draws
+        the float values.  Returns the number of cases."""
         import torch
 
-        from repro_torch.kernels.push_fused import fused_push_plain
+        from repro_torch.kernels.push_fused import SENTINEL, fused_push_plain
 
         gen = torch.Generator(device="cuda").manual_seed(seed)
         C, E = src.shape
@@ -228,6 +243,10 @@ class Smoke:
                     vals, w = ints(1 << 24, 1 << 26, shape), ints(0, 3, (C, E))
                 else:
                     vals, w = ints(0, 10_000, shape), ints(0, 9, (C, E))
+                if combine == "min":  # a third of the sources unreached
+                    vals.view(-1)[::3] = (float("inf")
+                                          if dtype.is_floating_point
+                                          else SENTINEL)
                 w = w if mode == "array" else None
                 for seeded in (False, True):
                     init = (fused_push_plain(band, src, dst, valid, None, vals,
@@ -244,6 +263,46 @@ class Smoke:
                             mode == "unit", None if init is None else init[1],
                             what + "/row")
                         cases += 1
+        return cases + self._min_edge_cases(band, src, dst, valid, V, S,
+                                            seed)
+
+    def _min_edge_cases(self, band, src, dst, valid, V, S, seed):
+        """The fused min's skip against the plain version, bit for bit, on
+        one edge layout (the tiled path on the sd layout, the atomic one on
+        random edges), with and without a [B=4] plane: every source
+        unreached over weights down to -300 (ints) or -2000 (floats) --
+        SENTINEL + w and 2^31 + w are real values -- and a float init above
+        2^31 (+inf, 3e9), which a slot no contribution lowers keeps.
+        Returns the number of cases."""
+        import torch
+
+        from repro_torch.kernels.push_fused import SENTINEL
+
+        gen = torch.Generator(device="cuda").manual_seed(seed + 100)
+        C, E = src.shape
+        rand = lambda *shape: torch.rand(shape, generator=gen, device="cuda")
+        cases = 0
+        for B in (None, 4):
+            shape = (C, V) + (() if B is None else (B,))
+            oshape = (C, S) + shape[2:]
+            iw = (rand(C, E) * 305 - 300).to(torch.int32)
+            fw = rand(C, E) * 2005 - 2000
+            ivals = torch.full(shape, SENTINEL, dtype=torch.int32,
+                               device="cuda")
+            fvals = torch.full(shape, float("inf"), device="cuda")
+            for vals, w, what in ((ivals, iw, "int"), (fvals, fw, "float")):
+                self._check_kernel(band, src, dst, valid, w, vals, S, "min",
+                                   False, None,
+                                   f"min/unreached over negative w/{what}/"
+                                   f"B={B}")
+            far = torch.where(rand(*oshape) < 0.5, float("inf"), 3e9)
+            half = torch.where(rand(*shape) < 0.5, rand(*shape) * 100,
+                               float("inf"))
+            for w in (None, fw + 2000):
+                self._check_kernel(band, src, dst, valid, w, half, S, "min",
+                                   False, far,
+                                   f"min/float init above 2^31/B={B}")
+            cases += 4
         return cases
 
     STAGED_CASES = (  # (kernel, value dtype name)
@@ -497,11 +556,12 @@ class Smoke:
     @staticmethod
     def _expected_launches(eng, combine, iters):
         """The launches one run of ``eng`` must make: the fused kernel of
-        the monoid once per superstep -- for add, with the path its layout's
-        band table gives each row: the tiled kernel and its merge pass, the
-        atomic kernel, or both -- or, for ``basic``, ``push_fn=None`` or the
-        staged hook, one gather and one scatter kernel of the monoid per
-        superstep; no other kernel."""
+        the monoid once per superstep, with the path its layout's band
+        table gives each row (``tile_plan``; the min tiles only a table
+        dense enough) -- the tiled kernel (for add with its merge pass),
+        the atomic kernel, or both -- or, for ``basic``,
+        ``push_fn=None`` or the staged hook, one gather and one scatter
+        kernel of the monoid per superstep; no other kernel."""
         from repro_torch.kernels import push_fused
 
         want = dict.fromkeys(push_fused.launch_counts, 0)
@@ -509,16 +569,17 @@ class Smoke:
                  and getattr(eng.push_fn, "fused", True))
         if fused:
             want[f"fused_push_{combine}"] = iters
-            if combine == "add":
-                band = eng.arrays["band" if eng.strategy == "reduction"
-                                  else "sd_band"]
-                plan = push_fused.tile_plan(band)
-                if plan.num_tiled:
-                    want["fused_push_add_tiled"] = iters
-                    merges = plan.merge_tiles.numel()
-                    want["fused_push_add_merge"] = iters if merges else 0
-                if plan.num_tiled < band.shape[0]:
-                    want["fused_push_add_atomic"] = iters
+            band = eng.arrays["band" if eng.strategy == "reduction"
+                              else "sd_band"]
+            plan = push_fused.tile_plan(band)
+            tiled = (plan.num_tiled if combine == "add" or plan.min_tiled
+                     else 0)
+            if tiled:
+                want[f"fused_push_{combine}_tiled"] = iters
+                if combine == "add" and plan.merge_tiles.numel():
+                    want["fused_push_add_merge"] = iters
+            if tiled < band.shape[0]:
+                want[f"fused_push_{combine}_atomic"] = iters
         else:
             half = "sum" if combine == "add" else "min"
             want[f"gather_{half}"] = want[f"scatter_{half}"] = iters
@@ -621,11 +682,13 @@ class Smoke:
                                             "main"))
         self.main_launches = dict(push_fused.launch_counts)
         for k in ("fused_push_add", "fused_push_min", "fused_push_add_tiled",
-                  "fused_push_add_merge"):
+                  "fused_push_add_merge", "fused_push_min_tiled"):
             if self.main_launches[k] == 0:
                 raise AssertionError(f"{k} was not launched on the main path")
-        if self.main_launches["fused_push_add_atomic"]:
-            raise AssertionError("the main path's add took the atomic path")
+        for combine in ("add", "min"):
+            if self.main_launches[f"fused_push_{combine}_atomic"]:
+                raise AssertionError(f"the main path's {combine} took the "
+                                     "atomic path")
         self.engines = engines
         return {"programs": rows, "launches": self.main_launches,
                 "dispatch": {k: v for k, v in engines["pagerank"]
@@ -740,57 +803,82 @@ class Smoke:
         arrs, arrsu = eng.arrays, engu.arrays
         K = self.pgw.chunk_size
         S = K
+        SF, SI = float(push_fused.SENTINEL_F32), push_fused.SENTINEL
         gen = torch.Generator(device="cuda").manual_seed(0)
-        fvals = torch.rand((1, K), generator=gen, device="cuda")
-        dist = torch.where(torch.rand((1, K), generator=gen, device="cuda")
-                           < 0.5, fvals * 100, float(push_fused.SENTINEL_F32))
+        rand = lambda *shape: torch.rand(shape, generator=gen, device="cuda")
+        fvals = rand(1, K)
+        dist = torch.where(rand(1, K) < 0.5, fvals * 100, SF)
         ivals = (fvals * 1e6).to(torch.int32)
         labels = torch.arange(K, device="cuda", dtype=torch.int32)[None]
-        # (program, kernel, layout, vals, weighted, unit): the calls the main
-        # path makes, at its shapes
+        # B=4 planes, and a sparse frontier: 1% of sources reached, the rest
+        # at the identity, as a min program's quiesced sources send it
+        dist4 = torch.where(rand(1, K, 4) < 0.5, rand(1, K, 4) * 100, SF)
+        ivals4 = (rand(1, K, 4) * 1e6).to(torch.int32)
+        labels4 = labels[..., None] * 4 + torch.arange(
+            4, device="cuda", dtype=torch.int32)
+        few = rand(1, K) < 0.01
+        dist_f = torch.where(few, fvals * 100, SF)
+        ivals_f = torch.where(few, 3, SI).to(torch.int32)
+        labels_f = torch.where(few, labels, SI)
+        # (program, kernel, case, layout, vals, weighted, unit): the calls
+        # the main path makes, at its shapes
         variants = [
-            ("pagerank", "fused_push_add", arrs, fvals, False, False),
-            ("pagerank_weighted", "fused_push_add", arrs, fvals, True, False),
-            ("sssp", "fused_push_min", arrs, dist, True, False),
-            ("bfs", "fused_push_min", arrs, ivals, False, True),
-            ("labelprop", "fused_push_min", arrsu, labels, False, False),
+            ("pagerank", "fused_push_add", "dense", arrs, fvals, False,
+             False),
+            ("pagerank_weighted", "fused_push_add", "dense", arrs, fvals,
+             True, False),
+            ("sssp", "fused_push_min", "dense", arrs, dist, True, False),
+            ("bfs", "fused_push_min", "dense", arrs, ivals, False, True),
+            ("labelprop", "fused_push_min", "dense", arrsu, labels, False,
+             False),
+            ("sssp", "fused_push_min", "B=4", arrs, dist4, True, False),
+            ("bfs", "fused_push_min", "B=4", arrs, ivals4, False, True),
+            ("labelprop", "fused_push_min", "B=4", arrsu, labels4, False,
+             False),
+            ("sssp", "fused_push_min", "frontier 1%", arrs, dist_f, True,
+             False),
+            ("bfs", "fused_push_min", "frontier 1%", arrs, ivals_f, False,
+             True),
+            ("labelprop", "fused_push_min", "frontier 1%", arrsu, labels_f,
+             False, False),
         ]
         rows = []
-        for prog, kern, a, vals, weighted, unit in variants:
+        for prog, kern, case, a, vals, weighted, unit in variants:
             combine = "add" if kern.endswith("add") else "min"
             args = (a["sd_band"], a["sd_src_local"], a["sd_dst_global"],
                     a["sd_edge_valid"], a["sd_edge_weight"] if weighted
                     else None, vals, S)
             kw = dict(combine=combine, unit_weight=unit)
+            what = f"{prog}/{case} at main shape"
             got = push_fused.fused_push(*args, **kw)
             want = push_fused.fused_push_plain(*args, **kw)
             torch.cuda.synchronize()
-            err = self.compare(got, want, combine, f"{prog} at main shape")
+            err = self.compare(got, want, combine, what)
             del want
-            extra = {}
-            if combine == "add":
-                extra = self._tiled_add_checks(args, got, prog)
-                ms = extra.pop("tiled_ms")
-            else:
-                ms = self.cuda_ms(
-                    lambda: push_fused.fused_push(*args, **kw), 20)
+            extra = (self._tiled_add_checks(args, got, what)
+                     if combine == "add"
+                     else self._min_paths(args, kw, got, what))
+            ms = extra.pop("tiled_ms")
             del got
             plain_ms = self.cuda_ms(
                 lambda: push_fused.fused_push_plain(*args, **kw), 3)
             bound_ms, nbytes, ops = self._bound(a, vals, S, weighted)
             # yardstick only (the port never calls it): index_add_ or
             # scatter_reduce_ over values gathered beforehand
-            yard_ms = self._yardstick(a, vals, S, combine)
-            rows.append({"program": prog, "kernel": kern, "ms": ms,
-                         "plain_ms": plain_ms, "bound_ms": bound_ms,
-                         "bytes": nbytes, "operations": ops,
-                         "max_abs_err": err, "yardstick_ms": yard_ms,
-                         **extra})
+            yard_ms = (self._yardstick(a, vals, S, combine)
+                       if case != "frontier 1%" else None)
+            rows.append({"program": prog, "kernel": kern, "case": case,
+                         "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": bound_ms, "bytes": nbytes,
+                         "operations": ops, "max_abs_err": err,
+                         "yardstick_ms": yard_ms, **extra})
+        del dist4, ivals4, labels4
         # one line per kernel: its heaviest main-path call (weighted f32)
         pick = {"fused_push_add": "pagerank_weighted",
                 "fused_push_min": "sssp"}
         for kern, prog in pick.items():
-            r = next(r for r in rows if r["program"] == prog)
+            r = next(r for r in rows
+                     if r["program"] == prog and r["case"] == "dense")
             self.kernel_rows[kern] = {
                 "name": kern, "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/push_fused.cu",
@@ -802,12 +890,40 @@ class Smoke:
                                    if x["kernel"] == kern),
                 "ms": r["ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": "bytes",
-                "library_ms": None, "timed_call": prog}
-            if kern == "fused_push_add":
-                self.kernel_rows[kern].update(
-                    path="tiled (tile pass + merge pass)",
-                    atomic_ms=r["atomic_ms"])
+                "library_ms": None, "timed_call": prog,
+                "atomic_ms": r["atomic_ms"],
+                "yardstick_ms": r["yardstick_ms"],
+                "path": ("tiled (tile pass + merge pass)"
+                         if kern.endswith("add") else "tiled")}
         return {"calls": rows, "staged_calls": self._staged_time()}
+
+    def _min_paths(self, args, kw, got, what):
+        """The fused min as planned (``got``, already held to the plain
+        version: the tiled kernel where the table is dense enough) against
+        the atomic kernel alone on the same operands: bit-equal, and both
+        timed in turns (planned, atomic, atomic, planned; each the mean of
+        20 launches, the better of its two turns kept)."""
+        import torch
+
+        from repro_torch.kernels import push_fused
+
+        fp = lambda: push_fused.fused_push(*args, **kw)
+        fa = lambda: push_fused.fused_push_atomic(*args, **kw)
+        plan = push_fused.tile_plan(args[0])
+        if plan.num_tiled != args[0].shape[0]:
+            raise AssertionError(f"{what}: the sd layout is not seg-sorted")
+        atomic = fa()
+        torch.cuda.synchronize()
+        self.compare(atomic, got, "min", f"{what} atomic vs tiled")
+        del atomic
+        t1 = self.cuda_ms(fp, 20)
+        a1 = self.cuda_ms(fa, 20)
+        a2 = self.cuda_ms(fa, 20)
+        t2 = self.cuda_ms(fp, 20)
+        return {"tiled_ms": min(t1, t2), "atomic_ms": min(a1, a2),
+                "turns_ms": {"tiled": [t1, t2], "atomic": [a1, a2]},
+                "path": "tiled" if plan.min_tiled else "atomic",
+                "bit_equal": {"atomic_vs_tiled": True}}
 
     def _tiled_add_checks(self, args, got, what):
         """The tiled fused add at the main shape against the atomic path it
@@ -856,12 +972,13 @@ class Smoke:
         """The staged kernels at the main path's shapes -- the sd layout
         (push_fn=None) and the pairwise layout (basic) of the scale-22
         weighted graph -- against their plain versions, with CUDA-event
-        times and the byte bound.  A gather reads src and valid (8 B per
-        edge) and vals (4 B per vertex) and writes c (4 B per edge); a
-        scatter reads dst and c (8 B per edge) and writes out (4 B per
-        segment).  Scatter rows also time the one PyTorch call that
-        computes the same function (``index_add_`` into zeros,
-        ``scatter_reduce_(amin)`` into the sentinel); gather rows time
+        times and the byte bound; the min pair at B=1 and B=4.  A gather
+        reads src and valid (8 B per edge) and vals (4 B per vertex and
+        column) and writes c (4 B per edge and column); a scatter reads dst
+        (4 B per edge) and c and writes out (4 B per segment and column).
+        Scatter rows also time the one PyTorch call that computes the same
+        function (``index_add_`` into zeros, ``scatter_reduce_(amin)`` into
+        the sentinel) in turns with the kernel; gather rows time
         ``index_select`` as a yardstick only (it has no valid mask)."""
         import torch
 
@@ -872,10 +989,12 @@ class Smoke:
         pw = self.staged_engines["basic"][0].arrays
         K = self.pgw.chunk_size
         gen = torch.Generator(device="cuda").manual_seed(0)
-        fvals = torch.rand((1, K), generator=gen, device="cuda")
+        rand = lambda *shape: torch.rand(shape, generator=gen, device="cuda")
+        fvals = rand(1, K)
         # sssp-like distances: half the vertices unreached
-        dist = torch.where(torch.rand((1, K), generator=gen, device="cuda")
-                           < 0.5, fvals * 100, SENTINEL_F32)
+        dist = torch.where(rand(1, K) < 0.5, fvals * 100, SENTINEL_F32)
+        dist4 = torch.where(rand(1, K, 4) < 0.5, rand(1, K, 4) * 100,
+                            SENTINEL_F32)
         layouts = {
             "sd": (sd["sd_src_local"], sd["sd_dst_global"],
                    sd["sd_edge_valid"]),
@@ -886,19 +1005,22 @@ class Smoke:
         for layout, (src, dst, valid) in layouts.items():
             E = src.numel()
             for half, vals, prog in (("sum", fvals, "pagerank"),
-                                     ("min", dist, "sssp")):
+                                     ("min", dist, "sssp"),
+                                     ("min", dist4, "sssp")):
+                B = vals[0, 0].numel()
                 gather = getattr(ps, f"gather_{half}")
                 gplain = getattr(ps, f"gather_{half}_plain")
                 c = gather(src, valid, vals)
                 want = gplain(src, valid, vals)
                 torch.cuda.synchronize()
-                err = self.compare(c, want, "min", f"gather_{half}/{layout}")
+                err = self.compare(c, want, "min",
+                                   f"gather_{half}/{layout}/B={B}")
                 del want
                 src64 = src.reshape(-1).long()
-                nbytes = 12 * E + 4 * K
+                nbytes = 8 * E + 4 * E * B + 4 * K * B
                 rows.append({
                     "kernel": f"gather_{half}", "layout": layout,
-                    "program": prog, "edges": E,
+                    "program": prog, "B": B, "edges": E,
                     "ms": self.cuda_ms(lambda: gather(src, valid, vals), 20),
                     "plain_ms": self.cuda_ms(
                         lambda: gplain(src, valid, vals), 3),
@@ -915,24 +1037,29 @@ class Smoke:
                 want = splain(dst, c, K)
                 torch.cuda.synchronize()
                 err = self.compare(got, want, combine,
-                                   f"scatter_{half}/{layout}")
+                                   f"scatter_{half}/{layout}/B={B}")
                 del got, want
-                dst64, cflat = dst.reshape(-1).long(), c.reshape(-1)
+                tail = tuple(vals.shape[2:])
+                dst64 = dst.reshape(-1).long()
+                cflat = c.reshape((-1,) + tail)
                 if half == "sum":
-                    out = torch.zeros(K, device="cuda")
+                    out = torch.zeros((K,) + tail, device="cuda")
                     lib = lambda: out.index_add_(0, dst64, cflat)
                 else:
-                    out = torch.full((K,), SENTINEL_F32, device="cuda")
+                    out = torch.full((K,) + tail, SENTINEL_F32,
+                                     device="cuda")
+                    dst64 = dst64.reshape(dst64.shape + (1,) * len(tail)) \
+                        .expand_as(cflat)
                     lib = lambda: out.scatter_reduce_(
                         0, dst64, cflat, reduce="amin", include_self=True)
-                nbytes, ops = 8 * E + 4 * K, E
+                nbytes, ops = 4 * E + 4 * E * B + 4 * K * B, E * B
                 # kernel and library call in turns: k, lib, lib, k
                 k1 = self.cuda_ms(lambda: scatter(dst, c, K), 20)
                 l1, l2 = self.cuda_ms(lib, 20), self.cuda_ms(lib, 20)
                 k2 = self.cuda_ms(lambda: scatter(dst, c, K), 20)
                 rows.append({
                     "kernel": f"scatter_{half}", "layout": layout,
-                    "program": prog, "edges": E,
+                    "program": prog, "B": B, "edges": E,
                     "ms": min(k1, k2),
                     "plain_ms": self.cuda_ms(lambda: splain(dst, c, K), 3),
                     "bound_ms": max(nbytes / HBM_BYTES_PER_S,
@@ -941,6 +1068,7 @@ class Smoke:
                     "library_ms": min(l1, l2),
                     "turns_ms": {"kernel": [k1, k2], "library": [l1, l2]}})
                 del dst64, cflat, out, c
+        del dist4
         replaces = {
             "gather_sum": "src/repro/kernels/push_sum.py:31",
             "scatter_sum": "src/repro/kernels/push_sum.py:46",
@@ -948,8 +1076,8 @@ class Smoke:
             "scatter_min": "src/repro/kernels/push_min.py:37",
         }
         for kern, where in replaces.items():
-            r = next(r for r in rows
-                     if r["kernel"] == kern and r["layout"] == "sd")
+            r = next(r for r in rows if r["kernel"] == kern
+                     and r["layout"] == "sd" and r["B"] == 1)
             self.kernel_rows[kern] = {
                 "name": kern, "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/push_staged.cu",
@@ -982,17 +1110,27 @@ class Smoke:
         return ms, nbytes, ops
 
     def _yardstick(self, a, vals, S, combine):
+        """One PyTorch call over values gathered beforehand: ``index_add_``
+        into zeros, or ``scatter_reduce_(amin)`` into the identity (min's
+        function: out starts at the identity, as the kernel's does)."""
         import torch
+
+        from repro_torch.kernels.push_fused import _identity
 
         keep = a["sd_edge_valid"][0] != 0
         idx = a["sd_dst_global"][0][keep].long()
         data = vals[0].index_select(0, a["sd_src_local"][0][keep].long())
+        shape = (S,) + tuple(vals.shape[2:])
         if combine == "add":
-            out = torch.zeros(S, dtype=vals.dtype, device="cuda")
+            out = torch.zeros(shape, dtype=vals.dtype, device="cuda")
             fn = lambda: out.index_add_(0, idx, data)
         else:
-            out = torch.zeros(S, dtype=vals.dtype, device="cuda")
-            fn = lambda: out.scatter_reduce_(0, idx, data, reduce="amin")
+            out = torch.full(shape, _identity("min", vals.dtype),
+                             dtype=vals.dtype, device="cuda")
+            idx = idx.reshape(idx.shape + (1,) * (data.dim() - 1)) \
+                .expand_as(data)
+            fn = lambda: out.scatter_reduce_(0, idx, data, reduce="amin",
+                                             include_self=True)
         ms = self.cuda_ms(fn, 10)
         del idx, data, out
         return ms
@@ -1023,27 +1161,29 @@ class Smoke:
                            kernel=e.dispatch["kernel"])
                 rows.append(row)
         launches = dict(push_fused.launch_counts)
-        # the add's path: tiled on the sd layout, atomic on the basic one
+        # each monoid's path: tiled on the sd layout, atomic on the basic one
         for row in rows:
-            if row["strategy"] == "basic" or \
-                    "fused_push_add" not in row["launches"]:
-                continue
-            want = ("fused_push_add_atomic" if row["strategy"] == "reduction"
-                    else "fused_push_add_tiled")
-            if row["launches"].get(want) != row["launches"]["fused_push_add"]:
-                raise AssertionError(f"{row['program']}/{row['strategy']}: "
-                                     f"launches {row['launches']}")
-        add_paths = self._chare_add_paths(sd, pgw.num_chunks,
-                                          pgw.chunk_size)
+            for combine in ("add", "min"):
+                n = row["launches"].get(f"fused_push_{combine}")
+                if row["strategy"] == "basic" or not n:
+                    continue
+                path = "atomic" if row["strategy"] == "reduction" \
+                    else "tiled"
+                if row["launches"].get(f"fused_push_{combine}_{path}") != n:
+                    raise AssertionError(f"{row['program']}/"
+                                         f"{row['strategy']}: launches "
+                                         f"{row['launches']}")
+        paths = self._chare_paths(sd, pgw.num_chunks, pgw.chunk_size)
         staged = self._staged_choice()
         return {"vertices": g.num_vertices, "edges": g.num_edges,
                 "chares": a.chares, "runs": rows, "launches": launches,
-                "add_paths": add_paths, "staged_choice": staged}
+                "paths": paths, "staged_choice": staged}
 
-    def _chare_add_paths(self, a, C, K):
-        """The fused add on the C-chare sd layout (every chare row in one
-        call, as sortdest and pairs make it): the tiled path against the
-        atomic one with ``_tiled_add_checks``, beside the byte bound.  These
+    def _chare_paths(self, a, C, K):
+        """The fused push on the C-chare sd layout (every chare row in one
+        call, as sortdest and pairs make it): the tiled add against the
+        atomic one with ``_tiled_add_checks``, and the tiled min against
+        the atomic one with ``_min_paths``, beside the byte bound.  These
         rows are far sparser per segment block than the main path's."""
         import torch
 
@@ -1051,19 +1191,29 @@ class Smoke:
 
         gen = torch.Generator(device="cuda").manual_seed(3)
         vals = torch.rand((C, K), generator=gen, device="cuda")
+        dist = torch.where(torch.rand((C, K), generator=gen, device="cuda")
+                           < 0.5, vals * 100, push_fused.SENTINEL_F32)
+        ivals = (vals * 1e6).to(torch.int32)
         rows = []
-        for prog, weighted in (("pagerank", False),
-                               ("pagerank_weighted", True)):
+        for prog, combine, x, weighted, unit in (
+                ("pagerank", "add", vals, False, False),
+                ("pagerank_weighted", "add", vals, True, False),
+                ("sssp", "min", dist, True, False),
+                ("bfs", "min", ivals, False, True)):
             args = (a["sd_band"], a["sd_src_local"], a["sd_dst_global"],
                     a["sd_edge_valid"], a["sd_edge_weight"] if weighted
-                    else None, vals, C * K)
-            got = push_fused.fused_push(*args)
-            want = push_fused.fused_push_plain(*args)
+                    else None, x, C * K)
+            kw = dict(combine=combine, unit_weight=unit)
+            what = f"{prog} at C={C}"
+            got = push_fused.fused_push(*args, **kw)
+            want = push_fused.fused_push_plain(*args, **kw)
             torch.cuda.synchronize()
-            err = self.compare(got, want, "add", f"{prog} at C={C}")
+            err = self.compare(got, want, combine, what)
             row = {"program": prog, "max_abs_err": err,
-                   **self._tiled_add_checks(args, got, f"{prog} at C={C}")}
-            row["bound_ms"] = self._bound(a, vals, C * K, weighted)[0]
+                   **(self._tiled_add_checks(args, got, what)
+                      if combine == "add"
+                      else self._min_paths(args, kw, got, what))}
+            row["bound_ms"] = self._bound(a, x, C * K, weighted)[0]
             rows.append(row)
             del got, want
         return rows
@@ -1146,11 +1296,23 @@ class Smoke:
                        "fused_ms": min(f1, f2), "staged_ms": min(s1, s2),
                        "faster": "fused" if min(f1, f2) < min(s1, s2)
                        else "staged"}
-                if combine == "add":  # the fused add's atomic path, too
-                    call = (a["sd_band"], *args[1:4], None, vals, C * K)
-                    atomic = lambda: push_fused.fused_push_atomic(*call)
-                    row["fused_atomic_ms"] = min(self.cuda_ms(atomic, 10),
-                                                 self.cuda_ms(atomic, 10))
+                # the fused kernel alone (without ops.push's padding and
+                # sentinel mapping) on its planned path and on the atomic
+                # path, in turns, and the path the fused hook took (one
+                # call's launches)
+                call = (a["sd_band"], *args[1:5], vals, C * K)
+                kern = lambda: push_fused.fused_push(
+                    *call, combine=combine, unit_weight=unit)
+                atomic = lambda: push_fused.fused_push_atomic(
+                    *call, combine=combine, unit_weight=unit)
+                k1, a1 = self.cuda_ms(kern, 10), self.cuda_ms(atomic, 10)
+                a2, k2 = self.cuda_ms(atomic, 10), self.cuda_ms(kern, 10)
+                row["fused_kernel_ms"] = min(k1, k2)
+                row["fused_atomic_ms"] = min(a1, a2)
+                push_fused.reset_launch_counts()
+                fused(*args, **kw)
+                row["fused_path"] = {k: n for k, n in
+                                     push_fused.launch_counts.items() if n}
                 calls.append(row)
         pgw, eng = self.er
         forced = Engine(pgw, push_fn=fused)

@@ -290,7 +290,7 @@ class PartitionedGraph:
         The edge planes are widened to whole BLOCK_E edge blocks (padding
         edges invalid, source/destination 0, weight 1) -- the shape the band
         table already describes -- so the per-superstep push never has to
-        copy them to pad.  On CUDA the band table's add path and tile
+        copy them to pad.  On CUDA the band table's kernel paths and tile
         schedule (``push_fused.tile_plan``) are learned here, once.
         """
         if layout == "both":
@@ -311,7 +311,7 @@ class PartitionedGraph:
                            device)
                 for k in names}
             band = arrs[names[-1]]
-            if band.is_cuda:  # the add's kernel path, learned before any run
+            if band.is_cuda:  # the kernel paths, learned before any run
                 push_fused.tile_plan(band)
             self._dev[key] = arrs
         return self._dev[key]

@@ -31,37 +31,50 @@
 // What the design does about it: the TPU kernels are one-hot matmuls and
 // mask-and-reduce tiles over dense (edge block x vertex block) grids only
 // because the TPU has no fast gather or scatter; Hopper has both.  The
-// gathers and scatter_min take one (edge, column) item per thread;
-// neighbouring threads read neighbouring edges and write neighbouring c
-// elements, so the edge streams are coalesced; vals are read through the
-// read-only data path; scatter_min combines with one atomic per item and
-// skips items equal to the identity (they cannot change out).  A
+// gathers take one (edge, column) item per thread; neighbouring threads
+// read neighbouring edges and write neighbouring c elements, so the edge
+// streams are coalesced; vals are read through the read-only data path; a
 // grid-stride loop covers all chare rows and columns in one launch.
 //
-// scatter_sum is tiled instead (scatter_sum_kernel): the row comes from the
-// grid, each CTA takes a chunk of kScatterChunk edges, each thread whole
-// edges and every column of them, so no item needs a 64-bit division.  A
-// block reduction finds the chunk's destination range.  Where range x B
-// fits the shared-memory tile (the sd layout: a chunk spans a segment block
-// or two), contributions go into the tile with shared atomics and each
-// non-zero slot then to out with one global atomic.  Otherwise (the
-// pairwise layout, whose destinations are spread) they go straight to out
-// with global atomics.  Summing lanes with the same destination in the warp
-// first (__match_any_sync) was tried and was slower on the sd layout: a
-// shared atomic costs less than the matching.  No padding of edges or
-// vertices is needed.
+// The two scatters are one tiled kernel over the monoid (scatter_kernel):
+// the row comes from the grid, each CTA takes a chunk of kScatterChunk
+// edges, each thread whole edges and every column of them, so no item
+// needs a 64-bit division.  A block reduction finds the chunk's
+// destination range.  Where range x B fits the shared-memory tile (the sd
+// layout: a chunk spans a segment block or two), contributions go into
+// the tile with shared atomics -- atomicAdd for add, atomicMin on order
+// keys for min (an int whose order is the value's, atomics.cuh) -- and
+// each slot a contribution changed then goes to out with one global
+// atomic (for min unless out already holds as little).  Otherwise (the
+// pairwise layout, whose destinations are spread) contributions go
+// straight to out with global atomics.  Either way a contribution that
+// cannot change out is skipped: 0 for add; for min one at or above the
+// identity or, in the tile, the slot.  Reading out first to skip more on
+// the global path was slower there (the read waits, the atomic does not).
+// What is left bounds the pairwise scatters: one atomic per contribution
+// on random lines of the plane.  With one column a thread loads all its
+// contributions before it combines any.  Summing lanes with the same
+// destination in the warp first (__match_any_sync) was tried for add and
+// was slower on the sd layout: a shared atomic costs less than the
+// matching.  No padding of edges or vertices is needed.
 //
 // Exactness: int32 add and min are exact in any order (int add wraps as
-// XLA's int32 does).  Float min uses the sign-split atomics of atomics.cuh,
-// exact in any order, negatives included.  Float add in scatter_sum uses
-// shared and global f32 atomics, whose order varies from run to run.  The gather is a
-// copy and exact; bfloat16 values widen exactly to float32.
+// XLA's int32 does).  Float min is exact in any order too: the tile mins
+// order keys, out takes the sign-split atomics of atomics.cuh (negatives
+// included), and a skip only drops a contribution at or above a value
+// the slot or out already holds -- both only fall while the kernel runs,
+// so a plain read can only be at or above the true value.  Float
+// add in scatter_sum uses shared and global f32 atomics, whose order
+// varies from run to run.  The gather is a copy and exact; bfloat16 values
+// widen exactly to float32.
 //
 // Built by repro_torch/kernels/_build.py with nvcc into a shared library with
 // a plain C interface, loaded through ctypes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "atomics.cuh"
 
@@ -100,13 +113,6 @@ __device__ __forceinline__ float clamp_min(float v) {
 }
 __device__ __forceinline__ int clamp_min(int v) { return v; }
 
-__device__ __forceinline__ void combine_min(float* p, float v) {
-  if (v < kSentinelF) atomic_min_float(p, v);
-}
-__device__ __forceinline__ void combine_min(int* p, int v) {
-  if (v != kSentinel) atomicMin(p, v);
-}
-
 template <typename In, typename Out, bool kMin>
 __global__ void __launch_bounds__(kThreads) gather_kernel(
     const int* __restrict__ src, const int* __restrict__ valid,
@@ -130,35 +136,55 @@ __global__ void __launch_bounds__(kThreads) gather_kernel(
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) scatter_min_kernel(
-    const int* __restrict__ dst, const T* __restrict__ c, T* __restrict__ out,
-    long long rows, long long E, long long S, int B) {
-  const long long n = rows * E * B;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < n; i += stride) {
-    const long long re = i / B;
-    const int b = static_cast<int>(i - re * B);
-    const int d = dst[re];
-    if (d < 0 || d >= S) continue;  // no such segment: dropped
-    const long long row = re / E;
-    combine_min(out + (row * S + d) * B + b, clamp_min(c[i]));
+// Combines contribution v to column b of segment d into its tile slot
+// (tiled) or into out: for add a shared or global atomicAdd unless v is 0;
+// for min, unless v cannot lower the identity (its order key is at or
+// above cap), a shared atomicMin on its key unless the slot already holds
+// as little, or a global atomic min.
+template <typename T, bool kMin>
+__device__ __forceinline__ void scatter_one(T v, int d, int b, int B,
+                                            bool tiled, int lo, int cap,
+                                            void* tile, T* orow) {
+  if constexpr (kMin) {
+    const T m = clamp_min(v);
+    const int key = order_key(m);
+    if (key >= cap) return;
+    if (tiled) {
+      int* slot = static_cast<int*>(tile) + static_cast<long long>(d - lo) * B + b;
+      if (key < *slot) atomicMin(slot, key);
+    } else {
+      atomic_min(orow + static_cast<long long>(d) * B + b, m);
+    }
+  } else {
+    if (v == T(0)) return;
+    if (tiled) {
+      atomicAdd(static_cast<T*>(tile) + static_cast<long long>(d - lo) * B + b, v);
+    } else {
+      atomicAdd(orow + static_cast<long long>(d) * B + b, v);
+    }
   }
 }
 
-// Tiled scatter_sum: blockIdx.y picks the row, blockIdx.x the chunk of
-// kScatterChunk edges; thread t takes edges t, t + kThreads, ... of the
-// chunk with all their columns.  A destination outside [0, S) is dropped.
-template <typename T>
-__global__ void __launch_bounds__(kThreads) scatter_sum_kernel(
+// The tiled scatter, one template for both monoids: blockIdx.y picks the
+// row, blockIdx.x the chunk of kScatterChunk edges; thread t takes edges t,
+// t + kThreads, ... of the chunk with all their columns.  A destination
+// outside [0, S) is dropped.  A tile slot holds a partial sum (add) or the
+// order key of a partial min (min; atomics.cuh), and each slot a
+// contribution changed goes to out with one global atomic -- for min
+// unless out already holds as little.  With one column (kOneCol) a thread
+// loads its edges' values together before it combines any; with several,
+// it takes an edge's columns together, so that a global combine hits one
+// line of out B times in a row.
+template <typename T, bool kMin, bool kOneCol>
+__global__ void __launch_bounds__(kThreads) scatter_kernel(
     const int* __restrict__ dst, const T* __restrict__ c, T* __restrict__ out,
     long long rows, long long E, long long S, int B) {
-  __shared__ T tile[kTileWords];
+  using Slot = std::conditional_t<kMin, int, T>;
+  __shared__ Slot tile[kTileWords];
   __shared__ int range[2][kThreads / 32];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
+  const int cap = order_key(identity<T, true>());  // min: skip at and above
   const long long base = static_cast<long long>(blockIdx.x) * kScatterChunk;
   for (long long row = blockIdx.y; row < rows; row += gridDim.y) {
     const int* drow = dst + row * E;
@@ -194,29 +220,40 @@ __global__ void __launch_bounds__(kThreads) scatter_sum_kernel(
     const long long span = (static_cast<long long>(hi) - lo + 1) * B;
     const bool tiled = span <= kTileWords;
     if (tiled) {
-      for (int x = threadIdx.x; x < span; x += kThreads) tile[x] = T(0);
+      for (int x = threadIdx.x; x < span; x += kThreads)
+        tile[x] = kMin ? Slot(cap) : Slot(0);
       __syncthreads();
     }
+    if constexpr (kOneCol) {
+      T v[kPerThread];
 #pragma unroll
-    for (int k = 0; k < kPerThread; ++k) {
-      if (d[k] < 0) continue;
-      const long long e = base + k * kThreads + threadIdx.x;
-      for (int b = 0; b < B; ++b) {
-        const T v = crow[e * B + b];
-        if (v == T(0)) continue;
-        if (tiled) {
-          atomicAdd(tile + static_cast<long long>(d[k] - lo) * B + b, v);
-        } else {
-          atomicAdd(orow + static_cast<long long>(d[k]) * B + b, v);
-        }
+      for (int k = 0; k < kPerThread; ++k)
+        v[k] = d[k] >= 0 ? crow[base + k * kThreads + threadIdx.x]
+                         : identity<T, kMin>();
+#pragma unroll
+      for (int k = 0; k < kPerThread; ++k)
+        if (d[k] >= 0)
+          scatter_one<T, kMin>(v[k], d[k], 0, 1, tiled, lo, cap, tile, orow);
+    } else {
+#pragma unroll
+      for (int k = 0; k < kPerThread; ++k) {
+        if (d[k] < 0) continue;
+        const long long e = base + k * kThreads + threadIdx.x;
+        for (int b = 0; b < B; ++b)
+          scatter_one<T, kMin>(crow[e * B + b], d[k], b, B, tiled, lo, cap,
+                               tile, orow);
       }
     }
     if (tiled) {
       __syncthreads();
       T* o = orow + static_cast<long long>(lo) * B;
       for (int x = threadIdx.x; x < span; x += kThreads) {
-        const T v = tile[x];
-        if (v != T(0)) atomicAdd(o + x, v);
+        const Slot v = tile[x];
+        if constexpr (kMin) {
+          if (v < cap) min_below(o + x, from_key<T>(v), v);
+        } else {
+          if (v != T(0)) atomicAdd(o + x, v);
+        }
       }
       __syncthreads();  // the tile is reused for the next row
     }
@@ -248,27 +285,19 @@ cudaError_t gather(const int* src, const int* valid, const void* vals,
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t scatter_sum(const int* dst, const void* c, void* out,
-                        long long rows, long long E, long long S, int B,
-                        cudaStream_t stream) {
+template <typename T, bool kMin>
+cudaError_t scatter(const int* dst, const void* c, void* out, long long rows,
+                    long long E, long long S, int B, cudaStream_t stream) {
   const long long chunks = (E + kScatterChunk - 1) / kScatterChunk;
   const dim3 grid(static_cast<unsigned>(chunks),
                   static_cast<unsigned>(rows < 65535 ? rows : 65535));
-  scatter_sum_kernel<T><<<grid, kThreads, 0, stream>>>(
-      dst, static_cast<const T*>(c), static_cast<T*>(out), rows, E, S, B);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t scatter_min(const int* dst, const void* c, void* out,
-                        long long rows, long long E, long long S, int B,
-                        cudaStream_t stream) {
-  unsigned grid = 0;
-  cudaError_t err = grid_for(rows * E * B, &grid);
-  if (err != cudaSuccess) return err;
-  scatter_min_kernel<T><<<grid, kThreads, 0, stream>>>(
-      dst, static_cast<const T*>(c), static_cast<T*>(out), rows, E, S, B);
+  if (B == 1) {
+    scatter_kernel<T, kMin, true><<<grid, kThreads, 0, stream>>>(
+        dst, static_cast<const T*>(c), static_cast<T*>(out), rows, E, S, B);
+  } else {
+    scatter_kernel<T, kMin, false><<<grid, kThreads, 0, stream>>>(
+        dst, static_cast<const T*>(c), static_cast<T*>(out), rows, E, S, B);
+  }
   return cudaGetLastError();
 }
 
@@ -313,11 +342,11 @@ extern "C" int staged_scatter_launch(int combine, int is_float,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   if (combine == 0) {
-    err = is_float ? scatter_sum<float>(dst, c, out, rows, E, S, B, s)
-                   : scatter_sum<int>(dst, c, out, rows, E, S, B, s);
+    err = is_float ? scatter<float, false>(dst, c, out, rows, E, S, B, s)
+                   : scatter<int, false>(dst, c, out, rows, E, S, B, s);
   } else if (combine == 1) {
-    err = is_float ? scatter_min<float>(dst, c, out, rows, E, S, B, s)
-                   : scatter_min<int>(dst, c, out, rows, E, S, B, s);
+    err = is_float ? scatter<float, true>(dst, c, out, rows, E, S, B, s)
+                   : scatter<int, true>(dst, c, out, rows, E, S, B, s);
   }
   return static_cast<int>(err);
 }

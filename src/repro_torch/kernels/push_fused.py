@@ -9,10 +9,12 @@ design answers it).  On a CPU tensor it runs ``fused_push_plain``, the plain
 torch version of the same function, which is also what the kernels are
 checked against on the card.
 
-Add has two paths, chosen per layout row by a property of the band table:
-a row whose band segment ranges never decrease (``seg_sorted_rows``; every
-row of the sd layout) takes the fixed-order tiled kernels, any other row
-the atomic kernel.  ``tile_plan`` learns the property and the tiled path's
+Each monoid has two paths, chosen per layout row by a property of the band
+table: a row whose band segment ranges never decrease (``seg_sorted_rows``;
+every row of the sd layout) takes the tiled kernels -- for add the
+fixed-order tile pass and its merge pass, for min one tile pass where the
+table has edges enough per segment (``min_tiles``) -- any other row the
+atomic kernel.  ``tile_plan`` learns the property and the tiled paths'
 chunk schedule once per band table (the engine's layouts at upload) and
 caches them, so the superstep loop never waits on the host for them.
 
@@ -46,15 +48,20 @@ TILE_CHUNK_BLOCKS = 16
 # most: a wider range (a sparse chunk) is split into pieces of this many
 # (``work_items``); the sums do not depend on it
 TILE_PIECE_BLOCKS = 32
+# edges per segment of their chunks' ranges that a table's seg-sorted rows
+# need for the tiled min (``min_tiles``); sparser ones take the atomic
+# kernel
+MIN_TILE_EDGES_PER_SEGMENT = 0.5
 
 # launches of each CUDA push kernel since the last reset (CPU calls do not
-# count): the fused pair here (``fused_push_add`` once per call that
-# launches, and the
-# add's path in its own keys: the tiled kernel with its merge pass, or the
-# atomic kernel), the staged four in push_staged
+# count): the fused pair here (``fused_push_add``/``fused_push_min`` once
+# per call that launches, and each monoid's path in its own keys: the tiled
+# kernel -- for add with its merge pass -- or the atomic kernel), the
+# staged four in push_staged
 launch_counts = {"fused_push_add": 0, "fused_push_min": 0,
                  "fused_push_add_tiled": 0, "fused_push_add_merge": 0,
                  "fused_push_add_atomic": 0,
+                 "fused_push_min_tiled": 0, "fused_push_min_atomic": 0,
                  "gather_sum": 0, "scatter_sum": 0,
                  "gather_min": 0, "scatter_min": 0}
 
@@ -65,7 +72,7 @@ def reset_launch_counts() -> None:
 
 
 # ---------------------------------------------------------------------------
-# The tiled add's schedule: which rows take it, and how its chunks and
+# The tiled paths' schedule: which rows take them, and how their chunks and
 # segment blocks meet.  Torch ops on the band's device; the CPU tests hold
 # them to a numpy model.
 # ---------------------------------------------------------------------------
@@ -163,10 +170,28 @@ def work_items(chunks):
     return torch.stack([chunk, plo, phi], dim=1).to(torch.int32)
 
 
+def min_tiles(band, chunks, rows) -> bool:
+    """Whether the tiled min takes a table's seg-sorted rows (``rows``,
+    with ``chunks`` from ``chunk_blocks``): when they hold at least
+    ``MIN_TILE_EDGES_PER_SEGMENT`` edges per segment of their chunks'
+    summed ranges (live edge blocks x BLOCK_E against the ranges x
+    BLOCK_S).  The tile pays where segments take several contributions
+    each, saving the global atomics they share; where they take about one
+    (0.25 edges per segment on the ER staged-choice layout) it saves none
+    and the atomic kernel was faster.  The whole table goes one way: a
+    table split over both kernels was slower than either alone
+    (``scripts/torch_min_rule_sweep.py`` times the four choices)."""
+    band = _rowed(band)
+    edges = int(((band[:, 3] >= 0) & rows[:, None]).sum()) * BLOCK_E
+    lo, hi = chunks[..., 0].long(), chunks[..., 1].long()
+    span = int(torch.where(hi >= lo, hi - lo + 1, 0).sum()) * BLOCK_S
+    return edges > 0 and edges >= span * MIN_TILE_EDGES_PER_SEGMENT
+
+
 @dataclasses.dataclass(frozen=True)
 class TilePlan:
-    """The add's path for each row of one band table, with the tiled path's
-    schedule (``tile_plan``)."""
+    """The path of each row of one band table, with the tiled paths'
+    schedule (``tile_plan``; the tiled min reads ``work`` only)."""
 
     tiled: torch.Tensor         # [C] bool: the row takes the tiled path
     chunk_blocks: torch.Tensor  # [C, NC, 2] int32 (``chunk_blocks``)
@@ -178,13 +203,14 @@ class TilePlan:
     atomic_band: torch.Tensor | None
     num_tiled: int              # rows on the tiled path
     num_tiles: int              # NT: one past the last segment block used
+    min_tiled: bool             # the min tiles the tiled rows too
 
 
 _plans: dict = {}  # id(band) -> (weak reference to band, its TilePlan)
 
 
 def tile_plan(band) -> TilePlan:
-    """The add's path and schedule for a band table, computed on first use
+    """The path and schedule for a band table, computed on first use
     and cached for as long as the table lives.  Computing it reads a few
     numbers back to the host, so the engine's layouts learn theirs at
     upload (``PartitionedGraph.device_arrays``), before any superstep."""
@@ -205,7 +231,7 @@ def tile_plan(band) -> TilePlan:
         atomic_band = atomic_band.reshape(band.shape)
     plan = TilePlan(tiled, cb, tile_chunks(cb, num_tiles),
                     merge_tiles(cb, num_tiles), work_items(cb), atomic_band,
-                    num_tiled, num_tiles)
+                    num_tiled, num_tiles, min_tiles(rowed, cb, tiled))
     _plans[key] = (weakref.ref(band, lambda _, k=key: _plans.pop(k, None)),
                    plan)
     return plan
@@ -232,7 +258,8 @@ def _weight_mode(weight, unit_weight, combine) -> str:
 def fused_push(band, src, dst, valid, weight, vals, num_segments, *,
                combine="add", unit_weight=False, init=None):
     """Fused push over pre-padded inputs: one kernel launch (for add on
-    seg-sorted rows, the tile pass and its merge pass).
+    seg-sorted rows, the tile pass and its merge pass; on a table with rows
+    on both paths, the atomic kernel besides).
 
     Shapes: edges padded to BLOCK_E (``band`` from ``blocks.edge_bands``);
     ``num_segments`` the output length S.  ``weight=None`` skips the
@@ -241,9 +268,9 @@ def fused_push(band, src, dst, valid, weight, vals, num_segments, *,
     the saturating ``c + min(w, SENTINEL - c)`` (ints) or ``c + w`` (floats)
     for min; float min values above ``float(SENTINEL)`` count as unreached.
     ``init`` (optional, the output's shape and dtype) seeds the accumulator
-    in place of the combiner identity (0, or SENTINEL for min).  For add on
-    CUDA, each row takes the kernel its band gives it (``tile_plan``, cached
-    per band tensor); the tiled path needs every valid destination below
+    in place of the combiner identity (0, or SENTINEL for min).  On CUDA,
+    each row takes the kernel its band gives it (``tile_plan``, cached per
+    band tensor); the tiled paths need every valid destination below
     ``num_segments``.
     """
     return _fused_push(band, src, dst, valid, weight, vals, num_segments,
@@ -256,7 +283,7 @@ def fused_push_atomic(band, src, dst, valid, weight, vals, num_segments, *,
     so no host sync, and float add in no fixed order.  For a band table
     made for one call (``ops.push`` without a layout's band), whose plan
     would be computed and read back on every call, and to time the tiled
-    path against the kernel it replaces."""
+    paths against the kernel they replace."""
     return _fused_push(band, src, dst, valid, weight, vals, num_segments,
                        combine, unit_weight, init, atomic=True)
 
@@ -357,13 +384,18 @@ def _library():
         f = lib.fused_push_launch
         f.restype = ctypes.c_int
         f.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 7
-                      + [ctypes.c_longlong] * 5 + [ctypes.c_int,
-                                                   ctypes.c_void_p])
+                      + [ctypes.c_longlong] * 5 + [ctypes.c_int] * 2
+                      + [ctypes.c_void_p])
         t = lib.fused_push_add_tiled_launch
         t.restype = ctypes.c_int
         t.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 12
                       + [ctypes.c_longlong] * 9 + [ctypes.c_int,
                                                    ctypes.c_void_p])
+        m = lib.fused_push_min_tiled_launch
+        m.restype = ctypes.c_int
+        m.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 8
+                      + [ctypes.c_longlong] * 7 + [ctypes.c_int] * 2
+                      + [ctypes.c_void_p])
         _lib = lib
     return _lib
 
@@ -385,12 +417,25 @@ def _aligned(t):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+def _min_cap(out_dtype, init):
+    """The order key (``order_key`` in csrc/atomics.cuh) at and above
+    which a min contribution cannot lower ``out``: the identity's where out
+    holds nothing above it -- an int out always, a float out filled with the
+    identity -- and above every float's where a float ``init`` may hold
+    more (int32 max, the key of no number)."""
+    if not out_dtype.is_floating_point:
+        return SENTINEL
+    if init is None:
+        return int(np.array(SENTINEL_F32, np.float32).view(np.int32))
+    return SENTINEL
+
+
 def _launch(band, src, dst, valid, weight, vals, shape, combine, mode,
             out_dtype, init, atomic):
     """Check the operands and launch the CUDA kernels on the current stream:
-    for add, the tiled kernels over the seg-sorted rows and the atomic kernel
-    over the others (over every row if ``atomic``); for min, the atomic
-    kernel."""
+    the tiled kernels over the seg-sorted rows (for add the tile pass and
+    its merge pass, for min one pass) and the atomic kernel over the others
+    (over every row if ``atomic``)."""
     if out_dtype not in (torch.float32, torch.int32):
         raise TypeError(f"the CUDA push kernels take float32 or int32 "
                         f"values; {combine} over {vals.dtype} gives "
@@ -422,51 +467,63 @@ def _launch(band, src, dst, valid, weight, vals, shape, combine, mode,
     if C * NB == 0:
         return out
     plan = None
-    if combine == "add" and not atomic:
+    if not atomic:
         plan = tile_plan(band)
         if plan.num_tiles > -(-S // BLOCK_S):
             raise ValueError(f"a valid destination lies past num_segments="
                              f"{S}")
+    cap = _min_cap(out_dtype, init) if combine == "min" else 0
+    is_float = int(out_dtype.is_floating_point)
     stream = torch.cuda.current_stream(dev).cuda_stream
     lib = _library()
-    atomic_band = (band if plan is None or plan.num_tiled == 0
-                   else plan.atomic_band)
+    if plan is not None and (combine == "add" or plan.min_tiled):
+        work = plan.work
+        atomic_band = band if plan.num_tiled == 0 else plan.atomic_band
+    else:
+        work, atomic_band = None, band
     launched = False  # a tiled table with no live chunk launches nothing
     if atomic_band is not None:
         err = lib.fused_push_launch(
-            0 if combine == "add" else 1, int(out_dtype.is_floating_point),
-            _CODES[mode], atomic_band.data_ptr(), src.data_ptr(),
-            dst.data_ptr(), valid.data_ptr(),
-            weight.data_ptr() if mode == "array" else None, vals.data_ptr(),
-            out.data_ptr(), C, E, NB, V, S, B, stream)
+            0 if combine == "add" else 1, is_float, _CODES[mode],
+            atomic_band.data_ptr(), src.data_ptr(), dst.data_ptr(),
+            valid.data_ptr(), weight.data_ptr() if mode == "array" else None,
+            vals.data_ptr(), out.data_ptr(), C, E, NB, V, S, B, cap, stream)
         if err != 0:
             raise RuntimeError(f"fused_push_{combine} kernel launch failed: "
                                f"cudaError {err}")
         launched = True
-        if combine == "add":
-            launch_counts["fused_push_add_atomic"] += 1
-    if plan is not None and plan.work.shape[0]:
-        # the tiled kernel reads the edge planes 16 bytes at a time
+        launch_counts[f"fused_push_{combine}_atomic"] += 1
+    if work is not None and work.shape[0]:
+        # the tiled kernels read the edge planes 16 bytes at a time
         src, dst, valid = (_aligned(t) for t in (src, dst, valid))
         if mode == "array":
             weight = _aligned(weight)
-        scratch = torch.empty((C, plan.chunk_blocks.shape[1], 2, BLOCK_S, B),
-                              dtype=out_dtype, device=dev)
-        err = lib.fused_push_add_tiled_launch(
-            int(out_dtype.is_floating_point), _CODES[mode], band.data_ptr(),
-            src.data_ptr(), dst.data_ptr(), valid.data_ptr(),
-            weight.data_ptr() if mode == "array" else None, vals.data_ptr(),
-            out.data_ptr(), plan.chunk_blocks.data_ptr(),
-            plan.tile_chunks.data_ptr(), plan.merge_tiles.data_ptr(),
-            plan.work.data_ptr(), scratch.data_ptr(), C, E, NB,
-            plan.chunk_blocks.shape[1], V, S, plan.num_tiles,
-            plan.merge_tiles.numel(), plan.work.shape[0], B, stream)
+        wptr = weight.data_ptr() if mode == "array" else None
+        if combine == "min":
+            err = lib.fused_push_min_tiled_launch(
+                is_float, _CODES[mode], band.data_ptr(), src.data_ptr(),
+                dst.data_ptr(), valid.data_ptr(), wptr, vals.data_ptr(),
+                out.data_ptr(), work.data_ptr(), C, E, NB,
+                plan.chunk_blocks.shape[1], V, S, work.shape[0], B, cap,
+                stream)
+        else:
+            scratch = torch.empty(
+                (C, plan.chunk_blocks.shape[1], 2, BLOCK_S, B),
+                dtype=out_dtype, device=dev)
+            err = lib.fused_push_add_tiled_launch(
+                is_float, _CODES[mode], band.data_ptr(), src.data_ptr(),
+                dst.data_ptr(), valid.data_ptr(), wptr, vals.data_ptr(),
+                out.data_ptr(), plan.chunk_blocks.data_ptr(),
+                plan.tile_chunks.data_ptr(), plan.merge_tiles.data_ptr(),
+                plan.work.data_ptr(), scratch.data_ptr(), C, E, NB,
+                plan.chunk_blocks.shape[1], V, S, plan.num_tiles,
+                plan.merge_tiles.numel(), plan.work.shape[0], B, stream)
         if err != 0:
-            raise RuntimeError(f"tiled fused_push_add kernel launch failed: "
-                               f"cudaError {err}")
+            raise RuntimeError(f"tiled fused_push_{combine} kernel launch "
+                               f"failed: cudaError {err}")
         launched = True
-        launch_counts["fused_push_add_tiled"] += 1
-        if plan.merge_tiles.numel():
+        launch_counts[f"fused_push_{combine}_tiled"] += 1
+        if combine == "add" and plan.merge_tiles.numel():
             launch_counts["fused_push_add_merge"] += 1
     if launched:
         launch_counts[f"fused_push_{combine}"] += 1

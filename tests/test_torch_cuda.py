@@ -12,7 +12,10 @@ float add within rtol=1e-5, atol=1e-6*max|out| (the plain version and the
 kernels sum in other orders; the atomic paths in no fixed order at all).
 The tiled fused add sums in an order fixed by the data: its results must
 be bit-identical from call to call, and column b of a ``[B]`` plane
-bit-identical to a one-column call on that column.
+bit-identical to a one-column call on that column.  The min paths (tiled
+and atomic fused min, both scatter_min paths) are exact in any order and
+skip contributions that cannot lower out: every result bit-equal to the
+plain version, unreached sources over negative weights included.
 """
 
 import numpy as np
@@ -47,20 +50,20 @@ def staged_launches(combine, iters):
 
 def fused_launches(arrays, layout, combine, iters):
     """The launch counts of a fused superstep loop over one layout: the
-    fused kernel of the monoid once per superstep and, for add, the path
-    the band table's rows take (tiled with its merge pass, atomic, or
+    fused kernel of the monoid once per superstep and the path the band
+    table's rows take (tiled -- for add with its merge pass -- atomic, or
     both)."""
     want = dict.fromkeys(push_fused.launch_counts, 0)
     want[f"fused_push_{combine}"] = iters
-    if combine == "add":
-        band = arrays["sd_band" if layout == "sd" else "band"]
-        plan = push_fused.tile_plan(band)
-        if plan.num_tiled:
-            want["fused_push_add_tiled"] = iters
-            merges = plan.merge_tiles.numel()
-            want["fused_push_add_merge"] = iters if merges else 0
-        if plan.num_tiled < band.shape[0]:
-            want["fused_push_add_atomic"] = iters
+    band = arrays["sd_band" if layout == "sd" else "band"]
+    plan = push_fused.tile_plan(band)
+    tiled = plan.num_tiled if combine == "add" or plan.min_tiled else 0
+    if tiled:
+        want[f"fused_push_{combine}_tiled"] = iters
+        if combine == "add" and plan.merge_tiles.numel():
+            want["fused_push_add_merge"] = iters
+    if tiled < band.shape[0]:
+        want[f"fused_push_{combine}_atomic"] = iters
     return want
 
 
@@ -283,8 +286,9 @@ def test_engine_on_cuda_matches_cpu(cuda, name, strategy, chares):
     if eng.dispatch["choice"] == "fused":
         layout = "basic" if strategy == "reduction" else "sd"
         assert launched == fused_launches(eng.arrays, layout, combine, iters)
-        if combine == "add" and layout == "sd":
-            assert launched["fused_push_add_tiled"] == iters
+        if layout == "sd":
+            assert launched[f"fused_push_{combine}_tiled"] == iters
+            assert launched[f"fused_push_{combine}_atomic"] == 0
     else:
         assert launched == staged_launches(combine, iters)
 
@@ -640,3 +644,284 @@ def test_pagerank_runs_are_bit_identical(cuda):
     assert push_fused.launch_counts["fused_push_add_atomic"] == 0
     assert np.array_equal(np.asarray(a).view(np.int32),
                           np.asarray(b).view(np.int32))
+
+
+# ---------------------------------------------------------------------------
+# The tiled fused min and the tiled scatter_min
+# ---------------------------------------------------------------------------
+
+
+def min_counts(*paths, calls=1):
+    """The launch counts of ``calls`` fused min calls taking ``paths``."""
+    want = dict.fromkeys(push_fused.launch_counts, 0)
+    want["fused_push_min"] = calls
+    for path in paths:
+        want[f"fused_push_min_{path}"] = calls
+    return want
+
+
+def min_paths(band):
+    """The min's paths on a band table, as its plan gives the rows."""
+    plan = push_fused.tile_plan(band)
+    tiled = plan.num_tiled if plan.min_tiled else 0
+    rows = push_fused._rowed(band).shape[0]
+    return ((("tiled",) if tiled else ())
+            + (("atomic",) if tiled < rows else ()))
+
+
+def draw_dist(shape, dtype, cuda, seed=0, unreached=0.5):
+    """Min values as the min programs hold them: distances or depths, a
+    share ``unreached`` at the identity (int SENTINEL; for floats +inf,
+    float(SENTINEL) and a value above it, all of which read as
+    unreached)."""
+    rng = np.random.default_rng(seed)
+    if dtype == torch.float32:
+        x = rng.uniform(0, 100, shape).astype(np.float32)
+        far = rng.choice(np.array([np.inf, 2.0 ** 31, 3e9], np.float32),
+                         shape)
+    else:
+        x = rng.integers(0, 10_000, shape).astype(np.int32)
+        far = np.full(shape, push_fused.SENTINEL, np.int32)
+    x = np.where(rng.random(shape) < unreached, far, x)
+    return torch.from_numpy(x).to(cuda)
+
+
+def min_weight(w, dtype, negative=False):
+    """The layout's weights (uniform in [1, 10)) as a min program's edge
+    values: floats as they are, ints as int(3w); or, ``negative``, moved
+    below zero: 300 - 250w for floats (most |w| >= 256), 300 - 100 int(3w)
+    for ints."""
+    if dtype == torch.float32:
+        return 300 - 250 * w if negative else w
+    w = (w * 3).to(torch.int32)
+    return 300 - 100 * w if negative else w
+
+
+def check_min(band, src, dst, valid, w, vals, S, paths, init=None,
+              unit=False):
+    """One fused min call taking ``paths``, bit-equal to the plain version,
+    and the same bits again on the atomic path alone."""
+    push_fused.reset_launch_counts()
+    got = push_fused.fused_push(band, src, dst, valid, w, vals, S,
+                                combine="min", unit_weight=unit, init=init)
+    assert push_fused.launch_counts == min_counts(*paths)
+    want = push_fused.fused_push_plain(band, src, dst, valid, w, vals, S,
+                                       combine="min", unit_weight=unit,
+                                       init=init)
+    assert same_bits(got, want)
+    atomic = push_fused.fused_push_atomic(band, src, dst, valid, w, vals, S,
+                                          combine="min", unit_weight=unit,
+                                          init=init)
+    assert same_bits(atomic, want)
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+@pytest.mark.parametrize("mode", ["none", "array", "unit"])
+@pytest.mark.parametrize("batch", [None, 4])
+@pytest.mark.parametrize("chares", [1, 8])
+@pytest.mark.parametrize("seeded", [False, True])
+def test_tiled_min_matches_plain(cuda, dtype, mode, batch, chares, seeded):
+    """On the sd layout the min takes the tiled kernel (one launch, no
+    atomic one) and equals the plain version bit for bit, as does the
+    atomic kernel alone on the same operands; half the sources unreached,
+    with and without an init seed."""
+    src, dst, valid, w, band, V, S = sd_layout(cuda, chares, scale=12)
+    tail = () if batch is None else (batch,)
+    vals = draw_dist((chares, V) + tail, dtype, cuda)
+    init = (draw_dist((chares, S) + tail, dtype, cuda, seed=1)
+            if seeded else None)
+    check_min(band, src, dst, valid,
+              min_weight(w, dtype) if mode == "array" else None, vals, S,
+              ("tiled",), init=init, unit=mode == "unit")
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+@pytest.mark.parametrize("batch", [None, 4])
+@pytest.mark.parametrize("seeded", [False, True])
+def test_tiled_min_keeps_unreached_sources_over_negative_weights(
+        cuda, dtype, batch, seeded):
+    """Every source unreached, weights down to -300: SENTINEL + w (ints)
+    and 2^31 + w (floats, below 2^31 once |w| >= 256) are real values that
+    neither path may skip."""
+    src, dst, valid, w, band, V, S = sd_layout(cuda, 2, scale=12)
+    tail = () if batch is None else (batch,)
+    vals = draw_dist((2, V) + tail, dtype, cuda, unreached=1.0)
+    init = (draw_dist((2, S) + tail, dtype, cuda, seed=1, unreached=0.9)
+            if seeded else None)
+    got = check_min(band, src, dst, valid,
+                    min_weight(w, dtype, negative=True), vals, S, ("tiled",),
+                    init=init)
+    top = push_fused.SENTINEL_F32 if dtype == torch.float32 \
+        else push_fused.SENTINEL
+    assert bool((got < top).any())
+
+
+def test_tiled_min_keeps_a_float_init_above_the_sentinel(cuda):
+    """A raw float init above 2^31 (+inf, 3e9): slots no contribution
+    lowers keep it, and a contribution at 2^31 (an unreached source) still
+    lowers it -- the tile's untouched marker is not the identity."""
+    src, dst, valid, w, band, V, S = sd_layout(cuda, 1, scale=12)
+    vals = draw_dist((1, V), torch.float32, cuda, unreached=0.7)
+    init = torch.where(torch.rand((1, S), device=cuda) < 0.5,
+                       torch.full((1, S), float("inf"), device=cuda),
+                       torch.full((1, S), 3e9, device=cuda))
+    for weight in (None, w):
+        got = check_min(band, src, dst, valid, weight, vals, S,
+                        ("tiled",), init=init)
+        assert bool((got == push_fused.SENTINEL_F32).any())
+        assert bool((got > push_fused.SENTINEL_F32).any())
+
+
+def test_tiled_min_hub_block_spans_chunks(cuda):
+    """A hub segment block with five chunks' worth of edges: each chunk's
+    CTA mins into it with global atomics."""
+    rng = np.random.default_rng(4)
+    n = 5 * push_fused.TILE_CHUNK_BLOCKS * BLOCK_E
+    hub = np.minimum(rng.geometric(0.05, n) - 1, BLOCK_S - 1)
+    dst = np.concatenate([hub, np.sort(rng.integers(BLOCK_S, 4 * BLOCK_S,
+                                                    3000))])
+    src, d, valid, band = raw_sorted_layout(cuda, dst)
+    for dtype in (torch.int32, torch.float32):
+        for batch in ((), (16,)):
+            vals = draw_dist((700,) + batch, dtype, cuda, unreached=0.9)
+            check_min(band, src, d, valid, None, vals, 4 * BLOCK_S,
+                      ("tiled",))
+
+
+@pytest.mark.parametrize("batch", [None, 16])
+def test_tiled_min_chunk_wider_than_a_tile(cuda, batch):
+    """Dense chunks, then chunks over 40 and 6 segment blocks: pieces and,
+    with B=16, several windows per piece."""
+    rng = np.random.default_rng(5)
+    n = push_fused.TILE_CHUNK_BLOCKS * BLOCK_E
+    parts = [b * BLOCK_S + rng.integers(0, BLOCK_S, n) for b in range(10)]
+    parts.append(np.sort(rng.integers(10 * BLOCK_S, 50 * BLOCK_S, n)))
+    parts.append(np.sort(rng.integers(50 * BLOCK_S, 56 * BLOCK_S, n)))
+    src, d, valid, band = raw_sorted_layout(cuda, np.concatenate(parts))
+    tail = () if batch is None else (batch,)
+    for dtype in (torch.int32, torch.float32):
+        vals = draw_dist((700,) + tail, dtype, cuda)
+        check_min(band, src, d, valid, None, vals, 56 * BLOCK_S,
+                  min_paths(band), unit=True)
+
+
+@pytest.mark.parametrize("graph", ["er", "rmat"])
+@pytest.mark.parametrize("batch", [None, 4])
+def test_tiled_min_on_sparse_layouts(cuda, graph, batch):
+    """The sd layout at 8 chares of a near-uniform graph (0.25 edges per
+    segment of the chunks' ranges: the atomic kernel) and of an RMAT graph
+    (1.6, rows down to 0.2: the tiled kernel, every row), bit-equal to the
+    plain version; and the same bits with the rule's threshold moved so
+    that each table takes the other kernel (a new table, a plan of its
+    own)."""
+    g = (G.erdos_renyi(1 << 15, 1 << 16, seed=1) if graph == "er"
+         else G.rmat(13, 14 << 13, seed=1))
+    pg = G.partition(G.random_weights(g, seed=5), 8)
+    a = pg.device_arrays("sd", cuda)
+    band = a["sd_band"]
+    plan = push_fused.tile_plan(band)
+    assert plan.num_tiled == 8 and plan.min_tiled is (graph == "rmat")
+    edges = (a["sd_src_local"], a["sd_dst_global"], a["sd_edge_valid"])
+    S = pg.num_chunks * pg.chunk_size
+    tail = () if batch is None else (batch,)
+    other = band.clone()
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(push_fused, "MIN_TILE_EDGES_PER_SEGMENT",
+                  0 if graph == "er" else float("inf"))
+        assert push_fused.tile_plan(other).min_tiled is (graph == "er")
+    for dtype in (torch.int32, torch.float32):
+        vals = draw_dist((8, pg.chunk_size) + tail, dtype, cuda)
+        w = min_weight(a["sd_edge_weight"], dtype)
+        got = check_min(band, *edges, w, vals, S, min_paths(band))
+        assert same_bits(check_min(other, *edges, w, vals, S,
+                                   min_paths(other)), got)
+
+
+def test_basic_layout_keeps_the_atomic_min(cuda):
+    """The basic layout of an RMAT graph at C=1 is not seg-sorted: the min
+    runs the atomic kernel alone, bit-equal to the plain version."""
+    src, dst, valid, w, band, V, S = sd_layout(cuda, scale=12,
+                                               layout="basic")
+    assert push_fused.tile_plan(band).num_tiled == 0
+    for dtype in (torch.int32, torch.float32):
+        vals = draw_dist((1, V), dtype, cuda)
+        check_min(band, src, dst, valid, min_weight(w, dtype), vals, S,
+                  ("atomic",))
+
+
+def test_mixed_rows_take_both_min_paths(cuda):
+    """A seg-sorted row and an unsorted one: one atomic launch over the
+    unsorted row, the tiled kernel over the other."""
+    src, dst, valid, w, band, V, S = sd_layout(cuda, chares=2, scale=12)
+    dst = dst.clone()
+    live = int(valid[1].sum())
+    dst[1, :live] = dst[1, :live][torch.randperm(live, device=cuda)]
+    band = ops._bands_on_device(src, dst, valid, band.shape[-1])
+    assert push_fused.tile_plan(band).tiled.tolist() == [True, False]
+    for dtype in (torch.int32, torch.float32):
+        vals = draw_dist((2, V), dtype, cuda)
+        push_fused.reset_launch_counts()
+        got = push_fused.fused_push(band, src, dst, valid, None, vals, S,
+                                    combine="min")
+        assert push_fused.launch_counts == min_counts("tiled", "atomic")
+        assert same_bits(got, push_fused.fused_push_plain(
+            band, src, dst, valid, None, vals, S, combine="min"))
+
+
+def test_ops_push_without_a_band_takes_the_atomic_min(cuda):
+    """ops.push without a band runs the atomic min with no tile plan and
+    no host sync; with the layout's band, the tiled one; same bits."""
+    src, dst, valid, w, band, V, S = sd_layout(cuda, chares=2, scale=12)
+    vals = draw_dist((2, V), torch.float32, cuda)
+    plans = len(push_fused._plans)
+    push_fused.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = ops.push(vals, src, dst, valid, S, combine="min", weight=w)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert push_fused.launch_counts == min_counts("atomic")
+    assert len(push_fused._plans) == plans
+    push_fused.reset_launch_counts()
+    tiled = ops.push(vals, src, dst, valid, S, combine="min", weight=w,
+                     band=band)
+    assert push_fused.launch_counts == min_counts("tiled")
+    assert same_bits(got, tiled)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+@pytest.mark.parametrize("order", ["sorted", "shuffled", "pairwise"])
+@pytest.mark.parametrize("batch", [None, 4])
+@pytest.mark.parametrize("rowed", [False, True])
+def test_scatter_min_on_layouts(cuda, dtype, order, batch, rowed):
+    """scatter_min over the sd layout's destinations (the shared-memory
+    tile path), the same ids shuffled and the pairwise layout's (the global
+    path), chare rows or one row, with a [B] plane; bit-equal to the plain
+    version, contributions at the identity skipped, negatives kept,
+    out-of-range ids dropped."""
+    if order == "pairwise":
+        pg = G.partition(G.random_weights(G.rmat(12, 14 << 12, seed=1),
+                                          seed=5), 3)
+        dst = pg.device_pairwise(cuda)["pb_recv_dst"]  # basic's receive
+        S = pg.chunk_size
+    else:
+        src, dst, valid, w, band, V, S = sd_layout(cuda, chares=3, scale=12)
+    tail = () if batch is None else (batch,)
+    c = draw_dist(tuple(dst.shape) + tail, dtype, cuda, unreached=0.3)
+    top = push_fused.SENTINEL_F32 if dtype == torch.float32 \
+        else push_fused.SENTINEL
+    c = torch.where(c < top, c - 50, c)  # some negatives
+    dst = dst.clone()
+    if order == "shuffled":
+        perm = torch.randperm(dst.shape[1], device=cuda)
+        dst, c = dst[:, perm].contiguous(), c[:, perm].contiguous()
+    dst[:, ::97] = -1
+    dst[:, 5::101] = S + 3
+    if not rowed:
+        dst, c = dst[1], c[1]
+    push_fused.reset_launch_counts()
+    got = push_staged.scatter_min(dst, c, S)
+    assert push_fused.launch_counts["scatter_min"] == 1
+    assert same_bits(got, push_staged.scatter_min_plain(dst, c, S))

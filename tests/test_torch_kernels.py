@@ -130,6 +130,46 @@ def test_min_float_negative_weights_match_reference(rng):
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+@pytest.mark.parametrize("reached", ["none", "half"])
+@pytest.mark.parametrize("batch", [None, 3])
+@pytest.mark.parametrize("seeded", [False, True])
+def test_min_unreached_sources_over_negative_weights(dtype, reached, batch,
+                                                     seeded, rng):
+    """An unreached source (int SENTINEL, float +inf) over a negative weight
+    sends a real value: SENTINEL + w for ints, and for floats 2^31 + w,
+    which rounds below 2^31 once |w| >= 256 (float32's spacing is 128 just
+    below 2^31).  A min that skipped contributions because the gathered
+    value is the identity would lose them."""
+    E, V = 900, 300
+    src, dst, valid = _coo(rng, E, V, sorted_by_block=True)
+    shape = (V,) if batch is None else (V, batch)
+    if dtype == np.int32:
+        vals = rng.integers(0, 10_000, shape).astype(np.int32)
+        w = rng.integers(-3000, 9, E).astype(np.int32)
+        unreached = SENTINEL
+    else:
+        vals = rng.uniform(0.0, 100.0, shape).astype(np.float32)
+        w = rng.uniform(-2000.0, 5.0, E).astype(np.float32)
+        unreached = np.inf
+    if reached == "none":
+        vals[:] = unreached
+    else:
+        vals[rng.integers(0, 2, shape).astype(bool)] = unreached
+    init = None
+    if seeded:
+        init = (rng.integers(0, 10_000, shape) if dtype == np.int32
+                else rng.uniform(0.0, 100.0, shape)).astype(dtype)
+        init[rng.integers(0, 2, shape).astype(bool)] = unreached
+    got, want = both(vals, src, dst, valid, V, combine="min", weight=w,
+                     init=init)
+    assert got.dtype == dtype
+    np.testing.assert_array_equal(got, want)
+    if reached == "none":  # so whatever lowered out came from one
+        base = np.full(shape, unreached, dtype) if init is None else init
+        assert bool((got < base).any())
+
+
 @pytest.mark.parametrize("combine,dtype", [("add", np.float32),
                                            ("add", np.int32),
                                            ("min", np.int32),
@@ -291,6 +331,24 @@ def test_output_dtypes():
     assert od(torch.int32, "min") == torch.int32
 
 
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+@pytest.mark.parametrize("seeded", [False, True])
+def test_min_skip_bound_is_an_order_key(dtype, seeded):
+    """The min kernels skip contributions at or above ``_min_cap``, an order
+    key (a float's bit pattern as an int): the int sentinel for ints, which
+    no int exceeds; float(SENTINEL)'s key where a float out starts at the
+    identity; above +inf's key where a float init may hold more."""
+    init = torch.zeros(3, dtype=dtype) if seeded else None
+    cap = push_fused._min_cap(dtype, init)
+    key = lambda x: int(np.array(x, np.float32).view(np.int32))
+    if dtype == torch.int32:
+        assert cap == SENTINEL
+    elif seeded:
+        assert cap > key(np.inf)
+    else:
+        assert cap == key(push_fused.SENTINEL_F32) == key(2.0 ** 31)
+
+
 def test_cpu_calls_do_not_count_as_launches(rng):
     push_fused.reset_launch_counts()
     src, dst, valid = (torch.from_numpy(a) for a in _coo(rng, 300, 50))
@@ -301,5 +359,6 @@ def test_cpu_calls_do_not_count_as_launches(rng):
     ops.segment_reduce(torch.ones(300), dst, 50)
     assert push_fused.launch_counts == dict.fromkeys(
         ("fused_push_add", "fused_push_min", "fused_push_add_tiled",
-         "fused_push_add_merge", "fused_push_add_atomic", "gather_sum",
+         "fused_push_add_merge", "fused_push_add_atomic",
+         "fused_push_min_tiled", "fused_push_min_atomic", "gather_sum",
          "scatter_sum", "gather_min", "scatter_min"), 0)

@@ -89,6 +89,29 @@ def model_work(chunks):
     return np.array(out, np.int64).reshape(-1, 3)
 
 
+def model_min_tiles(band, chunks, rows):
+    """Whether the tiled min takes the table's tiled rows: they hold at
+    least MIN_TILE_EDGES_PER_SEGMENT live edges (live blocks x BLOCK_E)
+    per segment of their live chunks' summed ranges."""
+    edges = sum(int((band[r, 3] >= 0).sum()) for r in range(len(rows))
+                if rows[r]) * BLOCK_E
+    span = sum(int(hi - lo + 1) for row in chunks for lo, hi in row
+               if hi >= lo) * BLOCK_S
+    return edges > 0 and edges >= span * PF.MIN_TILE_EDGES_PER_SEGMENT
+
+
+def assert_emptied(part, band_np, rows):
+    """``part`` is None unless ``rows`` splits the table; then the band
+    with those rows' blocks emptied (src hi and seg hi -1)."""
+    if not 0 < rows.sum() < len(rows):
+        assert part is None
+        return
+    want = band_np.copy()
+    want[rows, 1] = -1
+    want[rows, 3] = -1
+    np.testing.assert_array_equal(part.numpy().reshape(want.shape), want)
+
+
 def model_touching(chunks, r, t):
     """The live chunks of row r whose range holds segment block t."""
     lo, hi = chunks[r, :, 0], chunks[r, :, 1]
@@ -108,6 +131,8 @@ def assert_schedule(band_np, band=None):
     assert plan.work.dtype == torch.int32
     np.testing.assert_array_equal(plan.work.numpy(), model_work(chunks))
     assert plan.num_tiled == int(rows.sum())
+    assert_emptied(plan.atomic_band, band_np, rows)
+    assert plan.min_tiled is model_min_tiles(band_np, chunks, rows)
     assert plan.num_tiles == int(chunks[..., 1].max()) + 1
     tc = plan.tile_chunks.numpy()
     assert tc.shape == (band_np.shape[0], plan.num_tiles, 2)
@@ -458,3 +483,27 @@ def test_wide_ranges_split_into_pieces(seed, chares):
         assert (mine[1:, 1] == mine[:-1, 2] + 1).all()
     if chares == 8:
         assert len(work) > len(live)  # some range is wider than P
+
+
+@pytest.mark.parametrize("threshold", ["port", 0.0, 1.0, 2.0,
+                                       float("inf")])
+def test_min_tiles_follow_the_density_rule(threshold, monkeypatch):
+    """The tiled min takes a table's seg-sorted rows when they hold at
+    least MIN_TILE_EDGES_PER_SEGMENT edges per segment of their chunks'
+    ranges, as the model says: a near-uniform table at 8 chares (0.25 per
+    segment), RMAT tables at 8 chares (1.6, its sparsest row 0.2) and at
+    one (7.4).  With the port's own threshold the near-uniform table goes
+    to the atomic kernel and the RMAT ones tile, every row."""
+    if threshold != "port":
+        monkeypatch.setattr(PF, "MIN_TILE_EDGES_PER_SEGMENT", threshold)
+    tables = {
+        "er": TG.partition(TG.erdos_renyi(1 << 14, 1 << 15, seed=1), 8),
+        "rmat/8": TG.partition(TG.rmat(12, 14 << 12, seed=1), 8),
+        "rmat/1": TG.partition(TG.rmat(12, 14 << 12, seed=1), 1),
+    }
+    for name, tp in tables.items():
+        plan = assert_schedule(tp.sd_band)
+        assert plan.num_tiled == plan.tiled.numel()
+        want = {"port": name != "er", 0.0: True, 1.0: name != "er",
+                2.0: name == "rmat/1", float("inf"): False}[threshold]
+        assert plan.min_tiled is want, name
