@@ -11,7 +11,8 @@ Phases, each printing one JSON line with its seconds:
   kernels    each CUDA kernel against its plain torch version on the card.
              Fused: add x {f32, i32} x {no weight, weight}; min x {i32,
              f32} x {none, weight, unit}, a third of the sources
-             unreached; with and without a [B=4] plane and an init seed;
+             unreached; at one column and on [B=4] and [B=16] planes, with
+             and without an init seed;
              all-invalid, empty-edge-block, saturation and negative-weight
              cases, unreached sources over negative weights and a float
              init above 2^31 (the min's skip must keep what they send).
@@ -32,6 +33,25 @@ Phases, each printing one JSON line with its seconds:
              launch of either)
   reproducible  pagerank and pagerank_weighted of the main path run twice
              more: the results must be bit-identical
+  batch      the batched query plane (Engine.run_batch) on the main path's
+             engine: bfs and sssp with 15 sources at B=16, personalized
+             PageRank with 16 seed sets (one of three seeds) at B=16, bfs
+             with 32 sources at B=32, betweenness with 4 pivots (sources
+             drawn from the vertices with out-edges, 0 among them).  Every
+             column must equal the same query run alone through run (bit
+             for bit with the same superstep count; PPR within 1e-7 after
+             the row normalization, bit for bit before it against a B=1
+             plane, as the betweenness depths are), launch counts zeroed
+             before and read after each batched run (one fused launch per
+             superstep, on the tiled path); bfs and sssp sources 0 and one
+             other, and PPR source 0, against the serial references.  Times,
+             in turns (batched, one by one, one by one, batched; both warm,
+             the better of two): batched against the same queries one by
+             one through run, their ratio (amortization), and the split of
+             a B=16 run (seed plane, loop, un-permute, finalize, copy
+             back).  Then at the chare scale (C chares) B=4 for bfs and PPR
+             on all four strategies against the serial references, and
+             betweenness against betweenness_ref
   staged_main  the same graphs and programs through Engine(pg, "basic")
              and Engine(pg, "sortdest", push_fn=None): one gather and one
              scatter launch per superstep, no fused launch; counts zeroed
@@ -51,8 +71,11 @@ Phases, each printing one JSON line with its seconds:
              min runs each program's call at B=1 and B=4 and on a sparse
              frontier (1% of sources reached, the rest at the identity: the
              skip that the dense calls cannot show); the min pair of the
-             staged path runs at B=1 and B=4.  The fused calls' yardstick
-             is index_add_ / scatter_reduce_(amin) into the identity over
+             staged path runs at B=1 and B=4.  The batched plane's calls
+             at B=16 (PPR's add, bfs's and sssp's min) are timed with their
+             bound against the atomic path, the add's columns bit-identical
+             to one-column calls.  The fused calls' yardstick is
+             index_add_ / scatter_reduce_(amin) into the identity over
              values gathered beforehand
   kernels_main  the kernels phase's operand matrices again on the main
              path's edge layout
@@ -67,8 +90,9 @@ Phases, each printing one JSON line with its seconds:
              against the serial references
   push_choice  one fused push against one staged pair on the main layout
              and on the staged-choice layout (is choose_push's pick the
-             faster one on this card?), with the fused kernel's atomic path
-             and the path the fused hook took (add and min), and program
+             faster one on this card?), with the fused kernel's atomic path,
+             its byte bound and the path the fused hook took (add and min),
+             and program
              seconds on the staged-choice graph with either hook
   quickstart  python -m repro_torch.quickstart's main() on the card; all
              its checks must hold
@@ -211,13 +235,15 @@ class Smoke:
         torch.cuda.synchronize()
         return self.compare(got, want, combine, what)
 
-    def _kernel_matrix(self, band, src, dst, valid, V, S, seed, float_vals):
+    def _kernel_matrix(self, band, src, dst, valid, V, S, seed, float_vals,
+                       batches=(None, 4)):
         """Both kernels over every operand combination on one edge layout:
         add x {f32, i32} x {no weight, weight}, min x {i32, f32} x {none,
-        weight, unit}, each with and without a [B=4] plane and an init seed
-        (and, for several chare rows, on one row alone), a third of the min
-        sources unreached; then ``_min_edge_cases``.  ``float_vals`` draws
-        the float values.  Returns the number of cases."""
+        weight, unit}, each at every plane width of ``batches`` (None: one
+        column) with and without an init seed (and, for several chare rows,
+        on one row alone), a third of the min sources unreached; then
+        ``_min_edge_cases``.  ``float_vals`` draws the float values.
+        Returns the number of cases."""
         import torch
 
         from repro_torch.kernels.push_fused import SENTINEL, fused_push_plain
@@ -232,7 +258,7 @@ class Smoke:
                for m in ("none", "array", "unit")]
         cases = 0
         for combine, dtype, mode in matrix:
-            for B in (None, 4):
+            for B in batches:
                 shape = (C, V) + (() if B is None else (B,))
                 if dtype == torch.float32:
                     vals = float_vals(shape, gen)
@@ -433,7 +459,7 @@ class Smoke:
         cases = self._kernel_matrix(
             band, s, d, v, V, S, seed=0,
             float_vals=lambda shape, gen: torch.randn(
-                shape, generator=gen, device="cuda"))
+                shape, generator=gen, device="cuda"), batches=(None, 4, 16))
         # negative values and weights: the float min's sign-split atomics
         vals = t(rng.normal(size=(C, V)).astype(np.float32))
         w = t(rng.uniform(-5, 5, (C, E)).astype(np.float32))
@@ -712,6 +738,270 @@ class Smoke:
             out[name] = {"bit_identical": True, "vertices": int(a.size)}
         return out
 
+    # -- the batched query plane --------------------------------------------
+
+    @staticmethod
+    def _timed(fn):
+        """Host seconds of ``fn`` from an idle device; ``fn`` ends in a copy
+        back to the host, so the device has finished when it returns."""
+        import torch
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        return time.perf_counter() - t0
+
+    @staticmethod
+    def _raw_plane(eng, prog, sets):
+        """The plane of ``sets`` (one column each) before ``finalize_batch``,
+        on the device in original vertex order: ``[B, V]``."""
+        state, qp = eng._batch_init(prog, sets)
+        state, _ = eng._batch_loop(prog, state, qp)
+        return eng._unpermute(state)
+
+    def _batch_case(self, eng, name, sources, B):
+        """One batched run of ``sources`` at width B against the same
+        queries run one by one through ``run``: launches, column equality,
+        superstep counts, and the two timed in turns."""
+        import numpy as np
+        import torch
+
+        from repro_torch.core import programs as P
+        from repro_torch.kernels import push_fused
+
+        prog = P.make_program(name)
+        combine = prog.combiner.name
+        ppr = name == "personalized_pagerank"
+        key = "seeds" if ppr else "source"
+        push_fused.reset_launch_counts()
+        plane, q_it = eng.run_batch(name, sources=sources, batch=B)
+        launched = dict(push_fused.launch_counts)
+        steps = eng.dispatch["supersteps"]
+        if launched != self._expected_launches(eng, combine, steps) or \
+                launched[f"fused_push_{combine}_tiled"] != steps:
+            raise AssertionError(f"{name}/B={B}: {launched} launches for "
+                                 f"{steps} supersteps")
+        if steps != int(q_it.max()):
+            raise AssertionError(f"{name}/B={B}: {steps} supersteps, "
+                                 f"queries {q_it.tolist()}")
+        alone = [eng.run(name, **{key: s}) for s in sources]
+        err = 0.0
+        for i, (row, it) in enumerate(alone):
+            if it != int(q_it[i]):
+                raise AssertionError(f"{name}/B={B} query {i}: {q_it[i]} "
+                                     f"supersteps, alone {it}")
+            if ppr:
+                err = max(err, float(np.abs(row - plane[i]).max()))
+            elif not np.array_equal(row, plane[i]):
+                raise AssertionError(f"{name}/B={B} query {i} differs from "
+                                     "its own run")
+        if err > 1e-7:
+            raise AssertionError(f"{name}/B={B}: normalized columns {err} "
+                                 "from their own runs")
+        if ppr:  # before the normalization: bit for bit against B=1
+            sets = P.seed_sets(sources)
+            raw = self._raw_plane(eng, prog, sets + (sets[0],) *
+                                  (B - len(sets)))
+            for i, s in enumerate(sets):
+                one = self._raw_plane(eng, prog, (s,))[0].contiguous()
+                if not torch.equal(raw[i].contiguous().view(torch.int32),
+                                   one.view(torch.int32)):
+                    raise AssertionError(f"{name}/B={B} query {i}: raw "
+                                         "column differs from its B=1 plane")
+            del raw, one
+        batched = lambda: eng.run_batch(name, sources=sources, batch=B)
+        one_by_one = lambda: [eng.run(name, **{key: s}) for s in sources]
+        b1, s1 = self._timed(batched), self._timed(one_by_one)
+        s2, b2 = self._timed(one_by_one), self._timed(batched)
+        return {"program": name, "B": B, "queries": len(sources),
+                "batched_s": min(b1, b2), "sequential_s": min(s1, s2),
+                "amortization": min(s1, s2) / min(b1, b2),
+                "turns_s": {"batched": [b1, b2], "sequential": [s1, s2]},
+                "supersteps": steps, "query_supersteps": q_it.tolist(),
+                "launches": {k: n for k, n in launched.items() if n},
+                "columns_equal_alone": True,
+                "ppr_normalized_max_abs_err": err if ppr else None}, plane
+
+    def _batch_split(self, eng, name, sources, B):
+        """Where one warm batched run's time goes: seed plane, loop,
+        un-permute, finalize, copy back (the device idle between stages;
+        the second of two passes)."""
+        import torch
+
+        from repro_torch.core import programs as P
+
+        prog = P.make_program(name)
+        sets = P.seed_sets(sources)
+        padded = sets + (sets[0],) * (B - len(sets))
+        for _ in range(2):
+            t = [time.perf_counter()]
+            stamp = lambda: (torch.cuda.synchronize(),
+                             t.append(time.perf_counter()))
+            state, qp = eng._batch_init(prog, padded)
+            stamp()
+            state, _ = eng._batch_loop(prog, state, qp)
+            stamp()
+            plane = eng._unpermute(state)[:len(sets)]
+            stamp()
+            if prog.finalize_batch is not None:
+                plane = prog.finalize_batch(self.gw, sets, plane)
+            stamp()
+            host = eng._to_host(plane)
+            t.append(time.perf_counter())
+            del state, qp, plane
+        steps = [b - a for a, b in zip(t, t[1:])]
+        return {"program": name, "B": B, "seed_plane_s": steps[0],
+                "loop_s": steps[1], "unpermute_s": steps[2],
+                "finalize_s": steps[3], "copy_back_s": steps[4],
+                "unpermute_plus_copy_back_s": steps[2] + steps[4],
+                "result_bytes": host.nbytes}
+
+    def batch(self):
+        """The batched query plane on the main path's engine (sortdest,
+        C=1, scale 22); see the module docstring."""
+        import numpy as np
+        import torch
+
+        from repro_torch.core import programs as P
+
+        eng = self.engines["pagerank"]
+        rng = np.random.default_rng(11)
+        live = np.flatnonzero(self.gw.out_degrees > 0)
+        pick = lambda k: [int(v) for v in rng.choice(live, k, replace=False)]
+        src15, src32 = [0] + pick(14), pick(32)
+        ppr_sets = [(0,)] + [(v,) for v in pick(14)] + [tuple(pick(3))]
+        pivots = tuple([0] + pick(3))
+        torch.cuda.reset_peak_memory_stats()
+        runs, planes = [], {}
+        for name, sources, B in (("bfs", src15, 16), ("sssp", src15, 16),
+                                 ("personalized_pagerank", ppr_sets, 16),
+                                 ("bfs", src32, 32)):
+            row, planes[(name, B)] = self._batch_case(eng, name, sources, B)
+            runs.append(row)
+        # the serial references: sources 0 (main's) and one other
+        serial = {}
+        for name in ("bfs", "sssp"):
+            plane = planes[(name, 16)]
+            for i in (0, 1):
+                if i == 0:
+                    ref, it, _ = self._reference(name, self.gw, "main")
+                else:
+                    ref, it = P.get_spec(name).serial(self.gw,
+                                                      source=src15[1])
+                row = runs[("bfs", "sssp").index(name)]
+                if not np.array_equal(plane[i], ref) or \
+                        row["query_supersteps"][i] != it:
+                    raise AssertionError(f"{name} source {src15[i]}: not "
+                                         "the serial reference")
+            serial[name] = [src15[0], src15[1]]
+        t0 = time.perf_counter()
+        ref = P.personalized_pagerank_serial(self.gw, seeds=(0,))
+        ppr_ref_s = time.perf_counter() - t0
+        ppr_err = float(np.abs(planes[("personalized_pagerank", 16)][0]
+                               - ref).max())
+        if ppr_err > 1e-6:
+            raise AssertionError(f"PPR source 0: {ppr_err} from serial")
+        del planes
+        split = [self._batch_split(eng, n, s, 16)
+                 for n, s in (("bfs", src15), ("personalized_pagerank",
+                                               ppr_sets))]
+        if split[0]["unpermute_plus_copy_back_s"] >= 0.1:
+            raise AssertionError(f"un-permute + copy back {split[0]}")
+        btw = self._betweenness_main(eng, pivots)
+        profiles = {f"{n}/B=16": self._device_profile(
+            lambda: eng.run_batch(n, sources=s, batch=16))
+            for n, s in (("bfs", src15), ("personalized_pagerank",
+                                           ppr_sets))}
+        return {"runs": runs, "split": split, "betweenness": btw,
+                "profiles": profiles,
+                "serial_checked": {**serial, "personalized_pagerank": [0]},
+                "ppr_serial_max_abs_err": ppr_err,
+                "ppr_serial_s": ppr_ref_s,
+                "chares": self._batch_chares(),
+                "peak_device_bytes": torch.cuda.max_memory_allocated()}
+
+    def _betweenness_main(self, eng, pivots):
+        """Betweenness with 4 pivots on the main graph: the depth plane
+        bit-equal to each pivot's B=1 plane, one fused launch per
+        superstep, and the time of the whole run and of its Brandes
+        accumulation."""
+        import numpy as np
+
+        from repro_torch.core import programs as P
+        from repro_torch.kernels import push_fused
+
+        prog = P.make_program("betweenness", pivots=pivots)
+        push_fused.reset_launch_counts()
+        depths, q_it = eng.run_batch(prog)
+        steps = eng.dispatch["supersteps"]
+        launched = dict(push_fused.launch_counts)
+        if launched != self._expected_launches(eng, "min", steps):
+            raise AssertionError(f"betweenness: {launched} for {steps}")
+        for i, p in enumerate(pivots):
+            one, it = eng.run_batch(prog, sources=[p], batch=1)
+            if not np.array_equal(one[0], depths[i]) or it[0] != q_it[i]:
+                raise AssertionError(f"betweenness pivot {p}: depths differ "
+                                     "from its B=1 plane")
+        scores, iters = eng.run(prog)  # warm
+        secs = self._timed(lambda: eng.run(prog))
+        plane, _ = eng._batch(prog, P.seed_sets(pivots))
+        brandes_s = self._timed(lambda: P._betweenness_from_depths(
+            self.gw, P.seed_sets(pivots), plane).cpu())
+        if iters != int(q_it.max()) or not np.isfinite(scores).all():
+            raise AssertionError("betweenness: bad scores or count")
+        return {"pivots": list(pivots), "seconds": secs,
+                "brandes_s": brandes_s, "supersteps": iters,
+                "launches": {k: n for k, n in launched.items() if n},
+                "max_score": float(scores.max())}
+
+    def _batch_chares(self):
+        """At the chare scale (C chares): B=4 for bfs and PPR on all four
+        strategies against the serial references, and betweenness on
+        sortdest against betweenness_ref (rtol 1e-12: float64 atomics add
+        in no fixed order)."""
+        import numpy as np
+
+        from repro_torch.core import Engine
+        from repro_torch.core import programs as P
+        from repro_torch.kernels import ref as kref
+
+        _, gw, _, pgw, _ = self._chare_graphs()
+        rng = np.random.default_rng(12)
+        live = np.flatnonzero(gw.out_degrees > 0)
+        sources = [0] + [int(v) for v in rng.choice(live, 3, replace=False)]
+        sets = [(s,) for s in sources[:3]] + [tuple(sources[1:])]
+        t0 = time.perf_counter()
+        bfs_ref = [P.bfs_serial(gw, source=s) for s in sources]
+        ppr_ref = [P.personalized_pagerank_serial(gw, seeds=s) for s in sets]
+        btw_ref, btw_it = kref.betweenness_ref(gw, tuple(sources))
+        ref_s = time.perf_counter() - t0
+        rows = []
+        for strategy in ("sortdest", "reduction", "pairs", "basic"):
+            eng = Engine(pgw, strategy)
+            plane, it = eng.run_batch("bfs", sources=sources, batch=4)
+            for i, (want, want_it) in enumerate(bfs_ref):
+                if not np.array_equal(plane[i], want) or it[i] != want_it:
+                    raise AssertionError(f"bfs/{strategy} at C="
+                                         f"{pgw.num_chunks} query {i}")
+            plane, _ = eng.run_batch("personalized_pagerank", sources=sets,
+                                     batch=4)
+            err = max(float(np.abs(plane[i] - want).max())
+                      for i, want in enumerate(ppr_ref))
+            if err > 1e-6:
+                raise AssertionError(f"PPR/{strategy}: {err} from serial")
+            rows.append({"strategy": strategy, "choice":
+                         eng.dispatch["choice"], "ppr_max_abs_err": err})
+        got, it = Engine(pgw).betweenness(pivots=tuple(sources))
+        if it != btw_it or not np.allclose(got, btw_ref, rtol=1e-12,
+                                           atol=1e-9):
+            raise AssertionError("betweenness at the chare scale: "
+                                 f"{float(np.abs(got - btw_ref).max())} "
+                                 "from betweenness_ref")
+        return {"chares": pgw.num_chunks, "vertices": gw.num_vertices,
+                "runs": rows, "references_s": ref_s,
+                "betweenness_max_abs_err": float(np.abs(got - btw_ref).max()),
+                "betweenness_supersteps": it}
+
     def staged_main(self):
         """The main path's graphs and programs through the staged pair:
         ``basic`` (pairwise layout, gather kernel on the send side, scatter
@@ -762,10 +1052,6 @@ class Smoke:
         (torch.profiler, CUDA activity), and the device's busy share of the
         run's wall time.  Kernels and copies run on one stream, so their
         summed time is the time the device was busy."""
-        import torch
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-
         out = {}
         runs = (("pagerank", "pagerank", self.engines["pagerank"]),
                 ("bfs", "bfs", self.engines["bfs"]),
@@ -775,24 +1061,35 @@ class Smoke:
                  self.staged_engines["sortdest/push_fn=None"][0]))
         for label, name, eng in runs:
             eng.run(name)  # warm
+            out[label] = self._device_profile(lambda: eng.run(name))
+        return out
+
+    @staticmethod
+    def _device_profile(fn):
+        """Device time by kernel over one call of ``fn`` (torch.profiler,
+        CUDA activity) and the device's busy share of its wall time.
+        Kernels and copies run on one stream, so their summed time is the
+        time the device was busy."""
+        import torch
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
             torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                eng.run(name)
-                torch.cuda.synchronize()
-                wall_ms = (time.perf_counter() - t0) * 1e3
-            rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
-                           for e in prof.key_averages()
-                           if e.device_type == DeviceType.CUDA),
-                          key=lambda r: -r[1])
-            busy_ms = sum(r[1] for r in rows)
-            out[label] = {
-                "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                       for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA),
+                      key=lambda r: -r[1])
+        busy_ms = sum(r[1] for r in rows)
+        return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
                 "device_busy_share": busy_ms / wall_ms if busy_ms else None,
                 "by_kernel": [{"name": k[:90], "device_ms": ms, "calls": n}
                               for k, ms, n in rows[:10]]}
-        return out
 
     def kernel_time(self):
         import torch
@@ -816,6 +1113,10 @@ class Smoke:
         ivals4 = (rand(1, K, 4) * 1e6).to(torch.int32)
         labels4 = labels[..., None] * 4 + torch.arange(
             4, device="cuda", dtype=torch.int32)
+        # B=16 planes: the batched plane's calls (PPR's add, bfs, sssp)
+        fvals16 = rand(1, K, 16)
+        dist16 = torch.where(rand(1, K, 16) < 0.5, rand(1, K, 16) * 100, SF)
+        ivals16 = (rand(1, K, 16) * 1e6).to(torch.int32)
         few = rand(1, K) < 0.01
         dist_f = torch.where(few, fvals * 100, SF)
         ivals_f = torch.where(few, 3, SI).to(torch.int32)
@@ -841,6 +1142,10 @@ class Smoke:
              True),
             ("labelprop", "fused_push_min", "frontier 1%", arrsu, labels_f,
              False, False),
+            ("personalized_pagerank", "fused_push_add", "B=16", arrs,
+             fvals16, False, False),
+            ("sssp", "fused_push_min", "B=16", arrs, dist16, True, False),
+            ("bfs", "fused_push_min", "B=16", arrs, ivals16, False, True),
         ]
         rows = []
         for prog, kern, case, a, vals, weighted, unit in variants:
@@ -866,19 +1171,23 @@ class Smoke:
             # yardstick only (the port never calls it): index_add_ or
             # scatter_reduce_ over values gathered beforehand
             yard_ms = (self._yardstick(a, vals, S, combine)
-                       if case != "frontier 1%" else None)
+                       if case in ("dense", "B=4") else None)
             rows.append({"program": prog, "kernel": kern, "case": case,
                          "ms": ms, "plain_ms": plain_ms,
                          "bound_ms": bound_ms, "bytes": nbytes,
                          "operations": ops, "max_abs_err": err,
                          "yardstick_ms": yard_ms, **extra})
-        del dist4, ivals4, labels4
-        # one line per kernel: its heaviest main-path call (weighted f32)
-        pick = {"fused_push_add": "pagerank_weighted",
-                "fused_push_min": "sssp"}
-        for kern, prog in pick.items():
+        del dist4, ivals4, labels4, fvals16, dist16, ivals16
+        # one line per kernel: its heaviest main-path call (weighted f32),
+        # and the batched plane's B=16 call beside it
+        pick = {"fused_push_add": ("pagerank_weighted",
+                                   "personalized_pagerank"),
+                "fused_push_min": ("sssp", "sssp")}
+        for kern, (prog, prog16) in pick.items():
             r = next(r for r in rows
                      if r["program"] == prog and r["case"] == "dense")
+            r16 = next(r for r in rows
+                       if r["program"] == prog16 and r["case"] == "B=16")
             self.kernel_rows[kern] = {
                 "name": kern, "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/push_fused.cu",
@@ -894,7 +1203,9 @@ class Smoke:
                 "atomic_ms": r["atomic_ms"],
                 "yardstick_ms": r["yardstick_ms"],
                 "path": ("tiled (tile pass + merge pass)"
-                         if kern.endswith("add") else "tiled")}
+                         if kern.endswith("add") else "tiled"),
+                "b16": {k: r16[k] for k in ("program", "ms", "plain_ms",
+                                            "bound_ms", "atomic_ms")}}
         return {"calls": rows, "staged_calls": self._staged_time()}
 
     def _min_paths(self, args, kw, got, what):
@@ -930,8 +1241,8 @@ class Smoke:
         replaces: both timed in turns (tiled, atomic, atomic, tiled; each
         the mean of 20 launches, the better of its two turns kept), the
         atomic result held to the tiled one within the plain version's
-        tolerance, a repeated
-        tiled call bit-identical, and each column of a [B=4] call
+        tolerance, a repeated tiled call bit-identical, and each column of
+        the call's plane (of a [B=4] call for a one-column call)
         bit-identical to the one-column call on it."""
         import torch
 
@@ -949,24 +1260,34 @@ class Smoke:
             raise AssertionError(f"{what}: two tiled calls differ")
         err = self.compare(atomic, got, "add", f"{what} atomic vs tiled")
         del atomic, again
-        gen = torch.Generator(device="cuda").manual_seed(7)
-        vals4 = torch.rand(vals.shape + (4,), generator=gen, device="cuda")
-        wide = fp(band, src, dst, valid, w, vals4, S)
-        for b in range(4):
-            one = fp(band, src, dst, valid, w, vals4[..., b].contiguous(), S)
+        if vals.dim() == 3:  # a plane: its own columns
+            cols, wide = vals, got
+        else:
+            gen = torch.Generator(device="cuda").manual_seed(7)
+            cols = torch.rand(vals.shape + (4,), generator=gen,
+                              device="cuda")
+            wide = fp(band, src, dst, valid, w, cols, S)
+        B = cols.shape[-1]
+        for b in range(B):
+            one = fp(band, src, dst, valid, w, cols[..., b].contiguous(), S)
             if not torch.equal(wide[..., b].contiguous().view(torch.int32),
                                one.view(torch.int32)):
-                raise AssertionError(f"{what}: column {b} of a B=4 call "
+                raise AssertionError(f"{what}: column {b} of a B={B} call "
                                      "differs from its one-column call")
-        del vals4, wide, one
+        del cols, wide, one
         t1 = self.cuda_ms(lambda: fp(*args), 20)
         a1 = self.cuda_ms(lambda: fa(*args), 20)
         a2 = self.cuda_ms(lambda: fa(*args), 20)
         t2 = self.cuda_ms(lambda: fp(*args), 20)
+        # device ms per call of each pass (the tile pass, the merge pass)
+        passes = {k["name"][:40]: k["device_ms"] / k["calls"] for k in
+                  self._device_profile(lambda: [fp(*args) for _ in range(3)])
+                  ["by_kernel"] if "namespace" in k["name"]}
         return {"tiled_ms": min(t1, t2), "atomic_ms": min(a1, a2),
                 "turns_ms": {"tiled": [t1, t2], "atomic": [a1, a2]},
+                "passes_ms": passes,
                 "atomic_vs_tiled_max_abs_err": err,
-                "bit_identical": {"repeat": True, "columns_of_B4": True}}
+                "bit_identical": {"repeat": True, f"columns_of_B{B}": True}}
 
     def _staged_time(self):
         """The staged kernels at the main path's shapes -- the sd layout
@@ -1135,16 +1456,27 @@ class Smoke:
         del idx, data, out
         return ms
 
+    def _chare_graphs(self):
+        """The chare-axis graph (2^chare-scale vertices), its weighted and
+        symmetrized forms and their C-chare partitions; built once."""
+        from repro_torch.core import graph as G
+
+        if not hasattr(self, "_chare"):
+            a = self.args
+            g = G.load_dataset("soc-lj1-mini", scale_log2=a.chare_scale,
+                               seed=1)
+            gw = G.random_weights(g, seed=5)
+            gu = g.to_undirected()
+            self._chare = (g, gw, gu, G.partition(gw, a.chares),
+                           G.partition(gu, a.chares))
+        return self._chare
+
     def chares(self):
         from repro_torch.core import Engine
-        from repro_torch.core import graph as G
         from repro_torch.kernels import push_fused
 
         a = self.args
-        g = G.load_dataset("soc-lj1-mini", scale_log2=a.chare_scale, seed=1)
-        gw = G.random_weights(g, seed=5)
-        gu = g.to_undirected()
-        pgw, pgu = G.partition(gw, a.chares), G.partition(gu, a.chares)
+        g, gw, gu, pgw, pgu = self._chare_graphs()
         rows = []
         push_fused.reset_launch_counts()
         for strategy in ("sortdest", "reduction", "pairs", "basic"):
@@ -1309,6 +1641,7 @@ class Smoke:
                 a2, k2 = self.cuda_ms(atomic, 10), self.cuda_ms(kern, 10)
                 row["fused_kernel_ms"] = min(k1, k2)
                 row["fused_atomic_ms"] = min(a1, a2)
+                row["bound_ms"] = self._bound(a, vals, C * K, weighted)[0]
                 push_fused.reset_launch_counts()
                 fused(*args, **kw)
                 row["fused_path"] = {k: n for k, n in
@@ -1356,7 +1689,8 @@ def main(argv=None) -> int:
     smoke = Smoke(args)
     try:
         for name in ("device", "build", "kernels", "graph", "main",
-                     "reproducible", "staged_main", "profile", "kernel_time",
+                     "reproducible", "batch", "staged_main", "profile",
+                     "kernel_time",
                      "kernels_main",
                      "chares", "push_choice", "quickstart"):
             smoke.phase(name, getattr(smoke, name))

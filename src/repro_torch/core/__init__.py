@@ -9,6 +9,7 @@ Public API, for what is ported:
     pagerank_serial / pagerank_parallel     repro_torch.core.pagerank
     labelprop_serial / labelprop_parallel   repro_torch.core.labelprop
     sssp_serial / bfs_serial / weighted PR  repro_torch.core.programs
+    personalized_pagerank_serial            repro_torch.core.programs
     run_cost / wire_model                   repro_torch.core.cost
 """
 
@@ -27,7 +28,8 @@ from repro_torch.core.programs import (VertexProgram, ProgramSpec,
                                        make_program, get_spec,
                                        registered_names, run_parallel,
                                        sssp_serial, bfs_serial,
-                                       pagerank_weighted_serial)
+                                       pagerank_weighted_serial,
+                                       personalized_pagerank_serial)
 from repro_torch.core.pagerank import pagerank_serial, pagerank_parallel
 from repro_torch.core.labelprop import (labelprop_serial, labelprop_parallel,
                                         components_oracle)

@@ -24,12 +24,21 @@ CPU it runs their plain version.  ``push_fn=None`` runs the staged pipeline
 without a hook (the staged gather and scatter kernels on the card, plain
 torch on the CPU), with its segment combine through ``segment_fn`` when one
 is given.  ``basic`` reads the pairwise layout and has no push loop to hook.
+
+``run_batch`` runs B queries of one program as a ``[C, K, B]`` plane: one
+push per superstep serves every column (the strategies and kernels take the
+trailing axis), with per-query convergence.  Its host side stays on the
+device: the seed and teleport planes are built there, the result is
+un-permuted there (one ``index_select`` through a device copy of
+``global_to_local``) and comes back in one copy into pinned host memory, as
+``run``'s single state does.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from repro_torch.core import strategies as strat
@@ -43,8 +52,6 @@ _LATER = {
     "gate": "frontier gating is not ported yet (ROADMAP queue 1, item 8)",
     "stream": "residency='stream' is not ported yet (ROADMAP queue 1, "
               "item 9)",
-    "batch": "the batched query plane (run_batch, personalized PageRank, "
-             "betweenness) is not ported yet (ROADMAP queue 1, item 7)",
     "grid2d": "grid(R,C) partitions and the grid2d strategy are not ported "
               "yet (ROADMAP queue 1, item 6)",
 }
@@ -156,18 +163,9 @@ class Engine:
         return p2(partial, self.arrays, comb, self._C, self._K,
                   segment_fn=self.segment_fn)
 
-    def run(self, program, replan=None, sync="barrier", gate=None,
-            residency=None, **params) -> tuple:
-        """Run a vertex program to completion; returns (state, iterations).
-
-        ``program`` is a registered name (params forwarded to its factory)
-        or a ``VertexProgram`` instance.  The state comes back as a numpy
-        array in original vertex order.  ``replan``, ``sync='overlap'``,
-        ``gate`` and ``residency='stream'`` are not ported yet and raise
-        ``NotImplementedError``.
-        """
-        from repro_torch.core import programs as prog_mod
-
+    @staticmethod
+    def _check_modes(replan, sync, gate, residency):
+        """Refuse the engine modes this port does not have yet."""
         if replan is not None:
             raise NotImplementedError(_LATER["replan"])
         if sync == "overlap":
@@ -180,12 +178,45 @@ class Engine:
             raise NotImplementedError(_LATER["stream"])
         if residency not in (None, "resident"):
             raise ValueError(f"unknown residency {residency!r}")
+
+    @staticmethod
+    def _program(program, params):
+        """A registered name (``params`` forwarded to its factory) or a
+        ``VertexProgram`` instance, as a ``VertexProgram``."""
+        from repro_torch.core import programs as prog_mod
+
         if isinstance(program, str):
-            if program in ("personalized_pagerank", "betweenness"):
-                raise NotImplementedError(_LATER["batch"])
-            program = prog_mod.make_program(program, **params)
-        elif params:
+            return prog_mod.make_program(program, **params)
+        if params:
             raise TypeError("params only apply to registered program names")
+        return program
+
+    def run(self, program, replan=None, sync="barrier", gate=None,
+            residency=None, **params) -> tuple:
+        """Run a vertex program to completion; returns (state, iterations).
+
+        ``program`` is a registered name (params forwarded to its factory)
+        or a ``VertexProgram`` instance.  The state comes back as a numpy
+        array in original vertex order.  Programs with their own
+        ``sources``, ``init_batch`` and ``finalize`` (personalized PageRank,
+        betweenness) run on the batched plane and return their finalized
+        result with the global superstep count.  ``replan``,
+        ``sync='overlap'``, ``gate`` and ``residency='stream'`` are not
+        ported yet and raise ``NotImplementedError``.
+        """
+        from repro_torch.core import programs as prog_mod
+
+        self._check_modes(replan, sync, gate, residency)
+        program = self._program(program, params)
+        if (program.sources is not None and program.init_batch is not None
+                and program.finalize is not None):
+            # inherently multi-source programs (betweenness pivots) run on
+            # the batched plane and post-process the per-query rows on the
+            # device; the iteration count is the global superstep count
+            sets = prog_mod.seed_sets(program.sources)
+            plane, q_it = self._batch(program, sets)
+            out = program.finalize(self.pg.graph, sets, plane)
+            return self._to_host(out), int(q_it.max())
 
         aux = self.aux
         state = torch.from_numpy(program.init(self.pg)).to(self.device)
@@ -210,13 +241,148 @@ class Engine:
                 state = new
                 iters += 1
         self.dispatch["supersteps"] = iters
-        # un-permute: padded-id state -> original vertex order (callers
-        # always see original ids)
-        state = state.reshape(-1).cpu().numpy()[self.pg.global_to_local]
-        return state, iters
+        return self._to_host(self._unpermute(state)), iters
 
-    def run_batch(self, program, sources=None, **kwargs):
-        raise NotImplementedError(_LATER["batch"])
+    # -- batched multi-query execution (DESIGN.md section 11) ----------------
+
+    @staticmethod
+    def _bucket(n: int) -> int:
+        """B-bucket: round the query count up to the next power of two, the
+        plane widths steady-state traffic runs at."""
+        return 1 << max(n - 1, 0).bit_length()
+
+    def run_batch(self, program, sources=None, batch=None, replan=None,
+                  sync="barrier", gate=None, residency=None, **params
+                  ) -> tuple[np.ndarray, np.ndarray]:
+        """Run B queries of one program in a single batched sweep.
+
+        ``sources`` is a sequence of queries -- each an original vertex id
+        or an iterable of ids (a seed set); defaults to the program's own
+        ``sources`` (betweenness pivots).  ``batch`` fixes the plane width B
+        (>= the query count); by default the count is rounded up to the
+        next power of two (``_bucket``).  Padding columns re-run query 0 and
+        are dropped on the way out.  The reference also keys its compile
+        cache by the bucket (``_batch_key``); the port compiles nothing per
+        program, so it has no such cache.  ``replan``,
+        ``sync='overlap'``, ``gate`` and ``residency='stream'`` are not
+        ported yet and raise ``NotImplementedError``.
+
+        Returns ``(plane, iters)``: ``plane[i]`` is query i's converged
+        per-vertex state in original vertex order ([n, V], after the
+        program's ``finalize_batch``), ``iters[i]`` the supersteps query i
+        needed -- identical to its own ``run``.
+        """
+        from repro_torch.core import programs as prog_mod
+
+        self._check_modes(replan, sync, gate, residency)
+        program = self._program(program, params)
+        if program.init_batch is None:
+            raise ValueError(
+                f"program {program.name!r} has no batched init "
+                f"(VertexProgram.init_batch); run it with Engine.run")
+        if sources is None:
+            sources = program.sources
+        if sources is not None and not isinstance(sources, (int, np.integer)):
+            sources = tuple(sources)
+            if not sources:
+                raise ValueError("run_batch needs at least one query "
+                                 "(sources is empty)")
+        sets = prog_mod.seed_sets(sources)
+        plane, q_it = self._batch(program, sets, batch)
+        return self._to_host(plane), q_it
+
+    def _batch(self, program, sets, batch=None):
+        """The batched run on the device: (plane [n, V] in original vertex
+        order after ``finalize_batch``, per-query supersteps as int64
+        numpy)."""
+        n = len(sets)
+        B = self._bucket(n) if batch is None else int(batch)
+        if B < n:
+            raise ValueError(f"batch={B} is smaller than {n} queries")
+        padded = sets + (sets[0],) * (B - n)
+        state, qp = self._batch_init(program, padded)
+        state, q_it = self._batch_loop(program, state, qp)
+        plane = self._unpermute(state)[:n]
+        if program.finalize_batch is not None:
+            plane = program.finalize_batch(self.pg.graph, sets, plane)
+        return plane, q_it[:n].cpu().numpy().astype(np.int64)
+
+    def _batch_init(self, program, sets):
+        """The seed plane ``[C, K, B]`` and, for programs with one, the
+        read-only query plane, both built on the engine's device."""
+        state = program.init_batch(self.pg, sets, self.device)
+        qp = (None if program.query_plane is None
+              else program.query_plane(self.pg, sets, self.device))
+        return state, qp
+
+    def _batch_loop(self, program, state, qp=None):
+        """The superstep loop over a ``[C, K, B]`` query plane, with
+        PER-QUERY convergence masking and iteration counting.
+
+        One push per superstep serves all B columns.  A query whose column
+        stopped changing sends the combiner identity from then on (its
+        frontier column is all-false), and ``q_it`` counts -- per query --
+        exactly the supersteps a sequential run of that query would have
+        executed: ``active[b]`` never turns back on, and the loop runs while
+        any query is active, so supersteps past a query's own convergence
+        are no-ops for it.  One host sync per superstep, as in ``run``.
+        Fixed-iteration programs run the plain counted loop: every column
+        takes exactly ``fixed_iters`` supersteps.  Returns the final plane
+        and ``q_it`` ``[B]``.
+        """
+        # per-vertex aux as [C, K, 1], so update/apply broadcast over B;
+        # the query plane is already [C, K, B]
+        aux = {k: v[..., None] for k, v in self.aux.items()}
+        if qp is not None:
+            aux["qplane"] = qp
+        B = state.shape[-1]
+        if program.fixed_iters is not None:
+            for _ in range(program.fixed_iters):
+                incoming = self._propagate(program.update(state, aux),
+                                           program)
+                state = program.apply(state, incoming, aux)
+            iters = program.fixed_iters
+            q_it = torch.full((B,), iters, dtype=torch.int64)
+        else:
+            sent = torch.full((), program.combiner.identity,
+                              dtype=state.dtype, device=self.device)
+            frontier = torch.ones_like(state, dtype=torch.bool)
+            active = torch.ones(B, dtype=torch.bool, device=self.device)
+            q_it = torch.zeros(B, dtype=torch.int64, device=self.device)
+            iters = 0
+            while iters < program.max_iters and bool(active.any()):
+                vals = torch.where(frontier, program.update(state, aux), sent)
+                new = program.apply(state, self._propagate(vals, program),
+                                    aux)
+                frontier = new != state
+                q_it += active
+                active = frontier.reshape(-1, B).any(dim=0)
+                state = new
+                iters += 1
+        self.dispatch["supersteps"] = iters
+        return state, q_it
+
+    def _unpermute(self, state):
+        """Padded-id state -> original vertex order, on the device (callers
+        always see original ids): ``[C, K]`` -> ``[V]``, ``[C, K, B]`` ->
+        ``[B, V]`` (a transposed view)."""
+        g2l = self.pg.device_relabel(self.device)["global_to_local"]
+        if state.dim() == 2:
+            return state.reshape(-1).index_select(0, g2l)
+        flat = state.reshape(self._C * self._K, state.shape[-1])
+        return flat.index_select(0, g2l).t()
+
+    @staticmethod
+    def _to_host(t) -> np.ndarray:
+        """A device result as numpy: one copy into pinned host memory on
+        CUDA (the copy runs at the link's rate and the block returns to
+        torch's pinned cache when the array dies), a contiguous view on
+        the CPU."""
+        if t.device.type == "cpu":
+            return t.contiguous().numpy()
+        out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        out.copy_(t)
+        return out.numpy()
 
     # -- thin per-algorithm wrappers ----------------------------------------
 
@@ -239,3 +405,8 @@ class Engine:
     def pagerank_weighted(self, alpha: float = 0.85, iters: int = 20):
         """Weight-normalized push PageRank."""
         return self.run("pagerank_weighted", alpha=alpha, iters=iters)[0]
+
+    def betweenness(self, pivots=(0, 1, 2, 3), max_iters: int = 10_000):
+        """Approximate betweenness: batched multi-pivot BFS + Brandes."""
+        return self.run("betweenness", pivots=tuple(pivots),
+                        max_iters=max_iters)

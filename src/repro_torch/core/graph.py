@@ -345,6 +345,18 @@ class PartitionedGraph:
             }
         return self._dev[key]
 
+    def device_relabel(self, device="cuda") -> dict:
+        """Device copies of the relabel maps, uploaded once per device:
+        ``global_to_local`` ``[V]`` (the un-permute of a result is one
+        ``index_select`` through it) and ``local_to_global`` ``[C*K]`` (where
+        the batched plane's seeds land), both int64."""
+        key = ("relabel", _device_key(device))
+        if key not in self._dev:
+            self._dev[key] = {
+                k: _upload(getattr(self, k).astype(np.int64), device)
+                for k in ("global_to_local", "local_to_global")}
+        return self._dev[key]
+
 
 def _stable_argsort_bounded(keys: np.ndarray, bound: int) -> np.ndarray:
     """Stable argsort of non-negative int keys known to be < ``bound``.

@@ -15,15 +15,18 @@ per-superstep contract:
                         combiner identity)
 
 ``update``/``edge_value``/``apply`` take torch tensors; ``init`` and the
-serial references are numpy.  Ported programs: pagerank,
-pagerank_weighted, labelprop, sssp, bfs.  ``personalized_pagerank`` and
-``betweenness`` run on the batched plane (``Engine.run_batch``), which is
-not ported yet (ROADMAP queue 1, item 7).
+serial references are numpy.  The batched extensions (``init_batch``,
+``query_plane``, ``finalize_batch``, ``finalize``) build and read torch
+tensors on the engine's device, so no ``[n, B]`` plane crosses to the host
+until the result does.  Programs: pagerank, pagerank_weighted, labelprop,
+sssp, bfs, and on the batched plane (``Engine.run_batch``)
+personalized_pagerank and betweenness.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from typing import Callable
 
 import numpy as np
@@ -54,6 +57,28 @@ class VertexProgram:
     edge_semiring: str | None = None
     fixed_iters: int | None = None
     max_iters: int = 10_000
+    # --- batched multi-query extensions (DESIGN.md section 11) ---
+    # init_batch(pg, seed_sets, device) -> [C, K, B] state plane on
+    # ``device``, one query column per seed set; programs without it cannot
+    # run under Engine.run_batch.
+    init_batch: Callable | None = None
+    # default seed list for programs that are *inherently* multi-source
+    # (betweenness pivots); Engine.run routes such programs through the
+    # batched plane + finalize automatically.
+    sources: tuple | None = None
+    # finalize(graph, seed_sets, plane [n, V]) -> final result, a tensor on
+    # the plane's device: post-processing of the converged per-query planes
+    # (e.g. the Brandes accumulation turning BFS depths into centrality).
+    finalize: Callable | None = None
+    # query_plane(pg, seed_sets, device) -> [C, K, B] per-query per-vertex
+    # read-only operand (personalized PageRank's teleport vectors), exposed
+    # to update/apply as ``aux["qplane"]``.
+    query_plane: Callable | None = None
+    # finalize_batch(graph, seed_sets, plane [n, V]) -> plane [n, V] on the
+    # same device; applied by ``run_batch`` itself to every returned plane
+    # (per-query row normalization), so direct run_batch callers and the
+    # Engine.run routing see the same rows.
+    finalize_batch: Callable | None = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,9 +164,64 @@ def _f32(x):
     return x.to(torch.float32)
 
 
-def _index_state(pg: PartitionedGraph, fill, dtype, source: int | None = None):
+def seed_sets(sources) -> tuple[tuple[int, ...], ...]:
+    """Normalize a multi-query ``sources`` argument to a tuple of seed-id
+    tuples: each entry is either a single original vertex id or an iterable
+    of ids (a seed set); one query column per entry."""
+    if sources is None:
+        raise ValueError("run_batch needs sources (one per query)")
+    if isinstance(sources, (int, np.integer)):
+        sources = [sources]
+    sets = []
+    for s in sources:
+        if isinstance(s, (int, np.integer)):
+            sets.append((int(s),))
+        else:
+            t = tuple(int(v) for v in s)
+            if not t:
+                raise ValueError("empty seed set")
+            sets.append(t)
+    if not sets:
+        raise ValueError("sources is empty")
+    return tuple(sets)
+
+
+def _seed_hits(pg: PartitionedGraph, sets, device) -> torch.Tensor:
+    """``[C*K, B]`` bool on ``device``: the padded slots that hold a seed of
+    query b.  Seeds are found through ``local_to_global``, as the reference
+    does, so a layout that replicates a vertex would seed every replica."""
+    n = pg.graph.num_vertices
+    for seeds in sets:
+        for v in seeds:
+            if not 0 <= v < n:
+                raise ValueError(f"source {v} out of range")
+    l2g = pg.device_relabel(device)["local_to_global"]
+    flat = torch.tensor([v for seeds in sets for v in seeds],
+                        dtype=l2g.dtype, device=device)  # one small upload
+    cols, start = [], 0
+    for seeds in sets:
+        cols.append(torch.isin(l2g, flat[start:start + len(seeds)]))
+        start += len(seeds)
+    return torch.stack(cols, dim=1)
+
+
+_TORCH_DTYPE = {np.float32: torch.float32, np.int32: torch.int32}
+
+
+def _index_state(pg: PartitionedGraph, fill, dtype, source: int | None = None,
+                 sources=None, device=None):
     """[C, K] state filled with ``fill``; ``source`` (an *original* vertex id,
-    translated through the partitioner's relabel) set to 0."""
+    translated through the partitioner's relabel) set to 0.
+
+    ``sources`` (a sequence of seed sets from ``seed_sets``) builds the
+    batched [C, K, B] plane instead, as a tensor on ``device``: column b
+    seeds query b's set.
+    """
+    if sources is not None:
+        hit = _seed_hits(pg, sources, device)
+        plane = torch.full(hit.shape, fill, dtype=_TORCH_DTYPE[dtype],
+                           device=device).masked_fill_(hit, 0)
+        return plane.reshape(pg.num_chunks, pg.chunk_size, len(sources))
     n = pg.num_chunks * pg.chunk_size
     s = np.full(n, fill, dtype=dtype)
     if source is not None:
@@ -156,12 +236,21 @@ def _index_state(pg: PartitionedGraph, fill, dtype, source: int | None = None):
 # ---------------------------------------------------------------------------
 
 
+def _zeros_plane(pg, seeds, device):
+    """Batched init for fixed-iter add-monoid programs: every query column
+    starts from the same all-zero state (the seed dependence, if any, rides
+    in the ``query_plane`` operand instead)."""
+    return torch.zeros((pg.num_chunks, pg.chunk_size, len(seeds)),
+                       dtype=torch.float32, device=device)
+
+
 def _make_pagerank(alpha: float = 0.85, iters: int = 20) -> VertexProgram:
     return VertexProgram(
         name="pagerank",
         key=_cache_key("pagerank", dict(alpha=alpha, iters=iters)),
         combiner=strat.ADD,
         init=lambda pg: np.zeros((pg.num_chunks, pg.chunk_size), np.float32),
+        init_batch=_zeros_plane,
         update=lambda a, aux: alpha * a / _f32(aux["out_degree"]),
         edge_value=None,
         apply=lambda a, inc, aux: (1.0 - alpha + inc) * _f32(aux["vertex_valid"]),
@@ -176,6 +265,7 @@ def _make_pagerank_weighted(alpha: float = 0.85, iters: int = 20) -> VertexProgr
         key=_cache_key("pagerank_weighted", dict(alpha=alpha, iters=iters)),
         combiner=strat.ADD,
         init=lambda pg: np.zeros((pg.num_chunks, pg.chunk_size), np.float32),
+        init_batch=_zeros_plane,
         update=lambda a, aux: alpha * a / aux["out_weight"],
         edge_value=lambda v, w: v * w,
         edge_semiring="weight",
@@ -199,6 +289,88 @@ def pagerank_weighted_serial(graph: Graph, alpha: float = 0.85,
         a = np.full(n, 1.0 - alpha, dtype=np.float32)
         a += np.bincount(dst, weights=b[src] * w, minlength=n).astype(np.float32)
     return a
+
+
+# ---------------------------------------------------------------------------
+# Personalized PageRank: per-query teleport vectors on the batched plane
+# ---------------------------------------------------------------------------
+
+
+def _teleport_plane(pg: PartitionedGraph, sets, device) -> torch.Tensor:
+    """[C, K, B] teleport operand on ``device``: column b carries 1/|S_b| at
+    query b's seed vertices and 0 elsewhere.  Seeds land through
+    ``local_to_global`` (like ``_index_state``); padding slots stay 0 and are
+    additionally zeroed by ``vertex_valid`` in apply."""
+    hit = _seed_hits(pg, sets, device)
+    mass = torch.tensor([1.0 / len(seeds) for seeds in sets],
+                        dtype=torch.float32, device=device)
+    return torch.where(hit, mass, 0.0).reshape(pg.num_chunks, pg.chunk_size,
+                                               len(sets))
+
+
+def _ppr_normalize(graph: Graph, sets, plane: torch.Tensor) -> torch.Tensor:
+    """Per-query row normalization on the plane's device: each query's
+    scores sum to 1 (mass lost to dangling vertices is renormalized away,
+    the standard PPR convention).  Each row is summed on its own in float64,
+    so the sum hardly depends on how a reduction splits it."""
+    plane = plane.to(torch.float32)
+    sums = plane.sum(dim=-1, keepdim=True, dtype=torch.float64)
+    return torch.where(sums > 0, plane / sums, plane).to(torch.float32)
+
+
+def _make_personalized_pagerank(seeds=(0,), alpha: float = 0.85,
+                                iters: int = 20) -> VertexProgram:
+    """PPR toward one seed set: a <- (1-alpha) * t_S(v) + alpha * sum_in
+    a(u)/deg(u), t_S uniform on S.  ``seeds`` is ONE seed set (the default
+    single query); ``Engine.run`` routes it through the batched plane at
+    B=1, and ``run_batch(sources=[set_1, ..., set_B])`` serves B seed sets
+    off one edge sweep.  update/apply only ever run inside the batched
+    loop, where the engine exposes the teleport plane as ``aux['qplane']``.
+    """
+    if isinstance(seeds, (int, np.integer)):
+        seeds = (int(seeds),)
+    seeds = tuple(int(v) for v in seeds)
+    return VertexProgram(
+        name="personalized_pagerank",
+        key=_cache_key("personalized_pagerank",
+                       dict(seeds=seeds, alpha=alpha, iters=iters)),
+        combiner=strat.ADD,
+        init=lambda pg: np.zeros((pg.num_chunks, pg.chunk_size), np.float32),
+        init_batch=_zeros_plane,
+        update=lambda a, aux: alpha * a / _f32(aux["out_degree"]),
+        edge_value=None,
+        apply=lambda a, inc, aux:
+            ((1.0 - alpha) * aux["qplane"] + inc) * _f32(aux["vertex_valid"]),
+        fixed_iters=iters,
+        sources=(seeds,),
+        query_plane=_teleport_plane,
+        finalize=lambda graph, sets, plane:
+            plane[0] if len(sets) == 1 else plane,
+        finalize_batch=_ppr_normalize,
+    )
+
+
+def personalized_pagerank_serial(graph: Graph, seeds=(0,), alpha: float = 0.85,
+                                 iters: int = 20) -> np.ndarray:
+    """Serial COST baseline: same Jacobi iteration as the engine (float32,
+    zero init, (1-alpha)*t + alpha-scaled degree-normalized push), then the
+    per-query normalization."""
+    if isinstance(seeds, (int, np.integer)):
+        seeds = (seeds,)
+    seeds = tuple(int(v) for v in seeds)
+    n = graph.num_vertices
+    src, dst = graph.src, graph.dst
+    deg = np.bincount(src, minlength=n).astype(np.float32)
+    D = np.where(deg > 0, deg, 1.0).astype(np.float32)
+    t = np.zeros(n, np.float32)
+    t[list(seeds)] = np.float32(1.0 / len(seeds))
+    a = np.zeros(n, np.float32)
+    for _ in range(iters):
+        b = np.float32(alpha) * a / D
+        a = np.float32(1.0 - alpha) * t
+        a += np.bincount(dst, weights=b[src], minlength=n).astype(np.float32)
+    s = a.sum()
+    return (a / s if s > 0 else a).astype(np.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -238,6 +410,8 @@ def _make_sssp(source: int = 0, max_iters: int = 10_000) -> VertexProgram:
         key=_cache_key("sssp", dict(source=source, max_iters=max_iters)),
         combiner=strat.FMIN,
         init=lambda pg: _index_state(pg, np.inf, np.float32, source),
+        init_batch=lambda pg, seeds, device: _index_state(
+            pg, np.inf, np.float32, sources=seeds, device=device),
         update=lambda d, aux: d,
         edge_value=lambda v, w: v + w,
         edge_semiring="weight",
@@ -280,6 +454,8 @@ def _make_bfs(source: int = 0, max_iters: int = 10_000) -> VertexProgram:
         key=_cache_key("bfs", dict(source=source, max_iters=max_iters)),
         combiner=strat.MIN,
         init=lambda pg: _index_state(pg, INT_SENTINEL, np.int32, source),
+        init_batch=lambda pg, seeds, device: _index_state(
+            pg, INT_SENTINEL, np.int32, sources=seeds, device=device),
         update=lambda d, aux: d,
         edge_value=_bfs_hop,  # +1 per hop, weights ignored
         edge_semiring="unit",
@@ -305,6 +481,102 @@ def bfs_serial(graph: Graph, source: int = 0, max_iters: int = 10_000
             return dist, it + 1
         dist = new
     return dist, max_iters
+
+# ---------------------------------------------------------------------------
+# Approximate betweenness: multi-source BFS on the batched plane + Brandes
+# accumulation at finalize
+# ---------------------------------------------------------------------------
+
+_coo: dict = {}  # (id(graph), device) -> (weak ref to graph, (src, dst))
+
+
+def _device_coo(graph: Graph, device) -> tuple:
+    """The graph's COO endpoints (original ids, int64) on ``device``,
+    uploaded once and kept for as long as the graph lives."""
+    key = (id(graph), str(torch.device(device)))
+    hit = _coo.get(key)
+    if hit is not None and hit[0]() is graph:
+        return hit[1]
+    edges = tuple(torch.from_numpy(np.asarray(a, np.int64)).to(device)
+                  for a in (graph.src, graph.dst))
+    _coo[key] = (weakref.ref(graph, lambda _, k=key: _coo.pop(k, None)),
+                 edges)
+    return edges
+
+
+def _betweenness_from_depths(graph: Graph, sets, depths) -> torch.Tensor:
+    """Brandes accumulation from per-pivot BFS depth rows, in float64 torch
+    ops on the depth plane's device.
+
+    ``depths`` is the [n_pivots, V] plane the batched engine produces
+    (INT_SENTINEL = unreached).  For each pivot: the forward sweep counts
+    shortest paths (sigma) level by level over the BFS DAG, the backward
+    sweep accumulates dependencies (delta), each level one ``index_add_``
+    over its DAG edges; scores are scaled by V / n_pivots to estimate the
+    all-sources sum (Brandes++ style pivot sampling).  On the card the adds
+    are float64 atomics in no fixed order.
+    """
+    depths = torch.as_tensor(depths)
+    dev = depths.device
+    src, dst = _device_coo(graph, dev)
+    n = graph.num_vertices
+    f64 = dict(dtype=torch.float64, device=dev)
+    scores = torch.zeros(n, **f64)
+    for seeds, row in zip(sets, depths):
+        d = torch.where(row >= INT_SENTINEL, -1, row)
+        ds, dd = d[src], d[dst]
+        maxlvl = int(d.max())
+        sigma = torch.zeros(n, **f64)
+        sigma[list(seeds)] = 1.0
+        for lvl in range(maxlvl):
+            dag = (ds == lvl) & (dd == lvl + 1)
+            es, ed = src[dag], dst[dag]
+            sigma.index_add_(0, ed, sigma[es])
+        delta = torch.zeros(n, **f64)
+        for lvl in range(maxlvl, 0, -1):
+            dag = (ds == lvl - 1) & (dd == lvl)
+            es, ed = src[dag], dst[dag]
+            below = sigma[ed]
+            ratio = torch.where(below > 0, sigma[es] / below, 0.0)
+            contrib = torch.zeros(n, **f64)
+            contrib.index_add_(0, es, ratio * (1.0 + delta[ed]))
+            delta += contrib
+        delta[d == 0] = 0.0
+        scores += delta
+    return scores * (n / max(len(sets), 1))
+
+
+def _make_betweenness(pivots=(0, 1, 2, 3), max_iters: int = 10_000
+                      ) -> VertexProgram:
+    """Approximate betweenness centrality: B-pivot BFS in one batched sweep
+    (the [C, K, B] plane), then the Brandes forward/backward accumulation on
+    the device from the converged depth rows."""
+    pivots = tuple(int(p) for p in pivots)
+    return VertexProgram(
+        name="betweenness",
+        key=_cache_key("betweenness",
+                       dict(pivots=pivots, max_iters=max_iters)),
+        combiner=strat.MIN,
+        init=lambda pg: _index_state(pg, INT_SENTINEL, np.int32, pivots[0]),
+        init_batch=lambda pg, seeds, device: _index_state(
+            pg, INT_SENTINEL, np.int32, sources=seeds, device=device),
+        update=lambda d, aux: d,
+        edge_value=_bfs_hop,
+        edge_semiring="unit",
+        apply=lambda d, inc, aux: torch.minimum(d, inc),
+        fixed_iters=None,
+        max_iters=max_iters,
+        sources=pivots,
+        finalize=_betweenness_from_depths,
+    )
+
+
+def betweenness_serial(graph: Graph, pivots=(0, 1, 2, 3),
+                       max_iters: int = 10_000) -> tuple[np.ndarray, int]:
+    """Serial COST baseline: per-pivot Brandes in ``kernels.ref`` (its own
+    BFS -- fully independent of the engine's depth plane)."""
+    from repro_torch.kernels.ref import betweenness_ref
+    return betweenness_ref(graph, tuple(int(p) for p in pivots))
 
 
 # ---------------------------------------------------------------------------
@@ -341,3 +613,11 @@ register(ProgramSpec(
     name="pagerank_weighted", make=_make_pagerank_weighted,
     serial=pagerank_weighted_serial, defaults=dict(alpha=0.85, iters=20),
     weighted=True, table="table6"))
+register(ProgramSpec(
+    name="betweenness", make=_make_betweenness, serial=betweenness_serial,
+    defaults=dict(pivots=(0, 1, 2, 3), max_iters=10_000),
+    returns_iters=True, table="table7"))
+register(ProgramSpec(
+    name="personalized_pagerank", make=_make_personalized_pagerank,
+    serial=personalized_pagerank_serial,
+    defaults=dict(seeds=(0,), alpha=0.85, iters=20), table="table8"))

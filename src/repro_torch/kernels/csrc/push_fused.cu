@@ -425,7 +425,10 @@ __global__ void __launch_bounds__(kBlockE) tiled_add_kernel(const Tiled a) {
 // blocks some chunk's range starts or ends in): the chunks [c0, c1] whose
 // segment ranges cover t (tile_chunks) left their partials of t in scratch
 // unless t lies inside a chunk's range; sum them in chunk order and add the
-// sum to out.
+// sum to out.  A thread takes (segment, column) pairs, the column fastest,
+// so a warp reads and writes consecutive words of the [256, B] block: a
+// loop over the columns of one segment per thread would access both with
+// stride B.
 template <typename T>
 __global__ void __launch_bounds__(kBlockS) merge_kernel(const Tiled a) {
   const long long NC = a.NC, NT = a.NT, S = a.S;
@@ -436,23 +439,23 @@ __global__ void __launch_bounds__(kBlockS) merge_kernel(const Tiled a) {
   if (c1 < c0) return;
   const long long row = tb / NT;
   const int t = static_cast<int>(tb - row * NT);
-  const long long s = static_cast<long long>(t) * kBlockS + threadIdx.x;
-  if (s >= S) return;
+  const long long s0 = static_cast<long long>(t) * kBlockS;
+  const long long n = (S - s0 < kBlockS ? S - s0 : kBlockS) * B;
   const int* cb = a.chunk_blocks + row * NC * 2;
   const T* part = static_cast<const T*>(a.scratch) + row * NC * 2 * kBlockS * B;
-  for (int b = 0; b < B; ++b) {
+  for (long long x = threadIdx.x; x < n; x += kBlockS) {
     T acc = T(0);
     bool have = false;
     for (int c = c0; c <= c1; ++c) {
       const int lo = cb[2 * c], hi = cb[2 * c + 1];
       if (hi < lo || (t != lo && t != hi)) continue;  // empty, or inside
       const int slot = t == lo ? 0 : 1;
-      const T v = part[((2LL * c + slot) * kBlockS + threadIdx.x) * B + b];
+      const T v = part[(2LL * c + slot) * kBlockS * B + x];
       acc = have ? add_fixed(acc, v) : v;
       have = true;
     }
     if (have) {
-      T* p = static_cast<T*>(a.out) + (row * S + s) * B + b;
+      T* p = static_cast<T*>(a.out) + (row * S + s0) * B + x;
       *p = add_fixed(*p, acc);
     }
   }

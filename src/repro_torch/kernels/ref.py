@@ -1,5 +1,6 @@
 """Plain torch oracles for the push kernels: the twins of
-``repro/kernels/ref.py``'s ``push_ref`` and gather/scatter references.
+``repro/kernels/ref.py``'s ``push_ref`` and gather/scatter references,
+and its numpy ``betweenness_ref``.
 
 Edge arrays are 1-D ``[E]``; ``vals`` / the gathered data may carry a
 trailing batch axis (``[V, B]`` / ``[E, B]``).  Indices are widened to int64
@@ -8,6 +9,7 @@ for ``index_select`` / ``index_add_`` / ``scatter_reduce``.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 SENTINEL = 2147483647  # int32 max: the min monoid's "unreached"
@@ -70,3 +72,51 @@ def push_ref(vals, src, dst, valid, num_segments, combine="add", weight=None):
         out = torch.where(out >= SENTINEL, torch.full_like(out, float("inf")),
                           out)
     return out
+
+
+def betweenness_ref(graph, pivots):
+    """Serial Brandes accumulation over the pivot set (numpy, no engine).
+
+    Unweighted directed betweenness approximated by running Brandes' forward
+    (sigma path counts by BFS level) and backward (delta dependency) sweeps
+    from each pivot, then scaling by V / len(pivots) to estimate the
+    all-sources sum.  Returns (scores float64 [V], supersteps) where
+    supersteps counts the BFS frontier expansions the engine would run
+    (the max eccentricity over pivots, +1 for the quiescence detection
+    step, matching ``bfs_serial``'s convention per pivot).
+    """
+    src = np.asarray(graph.src)
+    dst = np.asarray(graph.dst)
+    n = graph.num_vertices
+    scores = np.zeros(n, np.float64)
+    iters = 0
+    for s in pivots:
+        d = np.full(n, -1, np.int64)
+        sigma = np.zeros(n, np.float64)
+        d[s] = 0
+        sigma[s] = 1.0
+        level = 0
+        frontier = d == 0
+        while frontier.any():
+            on = frontier[src]
+            hit = on & (d[dst] == -1)
+            nxt = np.zeros(n, bool)
+            nxt[dst[hit]] = True
+            d[dst[hit]] = level + 1
+            dag = on & (d[dst] == level + 1)
+            np.add.at(sigma, dst[dag], sigma[src[dag]])
+            frontier = nxt
+            level += 1
+        iters = max(iters, level)
+        delta = np.zeros(n, np.float64)
+        for lvl in range(level, 0, -1):
+            dag = (d[src] == lvl - 1) & (d[dst] == lvl)
+            contrib = np.zeros(n, np.float64)
+            with np.errstate(invalid="ignore", divide="ignore"):
+                ratio = np.where(sigma[dst] > 0, sigma[src] / sigma[dst], 0.0)
+            np.add.at(contrib, src[dag], (ratio * (1.0 + delta[dst]))[dag])
+            delta = delta + contrib
+        delta[s] = 0.0
+        scores += delta
+    scores *= n / max(len(pivots), 1)
+    return scores, iters

@@ -925,3 +925,133 @@ def test_scatter_min_on_layouts(cuda, dtype, order, batch, rowed):
     got = push_staged.scatter_min(dst, c, S)
     assert push_fused.launch_counts["scatter_min"] == 1
     assert same_bits(got, push_staged.scatter_min_plain(dst, c, S))
+
+
+# ---------------------------------------------------------------------------
+# The batched query plane on the card
+# ---------------------------------------------------------------------------
+
+BATCH_PROGRAMS = ("bfs", "sssp", "personalized_pagerank", "pagerank")
+SEED_SETS = [(0,), (7, 61), (3, 5, 40), 100, 2047]
+
+
+@pytest.mark.parametrize("chares", (1, 8))
+@pytest.mark.parametrize("strategy", ("sortdest", "reduction", "pairs",
+                                      "basic"))
+@pytest.mark.parametrize("name", BATCH_PROGRAMS)
+def test_run_batch_on_cuda_matches_cpu(cuda, name, strategy, chares):
+    """run_batch on the card equals the same plane on the CPU: min planes
+    and per-query counts bit-equal, add planes within 1e-5."""
+    pg = prepared("sssp", G.rmat(11, 14 << 11, seed=1), chares)
+    got, got_it = Engine(pg, strategy=strategy).run_batch(
+        name, sources=SEED_SETS)
+    want, want_it = Engine(pg, strategy=strategy, device="cpu").run_batch(
+        name, sources=SEED_SETS)
+    np.testing.assert_array_equal(got_it, want_it)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if name in ("bfs", "sssp"):
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_betweenness_on_cuda_matches_cpu(cuda):
+    """The Brandes accumulation on the card (float64 atomics, no fixed
+    order) within rtol 1e-12 of the CPU's."""
+    pg = prepared("betweenness", G.rmat(11, 14 << 11, seed=1), 1)
+    pivots = (0, 5, 9, 33, 700)
+    got, it = Engine(pg).betweenness(pivots=pivots)
+    want, want_it = Engine(pg, device="cpu").betweenness(pivots=pivots)
+    assert it == want_it and got.dtype == np.float64
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-9)
+
+
+@pytest.mark.parametrize("B", (4, 16))
+def test_ppr_column_is_bit_equal_to_its_one_column_run(cuda, B):
+    """On the sd layout, where the add is fixed-order, a PPR column of a
+    [B] plane before normalization has the bits of the same query at B=1;
+    after normalization they agree within 1e-7."""
+    from repro_torch.core import programs as P
+
+    pg = prepared("pagerank", G.rmat(12, 14 << 12, seed=1), 1)
+    eng = Engine(pg)
+    prog = P.make_program("personalized_pagerank")
+    sets = P.seed_sets([(7, 61)] + [i * 13 for i in range(B - 1)])
+    planes = []
+    for cols in (sets, sets[:1]):
+        state, qp = eng._batch_init(prog, cols)
+        state, _ = eng._batch_loop(prog, state, qp)
+        planes.append(eng._unpermute(state))
+    assert same_bits(planes[0][0].contiguous(), planes[1][0].contiguous())
+    wide, _ = eng.run_batch(prog, sources=sets)
+    one, _ = eng.run_batch(prog, sources=sets[:1])
+    np.testing.assert_allclose(wide[0], one[0], rtol=0, atol=1e-7)
+
+
+@pytest.mark.parametrize("B", (1, 4, 16))
+@pytest.mark.parametrize("name", ("bfs", "sssp", "personalized_pagerank"))
+def test_one_fused_launch_per_superstep_whatever_b(cuda, name, B):
+    pg = prepared("sssp", G.rmat(12, 14 << 12, seed=1), 1)
+    eng = Engine(pg)
+    sources = [int(s) for s in np.random.default_rng(B).integers(0, 4096, B)]
+    push_fused.reset_launch_counts()
+    _, q_it = eng.run_batch(name, sources=sources)
+    supersteps = eng.dispatch["supersteps"]
+    assert supersteps == int(q_it.max())
+    combine = "add" if name == "personalized_pagerank" else "min"
+    assert dict(push_fused.launch_counts) == fused_launches(
+        eng.arrays, "sd", combine, supersteps)
+    assert push_fused.launch_counts[f"fused_push_{combine}_tiled"] == \
+        supersteps
+
+
+@pytest.mark.parametrize("combine,dtype,mode", [
+    ("add", torch.float32, "none"), ("add", torch.float32, "weight"),
+    ("min", torch.int32, "unit"), ("min", torch.float32, "weight")])
+@pytest.mark.parametrize("layout", ("sd", "basic"))
+def test_fused_kernels_at_b16_match_plain(cuda, combine, dtype, mode,
+                                          layout):
+    """Both fused kernels on a [B=16] plane (the tiled paths on the sd
+    layout, the atomic kernel on the basic one) against the plain
+    version."""
+    src, dst, valid, w, band, V, S = sd_layout(cuda, chares=2,
+                                               layout=layout)
+    vals = (draw_vals((2, V, 16), dtype, cuda) if combine == "add"
+            else draw_dist((2, V, 16), dtype, cuda))
+    if mode != "weight":
+        w = None
+    elif combine == "min":
+        w = min_weight(w, dtype)
+    kw = dict(combine=combine, unit_weight=mode == "unit")
+    got = push_fused.fused_push(band, src, dst, valid, w, vals, S, **kw)
+    want = push_fused.fused_push_plain(band, src, dst, valid, w, vals, S,
+                                       **kw)
+    assert_kernel_equal(got, want, combine)
+
+
+def test_unpermute_returns_pinned_host_memory_from_one_copy(cuda):
+    """The result of run and run_batch is un-permuted on the card and comes
+    back in one device-to-host copy, into pinned memory."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    pg = G.partition(G.rmat(12, 14 << 12, seed=1), 2,
+                     partitioner="degree_sorted")
+    eng = Engine(pg)
+    state = torch.arange(pg.num_chunks * pg.chunk_size * 3, device=cuda,
+                         dtype=torch.int32).reshape(pg.num_chunks,
+                                                    pg.chunk_size, 3)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        host = eng._to_host(eng._unpermute(state)[:2])
+        torch.cuda.synchronize()
+    copies = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and "DtoH" in e.key]
+    assert sum(e.count for e in copies) == 1, [e.key for e in copies]
+    assert torch.from_numpy(host).is_pinned()
+    flat = state.reshape(-1, 3).cpu().numpy()
+    np.testing.assert_array_equal(host, flat[pg.global_to_local].T[:2])
+    got, _ = eng.run("bfs", source=5)
+    assert torch.from_numpy(got).is_pinned()
+    np.testing.assert_array_equal(got, Engine(pg, device="cpu").run(
+        "bfs", source=5)[0])

@@ -1,6 +1,6 @@
 """The torch port's engine against the JAX reference and the serial programs.
 
-The 5 ported programs x {reduction, sortdest, basic, pairs} x 4
+The 5 single-query programs x {reduction, sortdest, basic, pairs} x 4
 partitioners x C in {1, 2, 8}, on the equivalence trio, with the port on
 the CPU:
 
@@ -318,17 +318,24 @@ def test_serial_references_equal_reference():
 
 
 def test_registry_and_specs_match_reference():
-    assert sorted(TPROG.registered_names()) == sorted(PROGRAMS)
-    for name in PROGRAMS:
+    names = PROGRAMS + ("betweenness", "personalized_pagerank")
+    assert sorted(TPROG.registered_names()) == sorted(names)
+    assert sorted(RPROG.registered_names()) == sorted(names)
+    for name in names:
         t, r = get_spec(name), rget_spec(name)
         for k in ("defaults", "weighted", "undirected", "exact",
                   "returns_iters", "table"):
             assert getattr(t, k) == getattr(r, k), (name, k)
         tp, rp = TPROG.make_program(name), RPROG.make_program(name)
         assert (tp.key, tp.combiner.name, tp.combiner.identity,
-                tp.edge_semiring, tp.fixed_iters, tp.max_iters) == \
+                tp.edge_semiring, tp.fixed_iters, tp.max_iters,
+                tp.sources) == \
             (rp.key, rp.combiner.name, rp.combiner.identity,
-             rp.edge_semiring, rp.fixed_iters, rp.max_iters)
+             rp.edge_semiring, rp.fixed_iters, rp.max_iters, rp.sources)
+        for hook in ("init_batch", "query_plane", "finalize",
+                     "finalize_batch"):
+            assert (getattr(tp, hook) is None) == \
+                (getattr(rp, hook) is None), (name, hook)
     with pytest.raises(ValueError):
         get_spec("nope")
     with pytest.raises(TypeError):
@@ -384,9 +391,9 @@ def test_unported_options_raise():
         lambda: eng.run("sssp", sync="overlap"),
         lambda: eng.run("sssp", gate="frontier"),
         lambda: eng.run("sssp", residency="stream"),
-        lambda: eng.run("personalized_pagerank"),
-        lambda: eng.run("betweenness"),
-        lambda: eng.run_batch("bfs", sources=[0, 1]),
+        lambda: eng.run_batch("bfs", sources=[0, 1], replan="striped"),
+        lambda: eng.run_batch("bfs", sources=[0, 1], sync="overlap"),
+        lambda: eng.run_batch("bfs", sources=[0, 1], gate="frontier"),
         lambda: Engine(pg, strategy="grid2d", device="cpu"),
         lambda: Engine(pg, device="cpu", residency="stream"),
         lambda: TG.partition(port_graph("sssp", "rmat6"), 4,
