@@ -11,8 +11,8 @@ Phases, each printing one JSON line with its seconds:
   kernels    each CUDA kernel against its plain torch version on the card.
              Fused: add x {f32, i32} x {no weight, weight}; min x {i32,
              f32} x {none, weight, unit}, a third of the sources
-             unreached; at one column and on [B=4] and [B=16] planes, with
-             and without an init seed;
+             unreached; at one column and on [B=4], [B=8] and [B=16]
+             planes, with and without an init seed;
              all-invalid, empty-edge-block, saturation and negative-weight
              cases, unreached sources over negative weights and a float
              init above 2^31 (the min's skip must keep what they send).
@@ -52,6 +52,26 @@ Phases, each printing one JSON line with its seconds:
              back).  Then at the chare scale (C chares) B=4 for bfs and PPR
              on all four strategies against the serial references, and
              betweenness against betweenness_ref
+  serve      the graph query server (repro_torch.launch.serve) on the
+             main path's engine at B=8: 24 queries (12 bfs, 6 sssp, 6
+             personalized PageRank with iters=8, one of them a three-seed
+             set) under GreedyPolicy, then under DeadlinePolicy on a
+             VirtualClock.  Every served row and superstep count equals
+             the same query's own run_batch at B=1 (bit for bit for bfs
+             and sssp, PPR within 1e-7), two bfs rows the serial BFS, the
+             greedy dispatches admit the groups GreedyPolicy's rule gives
+             that queue, and every dispatch's host-clock seconds (what the
+             server measures) cover the CUDA-event time of the same
+             run_batch.  Then one query at B=8 against B=1 (what an
+             under-full plane costs); the port's latency_table on the
+             main engine (loads 0.25, 1, 4; 8B queries per load;
+             ppr_iters=8; slo_factor=1.5) with the reference's two curve
+             assertions, which must hold; throughput_table for bfs and
+             PPR at B=16 with a budget of 8 supersteps (PPR beside the
+             reference's 3x bar, a finding, not a check); and the CLI,
+             python -m repro_torch.launch.serve --graph --scale 20
+             --queries 64 --batch 8 --policy deadline --programs
+             bfs,personalized_pagerank
   staged_main  the same graphs and programs through Engine(pg, "basic")
              and Engine(pg, "sortdest", push_fn=None): one gather and one
              scatter launch per superstep, no fused launch; counts zeroed
@@ -72,11 +92,12 @@ Phases, each printing one JSON line with its seconds:
              frontier (1% of sources reached, the rest at the identity: the
              skip that the dense calls cannot show); the min pair of the
              staged path runs at B=1 and B=4.  The batched plane's calls
-             at B=16 (PPR's add, bfs's and sssp's min) are timed with their
-             bound against the atomic path, the add's columns bit-identical
-             to one-column calls.  The fused calls' yardstick is
-             index_add_ / scatter_reduce_(amin) into the identity over
-             values gathered beforehand
+             at B=8 (the server's width) and B=16 (PPR's add, bfs's and
+             sssp's min) are timed with their bound against the atomic
+             path, the add's columns bit-identical to one-column calls.
+             The fused calls' yardstick is index_add_ /
+             scatter_reduce_(amin) into the identity over values gathered
+             beforehand
   kernels_main  the kernels phase's operand matrices again on the main
              path's edge layout
   chares     2^chare-scale vertices at C chares for sortdest, reduction,
@@ -459,7 +480,8 @@ class Smoke:
         cases = self._kernel_matrix(
             band, s, d, v, V, S, seed=0,
             float_vals=lambda shape, gen: torch.randn(
-                shape, generator=gen, device="cuda"), batches=(None, 4, 16))
+                shape, generator=gen, device="cuda"),
+            batches=(None, 4, 8, 16))
         # negative values and weights: the float min's sign-split atomics
         vals = t(rng.normal(size=(C, V)).astype(np.float32))
         w = t(rng.uniform(-5, 5, (C, E)).astype(np.float32))
@@ -1002,6 +1024,221 @@ class Smoke:
                 "betweenness_max_abs_err": float(np.abs(got - btw_ref).max()),
                 "betweenness_supersteps": it}
 
+    # -- the graph query server ----------------------------------------------
+
+    class _EventTimed:
+        """An engine as the server sees it, with CUDA events recorded (not
+        waited on) around each ``run_batch``: a dispatch's event time is
+        what the device spent between them."""
+
+        def __init__(self, eng):
+            self.eng, self.events = eng, []
+
+        def run_batch(self, *args, **kw):
+            import torch
+
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = self.eng.run_batch(*args, **kw)
+            end.record()
+            self.events.append((start, end))
+            return out
+
+    @staticmethod
+    def _serve_queue(server, timed, traffic, deadline=None):
+        """Submit ``traffic`` ((program, source, params) triples) and step
+        the server until its queue is empty (forced once the policy holds
+        with nothing left to arrive); per dispatch: the admitted ids, the
+        host-clock seconds the server measured, the CUDA-event seconds of
+        the same ``run_batch`` (which they must cover) and the plane's
+        supersteps.  Returns (dispatches, the most result bytes held)."""
+        for p, s, kw in traffic:  # ids 0, 1, ... in traffic order
+            server.submit(p, s, deadline=deadline, **kw)
+        rows = []
+        while server.pending():
+            done = server.step() or server.step(force=True)
+            start, end = timed.events[-1]
+            end.synchronize()
+            event_s = start.elapsed_time(end) / 1e3
+            dt = server.last_dispatch_s
+            if dt < event_s:
+                raise AssertionError(f"dispatch {len(rows)}: the server "
+                                     f"measured {dt} s, the device {event_s}")
+            rows.append({"ids": done, "dt_s": dt,
+                         "event_s": event_s,
+                         "supersteps": max(server.stats[i].iters
+                                           for i in done)})
+        return rows, server.held_result_bytes()
+
+    def serve(self):
+        """The graph query server on the main engine (sortdest, C=1, scale
+        22) at B=8; see the module docstring."""
+        import numpy as np
+
+        from repro_torch.benchmarks import tables
+        from repro_torch.core import programs as P
+        from repro_torch.kernels import push_fused
+        from repro_torch.launch import serve as S
+
+        eng = self.engines["pagerank"]
+        timed = self._EventTimed(eng)
+        B = 8
+        rng = np.random.default_rng(13)
+        live = np.flatnonzero(self.gw.out_degrees > 0)
+        srcs = [0] + [int(v) for v in rng.choice(live, 25, replace=False)]
+        # 24 queries in arrival order bfs, sssp, PPR, bfs, ...: 12 bfs, 6
+        # sssp, 6 PPR (iters=8), one PPR a three-seed set
+        cycle = ("bfs", "sssp", "personalized_pagerank", "bfs")
+        traffic = []
+        for q in range(24):
+            prog = cycle[q % 4]
+            ppr = prog == "personalized_pagerank"
+            src = tuple(srcs[24:26] + [srcs[q]]) if q == 2 else srcs[q]
+            traffic.append((prog, src, {"iters": 8} if ppr else {}))
+        # what GreedyPolicy must admit: the head's program and params, the
+        # first B of them in arrival order
+        greedy, left = [], list(range(len(traffic)))
+        while left:
+            key = (traffic[left[0]][0], traffic[left[0]][2])
+            group = [i for i in left
+                     if (traffic[i][0], traffic[i][2]) == key][:B]
+            greedy.append(group)
+            left = [i for i in left if i not in group]
+        # each query alone: run_batch at B=1
+        alone = [eng.run_batch(p, sources=[s], batch=1, **kw)
+                 for p, s, kw in traffic]
+        served = {}
+        for label, policy, clock, deadline in (
+                ("greedy", S.GreedyPolicy(), None, None),
+                ("deadline", S.DeadlinePolicy(), S.VirtualClock(), 2.0)):
+            server = S.GraphQueryServer(timed, batch=B, policy=policy,
+                                        clock=clock)
+            push_fused.reset_launch_counts()
+            rows, held = self._serve_queue(server, timed, traffic, deadline)
+            launched = dict(push_fused.launch_counts)
+            # one plane per dispatch: its monoid's fused kernel once per
+            # superstep, on the tiled path
+            expected = dict.fromkeys(launched, 0)
+            for r in rows:
+                combine = ("add" if traffic[r["ids"][0]][0] ==
+                           "personalized_pagerank" else "min")
+                for k, n in self._expected_launches(
+                        eng, combine, r["supersteps"]).items():
+                    expected[k] += n
+            if launched != expected or not all(
+                    launched[k] for k in ("fused_push_add_tiled",
+                                          "fused_push_min_tiled")):
+                raise AssertionError(f"{label}: launches {launched}, "
+                                     f"expected {expected}")
+            if label == "greedy":
+                self.serve_launches = launched
+                if [r["ids"] for r in rows] != greedy:
+                    raise AssertionError(f"greedy admitted "
+                                         f"{[r['ids'] for r in rows]}, not "
+                                         f"{greedy}")
+            if sorted(i for r in rows for i in r["ids"]) != \
+                    list(range(len(traffic))):
+                raise AssertionError(f"{label}: not every query served once")
+            err = 0.0
+            for q, (prog, src, _) in enumerate(traffic):
+                row, it = server.result(q)
+                want, want_it = alone[q]
+                if it != int(want_it[0]):
+                    raise AssertionError(f"{label} query {q}: {it} "
+                                         f"supersteps, alone {want_it[0]}")
+                if prog == "personalized_pagerank":
+                    err = max(err, float(np.abs(row - want[0]).max()))
+                elif not np.array_equal(row, want[0]):
+                    raise AssertionError(f"{label} query {q} ({prog}) "
+                                         "differs from its own B=1 run")
+            if err > 1e-7:
+                raise AssertionError(f"{label}: PPR rows {err} from B=1")
+            served[label] = {
+                "dispatches": server.dispatches, "dispatch_rows": rows,
+                "launches": {k: n for k, n in launched.items() if n},
+                "held_result_bytes": held, "ppr_max_abs_err": err,
+                "dispatch_s": dict((f"{p}/B={b}", t) for (p, b), t in
+                                   server.dispatch_times.items()),
+                "min_margin_s": min(r["dt_s"] - r["event_s"] for r in rows)}
+        # two bfs rows against the serial BFS
+        serial = []
+        for q in (0, 3):
+            ref, it = (self._reference("bfs", self.gw, "main")[:2] if q == 0
+                       else P.bfs_serial(self.gw, source=traffic[q][1]))
+            if not np.array_equal(alone[q][0][0], ref) or \
+                    int(alone[q][1][0]) != it:
+                raise AssertionError(f"bfs query {q}: not the serial BFS")
+            serial.append(traffic[q][1])
+        del alone
+        under = self._under_full(eng, srcs[1], B)
+        pinned = self._pinned_alloc(B, self.gw.num_vertices)
+        lt = tables.latency_table(engine=eng, B=B, loads=(0.25, 1.0, 4.0),
+                                  queries_per_load=8 * B, ppr_iters=8,
+                                  slo_factor=1.5)
+        checks = tables.curve_checks(lt["curve"])
+        if not all(checks.values()):
+            raise AssertionError(f"latency curve checks {checks}: "
+                                 f"{lt['curve']}")
+        throughput = [tables.throughput_table(engine=eng, algo=algo, B=16,
+                                              budget=8)
+                      for algo in ("bfs", "personalized_pagerank")]
+        throughput[1]["reference_bar"] = 3.0  # tests/test_graph_serve.py:74
+        throughput[1]["meets_reference_bar"] = \
+            throughput[1]["measured_speedup"] >= 3.0
+        cli = S.main(["--graph", "--scale", "20", "--queries", "64",
+                      "--batch", "8", "--policy", "deadline",
+                      "--programs", "bfs,personalized_pagerank"])
+        # sources of the curve and the throughput rows are uniform over all
+        # vertices, as the reference draws them; a source without
+        # out-edges converges in one superstep
+        dead = float((self.gw.out_degrees == 0).mean())
+        return {"B": B, "queries": len(traffic), "served": served,
+                "vertices_without_out_edges_share": dead,
+                "greedy_groups": greedy, "serial_checked_bfs": serial,
+                "under_full": under, "pinned_alloc_s": pinned,
+                "latency": lt, "curve_checks": checks,
+                "throughput": throughput, "cli": cli}
+
+    @staticmethod
+    def _pinned_alloc(B, V):
+        """Host seconds to allocate one dispatch's pinned ``[B, V]`` int32
+        result block (``Engine._to_host``): three held at once, so each is
+        a fresh allocation, then one more after they are freed, which the
+        caching host allocator serves from its cache."""
+        import torch
+
+        held, fresh = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            held.append(torch.empty((B, V), dtype=torch.int32,
+                                    pin_memory=True))
+            fresh.append(time.perf_counter() - t0)
+        del held
+        t0 = time.perf_counter()
+        block = torch.empty((B, V), dtype=torch.int32, pin_memory=True)
+        cached = time.perf_counter() - t0
+        del block
+        return {"bytes": B * V * 4, "fresh": fresh, "cached": cached}
+
+    def _under_full(self, eng, src, B):
+        """What an under-full plane costs: one query at the server's width
+        B against the same query at B=1 (the plane runs B columns whatever
+        its fill), warm, in turns (B, 1, 1, B), the better of each."""
+        out = {}
+        for prog, kw in (("bfs", {}), ("personalized_pagerank",
+                                       {"iters": 8})):
+            wide = lambda: eng.run_batch(prog, sources=[src], batch=B, **kw)
+            one = lambda: eng.run_batch(prog, sources=[src], batch=1, **kw)
+            wide(), one()
+            w1, o1 = self._timed(wide), self._timed(one)
+            o2, w2 = self._timed(one), self._timed(wide)
+            out[prog] = {f"one_query_at_B{B}_s": min(w1, w2),
+                         "one_query_at_B1_s": min(o1, o2),
+                         "ratio": min(w1, w2) / min(o1, o2),
+                         "turns_s": {"wide": [w1, w2], "one": [o1, o2]}}
+        return out
+
     def staged_main(self):
         """The main path's graphs and programs through the staged pair:
         ``basic`` (pairwise layout, gather kernel on the send side, scatter
@@ -1113,10 +1350,13 @@ class Smoke:
         ivals4 = (rand(1, K, 4) * 1e6).to(torch.int32)
         labels4 = labels[..., None] * 4 + torch.arange(
             4, device="cuda", dtype=torch.int32)
-        # B=16 planes: the batched plane's calls (PPR's add, bfs, sssp)
-        fvals16 = rand(1, K, 16)
-        dist16 = torch.where(rand(1, K, 16) < 0.5, rand(1, K, 16) * 100, SF)
-        ivals16 = (rand(1, K, 16) * 1e6).to(torch.int32)
+        # B=8 and B=16 planes: the batched plane's calls (PPR's add, bfs,
+        # sssp) at the server's width and at the plane phase's
+        planes = {B: (rand(1, K, B),
+                      torch.where(rand(1, K, B) < 0.5, rand(1, K, B) * 100,
+                                  SF),
+                      (rand(1, K, B) * 1e6).to(torch.int32))
+                  for B in (8, 16)}
         few = rand(1, K) < 0.01
         dist_f = torch.where(few, fvals * 100, SF)
         ivals_f = torch.where(few, 3, SI).to(torch.int32)
@@ -1142,11 +1382,13 @@ class Smoke:
              True),
             ("labelprop", "fused_push_min", "frontier 1%", arrsu, labels_f,
              False, False),
-            ("personalized_pagerank", "fused_push_add", "B=16", arrs,
-             fvals16, False, False),
-            ("sssp", "fused_push_min", "B=16", arrs, dist16, True, False),
-            ("bfs", "fused_push_min", "B=16", arrs, ivals16, False, True),
         ]
+        for B, (fv, dv, iv) in planes.items():
+            variants += [
+                ("personalized_pagerank", "fused_push_add", f"B={B}", arrs,
+                 fv, False, False),
+                ("sssp", "fused_push_min", f"B={B}", arrs, dv, True, False),
+                ("bfs", "fused_push_min", f"B={B}", arrs, iv, False, True)]
         rows = []
         for prog, kern, case, a, vals, weighted, unit in variants:
             combine = "add" if kern.endswith("add") else "min"
@@ -1177,17 +1419,18 @@ class Smoke:
                          "bound_ms": bound_ms, "bytes": nbytes,
                          "operations": ops, "max_abs_err": err,
                          "yardstick_ms": yard_ms, **extra})
-        del dist4, ivals4, labels4, fvals16, dist16, ivals16
+        del dist4, ivals4, labels4, planes
         # one line per kernel: its heaviest main-path call (weighted f32),
-        # and the batched plane's B=16 call beside it
+        # and the batched plane's B=8 and B=16 calls beside it
         pick = {"fused_push_add": ("pagerank_weighted",
                                    "personalized_pagerank"),
                 "fused_push_min": ("sssp", "sssp")}
-        for kern, (prog, prog16) in pick.items():
+        for kern, (prog, prog_b) in pick.items():
             r = next(r for r in rows
                      if r["program"] == prog and r["case"] == "dense")
-            r16 = next(r for r in rows
-                       if r["program"] == prog16 and r["case"] == "B=16")
+            wide = {f"b{B}": next(r for r in rows if r["program"] == prog_b
+                                  and r["case"] == f"B={B}")
+                    for B in (8, 16)}
             self.kernel_rows[kern] = {
                 "name": kern, "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/push_fused.cu",
@@ -1195,6 +1438,7 @@ class Smoke:
                              if kern.endswith("add") else
                              "src/repro/kernels/push_fused.py:104"),
                 "launches": self.main_launches[kern],
+                "serve_launches": self.serve_launches[kern],
                 "max_abs_err": max(x["max_abs_err"] for x in rows
                                    if x["kernel"] == kern),
                 "ms": r["ms"], "plain_ms": r["plain_ms"],
@@ -1204,8 +1448,9 @@ class Smoke:
                 "yardstick_ms": r["yardstick_ms"],
                 "path": ("tiled (tile pass + merge pass)"
                          if kern.endswith("add") else "tiled"),
-                "b16": {k: r16[k] for k in ("program", "ms", "plain_ms",
-                                            "bound_ms", "atomic_ms")}}
+                **{b: {k: rb[k] for k in ("program", "ms", "plain_ms",
+                                          "bound_ms", "atomic_ms")}
+                   for b, rb in wide.items()}}
         return {"calls": rows, "staged_calls": self._staged_time()}
 
     def _min_paths(self, args, kw, got, what):
@@ -1689,7 +1934,8 @@ def main(argv=None) -> int:
     smoke = Smoke(args)
     try:
         for name in ("device", "build", "kernels", "graph", "main",
-                     "reproducible", "batch", "staged_main", "profile",
+                     "reproducible", "batch", "serve", "staged_main",
+                     "profile",
                      "kernel_time",
                      "kernels_main",
                      "chares", "push_choice", "quickstart"):

@@ -1005,19 +1005,18 @@ def test_one_fused_launch_per_superstep_whatever_b(cuda, name, B):
         supersteps
 
 
-@pytest.mark.parametrize("combine,dtype,mode", [
+WIDE_CASES = [
     ("add", torch.float32, "none"), ("add", torch.float32, "weight"),
-    ("min", torch.int32, "unit"), ("min", torch.float32, "weight")])
-@pytest.mark.parametrize("layout", ("sd", "basic"))
-def test_fused_kernels_at_b16_match_plain(cuda, combine, dtype, mode,
-                                          layout):
-    """Both fused kernels on a [B=16] plane (the tiled paths on the sd
-    layout, the atomic kernel on the basic one) against the plain
-    version."""
+    ("min", torch.int32, "unit"), ("min", torch.float32, "weight")]
+
+
+def check_fused_plane(cuda, combine, dtype, mode, layout, B):
+    """Both fused kernels on a [B] plane (the tiled paths on the sd layout,
+    the atomic kernel on the basic one) against the plain version."""
     src, dst, valid, w, band, V, S = sd_layout(cuda, chares=2,
                                                layout=layout)
-    vals = (draw_vals((2, V, 16), dtype, cuda) if combine == "add"
-            else draw_dist((2, V, 16), dtype, cuda))
+    vals = (draw_vals((2, V, B), dtype, cuda) if combine == "add"
+            else draw_dist((2, V, B), dtype, cuda))
     if mode != "weight":
         w = None
     elif combine == "min":
@@ -1027,6 +1026,20 @@ def test_fused_kernels_at_b16_match_plain(cuda, combine, dtype, mode,
     want = push_fused.fused_push_plain(band, src, dst, valid, w, vals, S,
                                        **kw)
     assert_kernel_equal(got, want, combine)
+
+
+@pytest.mark.parametrize("combine,dtype,mode", WIDE_CASES)
+@pytest.mark.parametrize("layout", ("sd", "basic"))
+def test_fused_kernels_at_b16_match_plain(cuda, combine, dtype, mode,
+                                          layout):
+    check_fused_plane(cuda, combine, dtype, mode, layout, 16)
+
+
+@pytest.mark.parametrize("combine,dtype,mode", WIDE_CASES)
+@pytest.mark.parametrize("layout", ("sd", "basic"))
+def test_fused_kernels_at_b8_match_plain(cuda, combine, dtype, mode, layout):
+    """The server's plane width."""
+    check_fused_plane(cuda, combine, dtype, mode, layout, 8)
 
 
 def test_unpermute_returns_pinned_host_memory_from_one_copy(cuda):
@@ -1055,3 +1068,72 @@ def test_unpermute_returns_pinned_host_memory_from_one_copy(cuda):
     assert torch.from_numpy(got).is_pinned()
     np.testing.assert_array_equal(got, Engine(pg, device="cpu").run(
         "bfs", source=5)[0])
+
+
+# ---------------------------------------------------------------------------
+# The graph query server on the card
+# ---------------------------------------------------------------------------
+
+SERVE_TRAFFIC = [  # (program, source, params): 6 bfs, 3 sssp, 3 PPR
+    ("bfs", 0, {}), ("sssp", 5, {}), ("personalized_pagerank", (7, 61, 99),
+                                      {"iters": 6}),
+    ("bfs", 100, {}), ("bfs", 2047, {}), ("sssp", 9, {}),
+    ("personalized_pagerank", 3, {"iters": 6}), ("bfs", 33, {}),
+    ("bfs", 1500, {}), ("sssp", 4000, {}), ("bfs", 12, {}),
+    ("personalized_pagerank", 700, {"iters": 6}),
+]
+
+
+class EventTimed:
+    """An engine with CUDA events recorded (not waited on) around each
+    run_batch."""
+
+    def __init__(self, eng):
+        self.eng, self.events = eng, []
+
+    def run_batch(self, *args, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = self.eng.run_batch(*args, **kw)
+        end.record()
+        self.events.append((start, end))
+        return out
+
+
+@pytest.mark.parametrize("policy", ("greedy", "deadline"))
+def test_server_on_cuda_matches_cpu(cuda, policy):
+    """A mixed queue served on the card gives the CPU server's admissions,
+    rows and superstep counts (bfs/sssp bit for bit, PPR within 1e-6), and
+    each dispatch's host-clock seconds cover its CUDA-event time."""
+    from repro_torch.launch import serve as S
+
+    pg = prepared("sssp", G.rmat(12, 14 << 12, seed=1), 1)
+    done, rows = {}, {}
+    for dev in ("cuda", "cpu"):
+        eng = Engine(pg, device=dev)
+        timed = EventTimed(eng) if dev == "cuda" else eng
+        pol = S.DeadlinePolicy() if policy == "deadline" else S.GreedyPolicy()
+        server = S.GraphQueryServer(timed, batch=4, policy=pol,
+                                    clock=S.VirtualClock())
+        ids = [server.submit(p, s, deadline=1.0, **kw)
+               for p, s, kw in SERVE_TRAFFIC]
+        done[dev] = []
+        while server.pending():
+            got = server.step() or server.step(force=True)
+            done[dev].append(got)
+            if dev == "cuda":
+                start, end = timed.events[-1]
+                end.synchronize()
+                assert server.last_dispatch_s >= \
+                    start.elapsed_time(end) / 1e3
+        rows[dev] = [server.result(i) for i in ids]
+    if policy == "greedy":
+        assert done["cuda"] == done["cpu"]
+    for (prog, *_), (got, it), (want, want_it) in zip(
+            SERVE_TRAFFIC, rows["cuda"], rows["cpu"]):
+        assert it == want_it and got.dtype == want.dtype
+        if prog == "personalized_pagerank":
+            np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+        else:
+            np.testing.assert_array_equal(got, want)

@@ -300,7 +300,10 @@ def test_import_leaves_jax_and_repro_out():
     code = ("import sys, repro_torch, repro_torch.core, "
             "repro_torch.kernels.ops, repro_torch.kernels.push_fused, "
             "repro_torch.kernels.push_staged, repro_torch.kernels._build, "
-            "repro_torch.core.cost, repro_torch.quickstart\n"
+            "repro_torch.core.cost, repro_torch.quickstart, "
+            "repro_torch.configs, repro_torch.configs.graphs, "
+            "repro_torch.launch.serve, repro_torch.benchmarks.run, "
+            "repro_torch.benchmarks.tables\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.'))\n"
@@ -312,8 +315,9 @@ def test_import_leaves_jax_and_repro_out():
     assert out.stdout.strip() == "[]", out.stdout + out.stderr
 
 
-_FORBIDDEN = re.compile(r"^\s*(import\s+(jax|repro)\b(?!_)|"
-                        r"from\s+(jax|repro)\b(?!_))", re.MULTILINE)
+_FORBIDDEN = re.compile(r"^\s*(import\s+(jax|repro|benchmarks)\b(?!_)|"
+                        r"from\s+(jax|repro|benchmarks)\b(?!_))",
+                        re.MULTILINE)
 
 
 def test_source_scan_finds_no_jax_or_repro_import():
@@ -330,3 +334,7 @@ def test_source_scan_finds_no_jax_or_repro_import():
     assert _FORBIDDEN.search("import repro")
     assert not _FORBIDDEN.search("from repro_torch.core import graph")
     assert not _FORBIDDEN.search("import repro_torch")
+    # nor the top-level benchmarks package, which imports repro
+    assert _FORBIDDEN.search("from benchmarks import tables")
+    assert _FORBIDDEN.search("import benchmarks.tables as rtables")
+    assert not _FORBIDDEN.search("from repro_torch.benchmarks import run")
