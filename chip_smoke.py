@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py [--scale 22] [--chare-scale 18] [--chares 8]
+    python3 chip_smoke.py [--scale 22] [--chare-scale 18] [--chares 8] \
+        [--cost-scale 17]
 
 Phases, each printing one JSON line with its seconds:
 
@@ -72,6 +73,35 @@ Phases, each printing one JSON line with its seconds:
              python -m repro_torch.launch.serve --graph --scale 20
              --queries 64 --batch 8 --policy deadline --programs
              bfs,personalized_pagerank
+  grid       the main path's graphs under grid(2,4): 8 edge rectangles as
+             the chare axis of the card, grid2d's two-phase reduce.  The
+             layout (edges per rectangle, padded height, padding share and
+             bytes) and the path each fused kernel takes on each gr_band
+             table; the five programs against the serial references of
+             main (sssp and bfs bit for bit with equal superstep counts,
+             labelprop's components, the PageRanks < 1e-3), launch counts
+             zeroed before and read after (one fused launch per superstep
+             on the table's path), the device memory peak; the grouped
+             lowering against the full one (min bit for bit, PageRank
+             < 1e-6) and each lowering's counted collective bytes against
+             cost.grid_collective_bytes (grouped/full <= 0.6); a B=8 plane
+             of bfs and of personalized PageRank, each column equal to its
+             own B=1 run (PPR within 1e-7); both fused kernels on the
+             gr_band rows against their plain versions, timed against the
+             atomic path beside the byte bound (the tiled add with the main
+             path's bit checks); program seconds under grid(2,4) against
+             sortdest at C=1, in turns, and where a grid run's time goes
+             (device time by kernel, busy share, the host-built initial
+             state's seconds); then the chare-axis graph under grid(2,2),
+             grid(4,2) and grid(1,2) against serial
+  cost       the paper's COST tables: run_table for every registered
+             program on the three paper stand-ins (2^cost-scale vertices,
+             cut from 2^20 so the phase takes about 4 min; 14, 24 and 35
+             edges per vertex) with the contiguous and
+             edge-balanced placements and 3 repeats (the reference's full
+             run), then the cost.*, fig12.* and grid.* rows by the
+             reference's names, and each graph's elapsed seconds; a wrong
+             result fails the phase
   staged_main  the same graphs and programs through Engine(pg, "basic")
              and Engine(pg, "sortdest", push_fn=None): one gather and one
              scatter launch per superstep, no fused launch; counts zeroed
@@ -119,7 +149,9 @@ Phases, each printing one JSON line with its seconds:
              its checks must hold
 
 Then one JSON line with every kernel's numbers (launches from the main
-path for the fused pair, from staged_main for the staged four), the
+path for the fused pair, from staged_main for the staged four, and from
+phase grid for the fused pair on gr_band, ``fused_push_add/grid`` and
+``fused_push_min/grid``), the
 ``nvidia-smi`` name and power limit, and as the last line ``{"ok": true,
 "device": {...}}``.  Any failure exits non-zero and prints no ok line.  Min
 programs and int32 sums must be bit-equal to the plain versions; float sums
@@ -617,8 +649,8 @@ class Smoke:
                  and getattr(eng.push_fn, "fused", True))
         if fused:
             want[f"fused_push_{combine}"] = iters
-            band = eng.arrays["band" if eng.strategy == "reduction"
-                              else "sd_band"]
+            band = eng.arrays[{"reduction": "band", "grid2d": "gr_band"}
+                              .get(eng.strategy, "sd_band")]
             plan = push_fused.tile_plan(band)
             tiled = (plan.num_tiled if combine == "add" or plan.min_tiled
                      else 0)
@@ -1239,6 +1271,381 @@ class Smoke:
                          "turns_s": {"wide": [w1, w2], "one": [o1, o2]}}
         return out
 
+   # -- the 2-D grid ---------------------------------------------------------
+
+    PROGRAMS = ("pagerank", "pagerank_weighted", "sssp", "bfs", "labelprop")
+
+    @staticmethod
+    def _grid_layout(pg):
+        """A grid partition's rectangles: edges per rectangle, the padded
+        height every rectangle takes (the heaviest one's), the padding
+        share, the padded edge slots and their bytes on the card (four
+        4-byte planes), and the row and column chunk heights."""
+        from repro_torch.core.partitioners import partition_stats
+        from repro_torch.kernels.blocks import BLOCK_E, num_edge_blocks
+
+        st = partition_stats(pg)
+        emax = int(pg.edge_valid.shape[1])
+        slots = pg.num_chunks * num_edge_blocks(emax) * BLOCK_E
+        return {"rect_counts": pg.plan.rect_counts.tolist(), "emax": emax,
+                "edge_padding_waste": st["edge_padding_waste"],
+                "edge_imbalance": st["edge_imbalance"],
+                "padded_edge_slots": slots,
+                "padded_edge_bytes": 16 * slots,
+                "row_chunk_size": pg.chunk_size,
+                "col_chunk_size": pg.col_chunk_size}
+
+    @staticmethod
+    def _grid_path(eng):
+        """The path each monoid's fused kernel takes on a grid engine's
+        ``gr_band`` table (``push_fused.tile_plan``)."""
+        from repro_torch.kernels import push_fused
+
+        band = eng.arrays["gr_band"]
+        plan = push_fused.tile_plan(band)
+        rows = band.shape[0]
+        return {"rows": rows, "seg_sorted_rows": plan.num_tiled,
+                "add": "tiled" if plan.num_tiled == rows else "mixed",
+                "min": ("tiled" if plan.min_tiled and plan.num_tiled == rows
+                        else "atomic"),
+                "merge_tiles": int(plan.merge_tiles.numel()),
+                "work_items": int(plan.work.shape[0]),
+                "num_tiles": plan.num_tiles}
+
+    def _grid_wire(self, eng, want, what):
+        """The bytes the engine's phase-2 reduces counted in its last run
+        against ``grid_collective_bytes``'s price of its lowering."""
+        got = eng.dispatch["collectives"]
+        price = want[got["lowering"]]
+        if abs(got["bytes_per_superstep"] - price) > 1e-9 * price:
+            raise AssertionError(f"{what}: counted {got}, priced {price}")
+        return got["bytes_per_superstep"]
+
+    def grid(self):
+        """The main path's graphs under grid(2,4) -- 8 rectangles as the
+        chare axis of the card -- and the chare-axis graph under three more
+        shapes; see the module docstring."""
+        import numpy as np
+        import torch
+
+        from repro_torch.core import Engine, cost
+        from repro_torch.core import graph as G
+        from repro_torch.kernels import push_fused
+
+        R, C = 2, 4
+        P, name = R * C, f"grid({R},{C})"
+        t0 = time.perf_counter()
+        pgw = G.partition(self.gw, P, name, eager=False)
+        pgu = G.partition(self.gu, P, name, eager=False)
+        layout = {}
+        for label, pg in (("weighted", pgw), ("undirected", pgu)):
+            pg.gr_band  # build the rectangle layout
+            layout[label] = self._grid_layout(pg)
+        engines = {"grouped": (Engine(pgw), Engine(pgu)),
+                   "full": (Engine(pgw, collectives="full"),
+                            Engine(pgu, collectives="full"))}
+        setup_s = time.perf_counter() - t0
+        eng, engu = engines["grouped"]
+        for e in (eng, engu):
+            if e.strategy != "grid2d" or e.dispatch["choice"] != "fused" \
+                    or e.dispatch["kernel"] != "cuda":
+                raise AssertionError(f"grid: {e.strategy} {e.dispatch}")
+        paths = {"weighted": self._grid_path(eng),
+                 "undirected": self._grid_path(engu)}
+        price = cost.grid_collective_bytes(self.gw, P, name)
+        if not price["ratio"] <= 0.6:
+            raise AssertionError(f"grid: grouped/full {price}")
+        # the grid path: counts zeroed just before, read just after
+        torch.cuda.reset_peak_memory_stats()
+        push_fused.reset_launch_counts()
+        rows = []
+        for prog in self.PROGRAMS:
+            e, graph = (engu, self.gu) if prog == "labelprop" else (eng,
+                                                                    self.gw)
+            row = self._check_program(e, prog, graph, P, "main")
+            row["wire_bytes_per_superstep"] = self._grid_wire(
+                e, price, f"grid/{prog}")
+            rows.append(row)
+        self.grid_launches = dict(push_fused.launch_counts)
+        peak = torch.cuda.max_memory_allocated()
+        for k in ("fused_push_add", "fused_push_min"):
+            if self.grid_launches[k] == 0:
+                raise AssertionError(f"{k} was not launched on the grid")
+        lowerings = self._grid_lowerings(engines, price)
+        plane = self._grid_plane(eng, P, name)
+        kernels = self._grid_kernels(eng, engu)
+        turns = self._grid_turns(eng, engu)
+        where = self._grid_where(eng)
+        del engines, eng, engu, pgw, pgu
+        torch.cuda.empty_cache()
+        chares = self._grid_chares()
+        return {"shape": [R, C], "setup_s": round(setup_s, 3),
+                "layout": layout, "paths": paths, "programs": rows,
+                "launches": {k: n for k, n in self.grid_launches.items()
+                             if n},
+                "peak_device_bytes": peak,
+                "collective_bytes_model": price, "lowerings": lowerings,
+                "plane_b8": plane, "kernels": kernels,
+                "seconds_vs_sortdest_c1": turns, "where": where,
+                "chare_axis": chares,
+                "vertices_without_out_edges_share":
+                    float(np.mean(self.gw.out_degrees == 0))}
+
+    def _grid_lowerings(self, engines, price):
+        """``grouped`` against ``full`` on every program: min results bit
+        for bit with equal superstep counts, the PageRanks within 1e-6;
+        each lowering's counted bytes against its price."""
+        import numpy as np
+
+        out = []
+        for prog in self.PROGRAMS:
+            i = 1 if prog == "labelprop" else 0
+            got = {}
+            for low, pair in engines.items():
+                got[low] = pair[i].run(prog)
+                self._grid_wire(pair[i], price, f"grid/{low}/{prog}")
+            (a, ia), (b, ib) = got["grouped"], got["full"]
+            if ia != ib:
+                raise AssertionError(f"grid/{prog}: {ia} supersteps grouped, "
+                                     f"{ib} full")
+            if prog in ("pagerank", "pagerank_weighted"):
+                err = float(np.abs(a - b).max())
+                if err >= 1e-6:
+                    raise AssertionError(f"grid/{prog}: grouped vs full {err}")
+            elif not np.array_equal(a, b):
+                raise AssertionError(f"grid/{prog}: grouped != full")
+            else:
+                err = 0.0
+            out.append({"program": prog, "supersteps": ia,
+                        "max_abs_err": err,
+                        "bytes_per_superstep": {
+                            low: pair[i].dispatch["collectives"]
+                            ["bytes_per_superstep"]
+                            for low, pair in engines.items()}})
+        return out
+
+    def _grid_plane(self, eng, P, name):
+        """A B=8 plane of bfs and of personalized PageRank on the grid: each
+        column equals its own B=1 run (bfs bit for bit, PPR within 1e-7,
+        equal superstep counts), one fused launch per superstep on the
+        table's path, and the counted bytes priced at B=8."""
+        import numpy as np
+
+        from repro_torch.core import cost
+        from repro_torch.kernels import push_fused
+
+        B = 8
+        rng = np.random.default_rng(17)
+        live = np.flatnonzero(self.gw.out_degrees > 0)
+        srcs = [0] + [int(v) for v in rng.choice(live, B - 1, replace=False)]
+        price = cost.grid_collective_bytes(self.gw, P, name, batch=B)
+        out = {}
+        for prog, combine, kw in (("bfs", "min", {}),
+                                  ("personalized_pagerank", "add",
+                                   {"iters": 20})):
+            eng.run_batch(prog, sources=srcs, batch=B, **kw)  # warm
+            push_fused.reset_launch_counts()
+            t0 = time.perf_counter()
+            plane, iters = eng.run_batch(prog, sources=srcs, batch=B, **kw)
+            secs = time.perf_counter() - t0
+            launched = dict(push_fused.launch_counts)
+            steps = eng.dispatch["supersteps"]
+            if launched != self._expected_launches(eng, combine, steps):
+                raise AssertionError(f"grid plane/{prog}: {launched} for "
+                                     f"{steps} supersteps")
+            wire = self._grid_wire(eng, price, f"grid plane/{prog}")
+            err = 0.0
+            for i, s in enumerate(srcs):
+                one, it = eng.run_batch(prog, sources=[s], batch=1, **kw)
+                if int(it[0]) != int(iters[i]):
+                    raise AssertionError(f"grid plane/{prog} column {i}: "
+                                         f"{iters[i]} vs {it[0]} supersteps")
+                if combine == "add":
+                    err = max(err, float(np.abs(plane[i] - one[0]).max()))
+                elif not np.array_equal(plane[i], one[0]):
+                    raise AssertionError(f"grid plane/{prog} column {i} "
+                                         "differs from its B=1 run")
+            if err > 1e-7:
+                raise AssertionError(f"grid plane/{prog}: {err} from B=1")
+            out[prog] = {"B": B, "seconds": secs, "supersteps": steps,
+                         "query_supersteps": [int(x) for x in iters],
+                         "launches": {k: n for k, n in launched.items()
+                                      if n},
+                         "max_abs_err": err,
+                         "wire_bytes_per_superstep": wire}
+        return out
+
+    def _grid_kernels(self, eng, engu):
+        """Both fused kernels on the grid's ``gr_band`` rows (one call over
+        all 8 rectangles, the column space as the segment count) against
+        their plain versions, timed against the atomic path with the main
+        path's bit checks, beside the byte bound; each kernel also goes on
+        the kernels line."""
+        import torch
+
+        from repro_torch.kernels import push_fused
+
+        a, au = eng.arrays, engu.arrays
+        P, K, dev = eng._C, eng._K, eng.device
+        S = eng.pg.grid_shape[1] * eng.pg.col_chunk_size
+        gen = torch.Generator(device=dev).manual_seed(5)
+        fvals = torch.rand((P, K), generator=gen, device=dev)
+        dist = torch.where(torch.rand((P, K), generator=gen, device=dev)
+                           < 0.5, fvals * 100, push_fused.SENTINEL_F32)
+        ivals = (fvals * 1e6).to(torch.int32)
+        labels = torch.arange(P * K, device=dev,
+                              dtype=torch.int32).reshape(P, K)
+        rows = []
+        for prog, combine, arrs, vals, weighted, unit in (
+                ("pagerank", "add", a, fvals, False, False),
+                ("pagerank_weighted", "add", a, fvals, True, False),
+                ("sssp", "min", a, dist, True, False),
+                ("bfs", "min", a, ivals, False, True),
+                ("labelprop", "min", au, labels, False, False)):
+            args = (arrs["gr_band"], arrs["gr_src_local"], arrs["gr_dst_col"],
+                    arrs["gr_edge_valid"], arrs["gr_edge_weight"] if weighted
+                    else None, vals, S)
+            kw = dict(combine=combine, unit_weight=unit)
+            what = f"{prog} on gr_band"
+            got = push_fused.fused_push(*args, **kw)
+            want = push_fused.fused_push_plain(*args, **kw)
+            torch.cuda.synchronize()
+            err = self.compare(got, want, combine, what)
+            del want
+            extra = (self._tiled_add_checks(args, got, what)
+                     if combine == "add"
+                     else self._min_paths(args, kw, got, what))
+            del got
+            plain_ms = self.cuda_ms(
+                lambda: push_fused.fused_push_plain(*args, **kw), 3)
+            bound_ms, nbytes, ops = self._bound(arrs, vals, S, weighted,
+                                                layout="gr")
+            rows.append({"program": prog, "kernel": f"fused_push_{combine}",
+                         "ms": extra.pop("tiled_ms"), "plain_ms": plain_ms,
+                         "bound_ms": bound_ms, "bytes": nbytes,
+                         "operations": ops, "max_abs_err": err, **extra})
+        for kern, prog in (("fused_push_add", "pagerank_weighted"),
+                           ("fused_push_min", "sssp")):
+            r = next(r for r in rows if r["program"] == prog)
+            self.kernel_rows[f"{kern}/grid"] = {
+                "name": f"{kern}/grid", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/push_fused.cu",
+                "replaces": ("src/repro/kernels/push_fused.py:54"
+                             if kern.endswith("add") else
+                             "src/repro/kernels/push_fused.py:104"),
+                "launches": self.grid_launches[kern],
+                "max_abs_err": max(x["max_abs_err"] for x in rows
+                                   if x["kernel"] == kern),
+                "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": "bytes",
+                "library_ms": None, "timed_call": f"{prog}/gr_band",
+                "layout": "gr_band, grid(2,4), 8 rectangles",
+                "atomic_ms": r["atomic_ms"],
+                "path": ("tiled (tile pass + merge pass)"
+                         if kern.endswith("add") else r["path"])}
+        return rows
+
+    def _grid_turns(self, eng, engu):
+        """Program seconds under grid(2,4) against the main path's
+        sortdest at C=1, warm, in turns (grid, sortdest, sortdest, grid),
+        the better of each."""
+        out = []
+        for prog in self.PROGRAMS:
+            g = engu if prog == "labelprop" else eng
+            sd = self.engines[prog]
+            run_g, run_s = (lambda: g.run(prog)), (lambda: sd.run(prog))
+            g1, s1 = self._timed(run_g), self._timed(run_s)
+            s2, g2 = self._timed(run_s), self._timed(run_g)
+            out.append({"program": prog, "grid_s": min(g1, g2),
+                        "sortdest_c1_s": min(s1, s2),
+                        "ratio": min(g1, g2) / min(s1, s2),
+                        "turns_s": {"grid": [g1, g2], "sortdest": [s1, s2]}})
+        return out
+
+    def _grid_where(self, eng):
+        """Where a grid run's time goes, beside the main path's C=1 run:
+        device time by kernel and the busy share over one pagerank and one
+        bfs run (torch.profiler), and the host seconds of the initial state
+        -- built on the host and uploaded, as ``Engine.run`` does, over the
+        grid's replicated ``[8, K]`` plane against C=1's ``[1, V]``."""
+        import torch
+
+        from repro_torch.core import programs as P
+
+        out = {}
+        for prog in ("pagerank", "bfs"):
+            init = {}
+            for label, e in (("grid", eng), ("sortdest_c1",
+                                              self.engines[prog])):
+                program = P.make_program(prog)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                torch.from_numpy(program.init(e.pg)).to(e.device)
+                torch.cuda.synchronize()
+                init[label] = time.perf_counter() - t0
+            out[prog] = {"profile": self._device_profile(
+                lambda: eng.run(prog)), "init_upload_s": init}
+        return out
+
+    def _grid_chares(self):
+        """The chare-axis graph under grid(2,2), grid(4,2) and grid(1,2):
+        the five programs against the serial references."""
+        from repro_torch.core import Engine
+        from repro_torch.core import graph as G
+
+        g, gw, gu, _, _ = self._chare_graphs()
+        out = []
+        for R, C in ((2, 2), (4, 2), (1, 2)):
+            name = f"grid({R},{C})"
+            eng = Engine(G.partition(gw, R * C, name))
+            engu = Engine(G.partition(gu, R * C, name))
+            for prog in self.PROGRAMS:
+                e, graph = (engu, gu) if prog == "labelprop" else (eng, gw)
+                row = self._check_program(e, prog, graph, R * C, "chares",
+                                          labelprop_iters=True)
+                row.update(shape=[R, C], path=self._grid_path(e))
+                out.append(row)
+        return out
+
+    # -- the COST tables ------------------------------------------------------
+
+    def cost(self):
+        """The paper's COST tables: ``run_table`` for every registered
+        program on the three paper stand-ins at ``--cost-scale``, with the
+        contiguous and edge-balanced placements (the reference's full run),
+        then the ``cost.*``, ``fig12.*`` and ``grid.*`` rows; a wrong result
+        fails the phase."""
+        from repro_torch.benchmarks import run as brun
+        from repro_torch.benchmarks import tables
+        from repro_torch.configs.graphs import GRAPHS
+        from repro_torch.core import registered_names
+
+        scale = self.args.cost_scale
+        partitioners = ("contiguous", "edge_balanced")
+        lines, verdicts, elapsed = [], {}, {}
+        for algo in registered_names():
+            rows = []
+            for gname in GRAPHS:
+                t0 = time.perf_counter()
+                rows += tables.run_table(algo, scale_log2=scale, repeats=3,
+                                         partitioners=partitioners,
+                                         graphs=(gname,))
+                elapsed[f"{algo}/{gname}"] = time.perf_counter() - t0
+            out, verdicts[algo] = brun.table_rows(algo, rows)
+            lines += out
+        t0 = time.perf_counter()
+        grid_lines, grid_json = brun.grid_rows(
+            tables.grid_table(scale_log2=scale))
+        lines += grid_lines
+        per_graph = {g: sum(t for k, t in elapsed.items()
+                            if k.endswith(f"/{g}")) for g in GRAPHS}
+        return {"scale": scale, "partitioners": partitioners,
+                "graph_elapsed_s": per_graph,
+                "program_graph_elapsed_s": elapsed,
+                "grid_table_s": time.perf_counter() - t0,
+                "verdicts": verdicts, "grid": grid_json,
+                "rows": [",".join(str(x) for x in line) for line in lines]}
+
     def staged_main(self):
         """The main path's graphs and programs through the staged pair:
         ``basic`` (pairwise layout, gather kernel on the send side, scatter
@@ -1467,7 +1874,7 @@ class Smoke:
         fa = lambda: push_fused.fused_push_atomic(*args, **kw)
         plan = push_fused.tile_plan(args[0])
         if plan.num_tiled != args[0].shape[0]:
-            raise AssertionError(f"{what}: the sd layout is not seg-sorted")
+            raise AssertionError(f"{what}: the layout is not seg-sorted")
         atomic = fa()
         torch.cuda.synchronize()
         self.compare(atomic, got, "min", f"{what} atomic vs tiled")
@@ -1497,7 +1904,7 @@ class Smoke:
         fp = push_fused.fused_push
         fa = push_fused.fused_push_atomic
         if push_fused.tile_plan(band).num_tiled != band.shape[0]:
-            raise AssertionError(f"{what}: the sd layout is not seg-sorted")
+            raise AssertionError(f"{what}: the layout is not seg-sorted")
         atomic = fa(*args)
         again = fp(*args)
         torch.cuda.synchronize()
@@ -1658,20 +2065,21 @@ class Smoke:
         return rows
 
     @staticmethod
-    def _bound(a, vals, S, weighted):
+    def _bound(a, vals, S, weighted, layout="sd"):
         """Least time for one call: the bytes it must move (band table, the
         edge planes of the non-empty edge blocks, vals read once, out
         written once) over HBM bandwidth, or its operations (one transform
         and one combine per valid edge and column) over the float32 rate,
-        whichever is larger."""
-        band = a["sd_band"]
+        whichever is larger.  ``layout`` names the arrays' prefix: ``sd``
+        or ``gr`` (the grid's rectangle layout)."""
+        band = a[f"{layout}_band"]
         live_blocks = int((band[:, 1] >= 0).sum())
         per_edge = 12 + (4 if weighted else 0)
         B = vals[0, 0].numel()
         nbytes = (band.numel() * 4 + live_blocks * 256 * per_edge
                   + vals.numel() * vals.element_size()
                   + vals.shape[0] * S * B * vals.element_size())
-        ops = 2 * int(a["sd_edge_valid"].sum()) * B
+        ops = 2 * int(a[f"{layout}_edge_valid"].sum()) * B
         ms = max(nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S) * 1e3
         return ms, nbytes, ops
 
@@ -1925,6 +2333,8 @@ def main(argv=None) -> int:
     ap.add_argument("--chare-scale", type=int, default=18,
                     help="log2 vertices of the chare-axis graph")
     ap.add_argument("--chares", type=int, default=8)
+    ap.add_argument("--cost-scale", type=int, default=17,
+                    help="log2 vertices of the paper graphs of phase cost")
     args = ap.parse_args(argv)
     if not (PORT / "kernels" / "csrc").is_dir():
         print(f"chip_smoke: {PORT} not found; run from a checkout of the "
@@ -1934,7 +2344,8 @@ def main(argv=None) -> int:
     smoke = Smoke(args)
     try:
         for name in ("device", "build", "kernels", "graph", "main",
-                     "reproducible", "batch", "serve", "staged_main",
+                     "reproducible", "batch", "serve", "grid", "cost",
+                     "staged_main",
                      "profile",
                      "kernel_time",
                      "kernels_main",

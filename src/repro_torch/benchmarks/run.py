@@ -8,10 +8,22 @@ Runs on CUDA unless ``--device`` names another.  Prints
 ``name,seconds_or_value,derived`` CSV rows by the reference's names, after
 a ``device`` row naming what the measured rows ran on:
 
+  table2.*     PageRank runtimes      (paper Table 2 / Figures 3-5)
+  table3.*     label-prop runtimes    (paper Table 3 / Figures 6-8)
+  table4.*     SSSP runtimes          (weighted min-plus)
+  table5.*     BFS runtimes           (reachability depth)
+  table6.*     weighted-PageRank runtimes
+  table7.*     betweenness runtimes   (batched pivots + Brandes)
+  table8.*     personalized-PageRank runtimes
+  cost.*       the COST verdict per program and graph: 1 where the best
+               actor cell beats the serial baseline, else inf(1PE)
+  fig12.*      dataflow ("GraphX") stand-in vs serial (paper Figures 1-2)
   imbalance.*  per-chare load skew + padding waste per partitioner policy
   wire.*       analytic per-chare wire bytes per superstep
   wire_batch.* B-sweep of the wire model: bytes/query as value payloads
                amortize the fixed edge-layout side
+  grid.*       2-D grid partitioning: per-rectangle skew + two-phase-reduce
+               wire bytes vs the best 1-D variant
   throughput.* measured queries/sec of the batched [*, B] plane against a
                per-query loop at a fixed superstep budget (bfs, B=16)
   serving.*    the same for personalized PageRank, and the measured
@@ -20,18 +32,20 @@ a ``device`` row naming what the measured rows ran on:
                DeadlinePolicy at 0.25x, 1x and 4x of its capacity), with
                the reference's two assertions on the curve
 
+The table sections iterate the vertex-program registry; a wrong result
+fails the run.  Quick mode keeps the engine sweep on the default placement;
+the full run also measures the edge-balanced policy per strategy.
+
 Sections of the reference that print nothing here, by ROADMAP queue 1 item:
-  table2-table8, fig12, cost   item 3's host loop with item 4
   throughput.model, serving.model, kernel.*, dispatch.*
                                item 4: their cost models are the TPU's,
                                and wait for a model of the card
-  grid.*                       item 6
   async.*                      item 8
   streaming.*                  item 9
   roofline.*                   item 12 (the dry-run roofline)
 
-``--json`` writes the ``throughput`` and ``serving`` sections of
-``BENCH_cost.json``.
+``--json`` writes the ``algorithms``, ``grid``, ``throughput`` and
+``serving`` sections of ``BENCH_cost.json``.
 """
 
 from __future__ import annotations
@@ -44,6 +58,59 @@ def emit(name, value, derived=""):
     print(f"{name},{value},{derived}")
 
 
+def table_rows(algo, rows):
+    """One program's ``tables.run_table`` rows as the reference prints them:
+    -> (list of (name, value, derived) -- its table rows, its ``cost.*``
+    verdict per graph, its ``fig12.*`` dataflow ratios -- and its
+    ``algorithms`` entry of BENCH_cost.json).  A wrong result raises."""
+    from repro_torch.core import get_spec
+
+    table = get_spec(algo).table
+    serial = {g: t for g, impl, p, t, ok in rows if impl == "serial"}
+    out, best_actor, best_impl = [], {}, {}
+    for g, impl, pes, t, ok in rows:
+        if not ok:
+            raise AssertionError(f"{algo}/{g}/{impl} produced wrong output")
+        out.append((f"{table}.{g}.{impl}@{pes}", f"{t:.4f}", ""))
+        if impl not in ("serial", "dataflow") \
+                and t < best_actor.get(g, float("inf")):
+            best_actor[g], best_impl[g] = t, f"{impl}@{pes}"
+    algo_json = {}
+    for g, t in best_actor.items():
+        cost = 1 if t <= serial[g] else "inf(1PE)"
+        out.append((f"cost.{algo}.{g}", cost,
+                    f"best_actor={t:.4f}s serial={serial[g]:.4f}s"))
+        algo_json[g] = {"serial_s": serial[g], "best_actor_s": t,
+                        "best_impl": best_impl[g], "cost": cost}
+    for g, impl, pes, t, ok in rows:
+        if impl == "dataflow":
+            out.append((f"fig12.{algo}.{g}.dataflow_vs_serial",
+                        f"{t / serial[g]:.2f}", "x-serial-runtime"))
+    return out, algo_json
+
+
+def grid_rows(rows):
+    """``tables.grid_table`` rows as the reference prints them: -> (list of
+    (name, value, derived), the ``grid`` section of BENCH_cost.json)."""
+    out, grid_json = [], {}
+    for g, pname, pes, m in rows:
+        st = m["stats"]
+        out.append((f"grid.{g}.{pname}@{pes}.imbalance",
+                    f"{st['edge_imbalance']:.3f}",
+                    f"max_e={st['max_edges']} mean_e={st['mean_edges']:.0f} "
+                    f"edge_pad={st['edge_padding_waste']:.2f}"))
+        out.append((f"grid.{g}.{pname}@{pes}.wire", f"{m['wire']:.3e}",
+                    f"basic_1d={m['wire_basic_1d']:.3e} "
+                    f"best_1d={m['wire_best_1d']:.3e}"))
+        grid_json.setdefault(g, {})[f"{pname}@{pes}"] = {
+            "edge_imbalance": st["edge_imbalance"],
+            "wire_bytes": m["wire"],
+            "wire_basic_1d": m["wire_basic_1d"],
+            "wire_best_1d": m["wire_best_1d"],
+        }
+    return out, grid_json
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--scale", type=int, default=13,
@@ -51,8 +118,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--quick", action="store_true",
                     help="smaller graphs / fewer repeats")
     ap.add_argument("--json", action="store_true",
-                    help="write the throughput and serving sections of "
-                         "BENCH_cost.json")
+                    help="write the algorithms, grid, throughput and "
+                         "serving sections of BENCH_cost.json")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
     args = ap.parse_args(argv)
@@ -62,6 +129,7 @@ def main(argv=None) -> dict:
     import torch
 
     from repro_torch.benchmarks import tables
+    from repro_torch.core import registered_names
     from repro_torch.core.engine import resolve_device
 
     device = resolve_device(args.device)  # no card: raise before any work
@@ -70,7 +138,17 @@ def main(argv=None) -> dict:
     emit("device", name, f"type={device.type} "
          f"count={torch.cuda.device_count() if device.type == 'cuda' else 1}")
     cost_json = {"schema": 1, "scale_log2": scale, "quick": args.quick,
-                 "device": name}
+                 "device": name, "algorithms": {}}
+    partitioners = (("contiguous",) if args.quick
+                    else ("contiguous", "edge_balanced"))
+
+    # ---- Tables 2-8 + Figures 1/2 (one per registered program) ------------
+    for algo in registered_names():
+        rows = tables.run_table(algo, scale_log2=scale, repeats=repeats,
+                                partitioners=partitioners, device=device)
+        lines, cost_json["algorithms"][algo] = table_rows(algo, rows)
+        for line in lines:
+            emit(*line)
 
     # ---- partitioner imbalance (paper's load-skew observation) ------------
     for g, pname, pes, st in tables.imbalance_table(scale_log2=scale,
@@ -89,6 +167,11 @@ def main(argv=None) -> dict:
             scale_log2=scale):
         emit(f"wire_batch.{g}.{variant}@B{B}", f"{bytes_:.3e}",
              f"{per_q:.3e} bytes/query")
+
+    # ---- 2-D grid partitioning (rectangle skew + two-phase-reduce wire) ----
+    lines, cost_json["grid"] = grid_rows(tables.grid_table(scale_log2=scale))
+    for line in lines:
+        emit(*line)
 
     # ---- batched multi-query throughput (DESIGN.md section 11) -------------
     tp = tables.throughput_table(scale_log2=scale, repeats=repeats,

@@ -1,13 +1,17 @@
-"""The serving and host-model tables of ``benchmarks/tables.py``, on the port.
+"""The paper's tables and the serving and host-model tables of
+``benchmarks/tables.py``, on the port.
 
-The twins of the reference's ``throughput_table``, ``latency_table``,
-``wire_table``, ``wire_batch_table`` and ``imbalance_table`` (the rest of
-that module waits for its ROADMAP items; ``benchmarks/run.py`` here says
-which).  The measured tables run on CUDA unless ``device`` names another;
-``throughput_table`` and ``latency_table`` also take a built ``engine``,
-so a caller that already holds one on the graph pays no second build.
-The host-model tables (``wire*``, ``imbalance``) are pure numpy over the
-port's ``wire_model`` and ``partition_stats``.
+The twins of the reference's ``run_table`` (paper Tables 2 & 3 and their
+analogues for every registered program, with the serial baseline and the
+dataflow stand-in), ``grid_table``, ``throughput_table``,
+``latency_table``, ``wire_table``, ``wire_batch_table`` and
+``imbalance_table`` (the rest of that module waits for its ROADMAP items;
+``benchmarks/run.py`` here says which).  The measured tables run on CUDA
+unless ``device`` names another; ``throughput_table`` and
+``latency_table`` also take a built ``engine``, so a caller that already
+holds one on the graph pays no second build.  The host-model tables
+(``grid``, ``wire*``, ``imbalance``) are pure numpy over the port's
+``wire_model`` and ``partition_stats``.
 
 Timing: a warm ``run_batch`` ends in one blocking copy of its result into
 host memory (``Engine._to_host``), so a host clock around it covers the
@@ -23,13 +27,105 @@ from collections import deque
 
 import numpy as np
 
-from repro_torch.configs.graphs import GRAPHS
+from repro_torch.benchmarks.graphx_analogue import (bench, labelprop_dataflow,
+                                                    pagerank_dataflow)
+from repro_torch.configs.graphs import GRAPHS, VARIANTS
 from repro_torch.core import (Engine, get_spec, load_dataset, partition,
                               partition_stats, partitioner_names,
                               policy_label, wire_model)
 from repro_torch.core.cost import _time
 from repro_torch.launch.serve import (DeadlinePolicy, GraphQueryServer,
                                       VirtualClock)
+
+
+# Dataflow ("GraphX") stand-ins exist only for the paper's own two
+# algorithms; programs without one emit no dataflow row.
+DATAFLOW = {
+    "pagerank": lambda g, p, device: pagerank_dataflow(
+        g, p["alpha"], p["iters"], device=device),
+    "labelprop": lambda g, p, device: labelprop_dataflow(
+        g, p["max_iters"], device=device),
+}
+
+
+def run_table(algorithm: str, scale_log2: int = 13, repeats: int = 3,
+              pe_counts=(1,), partitioners=("contiguous",), device=None,
+              graphs=None):
+    """-> list of (graph, impl, pes, seconds, correct), the reference's
+    rows: per paper graph the serial baseline, the dataflow stand-in where
+    the program has one, then every strategy of ``VARIANTS`` per
+    (partitioner, chare count).
+
+    ``impl`` is the strategy name, suffixed ``+<partitioner>`` for
+    non-default placement policies.  Each (partitioner, chare count) cell
+    partitions once, shared across all strategies.  All chares live on
+    ``device`` (CUDA unless another is named), so every chare count runs.
+    ``graphs`` (optional) names the paper graphs to run, of ``GRAPHS``.
+    """
+    spec = get_spec(algorithm)
+    params = dict(spec.defaults)
+    rows = []
+    for paper_name, (dskey, *_rest) in GRAPHS.items():
+        if graphs is not None and paper_name not in graphs:
+            continue
+        g = load_dataset(dskey, scale_log2=scale_log2, weighted=spec.weighted)
+        g = spec.prepare_graph(g)
+        ref = spec.run_serial(g)
+
+        t_serial = bench(lambda: spec.serial(g, **params), repeats, device)
+        rows.append((paper_name, "serial", 1, t_serial, True))
+        flow = DATAFLOW.get(algorithm)
+        if flow is not None:
+            t_flow = bench(lambda: flow(g, params, device), repeats, device)
+            rows.append((paper_name, "dataflow", 1, t_flow, True))
+
+        for pname in partitioners:
+            for pes in pe_counts:
+                pg = partition(g, pes, partitioner=pname)
+                for variant in VARIANTS:
+                    eng = Engine(pg, strategy=variant, device=device)
+                    run = lambda: eng.run(algorithm, **params)
+                    out, _ = run()
+                    ok = spec.matches(out, ref)
+                    rows.append((paper_name, policy_label(variant, pname),
+                                 pes, bench(run, repeats, device), ok))
+    return rows
+
+
+def grid_table(scale_log2: int = 13, shapes=((2, 4), (4, 2))):
+    """2-D grid placement: per-rectangle load skew plus the two-phase-reduce
+    wire model, against the cheapest 1-D variant at the same chare count.
+
+    -> list of (graph, grid-name, pes, metrics-dict) with keys ``stats``
+    (``partition_stats`` on the rectangle decomposition), ``wire`` (grid2d
+    bytes per rectangle per superstep), ``wire_basic_1d`` (best 1-D
+    *basic*-variant bytes -- the other edge-traffic strategy) and
+    ``wire_best_1d`` (best bytes over every 1-D strategy x partitioner).
+    Host-side prep only: nothing here runs on a device.
+    """
+    rows = []
+    for paper_name, (dskey, *_rest) in GRAPHS.items():
+        g = load_dataset(dskey, scale_log2=scale_log2)
+        one_d_cache = {}
+
+        def one_d(pes):
+            if pes not in one_d_cache:
+                one_d_cache[pes] = [wire_model(g, pes, partitioner=p)
+                                    for p in partitioner_names()]
+            return one_d_cache[pes]
+
+        for rr, cc in shapes:
+            pes = rr * cc
+            pname = f"grid({rr},{cc})"
+            rows.append((paper_name, pname, pes, {
+                "stats": partition_stats(
+                    partition(g, pes, partitioner=pname)),
+                "wire": wire_model(g, pes, partitioner=pname)["grid2d"],
+                "wire_basic_1d": min(m["basic"] for m in one_d(pes)),
+                "wire_best_1d": min(b for m in one_d(pes)
+                                    for b in m.values()),
+            }))
+    return rows
 
 
 def wire_table(scale_log2: int = 13, pe_counts=(16, 64, 128, 256),

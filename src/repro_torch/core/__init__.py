@@ -3,14 +3,16 @@
 The port of ``repro.core`` (the JAX reference, which stays as it is).
 Public API, for what is ported:
     Graph / partition / generators          repro_torch.core.graph
-    Partitioner registry / PartitionPlan    repro_torch.core.partitioners
+    Partitioner registry / PartitionPlan /
+    GridPlan (the grid(R,C) family)         repro_torch.core.partitioners
     Engine (strategy x vertex program)      repro_torch.core.engine
     VertexProgram / registry / run_parallel repro_torch.core.programs
     pagerank_serial / pagerank_parallel     repro_torch.core.pagerank
     labelprop_serial / labelprop_parallel   repro_torch.core.labelprop
     sssp_serial / bfs_serial / weighted PR  repro_torch.core.programs
     personalized_pagerank_serial            repro_torch.core.programs
-    run_cost / wire_model                   repro_torch.core.cost
+    run_cost / wire_model /
+    grid_collective_bytes                   repro_torch.core.cost
 """
 
 from repro_torch.core.graph import (Graph, PartitionedGraph, from_edges,
@@ -18,8 +20,9 @@ from repro_torch.core.graph import (Graph, PartitionedGraph, from_edges,
                                     erdos_renyi, ring, two_cliques,
                                     random_weights, load_dataset,
                                     dataset_names)
-from repro_torch.core.partitioners import (PartitionPlan, PartitionerSpec,
-                                           get_partitioner, make_plan,
+from repro_torch.core.partitioners import (GridPlan, PartitionPlan,
+                                           PartitionerSpec, get_partitioner,
+                                           grid_shape, make_plan,
                                            partition_stats,
                                            partitioner_names, policy_label,
                                            register_partitioner)
@@ -33,4 +36,5 @@ from repro_torch.core.programs import (VertexProgram, ProgramSpec,
 from repro_torch.core.pagerank import pagerank_serial, pagerank_parallel
 from repro_torch.core.labelprop import (labelprop_serial, labelprop_parallel,
                                         components_oracle)
-from repro_torch.core.cost import run_cost, wire_model, CostReport
+from repro_torch.core.cost import (run_cost, wire_model,
+                                   grid_collective_bytes, CostReport)

@@ -25,6 +25,15 @@ without a hook (the staged gather and scatter kernels on the card, plain
 torch on the CPU), with its segment combine through ``segment_fn`` when one
 is given.  ``basic`` reads the pairwise layout and has no push loop to hook.
 
+A ``grid(R,C)`` partition runs the ``grid2d`` two-phase reduce whatever
+1-D strategy is asked for: its R*C rectangles are the chare axis, each
+with its row chunk's state (replicated across the row's C rectangles),
+and phase 2 is a column combine and a row redistribution, lowered as one
+full-axis reduce or as column-group and row-group reduces
+(``collectives``).  Each lowering counts the bytes its reduces would put
+on a mesh's wire, per rectangle per superstep, in
+``Engine.dispatch["collectives"]``.
+
 ``run_batch`` runs B queries of one program as a ``[C, K, B]`` plane: one
 push per superstep serves every column (the strategies and kernels take the
 trailing axis), with per-query convergence.  Its host side stays on the
@@ -37,6 +46,7 @@ un-permuted there (one ``index_select`` through a device copy of
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -52,8 +62,6 @@ _LATER = {
     "gate": "frontier gating is not ported yet (ROADMAP queue 1, item 8)",
     "stream": "residency='stream' is not ported yet (ROADMAP queue 1, "
               "item 9)",
-    "grid2d": "grid(R,C) partitions and the grid2d strategy are not ported "
-              "yet (ROADMAP queue 1, item 6)",
 }
 
 
@@ -78,6 +86,12 @@ class Engine:
     (``ops.make_push_fn``, used as given).  ``segment_fn``
     (``ops.make_segment_fn``) takes the local segment combine wherever no
     push hook does, ``basic``'s receive side included.
+
+    The strategy follows the partition's dimensionality: a ``grid(R,C)``
+    partition always runs ``grid2d`` (the 1-D layouts do not exist on it);
+    asking for ``grid2d`` on a 1-D partition is an error.  ``collectives``
+    picks grid2d's phase-2 lowering: ``"auto"`` (``"grouped"``),
+    ``"grouped"`` or ``"full"``.
     """
 
     pg: PartitionedGraph
@@ -86,17 +100,21 @@ class Engine:
     push_fn: object = "auto"
     segment_fn: object = None
     residency: str = "resident"
+    collectives: str = "auto"
 
     def __post_init__(self):
         if self.residency == "stream":
             raise NotImplementedError(_LATER["stream"])
         if self.residency != "resident":
             raise ValueError(f"unknown residency {self.residency!r}")
-        if self.strategy == "grid2d":
-            raise NotImplementedError(_LATER["grid2d"])
+        if self.collectives not in ("auto", "grouped", "full"):
+            raise ValueError(f"unknown collectives mode {self.collectives!r}")
         if self.strategy not in strat.PHASES:
             raise ValueError(f"unknown strategy {self.strategy!r}; "
                              f"choose from {sorted(strat.PHASES)}")
+        if self.strategy == "grid2d" and not self.pg.is_grid:
+            raise ValueError("strategy 'grid2d' needs a grid(R,C) partition "
+                             f"(got partitioner {self.pg.partitioner!r})")
         if not (self.push_fn in ("auto", None) or callable(self.push_fn)):
             raise ValueError(
                 f"push_fn must be 'auto', None, or a callable hook "
@@ -110,9 +128,11 @@ class Engine:
         self._bind(self.pg)
 
     def _bind(self, pg: PartitionedGraph):
-        """Point the engine at a partition: alias its device-upload cache and
-        resolve the adaptive dispatch."""
+        """Point the engine at a partition: alias its device-upload cache,
+        resolve the strategy and the adaptive dispatch."""
         self.pg = pg
+        if pg.is_grid:
+            self.strategy = "grid2d"
         # layouts are uploaded once per (partition, device) and shared:
         # engines of a strategy sweep alias the same tensors
         layout = strat.STRATEGY_LAYOUT[self.strategy]
@@ -120,7 +140,22 @@ class Engine:
                        else pg.device_arrays(layout, self.device))
         self.aux = pg.device_aux(self.device)
         self._C, self._K = pg.num_chunks, pg.chunk_size
+        p1, p2 = strat.PHASES[self.strategy]
+        self._wire = None
+        if pg.is_grid:
+            rows, cols = pg.grid_shape
+            meta = (rows, cols, pg.col_chunk_size)
+            self._collectives = ("grouped" if self.collectives == "auto"
+                                 else self.collectives)
+            self._wire = {"bytes": 0.0}
+            p1 = functools.partial(p1, grid_meta=meta)
+            p2 = functools.partial(p2, grid_meta=meta,
+                                   collectives=self._collectives,
+                                   wire=self._wire)
+        self._phases = (p1, p2)
         self.dispatch = self._resolve_dispatch()
+        if pg.is_grid:
+            self._record_wire(0)
 
     def _resolve_dispatch(self) -> dict:
         """Resolve ``push_fn='auto'`` against the bound layout's bands.
@@ -140,10 +175,16 @@ class Engine:
             self.push_fn = None
             return {"choice": "staged", "mode": "auto", "kernel": kernel,
                     "reason": "basic strategy has no push loop to fuse"}
-        band = self.pg.sd_band if layout == "sd" else self.pg.band
+        if layout == "grid":
+            # rectangle phase-1 push: gather side is the row-chunk state,
+            # scatter side the column-padded destination space
+            band = self.pg.gr_band
+            scatter = self.pg.grid_shape[1] * self.pg.col_chunk_size
+        else:
+            band = self.pg.sd_band if layout == "sd" else self.pg.band
+            scatter = self._C * self._K
         emax = self.pg.edge_valid.shape[1]
-        choice, occ = blocks.choose_push(band, emax, self._K,
-                                         self._C * self._K)
+        choice, occ = blocks.choose_push(band, emax, self._K, scatter)
         from repro_torch.kernels import ops
 
         self.push_fn = ops.make_push_fn(fused=choice == "fused")
@@ -151,10 +192,20 @@ class Engine:
                 "threshold": blocks.BAND_OCC_FUSED_MAX, "kernel": kernel,
                 **occ}
 
+    def _record_wire(self, supersteps):
+        """``dispatch["collectives"]`` of a grid engine: the lowering and
+        the wire bytes its reduces counted per rectangle over the last run
+        (``bytes``) and per superstep (``bytes_per_superstep``)."""
+        total = self._wire["bytes"]
+        self.dispatch["collectives"] = {
+            "lowering": self._collectives, "bytes": total,
+            "supersteps": supersteps,
+            "bytes_per_superstep": total / supersteps if supersteps else 0.0}
+
     def _propagate(self, vals, program):
         """One superstep's message exchange: phase 1 (every chare's local
         push) then phase 2 (the combine across the chare axis)."""
-        p1, p2 = strat.PHASES[self.strategy]
+        p1, p2 = self._phases
         comb = program.combiner
         partial = p1(vals, self.arrays, comb, self._C, self._K,
                      segment_fn=self.segment_fn,
@@ -220,6 +271,8 @@ class Engine:
 
         aux = self.aux
         state = torch.from_numpy(program.init(self.pg)).to(self.device)
+        if self._wire is not None:
+            self._wire["bytes"] = 0.0
         if program.fixed_iters is not None:
             for _ in range(program.fixed_iters):
                 incoming = self._propagate(program.update(state, aux),
@@ -241,6 +294,8 @@ class Engine:
                 state = new
                 iters += 1
         self.dispatch["supersteps"] = iters
+        if self._wire is not None:
+            self._record_wire(iters)
         return self._to_host(self._unpermute(state)), iters
 
     # -- batched multi-query execution (DESIGN.md section 11) ----------------
@@ -336,6 +391,8 @@ class Engine:
         if qp is not None:
             aux["qplane"] = qp
         B = state.shape[-1]
+        if self._wire is not None:
+            self._wire["bytes"] = 0.0
         if program.fixed_iters is not None:
             for _ in range(program.fixed_iters):
                 incoming = self._propagate(program.update(state, aux),
@@ -360,12 +417,15 @@ class Engine:
                 state = new
                 iters += 1
         self.dispatch["supersteps"] = iters
+        if self._wire is not None:
+            self._record_wire(iters)
         return state, q_it
 
     def _unpermute(self, state):
         """Padded-id state -> original vertex order, on the device (callers
         always see original ids): ``[C, K]`` -> ``[V]``, ``[C, K, B]`` ->
-        ``[B, V]`` (a transposed view)."""
+        ``[B, V]`` (a transposed view).  On a grid ``global_to_local``
+        names each vertex's column-0 replica."""
         g2l = self.pg.device_relabel(self.device)["global_to_local"]
         if state.dim() == 2:
             return state.reshape(-1).index_select(0, g2l)

@@ -1,4 +1,4 @@
-"""Graph representation and chare-style partitioning (1-D placements).
+"""Graph representation and chare-style partitioning (1-D and 2-D grids).
 
 The port's copy of the host half of ``repro/core/graph.py``.  The paper
 assigns contiguous chunks of vertices to actors (chares); each chare stores
@@ -192,6 +192,18 @@ class PartitionedGraph:
 
     The edge layouts are built on first access from the shared
     relabeled-edge base and then cached; ``partition`` forces both.
+
+    2-D grid partitions (``GridPlan`` placements) reuse the same container
+    with "chare" meaning "edge rectangle": one chare per rectangle
+    ``(r, c)`` of an R x C grid, per-vertex planes row-replicated (chare
+    ``r*C + c`` carries row chunk r's state), and a single ``grid`` edge
+    layout in place of basic/sortdest:
+      * ``gr_src_local``  [R*C, Emax] row-local source index of each edge
+      * ``gr_dst_col``    [R*C, Emax] *column-padded* destination id
+      * ``gr_edge_valid`` / ``gr_edge_weight`` aligned planes
+      * ``gr_band``       [R*C, 4, NB] band table (same radix build)
+      * ``gr_row_to_col`` [R*C, K] row slot -> column-padded id (-1 padding),
+        the gather map that brings column-combined results back to row state
     """
 
     graph: Graph
@@ -216,14 +228,45 @@ class PartitionedGraph:
                                    compare=False)
     # plan-independent prep products (COO endpoints, degree and weight sums)
     _prep: object = dataclasses.field(default=None, repr=False, compare=False)
+    # grid-only metadata (_GridMeta: shape, column geometry, row->col map);
+    # None for 1-D placements
+    _grid: object = dataclasses.field(default=None, repr=False, compare=False)
+
+    # -- 2-D grid views ------------------------------------------------------
+
+    @property
+    def is_grid(self) -> bool:
+        return self._grid is not None
+
+    @property
+    def grid_shape(self) -> tuple | None:
+        """(rows, cols) for grid partitions, None for 1-D placements."""
+        return (self._grid.rows, self._grid.cols) if self.is_grid else None
+
+    @property
+    def col_chunk_size(self) -> int:
+        """Padded height of one destination (column) chunk."""
+        if not self.is_grid:
+            raise ValueError("col_chunk_size is a grid-partition property")
+        return self._grid.col_chunk_size
+
+    # -- edge layouts --------------------------------------------------------
 
     def _layout(self, which: str) -> tuple:
         """Build-or-fetch one edge layout: the bounded radix sort into the
-        (owner, tile-bucket) order, the rectangle pack, and the band table."""
+        (owner, tile-bucket) order, the rectangle pack, and the band table.
+        1-D placements expose ``basic``/``sd``; grid placements the single
+        ``grid`` layout (owners are edge rectangles, destinations
+        column-padded ids)."""
         if which not in self._lazy:
-            if which not in ("basic", "sd"):
-                raise ValueError(f"unknown layout {which!r}; 1-D partitions "
-                                 "expose 'basic' and 'sd'")
+            if which not in ("basic", "sd", "grid"):
+                raise ValueError(f"unknown layout {which!r}")
+            if self.is_grid != (which == "grid"):
+                raise ValueError(
+                    f"layout {which!r} unavailable: "
+                    + ("grid partitions expose only the 'grid' layout"
+                       if self.is_grid else
+                       "the 'grid' layout needs a grid(R,C) partition"))
             b = self._base
             C = self.num_chunks
             key_bound = C * b.nsb * b.nseg
@@ -234,7 +277,9 @@ class PartitionedGraph:
                 key = (owner_k * b.nsb + b.src_blk) * b.nseg + b.seg_blk
             else:
                 # destination segment block outermost (the paper's
-                # dest-sorted send order, block-granular)
+                # dest-sorted send order, block-granular; the grid layout
+                # scatters into its narrow column block, so the same order
+                # keeps its bands tight)
                 key = (owner_k * b.nseg + b.seg_blk) * b.nsb + b.src_blk
             order = _stable_argsort_bounded(key, key_bound)
             s, d, w = _pack_edges(order, b.src_local, b.dst, b.wgt,
@@ -282,6 +327,55 @@ class PartitionedGraph:
         # one mask serves both layouts: row c has per_chunk_e[c] valid edges
         return self.edge_valid
 
+    # -- grid (rectangle) layout accessors ----------------------------------
+
+    @property
+    def gr_src_local(self) -> np.ndarray:
+        return self._layout("grid")[0]
+
+    @property
+    def gr_dst_col(self) -> np.ndarray:
+        return self._layout("grid")[1]
+
+    @property
+    def gr_edge_weight(self) -> np.ndarray:
+        return self._layout("grid")[2]
+
+    @property
+    def gr_band(self) -> np.ndarray:
+        return self._layout("grid")[3]
+
+    @property
+    def gr_edge_valid(self) -> np.ndarray:
+        # rectangle k has per_rect_e[k] valid edges
+        if not self.is_grid:
+            raise ValueError("gr_edge_valid is a grid-partition property")
+        return self.edge_valid
+
+    @property
+    def gr_row_to_col(self) -> np.ndarray:
+        """[R*C, K] row slot -> column-padded id of the same vertex (-1 at
+        padding): the post-column-combine gather back into row state."""
+        if not self.is_grid:
+            raise ValueError("gr_row_to_col is a grid-partition property")
+        return self._grid.row_to_col
+
+    @property
+    def rect_degree(self) -> np.ndarray:
+        """[R*C, K] out-edges each row slot has IN each rectangle (a
+        vertex's out-degree split across its row's rectangles by
+        destination column); the per-rectangle frontier-load table
+        ``partition_stats`` charges."""
+        if not self.is_grid:
+            raise ValueError("rect_degree is a grid-partition property")
+        if "rect_degree" not in self._lazy:
+            b = self._base
+            P, K = self.num_chunks, self.chunk_size
+            flat = b.owner.astype(np.int64) * K + b.src_local
+            self._lazy["rect_degree"] = np.bincount(
+                flat, minlength=P * K).astype(np.int64).reshape(P, K)
+        return self._lazy["rect_degree"]
+
     def device_arrays(self, layout: str = "both", device="cuda") -> dict:
         """Device-resident layout tensors (edge planes + band table), uploaded
         once per (partition, layout, device) and shared by every Engine built
@@ -292,27 +386,35 @@ class PartitionedGraph:
         table already describes -- so the per-superstep push never has to
         copy them to pad.  On CUDA the band table's kernel paths and tile
         schedule (``push_fused.tile_plan``) are learned here, once.
+
+        ``layout`` is ``"basic"``, ``"sd"``, ``"grid"`` (which also carries
+        the ``[R*C, K]`` ``gr_row_to_col`` map) or ``"both"`` (a grid's one
+        layout, or a 1-D placement's two).
         """
         if layout == "both":
+            if self.is_grid:
+                return self.device_arrays("grid", device)
             return {**self.device_arrays("basic", device),
                     **self.device_arrays("sd", device)}
-        names = {
-            "basic": ("src_local", "dst_global", "edge_valid", "edge_weight",
-                      "band"),
-            "sd": ("sd_src_local", "sd_dst_global", "sd_edge_valid",
-                   "sd_edge_weight", "sd_band"),
+        edges, band = {
+            "basic": (("src_local", "dst_global", "edge_valid",
+                       "edge_weight"), "band"),
+            "sd": (("sd_src_local", "sd_dst_global", "sd_edge_valid",
+                    "sd_edge_weight"), "sd_band"),
+            "grid": (("gr_src_local", "gr_dst_col", "gr_edge_valid",
+                      "gr_edge_weight"), "gr_band"),
         }[layout]
         key = (f"dense:{layout}", _device_key(device))
         if key not in self._dev:
-            fill = {"edge_weight": 1, "sd_edge_weight": 1}
-            arrs = {
-                k: _upload(getattr(self, k) if k.endswith("band")
-                           else _pad_edges(getattr(self, k), fill.get(k, 0)),
-                           device)
-                for k in names}
-            band = arrs[names[-1]]
-            if band.is_cuda:  # the kernel paths, learned before any run
-                push_fused.tile_plan(band)
+            arrs = {k: _upload(_pad_edges(getattr(self, k),
+                                          1 if k.endswith("weight") else 0),
+                               device)
+                    for k in edges}
+            arrs[band] = _upload(getattr(self, band), device)
+            if layout == "grid":
+                arrs["gr_row_to_col"] = _upload(self.gr_row_to_col, device)
+            if arrs[band].is_cuda:  # the kernel paths, learned before any run
+                push_fused.tile_plan(arrs[band])
             self._dev[key] = arrs
         return self._dev[key]
 
@@ -425,9 +527,11 @@ def partition(graph: Graph, num_chunks: int,
               eager: bool = True) -> PartitionedGraph:
     """Split ``graph`` into ``num_chunks`` chares under a partitioner policy.
 
-    ``partitioner`` names a registered 1-D policy; the default reproduces
-    the paper's contiguous equal-vertex chunks.  ``eager=False`` defers the
-    edge-layout builds to first use, so an engine builds only its own.
+    ``partitioner`` names a registered 1-D policy or a ``grid(R,C)`` family
+    member (``num_chunks == R*C``, one chare per edge rectangle); the
+    default reproduces the paper's contiguous equal-vertex chunks.
+    ``eager=False`` defers the edge-layout builds to first use, so an
+    engine builds only its own.
     """
     plan = part_mod.make_plan(graph, num_chunks, partitioner)
     return _materialize(graph, plan, partitioner, _edge_prep(graph), eager)
@@ -440,20 +544,34 @@ class _EdgeBase:
     kernel-tile ids the sort keys and band tables are made of."""
 
     src_local: np.ndarray  # [E] int32 owner-local sources
-    dst: np.ndarray  # [E] int32 padded destinations
+    dst: np.ndarray  # [E] int32 scatter-space destinations (padded ids, or
+    #                  column-padded ids on a grid)
     wgt: np.ndarray  # [E] float32
-    owner: np.ndarray  # [E] owning chunk of each edge
+    owner: np.ndarray  # [E] owning chunk (or rectangle) of each edge
     per_chunk_e: np.ndarray  # [C]
     emax: int
     src_blk: np.ndarray  # [E] gather-side tile id (local source / BLOCK_V)
-    seg_blk: np.ndarray  # [E] scatter-side tile id (padded dest / BLOCK_S)
+    seg_blk: np.ndarray  # [E] scatter-side tile id (scatter dest / BLOCK_S)
     nsb: int  # gather-side tile count per owner
     nseg: int  # scatter-side tile count
 
 
+@dataclasses.dataclass(frozen=True)
+class _GridMeta:
+    """Grid-only metadata riding on ``PartitionedGraph._grid``."""
+
+    rows: int
+    cols: int
+    col_chunk_size: int
+    row_to_col: np.ndarray  # [R*C, K] int32, -1 at padding
+
+
 def _materialize(graph: Graph, plan, partitioner: str, prep: _EdgePrep,
                  eager: bool = True) -> PartitionedGraph:
-    """Build the chare decomposition for one ``PartitionPlan``."""
+    """Build the chare decomposition for one ``PartitionPlan``;
+    ``GridPlan`` placements route to ``_materialize_grid``."""
+    if isinstance(plan, part_mod.GridPlan):
+        return _materialize_grid(graph, plan, partitioner, prep, eager)
     num_chunks = plan.num_chunks
     chunk_size = plan.chunk_size
     padded = num_chunks * chunk_size
@@ -506,6 +624,81 @@ def _materialize(graph: Graph, plan, partitioner: str, prep: _EdgePrep,
     return pg
 
 
+def _materialize_grid(graph: Graph, plan, partitioner: str, prep: _EdgePrep,
+                      eager: bool = True) -> PartitionedGraph:
+    """Build the rectangle decomposition for one ``GridPlan``.
+
+    One chare per rectangle ``(r, c)``; the per-vertex planes (state width,
+    degrees, validity) are the ROW layout replicated across each row's C
+    rectangles, destinations are relabeled into the COLUMN-padded space the
+    two-phase reduce combines over, and the edge layout orders each
+    rectangle's edges by (segment block, source block) through the same
+    radix pass as the 1-D layouts.
+    """
+    R, C = plan.rows, plan.cols
+    P = R * C
+    Kr, Kc = plan.chunk_size, plan.col_chunk_size
+    row_g2l, row_l2g = plan.row.relabel()  # [V], [R*Kr]
+    col_g2l, _ = plan.col.relabel()  # [V], [C*Kc]
+
+    # state relabel: the row layout replicated across each row's rectangles;
+    # g2l names the column-0 replica (engines read results from it), l2g
+    # names every replica (so source seeding and id-valued inits hit all C)
+    rrow = row_g2l // Kr
+    g2l = rrow * C * Kr + (row_g2l - rrow * Kr)
+    l2g = np.repeat(row_l2g.reshape(R, Kr), C, axis=0).reshape(-1)
+
+    live = row_l2g >= 0
+    deg = np.ones(R * Kr, dtype=INT)
+    deg[live] = np.maximum(prep.out_degrees[row_l2g[live]], 1)
+    out_weight = np.ones(R * Kr, dtype=WEIGHT)
+    out_weight[live] = np.where(prep.wsum[row_l2g[live]] > 0,
+                                prep.wsum[row_l2g[live]], 1.0)
+
+    def rep(a):
+        return np.repeat(a.reshape(R, Kr), C, axis=0)
+
+    # row slot -> column-padded id of the same vertex: the gather map that
+    # brings the column-combined vector back into (replicated) row state
+    row_to_col = np.full(R * Kr, -1, dtype=INT)
+    row_to_col[live] = col_g2l[row_l2g[live]].astype(INT)
+
+    # relabel edges: row-local gather index, column-padded scatter id,
+    # owning rectangle
+    src_row = row_g2l.astype(INT)[prep.src]
+    src_local = src_row % Kr
+    dst_col = col_g2l.astype(INT)[prep.dst]
+    owner = blocks.edge_rectangles(src_row // Kr, dst_col // Kc, C)
+    per_rect_e = np.bincount(owner, minlength=P)
+    emax = max(int(per_rect_e.max()) if len(src_local) else 1, 1)
+    edge_valid = (np.arange(emax) < per_rect_e[:, None]).astype(INT)
+    base = _EdgeBase(src_local, dst_col, prep.wgt, owner, per_rect_e, emax,
+                     src_blk=src_local // blocks.BLOCK_V,
+                     seg_blk=dst_col // blocks.BLOCK_S,
+                     nsb=-(-Kr // blocks.BLOCK_V),
+                     nseg=-(-(C * Kc) // blocks.BLOCK_S))
+
+    pg = PartitionedGraph(
+        graph=graph,
+        num_chunks=P,
+        chunk_size=Kr,
+        vertex_valid=rep(live.astype(INT)),
+        out_degree=rep(deg),
+        out_weight=rep(out_weight),
+        edge_valid=edge_valid,
+        partitioner=partitioner,
+        global_to_local=g2l,
+        local_to_global=l2g,
+        plan=plan,
+        _base=base,
+        _prep=prep,
+        _grid=_GridMeta(R, C, Kc, rep(row_to_col)),
+    )
+    if eager:
+        pg._layout("grid")
+    return pg
+
+
 @dataclasses.dataclass(frozen=True)
 class PairwiseLayout:
     """Edge layout for the *basic* variant: per (source chunk, dest chunk)
@@ -526,6 +719,9 @@ def build_pairwise(pg: PartitionedGraph) -> PairwiseLayout:
     """Bucket edges by (source chunk, dest chunk), vectorized: one stable
     argsort over flattened bucket ids, then one scatter into the padded
     rectangle."""
+    if pg.is_grid:
+        raise ValueError("pairwise layout is 1-D only; grid partitions "
+                         "already bucket edges by rectangle")
     prep = pg._prep if pg._prep is not None else _edge_prep(pg.graph)
     g2l32 = pg.global_to_local.astype(INT)
     src = g2l32[prep.src]

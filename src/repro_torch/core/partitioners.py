@@ -16,12 +16,19 @@ Built-in policies:
     striped        round-robin placement (vertex v -> chare v mod P)
     degree_sorted  descending-degree snake deal, spreading hubs across chares
 
-The 2-D ``grid(R,C)`` family is not ported yet (ROADMAP queue 1, item 6).
+Beyond the 1-D registry there is a *family* of 2-D policies: ``grid(R,C)``
+buckets edges into (src-row-chunk, dst-col-chunk) rectangles, yielding a
+``GridPlan`` instead of a ``PartitionPlan``.  ``grid(R,C,<policy>)`` applies
+one registered 1-D policy to BOTH axes and ``grid(R,C,<row>,<col>)`` picks
+them per axis (default ``contiguous``).  Family names parse in
+``get_partitioner`` and never appear in ``partitioner_names()`` (the static
+1-D registry).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import TYPE_CHECKING, Callable
 
 import numpy as np
@@ -86,11 +93,87 @@ class PartitionPlan:
         l2g[pos] = self.order
         return g2l, l2g
 
+    def same_as(self, other) -> bool:
+        """Placement equality (dataclass ``==`` is ambiguous on arrays)."""
+        if not isinstance(other, PartitionPlan):
+            return False  # a GridPlan is never the same placement
+        return (self.num_chunks == other.num_chunks
+                and np.array_equal(self.order, other.order)
+                and np.array_equal(self.chunk_counts, other.chunk_counts))
+
     def edges_per_chunk(self, graph: "Graph") -> np.ndarray:
         """[C] out-edges owned by each chunk under this placement."""
         vc = self.vertex_chunk
         return np.bincount(vc, weights=graph.out_degrees,
                            minlength=self.num_chunks).astype(np.int64)
+
+
+@dataclasses.dataclass(frozen=True)
+class GridPlan:
+    """2-D placement: edges bucketed into ``rows x cols`` rectangles.
+
+    ``row`` places the V vertices into R *source* chunks and ``col`` into C
+    *destination* chunks; rectangle ``(r, c)`` (flat id ``r*cols + c``, one
+    per chare) owns exactly the edges whose source lies in row chunk r and
+    whose destination lies in col chunk c -- so every edge lands in exactly
+    one rectangle and ``rect_counts`` sums to E.  Vertex *state* lives in
+    the row layout, replicated across the C rectangles of its row (the 2-D
+    SpMV convention: the input vector is broadcast along grid rows, partial
+    outputs are combined along grid columns).
+
+    ``rect_starts``/``rect_counts`` are the per-rectangle edge bounds: in
+    the rectangle-sorted edge order, rectangle k owns edges
+    ``[rect_starts[k], rect_starts[k] + rect_counts[k])`` and the bounds
+    tile ``[0, E)``.
+    """
+
+    rows: int
+    cols: int
+    row: PartitionPlan
+    col: PartitionPlan
+    rect_counts: np.ndarray  # [rows*cols] int64 edges per rectangle
+
+    @property
+    def num_chunks(self) -> int:
+        """Chares: one per rectangle."""
+        return self.rows * self.cols
+
+    @property
+    def num_vertices(self) -> int:
+        return self.row.num_vertices
+
+    @property
+    def chunk_size(self) -> int:
+        """State width per chare == the padded row-chunk height."""
+        return self.row.chunk_size
+
+    @property
+    def col_chunk_size(self) -> int:
+        return self.col.chunk_size
+
+    @property
+    def rect_starts(self) -> np.ndarray:
+        """[rows*cols] start of each rectangle's edge slice; with
+        ``rect_counts`` these tile ``[0, E)``."""
+        from repro_torch.kernels import blocks
+
+        return blocks.rect_bounds(self.rect_counts)[0]
+
+    def same_as(self, other) -> bool:
+        return (isinstance(other, GridPlan)
+                and self.rows == other.rows and self.cols == other.cols
+                and self.row.same_as(other.row)
+                and self.col.same_as(other.col))
+
+    def edges_per_chunk(self, graph: "Graph") -> np.ndarray:
+        """[rows*cols] edges owned by each rectangle."""
+        return self.rect_counts.copy()
+
+
+def row_plan_of(plan) -> PartitionPlan:
+    """The 1-D plan that carries vertex *state*: the plan itself for 1-D,
+    the row map for grids."""
+    return plan.row if isinstance(plan, GridPlan) else plan
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,15 +195,60 @@ def register_partitioner(spec: PartitionerSpec) -> PartitionerSpec:
     return spec
 
 
+# ``grid(R,C)`` / ``grid(R,C,row_policy,col_policy)`` -- the 2-D family.
+# Parsed on lookup (the shape is part of the name) and cached; the static
+# registry keeps only the 1-D policies.
+_GRID_RE = re.compile(r"^grid\((\d+)\s*[,x]\s*(\d+)"
+                      r"(?:\s*,\s*(\w+))?(?:\s*,\s*(\w+))?\)$")
+_GRID_SPECS: dict[str, PartitionerSpec] = {}
+
+
+def grid_shape(name: str) -> tuple[int, int] | None:
+    """(rows, cols) when ``name`` is a grid-family spec, else None."""
+    m = _GRID_RE.match(name)
+    return (int(m.group(1)), int(m.group(2))) if m else None
+
+
+def _grid_spec(name: str, m: "re.Match") -> PartitionerSpec:
+    R, C = int(m.group(1)), int(m.group(2))
+    row_policy = m.group(3) or "contiguous"
+    col_policy = m.group(4) or row_policy
+    if R < 1 or C < 1:
+        raise ValueError(f"{name}: grid shape must be >= 1x1")
+    for p in (row_policy, col_policy):
+        if p not in PARTITIONERS:
+            raise ValueError(f"{name}: unknown 1-D policy {p!r}; "
+                             f"choose from {sorted(PARTITIONERS)}")
+
+    def plan(graph: "Graph", num_chunks: int) -> GridPlan:
+        if num_chunks != R * C:
+            raise ValueError(
+                f"{name} needs num_chunks == {R * C} (one chare per "
+                f"rectangle), got {num_chunks}")
+        row = PARTITIONERS[row_policy].plan(graph, R)
+        col = PARTITIONERS[col_policy].plan(graph, C)
+        from repro_torch.kernels import blocks
+
+        rect = blocks.edge_rectangles(row.vertex_chunk[graph.src],
+                                      col.vertex_chunk[graph.dst], C)
+        counts = np.bincount(rect, minlength=R * C).astype(np.int64)
+        return GridPlan(R, C, row, col, counts)
+
+    return PartitionerSpec(
+        name, plan,
+        wins="high PE counts: wire scales with V/sqrt(P), not cut edges")
+
+
 def get_partitioner(name: str) -> PartitionerSpec:
     if name in PARTITIONERS:
         return PARTITIONERS[name]
-    if name.startswith("grid("):
-        raise NotImplementedError(
-            f"{name}: grid(R,C) partitions are not ported yet "
-            "(ROADMAP queue 1, item 6)")
+    m = _GRID_RE.match(name)
+    if m is not None:
+        if name not in _GRID_SPECS:
+            _GRID_SPECS[name] = _grid_spec(name, m)
+        return _GRID_SPECS[name]
     raise ValueError(f"unknown partitioner {name!r}; "
-                     f"choose from {sorted(PARTITIONERS)}")
+                     f"choose from {sorted(PARTITIONERS)} or 'grid(R,C)'")
 
 
 def partitioner_names() -> list[str]:
@@ -134,11 +262,20 @@ def policy_label(base: str, partitioner: str) -> str:
 
 
 def make_plan(graph: "Graph", num_chunks: int,
-              partitioner: str = "contiguous") -> PartitionPlan:
+              partitioner: str = "contiguous"):
+    """-> ``PartitionPlan`` (1-D policies) or ``GridPlan`` (grid family)."""
     if num_chunks < 1:
         raise ValueError(f"num_chunks must be >= 1, got {num_chunks}")
     plan = get_partitioner(partitioner).plan(graph, num_chunks)
-    if int(plan.chunk_counts.sum()) != graph.num_vertices:
+    if isinstance(plan, GridPlan):
+        for axis, p in (("row", plan.row), ("col", plan.col)):
+            if int(p.chunk_counts.sum()) != graph.num_vertices:
+                raise AssertionError(f"{partitioner}: {axis} chunk_counts "
+                                     f"sum {p.chunk_counts.sum()} != V")
+        if int(plan.rect_counts.sum()) != graph.num_edges:
+            raise AssertionError(f"{partitioner}: rect_counts sum "
+                                 f"{plan.rect_counts.sum()} != E")
+    elif int(plan.chunk_counts.sum()) != graph.num_vertices:
         raise AssertionError(f"{partitioner}: chunk_counts sum "
                              f"{plan.chunk_counts.sum()} != V")
     return plan
@@ -222,13 +359,19 @@ register_partitioner(PartitionerSpec(
 
 
 def partition_stats(pg: "PartitionedGraph", frontier=None) -> dict:
-    """Per-chare load + padding metrics for one materialized 1-D partition.
+    """Per-chare load + padding metrics for one materialized partition.
 
     ``edge_imbalance`` is max/mean per-chare edges (1.0 = perfectly even);
     ``*_padding_waste`` is the fraction of the padded rectangle that is
     padding.  ``frontier`` (optional ``[C, K]`` 0/1) adds the *active* load
     view: ``frontier_edges`` counts each chare's out-edges whose source is in
     the frontier, and ``frontier_edge_imbalance`` is their max/mean.
+
+    Grid partitions report the same keys with "chare" meaning "rectangle"
+    (plus ``grid_shape``): ``edges_per_chare`` are per-rectangle edge
+    counts, ``vertices_per_chare`` the (row-replicated) state widths, and
+    the frontier view charges each rectangle only the frontier edges that
+    land IN it (``rect_degree``), not the source's whole out-degree.
     """
     C, K = pg.num_chunks, pg.chunk_size
     edges = pg.edge_valid.sum(axis=1).astype(np.int64)
@@ -236,25 +379,35 @@ def partition_stats(pg: "PartitionedGraph", frontier=None) -> dict:
     E, V = pg.graph.num_edges, pg.graph.num_vertices
     emax = int(pg.edge_valid.shape[1])
     mean_e = E / C if C else 0.0
+    # verts.sum() == V for 1-D placements; grids replicate each row chunk
+    # across their C columns, so the per-chare mean is the replicated one
     mean_v = verts.sum() / C if C else 0.0
     front = {}
     if frontier is not None:
         mask = np.asarray(frontier).reshape(C, K) != 0
-        # true out-degrees (pg.out_degree clips degree-0 vertices to 1 for
-        # the PageRank divide) gathered through the relabel
-        l2g = pg.local_to_global
-        deg = np.zeros(C * K, dtype=np.int64)
-        live = l2g >= 0
-        deg[live] = pg.graph.out_degrees[l2g[live]]
-        fe = np.where(mask, deg.reshape(C, K), 0).sum(axis=1)
+        if pg.is_grid:
+            # per-rectangle degrees: a frontier source costs rectangle (r,c)
+            # only the edges it has *in that rectangle's column*
+            deg2d = pg.rect_degree
+        else:
+            # true out-degrees (pg.out_degree clips degree-0 vertices to 1
+            # for the PageRank divide) gathered through the relabel
+            l2g = pg.local_to_global
+            deg = np.zeros(C * K, dtype=np.int64)
+            live = l2g >= 0
+            deg[live] = pg.graph.out_degrees[l2g[live]]
+            deg2d = deg.reshape(C, K)
+        fe = np.where(mask, deg2d, 0).sum(axis=1)
         total = int(fe.sum())
         front = {
             "frontier_edges": fe,
             "frontier_edge_imbalance":
                 float(fe.max() * C / total) if total else 1.0,
         }
+    grid = {"grid_shape": pg.grid_shape} if pg.is_grid else {}
     return {
         **front,
+        **grid,
         "partitioner": pg.partitioner,
         "edges_per_chare": edges,
         "vertices_per_chare": verts,

@@ -5,10 +5,10 @@ each locally-owned vertex:
 
     incoming[c, j] = combine_{e : dst(e) == c*K + j} value(src(e))
 
-The twin of ``repro/core/strategies.py`` for the 1-D variants.  The
-reference maps chares to mesh shards and its collectives to XLA's; here the
-chares are the leading axis of ``[C, ...]`` tensors on one device and each
-collective is a tensor op on that axis:
+The twin of ``repro/core/strategies.py``.  The reference maps chares to
+mesh shards and its collectives to XLA's; here the chares are the leading
+axis of ``[C, ...]`` tensors on one device and each collective is a tensor
+op on that axis:
 
   reduction  dense |V| buffer per chare, ``psum``      -> sum / amin over
                                                           axis 0, own slice
@@ -24,6 +24,12 @@ collective is a tensor op on that axis:
                                                           chare axes of the
                                                           [C, C, Pmax] pair
                                                           buffers
+  grid2d     per-rectangle partials, then a full-
+             axis reduce or column-group + row-group
+             reduces (``axis_index_groups``)           -> reductions over the
+                                                          rectangle axis, or
+                                                          over a reshaped
+                                                          [R, C, ...] view
 
 Without a push hook, phase 1's local combine is staged: gather, edge
 transform, mask, segment combine.  On the CPU the gather and segment
@@ -34,12 +40,17 @@ chare row, with the kernels' semantics: float-min values at or above
 ``float(SENTINEL)`` read as unreached.  A ``segment_fn`` hook
 (``ops.make_segment_fn``) takes the segment combine on either device.
 
-``grid2d`` is not ported yet (ROADMAP queue 1, item 6).
+No collective moves bytes on one device, so ``grid2d``'s phase 2 counts
+what its reduces would put on the wire of a mesh with one rectangle per
+device (ring all-reduce: ``2 * bytes * (g-1)/g`` per rectangle for a group
+of g), priced as ``cost.grid_collective_bytes`` prices them; the reference
+measures the same from its compiled HLO.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable
 
 import torch
@@ -271,13 +282,102 @@ def pairs_phase2(dense, arrs, combiner, num_chunks, chunk_size,
     return acc
 
 
+def grid_groups(R, C):
+    """The reference's static ``axis_index_groups`` for an R x C rectangle
+    grid over chare ids ``r*C + c``: column group c = the R chares
+    {r*C+c}, row group r = the C contiguous chares r*C..r*C+C-1.  On one
+    device they are the two axes of the ``[R, C, ...]`` view that
+    ``grid2d_phase2`` reduces over."""
+    cols = [[r * C + c for r in range(R)] for c in range(C)]
+    rows = [[r * C + c for c in range(C)] for r in range(R)]
+    return cols, rows
+
+
+def _reduce(x, dim, combiner):
+    """One reduce of the combiner's monoid over ``dim``, in ``x``'s dtype."""
+    if combiner.name == "add":
+        return x.sum(dim=dim, dtype=x.dtype)
+    return x.amin(dim=dim)
+
+
+def _price(wire, payload_bytes, group):
+    """Add one group reduce's wire bytes per rectangle to ``wire["bytes"]``:
+    a ring all-reduce of ``payload_bytes`` over ``group`` members moves
+    ``2 * payload_bytes * (group-1)/group`` through each."""
+    if wire is not None:
+        wire["bytes"] += 2 * payload_bytes * (group - 1) / group
+
+
+def grid2d_phase1(vals, arrs, combiner, num_chunks, chunk_size,
+                  segment_fn=None, edge_value=None, push_fn=None,
+                  edge_semiring=None, grid_meta=None):
+    """Every rectangle's local push: gather from its (replicated) row-chunk
+    state ``[R*C, Kr(, B)]``, segment-combine into the column-padded space
+    -> ``[R*C, C*Kc(, B)]``, the fused kernel fed by ``gr_band``."""
+    R, C, Kc = grid_meta
+    return _dense_contrib(vals, arrs["gr_src_local"], arrs["gr_dst_col"],
+                          arrs["gr_edge_valid"], arrs["gr_edge_weight"],
+                          combiner, C, Kc, segment_fn, edge_value, push_fn,
+                          arrs["gr_band"], edge_semiring)
+
+
+def grid2d_phase2(dense, arrs, combiner, num_chunks, chunk_size,
+                  segment_fn=None, grid_meta=None, collectives="grouped",
+                  wire=None):
+    """The column combine and row redistribution of the rectangle partials
+    ``dense`` ``[R*C, C*Kc(, B)]`` -> the next incoming ``[R*C, Kr(, B)]``,
+    every row replica equal.  ``wire`` (optional, ``{"bytes": float}``)
+    counts each reduce's bytes per rectangle (``_price``).
+
+    ``full``: one reduce over all R*C rectangles of the whole column space,
+    then the ``gr_row_to_col`` gather back into row order, the identity at
+    padding (-1).  ``grouped``: each rectangle's own ``Kc`` slice reduced
+    within its column group (the R rectangles of its column), scattered into
+    row order where it owns the slot (identity elsewhere), then reduced
+    within its row group (the C rectangles of its row).  Each vertex's value
+    is held by exactly one rectangle per row, so the row reduce is exact for
+    add as well as min; the two lowerings fold float sums in different
+    orders (R*C partials at once, or R), as the reference's do.
+    """
+    R, C, Kc = grid_meta
+    P, Kr = num_chunks, chunk_size
+    m = arrs["gr_row_to_col"]
+    tail = tuple(dense.shape[2:])
+    lane_bytes = math.prod(tail) * dense.element_size()  # one id's values
+    ident = torch.full((), combiner.identity, dtype=dense.dtype,
+                       device=dense.device)
+    expand = (1,) * len(tail)  # masks broadcast over a trailing [B]
+    if collectives == "full" or (R == 1 and C == 1):
+        full = _reduce(dense, 0, combiner)
+        _price(wire, C * Kc * lane_bytes, P)
+        gathered = full.index_select(0, m.clamp(min=0).reshape(-1).long())
+        live = (m >= 0).reshape(m.shape + expand)
+        return torch.where(live, gathered.reshape((P, Kr) + tail), ident)
+    col = torch.arange(C, device=dense.device)
+    parts = dense.reshape((R, C, C, Kc) + tail)
+    combined = _reduce(parts[:, col, col], 0, combiner)  # [C, Kc(, B)]
+    _price(wire, Kc * lane_bytes, R)
+    local = m.reshape(R, C, Kr).long() - (col * Kc)[None, :, None]
+    own = (local >= 0) & (local < Kc) & (m.reshape(R, C, Kr) >= 0)
+    flat = (col * Kc)[None, :, None] + local.clamp(0, Kc - 1)
+    gathered = combined.reshape((C * Kc,) + tail).index_select(
+        0, flat.reshape(-1)).reshape((R, C, Kr) + tail)
+    rowvals = torch.where(own.reshape(own.shape + expand), gathered, ident)
+    rows = _reduce(rowvals, 1, combiner)  # [R, Kr(, B)]
+    _price(wire, Kr * lane_bytes, C)
+    return rows[:, None].expand((R, C, Kr) + tail).reshape((P, Kr) + tail)
+
+
 # name -> (phase1, phase2).  ``pairs`` shares sortdest's phase 1 (same sd
 # layout + local combine); they differ only in how the blocks travel.
+# grid2d's phases also take ``grid_meta`` (rows, cols, col_chunk_size), and
+# its phase 2 ``collectives`` and ``wire``, by keyword.
 PHASES = {
     "reduction": (reduction_phase1, reduction_phase2),
     "sortdest": (sortdest_phase1, sortdest_phase2),
     "basic": (basic_phase1, basic_phase2),
     "pairs": (sortdest_phase1, pairs_phase2),
+    "grid2d": (grid2d_phase1, grid2d_phase2),
 }
 
 
@@ -293,8 +393,25 @@ def _compose(phase1, phase2):
     return strategy
 
 
+def grid2d(vals, arrs, combiner, num_chunks, chunk_size, segment_fn=None,
+           edge_value=None, push_fn=None, edge_semiring=None, grid_meta=None,
+           collectives="grouped", wire=None):
+    """Two-phase reduce over a 2-D edge grid: every rectangle's local push
+    into the column-padded space, then the column combine and row
+    redistribution (``grid2d_phase2``).  Nothing edge-proportional is
+    combined across rectangles: the payload is vertex-sized."""
+    dense = grid2d_phase1(vals, arrs, combiner, num_chunks, chunk_size,
+                          segment_fn, edge_value, push_fn, edge_semiring,
+                          grid_meta)
+    return grid2d_phase2(dense, arrs, combiner, num_chunks, chunk_size,
+                         grid_meta=grid_meta, collectives=collectives,
+                         wire=wire)
+
+
 # the classic one-call entry points: phase 1 then phase 2
-STRATEGIES = {name: _compose(*ph) for name, ph in PHASES.items()}
+STRATEGIES = {name: _compose(*ph) for name, ph in PHASES.items()
+              if name != "grid2d"}
+STRATEGIES["grid2d"] = grid2d
 
 # Which edge layout each strategy's local combine reads -- the engine's
 # adaptive dispatch prices the matching band table ("pairwise" has no push
@@ -304,4 +421,5 @@ STRATEGY_LAYOUT = {
     "sortdest": "sd",
     "pairs": "sd",
     "basic": "pairwise",
+    "grid2d": "grid",
 }

@@ -55,7 +55,7 @@ def fused_launches(arrays, layout, combine, iters):
     both)."""
     want = dict.fromkeys(push_fused.launch_counts, 0)
     want[f"fused_push_{combine}"] = iters
-    band = arrays["sd_band" if layout == "sd" else "band"]
+    band = arrays[{"sd": "sd_band", "grid": "gr_band"}.get(layout, "band")]
     plan = push_fused.tile_plan(band)
     tiled = plan.num_tiled if combine == "add" or plan.min_tiled else 0
     if tiled:
@@ -1137,3 +1137,104 @@ def test_server_on_cuda_matches_cpu(cuda, policy):
             np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
         else:
             np.testing.assert_array_equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# The 2-D grid: the fused kernels on gr_band, the grid engine on the card
+# ---------------------------------------------------------------------------
+
+
+def grid_layout(cuda, shape=(2, 4), scale=13):
+    """A weighted RMAT grid partition's rectangle layout on the card, as
+    the engine holds it: (src, dst, valid, weight, band, Kr, C*Kc)."""
+    R, C = shape
+    pg = G.partition(G.random_weights(G.rmat(scale, 14 << scale, seed=1),
+                                      seed=5), R * C,
+                     partitioner=f"grid({R},{C})")
+    a = pg.device_arrays("grid", cuda)
+    return (a["gr_src_local"], a["gr_dst_col"], a["gr_edge_valid"],
+            a["gr_edge_weight"], a["gr_band"], pg.chunk_size,
+            C * pg.col_chunk_size)
+
+
+@pytest.mark.parametrize("combine,dtype,mode", WIDE_CASES)
+@pytest.mark.parametrize("B", (None, 8))
+def test_fused_kernels_on_gr_band_match_plain(cuda, combine, dtype, mode, B):
+    """Both fused kernels over the 8 rectangle rows of grid(2,4) -- each
+    row's segments inside its column's Kc slice of the column space --
+    against the plain version, on the tiled path; the tiled add's repeat
+    and its plane's columns bit-identical to one-column calls."""
+    src, dst, valid, w, band, V, S = grid_layout(cuda)
+    P = src.shape[0]
+    shape = (P, V) + (() if B is None else (B,))
+    vals = (draw_vals(shape, dtype, cuda) if combine == "add"
+            else draw_dist(shape, dtype, cuda))
+    if mode != "weight":
+        w = None
+    elif combine == "min":
+        w = min_weight(w, dtype)
+    kw = dict(combine=combine, unit_weight=mode == "unit")
+    plan = push_fused.tile_plan(band)
+    assert plan.num_tiled == P
+    push_fused.reset_launch_counts()
+    got = push_fused.fused_push(band, src, dst, valid, w, vals, S, **kw)
+    path = "tiled" if combine == "add" or plan.min_tiled else "atomic"
+    assert push_fused.launch_counts[f"fused_push_{combine}_{path}"] == 1
+    want = push_fused.fused_push_plain(band, src, dst, valid, w, vals, S,
+                                       **kw)
+    assert_kernel_equal(got, want, combine)
+    if combine == "add" and dtype == torch.float32:
+        again = push_fused.fused_push(band, src, dst, valid, w, vals, S, **kw)
+        assert same_bits(again, got)
+        for b in range(B or 0):
+            one = push_fused.fused_push(band, src, dst, valid, w,
+                                        vals[..., b].contiguous(), S, **kw)
+            assert same_bits(got[..., b].contiguous(), one)
+
+
+@pytest.mark.parametrize("collectives", ("grouped", "full"))
+@pytest.mark.parametrize("shape", ((2, 4), (4, 2), (1, 2)))
+@pytest.mark.parametrize("name", PROGRAMS)
+def test_grid_engine_on_cuda_matches_cpu(cuda, name, shape, collectives):
+    """The grid engine on the card agrees with the same engine on the CPU
+    (min bit for bit with equal superstep counts, add within 1e-5),
+    launches its fused kernel once per superstep on gr_band's path, and
+    counts the collective bytes ``grid_collective_bytes`` prices."""
+    from repro_torch.core import cost
+
+    R, C = shape
+    spec = get_spec(name)
+    g = G.rmat(11, 14 << 11, seed=1)
+    if spec.weighted:
+        g = G.random_weights(g, seed=5)
+    g = spec.prepare_graph(g)
+    pg = G.partition(g, R * C, partitioner=f"grid({R},{C})")
+    eng = Engine(pg, collectives=collectives)
+    assert eng.strategy == "grid2d" and eng.dispatch["kernel"] == "cuda"
+    iters, launched = run_both(name, pg, collectives=collectives)
+    combine = spec.make().combiner.name
+    if eng.dispatch["choice"] == "fused":
+        assert launched == fused_launches(eng.arrays, "grid", combine, iters)
+    else:
+        assert launched == staged_launches(combine, iters)
+    eng.run(name)
+    price = cost.grid_collective_bytes(g, R * C, f"grid({R},{C})")
+    assert eng.dispatch["collectives"]["bytes_per_superstep"] == \
+        pytest.approx(price[collectives])
+
+
+@pytest.mark.parametrize("name", BATCH_PROGRAMS)
+def test_grid_run_batch_on_cuda_matches_cpu(cuda, name):
+    """run_batch on grid(2,4) on the card equals the CPU's plane: seeds
+    and the teleport plane on every replica, the un-permute through the
+    column-0 replicas."""
+    pg = G.partition(prepared("sssp", G.rmat(11, 14 << 11, seed=1), 1).graph,
+                     8, partitioner="grid(2,4)")
+    got, got_it = Engine(pg).run_batch(name, sources=SEED_SETS)
+    want, want_it = Engine(pg, device="cpu").run_batch(name,
+                                                       sources=SEED_SETS)
+    np.testing.assert_array_equal(got_it, want_it)
+    if name in ("bfs", "sssp"):
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)

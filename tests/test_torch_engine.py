@@ -394,16 +394,16 @@ def test_unported_options_raise():
         lambda: eng.run_batch("bfs", sources=[0, 1], replan="striped"),
         lambda: eng.run_batch("bfs", sources=[0, 1], sync="overlap"),
         lambda: eng.run_batch("bfs", sources=[0, 1], gate="frontier"),
-        lambda: Engine(pg, strategy="grid2d", device="cpu"),
         lambda: Engine(pg, device="cpu", residency="stream"),
-        lambda: TG.partition(port_graph("sssp", "rmat6"), 4,
-                             partitioner="grid(2,2)"),
     ]
     for case in cases:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             case()
     with pytest.raises(ValueError):
         Engine(pg, strategy="nope", device="cpu")
+    # grid2d needs a grid(R,C) partition
+    with pytest.raises(ValueError, match="grid"):
+        Engine(pg, strategy="grid2d", device="cpu")
     with pytest.raises(ValueError, match="segment_fn"):
         Engine(pg, device="cpu", segment_fn="kernel")
     with pytest.raises(ValueError):

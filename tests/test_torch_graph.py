@@ -146,8 +146,10 @@ def test_sd_layout_is_block_granular_dest_sorted():
 
 
 def test_grid_partitions_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TG.partition(to_port(graph("rmat6")), 4, partitioner="grid(2,2)")
+    """Grid partitions are built (held to the reference in
+    ``tests/test_torch_grid.py``); an unknown partitioner still raises."""
+    pg = TG.partition(to_port(graph("rmat6")), 4, partitioner="grid(2,2)")
+    assert pg.is_grid and pg.grid_shape == (2, 2)
     with pytest.raises(ValueError):
         TG.partition(to_port(graph("rmat6")), 2, partitioner="nope")
 
@@ -303,7 +305,8 @@ def test_import_leaves_jax_and_repro_out():
             "repro_torch.core.cost, repro_torch.quickstart, "
             "repro_torch.configs, repro_torch.configs.graphs, "
             "repro_torch.launch.serve, repro_torch.benchmarks.run, "
-            "repro_torch.benchmarks.tables\n"
+            "repro_torch.benchmarks.tables, "
+            "repro_torch.benchmarks.graphx_analogue\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.'))\n"
@@ -337,4 +340,8 @@ def test_source_scan_finds_no_jax_or_repro_import():
     # nor the top-level benchmarks package, which imports repro
     assert _FORBIDDEN.search("from benchmarks import tables")
     assert _FORBIDDEN.search("import benchmarks.tables as rtables")
+    assert _FORBIDDEN.search("from benchmarks.graphx_analogue import bench")
+    assert _FORBIDDEN.search("from benchmarks import graphx_analogue")
     assert not _FORBIDDEN.search("from repro_torch.benchmarks import run")
+    assert not _FORBIDDEN.search(
+        "from repro_torch.benchmarks.graphx_analogue import bench")

@@ -557,16 +557,19 @@ def test_imbalance_table_equals_the_reference():
 def test_benchmark_run_prints_the_ported_sections(monkeypatch, tmp_path,
                                                   capsys):
     """``repro_torch.benchmarks.run`` prints the imbalance, wire,
-    wire_batch, throughput and serving rows by the reference's names (and
-    nothing of the sections not ported), passes the curve's assertions
-    and writes BENCH_cost.json's two sections."""
+    wire_batch, throughput and serving rows by the reference's names
+    beside the table, cost, fig12 and grid rows (``test_torch_tables.py``
+    holds those), nothing of the sections not ported, passes the curve's
+    assertions and writes BENCH_cost.json's serving sections."""
     monkeypatch.chdir(tmp_path)
     monkeypatch.setattr(serve, "time", FixedStepTime())
     out = brun.main(["--scale", "7", "--device", "cpu", "--json"])
     lines = capsys.readouterr().out.splitlines()
     heads = {line.split(",")[0].split(".")[0] for line in lines}
     assert heads == {"device", "imbalance", "wire", "wire_batch",
-                     "throughput", "serving", "json"}
+                     "throughput", "serving", "json", "table2", "table3",
+                     "table4", "table5", "table6", "table7", "table8",
+                     "cost", "fig12", "grid"}
     names = {line.split(",")[0] for line in lines}
     for name in ("throughput.soc-lj1-mini.bfs.batched@B16",
                  "throughput.soc-lj1-mini.bfs.seq_loop@B16",
