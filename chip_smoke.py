@@ -22,7 +22,16 @@ Phases, each printing one JSON line with its seconds:
              sum x {f32, i32 past 2^24}, scatter min x {i32, f32 with
              negatives}, each with and without [B=4], in chare-row and 1-D
              form; all-invalid edges; then ops.push(fused=False) against
-             ops.push() over the fused matrix, and its int saturation
+             ops.push() over the fused matrix, and its int saturation.
+             Gated (the row gate, row_active): the fused add {f32 none,
+             f32 weight} and min {i32 unit, f32 weight}, with and without
+             init, and the four staged kernels (whole-number float sums,
+             exact in any order), under row masks none, all
+             and every other row, at one column and B=4, on the
+             chare-axis graph's C-chare sd layout and grid(2,4) gr_band,
+             against their gated plain versions: gated rows hold init or
+             the identity bit for bit, active rows equal the call without
+             the gate (bit for bit; the tiled add is fixed-order)
   graph      the soc-LiveJournal1 stand-in (RMAT, 2^scale vertices, 14
              edges per vertex) and its partitions, built on the host
   main       the main path: Engine(pg, "sortdest") at C=1 runs pagerank,
@@ -66,8 +75,10 @@ Phases, each printing one JSON line with its seconds:
              run_batch.  Then one query at B=8 against B=1 (what an
              under-full plane costs); the port's latency_table on the
              main engine (loads 0.25, 1, 4; 8B queries per load;
-             ppr_iters=8; slo_factor=1.5) with the reference's two curve
-             assertions, which must hold; throughput_table for bfs and
+             ppr_iters=8; slo_factor=1.5), run once to warm up and then
+             measured, with the reference's two curve assertions on the
+             measured pass, which must hold (and the garbage collector's
+             pauses during it); throughput_table for bfs and
              PPR at B=16 with a budget of 8 supersteps (PPR beside the
              reference's 3x bar, a finding, not a check); and the CLI,
              python -m repro_torch.launch.serve --graph --scale 20
@@ -94,6 +105,38 @@ Phases, each printing one JSON line with its seconds:
              (device time by kernel, busy share, the host-built initial
              state's seconds); then the chare-axis graph under grid(2,2),
              grid(4,2) and grid(1,2) against serial
+  replan     mid-run replanning on the main path's graph (C=1): one
+             engine runs sssp across a switch to degree_sorted (every=2,
+             mode="always"), then bfs back to contiguous, then pagerank to
+             degree_sorted; min results bit-equal to serial with the
+             serial superstep counts, pagerank < 1e-3 against serial (and
+             its deviation from the run without a replan), the engine
+             bound to the target and the new sd table on the tiled path;
+             launch counts zeroed before and read after; the seconds of
+             each step of a switch (the plan and lazy repartition, the
+             state move, the rebind's layout build and upload) and the
+             device memory peak; sssp at B=16 across a replan equal to the
+             main engine's plane without one; then at the chare scale (C
+             chares) sssp across contiguous->grid(2,4),
+             grid(2,4)->degree_sorted and grid(4,2)->grid(2,4) against
+             serial, and pagerank across a replan on basic and
+             push_fn=None (the staged add pair) within 1e-3
+  async      barrier relaxation and the frontier gate: at C=1 on the
+             main engines sssp, bfs and labelprop under barrier, overlap
+             and overlap plus gate (results equal to serial, it_b <= it_o
+             <= 2 it_b + 2, launched + skipped == slots == it + 1, one
+             fused launch per push), their seconds per superstep in turns
+             (barrier, gated, gated, barrier); async_table on the main
+             sssp engine; on phase grid's grid(2,4) partition sssp with
+             overlap and the gate against serial, its skipped share, a
+             host recount of its gate from the frontiers the run went
+             through (and the masks the kernels got), its launches (counts
+             zeroed before, read after) and async_grid_metrics; a replan
+             in the middle of overlap (C=1, to degree_sorted); a B=8
+             overlapped gated sssp plane against the barrier plane; at
+             the chare scale sssp with overlap and the gate on sortdest,
+             push_fn=None and basic (the gated staged min pair) with host
+             recounts; gating_model at the chare scale
   cost       the paper's COST tables: run_table for every registered
              program on the three paper stand-ins (2^cost-scale vertices,
              cut from 2^20 so the phase takes about 4 min; 14, 24 and 35
@@ -127,7 +170,15 @@ Phases, each printing one JSON line with its seconds:
              path, the add's columns bit-identical to one-column calls.
              The fused calls' yardstick is index_add_ /
              scatter_reduce_(amin) into the identity over values gathered
-             beforehand
+             beforehand.  The gated kernels under real supersteps' row
+             masks kept by phase async: the fused min and the staged min
+             pair on the chare-axis sd layout under a mask that gates some
+             rows but not all, each against the same call without the
+             gate in turns and its gated plain version, beside a bound
+             that counts the active rows' bytes only; and the fused min on
+             grid(2,4)'s gr_band with every row gated (the overlap
+             pipeline's empty half; every live push there keeps all 8
+             rectangles active) against the call without the gate
   kernels_main  the kernels phase's operand matrices again on the main
              path's edge layout
   chares     2^chare-scale vertices at C chares for sortdest, reduction,
@@ -149,9 +200,11 @@ Phases, each printing one JSON line with its seconds:
              its checks must hold
 
 Then one JSON line with every kernel's numbers (launches from the main
-path for the fused pair, from staged_main for the staged four, and from
+path for the fused pair, from staged_main for the staged four, from
 phase grid for the fused pair on gr_band, ``fused_push_add/grid`` and
-``fused_push_min/grid``), the
+``fused_push_min/grid``, and from phase async for the gated variants,
+``fused_push_min/gated``, ``gather_min/gated`` and ``scatter_min/gated``),
+the
 ``nvidia-smi`` name and power limit, and as the last line ``{"ok": true,
 "device": {...}}``.  Any failure exits non-zero and prints no ok line.  Min
 programs and int32 sums must be bit-equal to the plain versions; float sums
@@ -166,6 +219,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
 import json
 import pathlib
 import subprocess
@@ -190,6 +244,10 @@ class Smoke:
         self.args = args
         self.kernel_rows = {}
         self.refs = {}  # (graph key, program) -> serial reference
+        # gated pushes of real supersteps, kept by phase async for
+        # kernel_time: the fused min's (some rows gated on the chare axis,
+        # every row on grid(2,4)) and the staged pair's
+        self.gated_call = self.bubble_call = self.staged_call = None
 
     # -- helpers -------------------------------------------------------------
 
@@ -563,6 +621,7 @@ class Smoke:
             raise AssertionError(f"ops.push float min: {got.tolist()}")
         staged, _ = self._staged_matrix(s, d, v, V, S, seed=2)
         unfused = self._unfused_matrix(s, d, v, V, S, seed=3)
+        gated = self._gated_matrix()
         # staged edge cases: all-invalid edges gather the identity; the
         # unfused push saturates at the sentinel headroom, never wraps
         from repro_torch.kernels import push_staged
@@ -583,7 +642,7 @@ class Smoke:
                 raise AssertionError(f"unfused saturation: {out[:4].tolist()}")
             staged += 1
         return {"cases": cases, "staged_cases": staged,
-                "unfused_cases": unfused}
+                "unfused_cases": unfused, "gated_cases": gated}
 
     def kernels_main(self):
         """The kernel matrix again on the main path's sd layout (58.6M edges
@@ -1205,12 +1264,20 @@ class Smoke:
         del alone
         under = self._under_full(eng, srcs[1], B)
         pinned = self._pinned_alloc(B, self.gw.num_vertices)
-        lt = tables.latency_table(engine=eng, B=B, loads=(0.25, 1.0, 4.0),
-                                  queries_per_load=8 * B, ppr_iters=8,
-                                  slo_factor=1.5)
+        curve = lambda: tables.latency_table(
+            engine=eng, B=B, loads=(0.25, 1.0, 4.0), queries_per_load=8 * B,
+            ppr_iters=8, slo_factor=1.5)
+        # a warm-up pass first: the first curve of a process grows the
+        # pinned result cache and the device allocator under held results,
+        # and met dispatch stalls of 0.1-0.3 s that later passes, of this
+        # engine and of the parent commit's alike, did not meet
+        warm = curve()
+        with self._gc_pauses() as pauses:
+            lt = curve()
         checks = tables.curve_checks(lt["curve"])
         if not all(checks.values()):
-            raise AssertionError(f"latency curve checks {checks}: "
+            raise AssertionError(f"latency curve checks {checks} (garbage "
+                                 f"collector pauses {pauses}): "
                                  f"{lt['curve']}")
         throughput = [tables.throughput_table(engine=eng, algo=algo, B=16,
                                               budget=8)
@@ -1230,7 +1297,41 @@ class Smoke:
                 "greedy_groups": greedy, "serial_checked_bfs": serial,
                 "under_full": under, "pinned_alloc_s": pinned,
                 "latency": lt, "curve_checks": checks,
+                "gc_pauses_during_latency": pauses,
+                "warmup_curve": {
+                    "checks": tables.curve_checks(warm["curve"]),
+                    "p99_s": [c["p99_s"] for c in warm["curve"]],
+                    "max_dispatch_s": [max(c["dispatch_seconds"])
+                                       for c in warm["curve"]]},
                 "throughput": throughput, "cli": cli}
+
+    @staticmethod
+    @contextlib.contextmanager
+    def _gc_pauses():
+        """Record the Python garbage collector's pauses while the block
+        runs (host stalls the latency curve's dispatches could meet): a
+        dict of the count and the summed and longest seconds per
+        generation."""
+        import gc
+
+        out, start = {}, {}
+
+        def note(phase, info):
+            if phase == "start":
+                start["t"] = time.perf_counter()
+                return
+            dt = time.perf_counter() - start.pop("t", time.perf_counter())
+            g = out.setdefault(f"gen{info['generation']}",
+                               {"count": 0, "total_s": 0.0, "max_s": 0.0})
+            g["count"] += 1
+            g["total_s"] += dt
+            g["max_s"] = max(g["max_s"], dt)
+
+        gc.callbacks.append(note)
+        try:
+            yield out
+        finally:
+            gc.callbacks.remove(note)
 
     @staticmethod
     def _pinned_alloc(B, V):
@@ -1376,6 +1477,7 @@ class Smoke:
         kernels = self._grid_kernels(eng, engu)
         turns = self._grid_turns(eng, engu)
         where = self._grid_where(eng)
+        self.grid_pgw = pgw  # phase async reuses the weighted grid partition
         del engines, eng, engu, pgw, pgu
         torch.cuda.empty_cache()
         chares = self._grid_chares()
@@ -1858,7 +1960,8 @@ class Smoke:
                 **{b: {k: rb[k] for k in ("program", "ms", "plain_ms",
                                           "bound_ms", "atomic_ms")}
                    for b, rb in wide.items()}}
-        return {"calls": rows, "staged_calls": self._staged_time()}
+        return {"calls": rows, "staged_calls": self._staged_time(),
+                "gated_calls": self._gated_time()}
 
     def _min_paths(self, args, kw, got, what):
         """The fused min as planned (``got``, already held to the plain
@@ -2199,6 +2302,8 @@ class Smoke:
                       if combine == "add"
                       else self._min_paths(args, kw, got, what))}
             row["bound_ms"] = self._bound(a, x, C * K, weighted)[0]
+            row["plain_ms"] = self.cuda_ms(
+                lambda: push_fused.fused_push_plain(*args, **kw), 3)
             rows.append(row)
             del got, want
         return rows
@@ -2295,6 +2400,9 @@ class Smoke:
                 row["fused_kernel_ms"] = min(k1, k2)
                 row["fused_atomic_ms"] = min(a1, a2)
                 row["bound_ms"] = self._bound(a, vals, C * K, weighted)[0]
+                row["plain_ms"] = self.cuda_ms(
+                    lambda: push_fused.fused_push_plain(
+                        *call, combine=combine, unit_weight=unit), 3)
                 push_fused.reset_launch_counts()
                 fused(*args, **kw)
                 row["fused_path"] = {k: n for k, n in
@@ -2314,6 +2422,738 @@ class Smoke:
                 secs[how] = time.perf_counter() - t0
             programs.append({"program": name, **secs})
         return {"calls": calls, "staged_choice_programs": programs}
+
+    # -- the row gate ---------------------------------------------------------
+
+    GATED_FUSED = (("add", "float32", "none"), ("add", "float32", "array"),
+                   ("min", "int32", "unit"), ("min", "float32", "array"))
+    GATED_STAGED = (("gather_sum", "float32"), ("gather_min", "int32"),
+                    ("gather_min", "float32"), ("scatter_sum", "float32"),
+                    ("scatter_min", "int32"), ("scatter_min", "float32"))
+
+    @staticmethod
+    def _row_mask(kind, rows):
+        """``None`` (no gate), every row gated, or every other row."""
+        import torch
+
+        if kind == "none":
+            return None
+        keep = (torch.zeros(rows, dtype=torch.int32) if kind == "all"
+                else torch.arange(rows, dtype=torch.int32) % 2)
+        return keep.to("cuda")
+
+    def _gated_rows(self, got, full, ra, init, identity, exact, what):
+        """Gated rows hold ``init`` or ``identity`` bit for bit; active rows
+        equal the call without the gate (bit for bit where ``exact``, else
+        within the float-add tolerance)."""
+        import torch
+
+        if ra is None:
+            return
+        off = (ra == 0).nonzero().flatten()
+        on = ra.nonzero().flatten()
+        want = (init[off] if init is not None
+                else torch.full_like(got[off], identity))
+        if not torch.equal(got[off].view(torch.int32),
+                           want.to(got.dtype).view(torch.int32)):
+            raise AssertionError(f"{what}: a gated row was written")
+        if exact:
+            if not torch.equal(got[on].view(torch.int32),
+                               full[on].view(torch.int32)):
+                raise AssertionError(f"{what}: an active row differs from "
+                                     "the call without the gate")
+        else:
+            self.compare(got[on], full[on], "add", what + " active rows")
+
+    def _gated_layouts(self):
+        """The chare-axis graph's C-chare sd layout and its grid(2,4)
+        gr_band, on the card: {name: (band, src, dst, valid, weight, V,
+        S)}."""
+        from repro_torch.core import graph as G
+
+        _, gw, _, pgw, _ = self._chare_graphs()
+        if not hasattr(self, "_chare_grid"):
+            self._chare_grid = G.partition(gw, 8, "grid(2,4)")
+        pgr = self._chare_grid
+        sd = pgw.device_arrays("sd", "cuda")
+        gr = pgr.device_arrays("grid", "cuda")
+        return {
+            f"sd C={pgw.num_chunks}": (
+                sd["sd_band"], sd["sd_src_local"], sd["sd_dst_global"],
+                sd["sd_edge_valid"], sd["sd_edge_weight"], pgw.chunk_size,
+                pgw.num_chunks * pgw.chunk_size),
+            "gr_band grid(2,4)": (
+                gr["gr_band"], gr["gr_src_local"], gr["gr_dst_col"],
+                gr["gr_edge_valid"], gr["gr_edge_weight"], pgr.chunk_size,
+                pgr.grid_shape[1] * pgr.col_chunk_size)}
+
+    def _gated_matrix(self):
+        """Gated cases of all six kernels against their plain versions: row
+        masks none, all and half, on the chare-axis graph's C-chare sd
+        layout and grid(2,4) gr_band, with and without init (the fused
+        pair), at one column and at B=4.  Returns the number of cases."""
+        import torch
+
+        from repro_torch.kernels import push_fused, push_staged
+
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        cases = 0
+
+        def draw(dtype, combine, shape):
+            x = torch.rand(shape, generator=gen, device="cuda")
+            if dtype == "int32":
+                x = (x * 1e6).to(torch.int32)
+            elif combine == "add":
+                # 0 or 1 (and whole weights below 10): every sum -- a hub
+                # segment takes ~1.5M terms here -- stays below 2^24 and is
+                # exact in any order, so the gated sums are held bit for
+                # bit; fractional sums are held to the plain versions
+                # within tolerance by the matrices above
+                x = torch.floor(x * 2)
+            if combine == "min":  # a third unreached
+                x.view(-1)[::3] = (push_fused.SENTINEL if dtype == "int32"
+                                   else float("inf"))
+            return x
+
+        for lname, (band, src, dst, valid, w, V, S) in \
+                self._gated_layouts().items():
+            P = src.shape[0]
+            for kind in ("none", "all", "half"):
+                ra = self._row_mask(kind, P)
+                for B in (None, 4):
+                    tail = () if B is None else (B,)
+                    for combine, dtype, mode in self.GATED_FUSED:
+                        vals = draw(dtype, combine, (P, V) + tail)
+                        wt = None
+                        if mode == "array":
+                            wt = torch.floor(w) if combine == "add" else w
+                        for seeded in (False, True):
+                            init = (draw(dtype, combine, (P, S) + tail)
+                                    if seeded else None)
+                            if init is not None and combine == "min" \
+                                    and dtype == "float32":
+                                init = init.clamp(
+                                    max=push_fused.SENTINEL_F32)
+                            kw = dict(combine=combine, init=init,
+                                      unit_weight=mode == "unit")
+                            args = (band, src, dst, valid, wt, vals, S)
+                            what = (f"gated {combine}/{dtype}/{mode} "
+                                    f"on {lname}/{kind}/B={B}/"
+                                    f"init={seeded}")
+                            got = push_fused.fused_push(*args, row_active=ra,
+                                                        **kw)
+                            want = push_fused.fused_push_plain(
+                                *args, row_active=ra, **kw)
+                            torch.cuda.synchronize()
+                            self.compare(got, want, combine, what)
+                            full = push_fused.fused_push(*args, **kw)
+                            ident = push_fused._identity(combine, got.dtype)
+                            # the tiled add is fixed-order: exact too
+                            self._gated_rows(got, full, ra, init, ident,
+                                             True, what)
+                            cases += 1
+                    for kernel, dtype in self.GATED_STAGED:
+                        combine = "min" if kernel.endswith("min") else "add"
+                        gather = kernel.startswith("gather")
+                        x = draw(dtype, combine,
+                                 (P, V if gather else src.shape[1]) + tail)
+                        args = (src, valid, x) if gather else (dst, x, S)
+                        fn = getattr(push_staged, kernel)
+                        plain = getattr(push_staged, kernel + "_plain")
+                        what = f"gated {kernel}/{dtype} on {lname}/{kind}/B={B}"
+                        got, want = fn(*args, ra), plain(*args, ra)
+                        torch.cuda.synchronize()
+                        self.compare(got, want,
+                                     "add" if kernel == "scatter_sum"
+                                     else "min", what)
+                        ident = 0 if combine == "add" else (
+                            push_fused.SENTINEL if dtype == "int32"
+                            else push_fused.SENTINEL_F32)
+                        self._gated_rows(got, fn(*args), ra, None, ident,
+                                         True, what)
+                        cases += 1
+        return cases
+
+    # -- the adaptive modes: replan, overlap and the frontier gate -------------
+
+    @staticmethod
+    def _policy(target, **kw):
+        from repro_torch.core import ReplanPolicy
+
+        return ReplanPolicy(target, every=2, mode="always", **kw)
+
+    def _replan_timers(self):
+        """Wrap the replan's three steps with synchronized host timers:
+        ``plan`` (the new plan and the lazy repartition), ``move`` (the
+        on-device state move), ``rebind`` (the new layout's build, upload
+        and tile plan).  -> (timings dict of lists, restore function)."""
+        import torch
+
+        from repro_torch.core.engine import Engine
+
+        timing = {"plan_s": [], "move_s": [], "rebind_s": []}
+        saved = {n: getattr(Engine, n)
+                 for n in ("_replan_to", "_move_state", "_rebind")}
+
+        def timed(key, fn):
+            def wrapper(*args, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*args, **kw)
+                torch.cuda.synchronize()
+                timing[key].append(round(time.perf_counter() - t0, 4))
+                return out
+            return wrapper
+
+        Engine._replan_to = timed("plan_s", saved["_replan_to"])
+        Engine._move_state = timed("move_s", saved["_move_state"])
+        Engine._rebind = timed("rebind_s", saved["_rebind"])
+
+        def restore():
+            for n, fn in saved.items():
+                setattr(Engine, n, fn)
+
+        return timing, restore
+
+    def replan(self):
+        """Mid-run replanning on the main path's graphs; see the module
+        docstring."""
+        import numpy as np
+        import torch
+
+        from repro_torch.core import Engine
+        from repro_torch.kernels import push_fused
+
+        timing, restore = self._replan_timers()
+        try:
+            eng = Engine(self.pgw)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            push_fused.reset_launch_counts()
+            rows = []
+            for prog, target in (("sssp", "degree_sorted"),
+                                 ("bfs", "contiguous"),
+                                 ("pagerank", "degree_sorted")):
+                t0 = time.perf_counter()
+                got, it = eng.run(prog, replan=self._policy(target))
+                secs = time.perf_counter() - t0
+                if eng.pg.partitioner != target:
+                    raise AssertionError(f"replan {prog}: bound to "
+                                         f"{eng.pg.partitioner}")
+                ref, ref_it, _ = self._reference(prog, self.gw, "main")
+                row = {"program": prog, "target": target, "seconds": secs,
+                       "supersteps": it, "serial_supersteps": ref_it}
+                if prog == "pagerank":
+                    err = float(np.max(np.abs(got - ref)))
+                    base = self.engines["pagerank"].run("pagerank")[0]
+                    row.update(max_abs_err_vs_serial=err,
+                               max_abs_dev_vs_no_replan=float(
+                                   np.max(np.abs(got - base))))
+                    if not err < 1e-3:
+                        raise AssertionError(f"replan pagerank: {err}")
+                else:
+                    if not np.array_equal(got, ref) or it != ref_it:
+                        raise AssertionError(f"replan {prog}: differs from "
+                                             f"serial ({it}/{ref_it})")
+                plan = push_fused.tile_plan(eng.arrays["sd_band"])
+                row["new_table"] = {"tiled_rows": plan.num_tiled,
+                                    "min_tiled": plan.min_tiled}
+                if plan.num_tiled != 1 or not plan.min_tiled:
+                    raise AssertionError(f"replan {prog}: the new sd table "
+                                         "does not take the tiled path")
+                rows.append(row)
+            launches = dict(push_fused.launch_counts)
+            peak = torch.cuda.max_memory_allocated()
+            main_timing = {k: v[:] for k, v in timing.items()}
+            for k in ("fused_push_add_tiled", "fused_push_min_tiled"):
+                if not launches[k]:
+                    raise AssertionError(f"{k} was not launched across the "
+                                         "replans")
+            for combine in ("add", "min"):
+                if launches[f"fused_push_{combine}_atomic"]:
+                    raise AssertionError(f"a replanned {combine} took the "
+                                         "atomic path")
+            del eng
+            torch.cuda.empty_cache()
+            plane = self._replan_plane()
+            chares = self._replan_chares()
+        finally:
+            restore()
+        return {"runs": rows, "launches": {k: n for k, n in launches.items()
+                                           if n},
+                "timings": main_timing, "peak_device_bytes": peak,
+                "plane_b16": plane, "chare_axis": chares}
+
+    def _replan_plane(self):
+        """sssp at B=16 across a replan against the main engine's plane
+        without one: every column and per-query count equal."""
+        import numpy as np
+
+        from repro_torch.core import Engine
+
+        rng = np.random.default_rng(19)
+        srcs = [0] + [int(s) for s in rng.choice(
+            np.flatnonzero(self.gw.out_degrees > 0), 15, replace=False)]
+        want, want_it = self.engines["sssp"].run_batch("sssp", sources=srcs)
+        eng = Engine(self.pgw)
+        t0 = time.perf_counter()
+        got, got_it = eng.run_batch("sssp", sources=srcs,
+                                    replan=self._policy("degree_sorted",
+                                                        max_replans=1))
+        secs = time.perf_counter() - t0
+        if eng.pg.partitioner != "degree_sorted":
+            raise AssertionError("replan plane did not switch")
+        if not (np.array_equal(got, want) and np.array_equal(got_it,
+                                                             want_it)):
+            raise AssertionError("sssp B=16 across a replan differs from "
+                                 "the plane without one")
+        return {"B": 16, "seconds": secs, "supersteps": int(got_it.max())}
+
+    def _replan_chares(self):
+        """The chare-axis graph (C=8): the 1-D <-> 2-D switches of the
+        reference's subprocess suite for sssp against serial (bit for bit,
+        equal superstep counts), and PageRank across a replan on ``basic``
+        and ``push_fn=None`` (the staged add pair) within 1e-3."""
+        import numpy as np
+
+        from repro_torch.core import Engine
+        from repro_torch.core import graph as G
+
+        _, gw, _, pgw, _ = self._chare_graphs()
+        ref, ref_it, _ = self._reference("sssp", gw, "chares")
+        out = []
+        for start, target in (("contiguous", "grid(2,4)"),
+                              ("grid(2,4)", "degree_sorted"),
+                              ("grid(4,2)", "grid(2,4)")):
+            pg = pgw if start == "contiguous" else G.partition(gw, 8, start)
+            got, it = Engine(pg).run("sssp", replan=self._policy(target))
+            if not np.array_equal(got, ref) or it != ref_it:
+                raise AssertionError(f"sssp {start}->{target}: differs")
+            out.append({"program": "sssp", "start": start, "target": target,
+                        "supersteps": it})
+        pref = self._reference("pagerank", gw, "chares")[0]
+        for label, kw in (("basic", dict(strategy="basic")),
+                          ("push_fn=None", dict(push_fn=None))):
+            got, it = Engine(pgw, **kw).run(
+                "pagerank", replan=self._policy("degree_sorted"))
+            err = float(np.max(np.abs(got - pref)))
+            if not err < 1e-3:
+                raise AssertionError(f"pagerank {label} replan: {err}")
+            out.append({"program": "pagerank", "engine": label,
+                        "target": "degree_sorted", "max_abs_err": err})
+        return out
+
+    def _record_gate(self, eng):
+        """Wrap ``eng._push`` and its push hook: keep, per gated push, the
+        frontier's rows on the host and the mask the kernels got, and the
+        first call whose mask gates some rows but not all and the first
+        that gates every row (real supersteps' masks, for
+        ``kernel_time``).  -> the record dict."""
+        rec = {"frontiers": [], "masks": [], "partial": None, "empty": None}
+        push, hook = eng._push, eng.push_fn
+
+        def recording(program, vals, frontier=None, gate=False):
+            if gate:
+                rec["frontiers"].append(frontier.cpu())
+            return push(program, vals, frontier, gate)
+
+        def hooked(*args, **kw):
+            ra = kw.get("row_active")
+            if ra is not None:
+                rec["masks"].append(ra.cpu())
+                n = int(ra.sum())
+                key = ("partial" if 0 < n < ra.numel() else
+                       "empty" if n == 0 else None)
+                if key is not None and rec[key] is None:
+                    # the vals and the mask; the layout's tensors live on
+                    rec[key] = ((args[0].clone(),) + tuple(args[1:]),
+                                {**kw, "row_active": ra.clone()})
+            return hook(*args, **kw)
+
+        eng._push = recording
+        if hook is not None:
+            eng.push_fn = hooked
+        return rec
+
+    @staticmethod
+    def _recount(eng, frontiers):
+        """The gate's skipped rows recounted on the host from the frontiers
+        a run went through: numpy ``band_source_mask`` of the bound layout
+        against each frontier's BLOCK_V blocks.  -> (skipped, masks)."""
+        import numpy as np
+
+        from repro_torch.core import strategies as strat
+        from repro_torch.kernels import blocks
+
+        nsb = eng._gate_nsb
+        layout = strat.STRATEGY_LAYOUT[eng.strategy]
+        band = {"basic": "band", "sd": "sd_band",
+                "grid": "gr_band"}.get(layout)
+        gmask = (blocks.band_source_mask(getattr(eng.pg, band), nsb) != 0
+                 if band else np.ones((eng._C, nsb), bool))
+        masks = []
+        for f in frontiers:
+            f = f.numpy()
+            if f.ndim == 3:
+                f = f.any(axis=-1)
+            masks.append(np.array([
+                (blocks.frontier_block_mask(f[c], nsb).astype(bool)
+                 & gmask[c]).any() for c in range(eng._C)]))
+        return sum(int((~m).sum()) for m in masks), masks
+
+    def async_modes(self):
+        """Barrier relaxation and the frontier gate; see the module
+        docstring (phase ``async``)."""
+        import numpy as np
+
+        from repro_torch.benchmarks import tables
+        from repro_torch.core import get_spec
+        from repro_torch.kernels import push_fused
+
+        rows = []
+        push_fused.reset_launch_counts()
+        for prog in ("sssp", "bfs", "labelprop"):
+            eng = self.engines[prog]
+            graph = self.gu if prog == "labelprop" else self.gw
+            ref, ref_it, _ = self._reference(prog, graph, "main")
+            got_b, it_b = eng.run(prog)
+            got_o, it_o = eng.run(prog, sync="overlap")
+            before = dict(push_fused.launch_counts)
+            got_g, it_g = eng.run(prog, sync="overlap", gate="frontier")
+            launched = push_fused.launch_counts["fused_push_min"] \
+                - before["fused_push_min"]
+            gate = dict(eng.dispatch["gate"])
+            for label, got in (("barrier", got_b), ("overlap", got_o),
+                               ("overlap+gate", got_g)):
+                if not get_spec(prog).matches(got, ref):
+                    raise AssertionError(f"async {prog}/{label}: differs "
+                                         "from serial")
+            if not it_b <= it_o <= 2 * it_b + 2 or it_g != it_o:
+                raise AssertionError(f"async {prog}: supersteps barrier "
+                                     f"{it_b}, overlap {it_o}, gated {it_g}")
+            if gate["launched"] + gate["skipped_launches"] != \
+                    gate["launch_slots"] or gate["launch_slots"] != it_g + 1 \
+                    or launched != it_g + 1:
+                raise AssertionError(f"async {prog}: accounting {gate}, "
+                                     f"{launched} launches")
+            run_b = lambda: eng.run(prog)
+            run_g = lambda: eng.run(prog, sync="overlap", gate="frontier")
+            b1, g1 = self._timed(run_b), self._timed(run_g)
+            g2, b2 = self._timed(run_g), self._timed(run_b)
+            rows.append({"program": prog, "supersteps": {
+                "barrier": it_b, "overlap": it_o, "overlap+gate": it_g,
+                "serial": ref_it}, "gate": gate,
+                "seconds": {"barrier": min(b1, b2), "overlap+gate":
+                            min(g1, g2)},
+                "superstep_s": {"barrier": min(b1, b2) / it_b,
+                                "overlap+gate": min(g1, g2) / it_g},
+                "turns_s": {"barrier": [b1, b2], "overlap+gate": [g1, g2]}})
+        c1_launches = dict(push_fused.launch_counts)
+        table = tables.async_table(engine=self.engines["sssp"], repeats=3)
+        grid = self._async_grid()
+        mid = self._async_replan()
+        plane = self._async_plane()
+        chares = self._async_chares()
+        gm = tables.gating_model(shape=(2, 4), graph=self._chare_graphs()[1])
+        return {"c1": rows, "c1_launches": {k: n for k, n in
+                                            c1_launches.items() if n},
+                "async_table": table, "grid24": grid,
+                "replan_mid_overlap": mid, "plane_b8": plane,
+                "chare_axis": chares, "gating_model_chare_scale": gm}
+
+    def _async_grid(self):
+        """sssp with overlap and the gate on the main graph's grid(2,4)
+        partition (kept from phase grid): bit-equal to serial, the skipped
+        share, a host recount of the run's gate, the launches (counts
+        zeroed just before and read just after), and
+        ``tables.async_grid_metrics`` on the same partition."""
+        import numpy as np
+
+        from repro_torch.benchmarks import tables
+        from repro_torch.core import Engine
+        from repro_torch.kernels import push_fused
+
+        eng = Engine(self.grid_pgw)
+        rec = self._record_gate(eng)
+        push_fused.reset_launch_counts()
+        got, it = eng.run("sssp", sync="overlap", gate="frontier")
+        self.async_launches = dict(push_fused.launch_counts)
+        gate = dict(eng.dispatch["gate"])
+        ref, ref_it, _ = self._reference("sssp", self.gw, "main")
+        if not np.array_equal(got, ref):
+            raise AssertionError("grid(2,4) overlap+gate sssp differs from "
+                                 "serial")
+        skipped, masks = self._recount(eng, rec["frontiers"])
+        if skipped != gate["skipped_launches"] or any(
+                not np.array_equal(m.numpy() != 0, h)
+                for m, h in zip(rec["masks"], masks)):
+            raise AssertionError(f"grid gate: {gate} against a recount of "
+                                 f"{skipped}")
+        if self.async_launches["fused_push_min"] != it + 1:
+            raise AssertionError(f"grid gate: {self.async_launches}")
+        self.bubble_call = rec["empty"]
+        active = [int(h.sum()) for h in masks]
+        metrics = tables.async_grid_metrics(graph=self.gw, pg=self.grid_pgw)
+        if not metrics["bit_exact"] or metrics["counted_ratio"] > 0.6:
+            raise AssertionError(f"async_grid_metrics: {metrics}")
+        return {"supersteps": it, "serial_supersteps": ref_it, "gate": gate,
+                "recounted_skipped": skipped,
+                "active_rows_per_push": active,
+                "partial_mask_seen": rec["partial"] is not None,
+                "empty_mask_seen": rec["empty"] is not None,
+                "launches": {k: n for k, n in self.async_launches.items()
+                             if n},
+                "metrics": metrics}
+
+    def _async_replan(self):
+        """A replan in the middle of overlap at C=1 (sssp, overlap + gate,
+        to degree_sorted every 2 supersteps): bit-equal to serial within
+        the overlap bound."""
+        import numpy as np
+
+        from repro_torch.core import Engine
+
+        eng = Engine(self.pgw)
+        t0 = time.perf_counter()
+        got, it = eng.run("sssp", sync="overlap", gate="frontier",
+                          replan=self._policy("degree_sorted"))
+        secs = time.perf_counter() - t0
+        ref, ref_it, _ = self._reference("sssp", self.gw, "main")
+        if not np.array_equal(got, ref) or not it <= 2 * ref_it + 2 \
+                or eng.pg.partitioner != "degree_sorted":
+            raise AssertionError(f"replan mid overlap: {it} supersteps")
+        return {"supersteps": it, "serial_supersteps": ref_it,
+                "seconds": secs, "gate": dict(eng.dispatch["gate"])}
+
+    def _async_plane(self):
+        """A B=8 overlapped, gated sssp plane on the main engine against
+        the barrier plane of the same sources: equal columns, each query's
+        count within the overlap bound of its barrier count."""
+        import numpy as np
+
+        rng = np.random.default_rng(23)
+        srcs = [0] + [int(s) for s in rng.choice(
+            np.flatnonzero(self.gw.out_degrees > 0), 7, replace=False)]
+        eng = self.engines["sssp"]
+        want, want_it = eng.run_batch("sssp", sources=srcs)
+        got, got_it = eng.run_batch("sssp", sources=srcs, sync="overlap",
+                                    gate="frontier")
+        if not np.array_equal(got, want) or not (
+                (want_it <= got_it) & (got_it <= 2 * want_it + 2)).all():
+            raise AssertionError("B=8 overlapped plane differs")
+        return {"B": 8, "q_it": got_it.tolist(),
+                "barrier_q_it": want_it.tolist(),
+                "gate": dict(eng.dispatch["gate"])}
+
+    def _async_chares(self):
+        """The chare-axis graph (C=8): sssp with overlap and the gate on
+        sortdest (fused), ``push_fn=None`` and ``basic`` (the staged min
+        pair, gated), each against serial with a host recount of its gate;
+        keeps a real superstep's mask of the ``push_fn=None`` run for
+        ``kernel_time``."""
+        import numpy as np
+
+        from repro_torch.core import Engine
+        from repro_torch.kernels import push_fused
+
+        _, gw, _, pgw, _ = self._chare_graphs()
+        ref, ref_it, _ = self._reference("sssp", gw, "chares")
+        out = []
+        self.staged_gate_launches = dict.fromkeys(push_fused.launch_counts,
+                                                  0)
+        for label, kw in (("sortdest", {}), ("push_fn=None",
+                                             dict(push_fn=None)),
+                          ("basic", dict(strategy="basic"))):
+            eng = Engine(pgw, **kw)
+            rec = self._record_gate(eng)
+            if label == "sortdest":  # the fused min's real partial mask
+                self.gated_call = None
+            if label == "push_fn=None":  # the staged pair's real masks
+                push = eng._push
+
+                def keep(program, vals, frontier=None, gate=False,
+                         push=push, eng=eng):
+                    if gate and self.staged_call is None:
+                        ra = eng._row_active(frontier)
+                        if 0 < int(ra.sum()) < ra.numel():
+                            self.staged_call = (vals.clone(), ra, eng)
+                    return push(program, vals, frontier, gate)
+
+                self.staged_call = None
+                eng._push = keep
+            before = dict(push_fused.launch_counts)
+            got, it = eng.run("sssp", sync="overlap", gate="frontier")
+            if label != "sortdest":
+                for k in self.staged_gate_launches:
+                    self.staged_gate_launches[k] += \
+                        push_fused.launch_counts[k] - before[k]
+            gate = dict(eng.dispatch["gate"])
+            if not np.array_equal(got, ref) or not it <= 2 * ref_it + 2:
+                raise AssertionError(f"chare {label} overlap+gate differs")
+            if label == "sortdest":
+                self.gated_call = rec["partial"]
+            skipped, _ = self._recount(eng, rec["frontiers"])
+            if skipped != gate["skipped_launches"]:
+                raise AssertionError(f"chare {label}: {gate}, recount "
+                                     f"{skipped}")
+            out.append({"engine": label, "supersteps": it, "gate": gate})
+        for k in ("gather_min", "scatter_min"):
+            if not self.staged_gate_launches[k]:
+                raise AssertionError(f"{k} was not launched by the gated "
+                                     "staged runs")
+        return out
+
+    @staticmethod
+    def _active_bound(band, ra, vals, S, weighted, live_rows=None):
+        """The gated call's least time: the bytes of its active rows only
+        (their band rows, the edge planes of their non-empty edge blocks,
+        their vals rows read once, their out rows written once) over HBM
+        bandwidth; the operations are far below it.  -> (ms, bytes)."""
+        on = ra != 0
+        C = band.shape[0]
+        live = int(((band[:, 1] >= 0) & on[:, None]).sum())
+        rows = int(on.sum())
+        per_edge = 12 + (4 if weighted else 0)
+        row_vals = vals[0].numel() * vals.element_size()
+        out_row = S * vals[0, 0].numel() * vals.element_size()
+        nbytes = (band[0].numel() * 4 * rows + live * 256 * per_edge
+                  + rows * (row_vals + out_row))
+        return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
+
+    def _gated_time(self):
+        """The gated kernels under a real superstep's row mask, against the
+        same call without the gate (in turns) and the gated plain version:
+        the fused min on the main graph's grid(2,4) gr_band (the mask and
+        vals of a push of phase async's grid run that gated some rows) and
+        the staged min pair on the chare-axis sd layout (from its
+        ``push_fn=None`` run).  Each goes on the kernels line."""
+        import torch
+
+        from repro_torch.kernels import ops, push_fused, push_staged
+        from repro_torch.kernels.blocks import BLOCK_S, BLOCK_V
+
+        out = {}
+
+        def prepared(recorded):
+            """A recorded push hook call as the kernel's own operands (what
+            ``ops.push`` hands ``fused_push``): ``call(gate, fn)``."""
+            args, kw = recorded
+            vals, src, dst, valid, weight, S = args
+            vals_p = ops._pad_to(vals, BLOCK_V, push_fused.SENTINEL, dim=1)
+            vals_p = torch.clamp(vals_p, max=push_fused.SENTINEL_F32)
+            S_p = S + (-S) % BLOCK_S
+            call = lambda gate, fn=push_fused.fused_push: fn(
+                kw["band"], src, dst, valid, weight, vals_p, S_p,
+                combine="min", unit_weight=kw["unit"], row_active=gate)
+            return call, kw["band"], kw["row_active"], vals_p, S_p, weight
+
+        # the pipeline's bubble on grid(2,4): every row gated (at scale 22
+        # every live push of the grid run keeps all 8 rectangles active)
+        if self.bubble_call is None:
+            raise AssertionError("phase async saw no all-gated push on "
+                                 "grid(2,4)")
+        call, band, ra, *_ = prepared(self.bubble_call)
+        g1, f1 = self.cuda_ms(lambda: call(ra), 20), self.cuda_ms(
+            lambda: call(None), 20)
+        f2, g2 = self.cuda_ms(lambda: call(None), 20), self.cuda_ms(
+            lambda: call(ra), 20)
+        out["fused_push_min/gated, every row, gr_band"] = {
+            "ms": min(g1, g2), "ungated_ms": min(f1, f2),
+            "turns_ms": {"gated": [g1, g2], "ungated": [f1, f2]}}
+        # some rows gated: a real superstep of the chare-axis sd run
+        if self.gated_call is None:
+            raise AssertionError("phase async saw no fused push with some "
+                                 "rows gated")
+        call, band, ra, vals_p, S_p, weight = prepared(self.gated_call)
+        what = "gated fused min, C=8 sd layout"
+        got, want = call(ra), call(ra, push_fused.fused_push_plain)
+        torch.cuda.synchronize()
+        err = self.compare(got, want, "min", what)
+        full = call(None)
+        self._gated_rows(got, full, ra, None, push_fused.SENTINEL_F32, True,
+                         what)
+        del got, want, full
+        g1, f1 = self.cuda_ms(lambda: call(ra), 20), self.cuda_ms(
+            lambda: call(None), 20)
+        f2, g2 = self.cuda_ms(lambda: call(None), 20), self.cuda_ms(
+            lambda: call(ra), 20)
+        plain_ms = self.cuda_ms(
+            lambda: call(ra, push_fused.fused_push_plain), 3)
+        bound_ms, nbytes = self._active_bound(band, ra, vals_p, S_p,
+                                              weight is not None)
+        out["fused_push_min/gated"] = {
+            "active_rows": int((ra != 0).sum()), "rows": int(ra.numel()),
+            "ms": min(g1, g2), "ungated_ms": min(f1, f2),
+            "turns_ms": {"gated": [g1, g2], "ungated": [f1, f2]},
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bytes": nbytes,
+            "max_abs_err": err}
+        self.kernel_rows["fused_push_min/gated"] = {
+            "name": "fused_push_min/gated", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/push_fused.cu",
+            "replaces": "src/repro/kernels/push_fused.py:104",
+            "launches": self.async_launches["fused_push_min"],
+            "max_abs_err": err, "ms": min(g1, g2), "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
+            "timed_call": "sssp overlap+gate, C=8 chare-axis sd layout, a "
+                          "superstep's row mask (launches: the grid(2,4) "
+                          "run's)",
+            "ungated_ms": min(f1, f2),
+            "every_row_gated_ms": out[
+                "fused_push_min/gated, every row, gr_band"]["ms"]}
+        # the staged min pair on the chare-axis sd layout
+        if self.staged_call is None:
+            raise AssertionError("phase async saw no staged push with some "
+                                 "rows gated")
+        vals, ra, eng = self.staged_call
+        a = eng.arrays
+        src, dst, valid, w = (a["sd_src_local"], a["sd_dst_global"],
+                              a["sd_edge_valid"], a["sd_edge_weight"])
+        S = eng._C * eng._K
+        c = ops._sat_add(push_staged.gather_min(src, valid, vals, ra), w)
+        for kernel, fn, plain, xs in (
+                ("gather_min", push_staged.gather_min,
+                 push_staged.gather_min_plain, (src, valid, vals)),
+                ("scatter_min", push_staged.scatter_min,
+                 push_staged.scatter_min_plain, (dst, c, S))):
+            got, want = fn(*xs, ra), plain(*xs, ra)
+            torch.cuda.synchronize()
+            err = self.compare(got, want, "min", f"gated {kernel}")
+            del got, want
+            g1, f1 = self.cuda_ms(lambda: fn(*xs, ra), 20), self.cuda_ms(
+                lambda: fn(*xs), 20)
+            f2, g2 = self.cuda_ms(lambda: fn(*xs), 20), self.cuda_ms(
+                lambda: fn(*xs, ra), 20)
+            plain_ms = self.cuda_ms(lambda: plain(*xs, ra), 3)
+            rows = int((ra != 0).sum())
+            E = src.shape[1]
+            # active rows: gather reads src + valid and a vals element and
+            # writes c per edge; scatter reads dst and c per edge and writes
+            # its out rows
+            nbytes = rows * (E * 16 if kernel == "gather_min"
+                             else E * 8 + S * 4)
+            bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            out[f"{kernel}/gated"] = {
+                "active_rows": rows, "rows": int(ra.numel()),
+                "ms": min(g1, g2), "ungated_ms": min(f1, f2),
+                "turns_ms": {"gated": [g1, g2], "ungated": [f1, f2]},
+                "plain_ms": plain_ms, "bound_ms": bound_ms, "bytes": nbytes,
+                "max_abs_err": err}
+            self.kernel_rows[f"{kernel}/gated"] = {
+                "name": f"{kernel}/gated", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/push_staged.cu",
+                "replaces": ("src/repro/kernels/push_min.py:22"
+                             if kernel == "gather_min"
+                             else "src/repro/kernels/push_min.py:37"),
+                "launches": self.staged_gate_launches[kernel],
+                "max_abs_err": err, "ms": min(g1, g2),
+                "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": "bytes", "library_ms": None,
+                "timed_call": (f"sssp overlap+gate, push_fn=None, C="
+                               f"{eng._C} sd layout, a superstep's row "
+                               "mask"),
+                "ungated_ms": min(f1, f2)}
+        del c
+        return out
 
     def quickstart(self):
         """The port's quickstart twin on the card, at its default scale."""
@@ -2344,13 +3184,14 @@ def main(argv=None) -> int:
     smoke = Smoke(args)
     try:
         for name in ("device", "build", "kernels", "graph", "main",
-                     "reproducible", "batch", "serve", "grid", "cost",
-                     "staged_main",
+                     "reproducible", "batch", "serve", "grid", "replan",
+                     "async", "cost", "staged_main",
                      "profile",
                      "kernel_time",
                      "kernels_main",
                      "chares", "push_choice", "quickstart"):
-            smoke.phase(name, getattr(smoke, name))
+            smoke.phase(name, getattr(smoke, {"async": "async_modes"}.get(
+                name, name)))
     except Exception:  # report the failing phase, print no ok line
         traceback.print_exc()
         return 1

@@ -31,6 +31,11 @@ a ``device`` row naming what the measured rows ran on:
                (mixed bfs + personalized_pagerank traffic under
                DeadlinePolicy at 0.25x, 1x and 4x of its capacity), with
                the reference's two assertions on the curve
+  async.*      barrier against overlap + frontier gate (SSSP at one
+               chare), the host gating model on grid(2,4), and the
+               grid(2,4) overlap + gate run (8 rectangles on one device)
+               with both lowerings' counted wire bytes, under the
+               reference's three assertions
 
 The table sections iterate the vertex-program registry; a wrong result
 fails the run.  Quick mode keeps the engine sweep on the default placement;
@@ -40,12 +45,11 @@ Sections of the reference that print nothing here, by ROADMAP queue 1 item:
   throughput.model, serving.model, kernel.*, dispatch.*
                                item 4: their cost models are the TPU's,
                                and wait for a model of the card
-  async.*                      item 8
   streaming.*                  item 9
   roofline.*                   item 12 (the dry-run roofline)
 
-``--json`` writes the ``algorithms``, ``grid``, ``throughput`` and
-``serving`` sections of ``BENCH_cost.json``.
+``--json`` writes the ``algorithms``, ``grid``, ``throughput``,
+``serving`` and ``async`` sections of ``BENCH_cost.json``.
 """
 
 from __future__ import annotations
@@ -111,6 +115,53 @@ def grid_rows(rows):
     return out, grid_json
 
 
+def async_rows(scale, repeats, device, record):
+    """The ``async.*`` rows by the reference's names, under its three
+    assertions (overlap bit-exact with barrier; on grid(2,4) the gate
+    launches at most half the slots; the grouped lowering's wire bytes at
+    most 0.6 of the full one's).  Fills ``record`` with the ``async``
+    section of BENCH_cost.json.  -> list of (name, value, derived)."""
+    from repro_torch.benchmarks import tables
+
+    at = tables.async_table(scale_log2=scale, repeats=repeats, device=device)
+    if not at["bit_exact"]:
+        raise AssertionError("overlap SSSP diverged from barrier")
+    rows = [
+        ("async.sssp.barrier@1", f"{at['barrier_s']:.4f}",
+         f"iters={at['it_barrier']}"),
+        ("async.sssp.overlap@1", f"{at['overlap_s']:.4f}",
+         f"iters={at['it_overlap']} bit_exact={at['bit_exact']}"),
+        ("async.sssp.superstep_s", f"{at['superstep_overlap_s']:.2e}",
+         f"barrier={at['superstep_barrier_s']:.2e} s/superstep")]
+    gm = tables.gating_model(scale_log2=scale)
+    rows.append(("async.gating_model.lockstep_skipped",
+                 f"{gm['skipped_fraction']:.3f}",
+                 f"launched={gm['launched']}/{gm['launch_slots']} "
+                 f"grid{tuple(gm['shape'])} supersteps={gm['supersteps']}"))
+    am = tables.async_grid_metrics(scale_log2=scale, device=device)
+    if not am["bit_exact"]:
+        raise AssertionError("grid(2,4) overlap+gate SSSP diverged from "
+                             "serial")
+    ag = am["gate"]
+    if ag["launched"] > 0.5 * ag["launch_slots"]:
+        raise AssertionError(f"the gate launched more than half the "
+                             f"rectangle slots: {ag}")
+    rows.append(("async.grid24.gate_skipped", f"{ag['skipped_fraction']:.3f}",
+                 f"launched={ag['launched']}/{ag['launch_slots']} "
+                 f"iters={am['iters']} (8 rectangles on one device, "
+                 "overlap+gate)"))
+    if am["counted_ratio"] > 0.6:
+        raise AssertionError(f"grouped/full wire bytes above 0.6: {am}")
+    cb = am["collective_bytes_counted"]
+    rows.append(("async.grid24.collective_ratio",
+                 f"{am['counted_ratio']:.3f}",
+                 f"grouped={cb['grouped']:.3e} full={cb['full']:.3e} "
+                 f"model={am['collective_bytes_model']['ratio']:.3f} "
+                 "(counted by the lowerings)"))
+    record.update({"pe1": at, "gating_model": gm, "grid24": am})
+    return rows
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--scale", type=int, default=13,
@@ -118,8 +169,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--quick", action="store_true",
                     help="smaller graphs / fewer repeats")
     ap.add_argument("--json", action="store_true",
-                    help="write the algorithms, grid, throughput and "
-                         "serving sections of BENCH_cost.json")
+                    help="write the algorithms, grid, throughput, "
+                         "serving and async sections of BENCH_cost.json")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
     args = ap.parse_args(argv)
@@ -216,6 +267,12 @@ def main(argv=None) -> dict:
         raise AssertionError(f"latency curve is flat across offered loads: "
                              f"{lt['curve']}")
     cost_json["serving"] = {**lt, "ppr_throughput": ppr, "checks": checks}
+
+    # ---- barrier-relaxed execution (DESIGN.md section 12) ------------------
+    cost_json["async"] = {}
+    for name, value, derived in async_rows(scale, repeats, device,
+                                           cost_json["async"]):
+        emit(name, value, derived)
 
     if args.json:
         with open("BENCH_cost.json", "w") as f:

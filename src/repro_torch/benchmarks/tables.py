@@ -5,8 +5,9 @@ The twins of the reference's ``run_table`` (paper Tables 2 & 3 and their
 analogues for every registered program, with the serial baseline and the
 dataflow stand-in), ``grid_table``, ``throughput_table``,
 ``latency_table``, ``wire_table``, ``wire_batch_table`` and
-``imbalance_table`` (the rest of that module waits for its ROADMAP items;
-``benchmarks/run.py`` here says which).  The measured tables run on CUDA
+``imbalance_table``, and the barrier-relaxation tables ``async_table``,
+``gating_model`` and ``async_grid_metrics`` (the rest of that module waits
+for its ROADMAP items; ``benchmarks/run.py`` here says which).  The measured tables run on CUDA
 unless ``device`` names another; ``throughput_table`` and
 ``latency_table`` also take a built ``engine``, so a caller that already
 holds one on the graph pays no second build.  The host-model tables
@@ -30,9 +31,9 @@ import numpy as np
 from repro_torch.benchmarks.graphx_analogue import (bench, labelprop_dataflow,
                                                     pagerank_dataflow)
 from repro_torch.configs.graphs import GRAPHS, VARIANTS
-from repro_torch.core import (Engine, get_spec, load_dataset, partition,
-                              partition_stats, partitioner_names,
-                              policy_label, wire_model)
+from repro_torch.core import (Engine, get_spec, grid_collective_bytes,
+                              load_dataset, partition, partition_stats,
+                              partitioner_names, policy_label, wire_model)
 from repro_torch.core.cost import _time
 from repro_torch.launch.serve import (DeadlinePolicy, GraphQueryServer,
                                       VirtualClock)
@@ -374,3 +375,129 @@ def imbalance_table(scale_log2: int = 13, pe_counts=(8,), partitioners=None):
                 pg = partition(g, pes, partitioner=pname)
                 rows.append((paper_name, pname, pes, partition_stats(pg)))
     return rows
+
+
+# ---------------------------------------------------------------------------
+# Barrier relaxation: overlap and the frontier gate (DESIGN.md section 12)
+# ---------------------------------------------------------------------------
+
+
+def async_table(scale_log2: int = 13, repeats: int = 3,
+                dskey: str = "soc-lj1-mini", device=None, engine=None
+                ) -> dict:
+    """Measured barrier against overlap plus the frontier gate at one
+    chare: whole-run and per-superstep seconds of SSSP (source 0) under
+    ``sync='barrier'`` and under ``sync='overlap', gate='frontier'``, with
+    the engine's launch accounting.  On one device phase 2 is a reduction
+    on the same card, so the per-superstep delta is what the relaxed
+    schedule itself costs or saves, not a hidden collective.  ``engine``
+    (optional) is a built C=1 engine on the SSSP graph to reuse.
+    """
+    if engine is None:
+        spec = get_spec("sssp")
+        g = spec.prepare_graph(load_dataset(dskey, scale_log2=scale_log2,
+                                            weighted=spec.weighted))
+        engine = Engine(partition(g, 1), device=device)
+    eng = engine
+    run_b = lambda: eng.run("sssp", source=0)
+    out_b, it_b = run_b()
+    t_b = bench(run_b, repeats, eng.device)
+    run_o = lambda: eng.run("sssp", source=0, sync="overlap",
+                            gate="frontier")
+    out_o, it_o = run_o()
+    gate = dict(eng.dispatch["gate"])
+    t_o = bench(run_o, repeats, eng.device)
+    return {
+        "barrier_s": t_b, "overlap_s": t_o,
+        "it_barrier": it_b, "it_overlap": it_o,
+        "superstep_barrier_s": t_b / max(it_b, 1),
+        "superstep_overlap_s": t_o / max(it_o, 1),
+        "bit_exact": bool(np.array_equal(out_b, out_o)),
+        "gate": gate,
+    }
+
+
+def gating_model(scale_log2: int = 13, shape=(2, 4),
+                 dskey: str = "soc-lj1-mini", graph=None) -> dict:
+    """Host-side frontier-gating model on the lockstep schedule: serial
+    Jacobi SSSP sweeps give the per-superstep frontier; each sweep's live
+    BLOCK_V blocks (in the grid's row-relabelled vertex order) meet each
+    rectangle's band source mask, and a rectangle with no intersection is
+    a skipped launch.  Pure numpy, no device.  ``graph`` (optional) is the
+    weighted SSSP graph to model.
+    """
+    from repro_torch.core.partitioners import row_plan_of
+    from repro_torch.kernels import blocks
+
+    spec = get_spec("sssp")
+    g = graph if graph is not None else spec.prepare_graph(
+        load_dataset(dskey, scale_log2=scale_log2, weighted=spec.weighted))
+    R, C = shape
+    pg = partition(g, R * C, partitioner=f"grid({R},{C})")
+    K = pg.chunk_size
+    nsb = max(-(-K // blocks.BLOCK_V), 1)
+    gmask = blocks.band_source_mask(np.asarray(pg.gr_band), nsb) != 0
+    g2l, _ = row_plan_of(pg.plan).relabel()
+    src = np.asarray(g.src)
+    dst = np.asarray(g.dst)
+    w = np.asarray(g.edge_weights, np.float64)
+    dist = np.full(g.num_vertices, np.inf)
+    dist[0] = 0.0
+    frontier = np.zeros(g.num_vertices, bool)
+    frontier[0] = True
+    launched = slots = sweeps = 0
+    while frontier.any():
+        f_pad = np.zeros(R * K, np.int32)
+        f_pad[g2l[np.nonzero(frontier)[0]]] = 1
+        for k in range(R * C):
+            r = k // C
+            fb = blocks.frontier_block_mask(f_pad[r * K:(r + 1) * K], nsb)
+            launched += int((fb.astype(bool) & gmask[k]).any())
+        slots += R * C
+        new = dist.copy()
+        on = frontier[src]
+        np.minimum.at(new, dst[on], dist[src[on]] + w[on])
+        frontier = new != dist
+        dist = new
+        sweeps += 1
+    return {
+        "shape": list(shape), "supersteps": sweeps,
+        "launch_slots": slots, "launched": launched,
+        "skipped_launches": slots - launched,
+        "skipped_fraction": (slots - launched) / slots if slots else 0.0,
+    }
+
+
+def async_grid_metrics(scale_log2: int = 13, dskey: str = "soc-lj1-mini",
+                       device=None, graph=None, pg=None) -> dict:
+    """The twin of the reference's ``async_multidevice_metrics``: SSSP from
+    source 0 under ``sync='overlap', gate='frontier'`` on a grid(2,4)
+    partition -- 8 rectangles as the chare axis of one device, where the
+    reference runs 8 devices -- against the serial result, with its gate
+    accounting; and both phase-2 lowerings' wire bytes per rectangle per
+    superstep as the engine counts them (``dispatch["collectives"]``),
+    where the reference reads them from the compiled HLO.  ``graph`` and
+    ``pg`` (optional) reuse a built weighted graph and its grid(2,4)
+    partition.
+    """
+    spec = get_spec("sssp")
+    g = graph if graph is not None else spec.prepare_graph(
+        load_dataset(dskey, scale_log2=scale_log2, weighted=spec.weighted))
+    if pg is None:
+        pg = partition(g, 8, partitioner="grid(2,4)")
+    ref = spec.run_serial(g, source=0)
+    eng = Engine(pg, device=device)
+    out, it = eng.run("sssp", source=0, sync="overlap", gate="frontier")
+    bytes_by = {}
+    for coll in ("grouped", "full"):
+        e = Engine(pg, device=device, collectives=coll)
+        e.run("sssp", source=0)
+        bytes_by[coll] = e.dispatch["collectives"]["bytes_per_superstep"]
+    return {
+        "bit_exact": bool(np.array_equal(out, np.asarray(ref))),
+        "iters": it,
+        "gate": dict(eng.dispatch["gate"]),
+        "collective_bytes_counted": bytes_by,
+        "counted_ratio": bytes_by["grouped"] / bytes_by["full"],
+        "collective_bytes_model": grid_collective_bytes(g, 8, "grid(2,4)"),
+    }

@@ -5,7 +5,8 @@ Public API, for what is ported:
     Graph / partition / generators          repro_torch.core.graph
     Partitioner registry / PartitionPlan /
     GridPlan (the grid(R,C) family)         repro_torch.core.partitioners
-    Engine (strategy x vertex program)      repro_torch.core.engine
+    Engine (strategy x vertex program) /
+    ReplanPolicy                            repro_torch.core.engine
     VertexProgram / registry / run_parallel repro_torch.core.programs
     pagerank_serial / pagerank_parallel     repro_torch.core.pagerank
     labelprop_serial / labelprop_parallel   repro_torch.core.labelprop
@@ -26,7 +27,7 @@ from repro_torch.core.partitioners import (GridPlan, PartitionPlan,
                                            partition_stats,
                                            partitioner_names, policy_label,
                                            register_partitioner)
-from repro_torch.core.engine import Engine
+from repro_torch.core.engine import Engine, ReplanPolicy
 from repro_torch.core.programs import (VertexProgram, ProgramSpec,
                                        make_program, get_spec,
                                        registered_names, run_parallel,

@@ -1,12 +1,11 @@
 """Actor-superstep engine: every chare of a partition on one device.
 
-The twin of the resident, barrier-synchronized ``Engine.run`` of
-``repro/core/engine.py``.  Per superstep each chare (i) scans its local
-edges and aggregates outgoing data (phase 1: one push -- a fused launch or
-a gather and a scatter launch -- over every chare's ``[Emax]`` row at
-once), (ii) exchanges messages (phase 2: a reduction over the chare axis,
-or for ``basic`` a swap of the chare axes and one scatter launch), (iii)
-applies the received payloads to its
+The twin of the resident ``Engine`` of ``repro/core/engine.py``.  Per
+superstep each chare (i) scans its local edges and aggregates outgoing data
+(phase 1: one push -- a fused launch or a gather and a scatter launch --
+over every chare's ``[Emax]`` row at once), (ii) exchanges messages (phase
+2: a reduction over the chare axis, or for ``basic`` a swap of the chare
+axes and one scatter launch), (iii) applies the received payloads to its
 vertex state, with quiescence detection between supersteps.
 
 Fixed-iteration programs (PageRank) run a plain loop; convergence programs
@@ -41,6 +40,30 @@ device: the seed and teleport planes are built there, the result is
 un-permuted there (one ``index_select`` through a device copy of
 ``global_to_local``) and comes back in one copy into pinned host memory, as
 ``run``'s single state does.
+
+Three adaptive modes ride on the loop, in ``run`` and ``run_batch`` alike:
+
+  * ``replan=`` (a partitioner name or a ``ReplanPolicy``) runs the loop in
+    segments of ``every`` supersteps; at a segment boundary a trigger may
+    re-place the graph (``PartitionedGraph.repartition``), move the state
+    across through the composed relabel (``PartitionPlan.padded_map_from``,
+    one on-device ``index_copy``; 1-D <-> 2-D through ``row_plan_of``) and
+    rebind the engine to the new layout.  Chained segments give the
+    reference's superstep sequence and counts exactly.
+  * ``sync="overlap"`` relaxes the barrier for min-monoid convergence
+    programs: phase 2 of superstep t and phase 1 of t+1 share no data
+    dependency (a pending partial is carried), updates land one superstep
+    stale, and termination takes two quiet applies in a row.  On one card
+    both phases run on one stream in the reference's order; there is no
+    collective to hide behind.
+  * ``gate="frontier"`` skips the phase-1 work of every chare row whose
+    live frontier blocks miss its band's source blocks: the row mask
+    (``row_active``) is computed on the device each superstep and the push
+    kernels read nothing of a gated row -- the reference's per-shard skip at
+    row granularity.  Skipped rows accumulate on the device and are read
+    once per run into ``Engine.dispatch["gate"]``.
+
+``residency="stream"`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -51,15 +74,12 @@ import functools
 import numpy as np
 import torch
 
+from repro_torch.core import partitioners as part_mod
 from repro_torch.core import strategies as strat
 from repro_torch.core.graph import PartitionedGraph
 from repro_torch.kernels import blocks
 
 _LATER = {
-    "replan": "mid-run replanning is not ported yet (ROADMAP queue 1, "
-              "item 5)",
-    "overlap": "sync='overlap' is not ported yet (ROADMAP queue 1, item 8)",
-    "gate": "frontier gating is not ported yet (ROADMAP queue 1, item 8)",
     "stream": "residency='stream' is not ported yet (ROADMAP queue 1, "
               "item 9)",
 }
@@ -76,6 +96,39 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
+def _relabel_gather(init_rows, old_rows, src, tgt):
+    """The composed-relabel state move as one on-device op: ``tgt`` slots
+    (unique: a relabel is a bijection on live vertices) receive the ``src``
+    slots of the old plane; every other slot keeps the caller-built init
+    fill."""
+    return init_rows.index_copy(0, tgt, old_rows.index_select(0, src))
+
+
+@dataclasses.dataclass
+class ReplanPolicy:
+    """When and how the engine re-partitions mid-run.
+
+    The superstep loop runs in segments of ``every`` supersteps; at each
+    segment boundary the engine may switch the placement to
+    ``partitioner``.  ``mode="skew"`` (the default) triggers when the
+    per-chare frontier-edge imbalance (``partition_stats(pg,
+    frontier=...)``) exceeds ``threshold``; ``mode="always"`` replans at
+    every boundary.  ``max_replans`` bounds the re-placements of one run.
+    """
+
+    partitioner: str
+    every: int = 4
+    threshold: float = 1.5
+    mode: str = "skew"
+    max_replans: int = 4
+
+    def __post_init__(self):
+        if self.mode not in ("skew", "always"):
+            raise ValueError(f"unknown replan mode {self.mode!r}")
+        if self.every < 1:
+            raise ValueError("replan checkpoint interval must be >= 1")
+
+
 @dataclasses.dataclass
 class Engine:
     """Runs vertex programs on a partitioned graph with a chosen strategy.
@@ -88,10 +141,11 @@ class Engine:
     push hook does, ``basic``'s receive side included.
 
     The strategy follows the partition's dimensionality: a ``grid(R,C)``
-    partition always runs ``grid2d`` (the 1-D layouts do not exist on it);
-    asking for ``grid2d`` on a 1-D partition is an error.  ``collectives``
-    picks grid2d's phase-2 lowering: ``"auto"`` (``"grouped"``),
-    ``"grouped"`` or ``"full"``.
+    partition always runs ``grid2d`` (the 1-D layouts do not exist on it),
+    and the constructor's 1-D ``strategy`` is what a replan back to a 1-D
+    placement rebinds to; asking for ``grid2d`` on a 1-D partition is an
+    error.  ``collectives`` picks grid2d's phase-2 lowering: ``"auto"``
+    (``"grouped"``), ``"grouped"`` or ``"full"``.
     """
 
     pg: PartitionedGraph
@@ -124,22 +178,28 @@ class Engine:
                              f"(ops.make_segment_fn), got "
                              f"{self.segment_fn!r}")
         self.device = resolve_device(self.device)
+        # the 1-D strategy a replan back to a 1-D placement rebinds to
+        self._strategy_request = (self.strategy if self.strategy != "grid2d"
+                                  else "sortdest")
         self._push_request = self.push_fn
+        self._gate_slots, self._gate_skipped = 0, 0
         self._bind(self.pg)
 
     def _bind(self, pg: PartitionedGraph):
         """Point the engine at a partition: alias its device-upload cache,
         resolve the strategy and the adaptive dispatch."""
         self.pg = pg
-        if pg.is_grid:
-            self.strategy = "grid2d"
+        self.strategy = "grid2d" if pg.is_grid else self._strategy_request
         # layouts are uploaded once per (partition, device) and shared:
-        # engines of a strategy sweep alias the same tensors
+        # engines of a strategy sweep alias the same tensors, and a new
+        # partition's upload learns its tile plans there (device_arrays)
         layout = strat.STRATEGY_LAYOUT[self.strategy]
         self.arrays = (pg.device_pairwise(self.device) if layout == "pairwise"
                        else pg.device_arrays(layout, self.device))
         self.aux = pg.device_aux(self.device)
         self._C, self._K = pg.num_chunks, pg.chunk_size
+        # frontier-gate geometry: the state's BLOCK_V source blocks per chare
+        self._gate_nsb = max(-(-self._K // blocks.BLOCK_V), 1)
         p1, p2 = strat.PHASES[self.strategy]
         self._wire = None
         if pg.is_grid:
@@ -156,6 +216,27 @@ class Engine:
         self.dispatch = self._resolve_dispatch()
         if pg.is_grid:
             self._record_wire(0)
+
+    def _rebind(self, pg: PartitionedGraph):
+        """Replan rebind: switch to a re-partitioned layout of the same
+        graph.  The new partition's device cache starts empty, so every
+        layout tensor, band table and tile plan is uploaded and learned
+        afresh here (nothing of the old placement can leak), the dispatch is
+        resolved again, and the engine keeps no reference to the old
+        placement's tensors."""
+        if pg.num_chunks != self._C:
+            raise ValueError("replan must preserve the chare count "
+                             f"({pg.num_chunks} != {self._C})")
+        self._bind(pg)
+
+    @property
+    def gate_blocks(self) -> torch.Tensor:
+        """``[C, nsb]`` bool: the source blocks each chare's edges of the
+        bound layout can gather from (``PartitionedGraph.device_gate_blocks``;
+        all ones on the pairwise layout, which then gates on any frontier at
+        all)."""
+        return self.pg.device_gate_blocks(
+            strat.STRATEGY_LAYOUT[self.strategy], self.device)
 
     def _resolve_dispatch(self) -> dict:
         """Resolve ``push_fn='auto'`` against the bound layout's bands.
@@ -202,33 +283,111 @@ class Engine:
             "supersteps": supersteps,
             "bytes_per_superstep": total / supersteps if supersteps else 0.0}
 
-    def _propagate(self, vals, program):
-        """One superstep's message exchange: phase 1 (every chare's local
-        push) then phase 2 (the combine across the chare axis)."""
-        p1, p2 = self._phases
-        comb = program.combiner
-        partial = p1(vals, self.arrays, comb, self._C, self._K,
-                     segment_fn=self.segment_fn,
-                     edge_value=program.edge_value, push_fn=self.push_fn,
-                     edge_semiring=program.edge_semiring)
-        return p2(partial, self.arrays, comb, self._C, self._K,
-                  segment_fn=self.segment_fn)
+    # -- one superstep's halves ----------------------------------------------
+
+    def _row_active(self, frontier):
+        """The frontier gate on the device: ``[C]`` int32, 1 where a chare
+        row's live frontier (any query column of a plane) reaches a source
+        block its edges can gather from.  The frontier is padded to
+        ``nsb * BLOCK_V``, reduced per block, intersected with
+        ``gate_blocks`` and reduced per row."""
+        f = frontier.any(dim=-1) if frontier.dim() == 3 else frontier
+        nsb = self._gate_nsb
+        width = nsb * blocks.BLOCK_V
+        if width != self._K:
+            f = torch.cat([f, f.new_zeros((self._C, width - self._K))], 1)
+        fb = f.reshape(self._C, nsb, blocks.BLOCK_V).any(dim=2)
+        return (fb & self.gate_blocks).any(dim=1).to(torch.int32)
+
+    def _push(self, program, vals, frontier=None, gate=False):
+        """Phase 1 of every chare row, gated on ``frontier`` when ``gate``:
+        a gated row's partial is the identity and its kernels read nothing.
+        Counts the run's launch slots (one per chare row) and, on the
+        device, the gated rows."""
+        row_active = None
+        if gate:
+            row_active = self._row_active(frontier)
+            self._gate_skipped = self._gate_skipped + (self._C
+                                                       - row_active.sum())
+        self._gate_slots += self._C
+        return self._phases[0](vals, self.arrays, program.combiner, self._C,
+                               self._K, segment_fn=self.segment_fn,
+                               edge_value=program.edge_value,
+                               push_fn=self.push_fn,
+                               edge_semiring=program.edge_semiring,
+                               row_active=row_active)
+
+    def _combine(self, partial, program):
+        """Phase 2: the combine of the phase-1 partials across chares."""
+        return self._phases[1](partial, self.arrays, program.combiner,
+                               self._C, self._K, segment_fn=self.segment_fn)
+
+    def _propagate(self, vals, program, frontier=None, gate=False):
+        """One superstep's message exchange: phase 1 then phase 2."""
+        return self._combine(self._push(program, vals, frontier, gate),
+                             program)
+
+    # -- mode checks and per-run accounting ----------------------------------
 
     @staticmethod
-    def _check_modes(replan, sync, gate, residency):
-        """Refuse the engine modes this port does not have yet."""
-        if replan is not None:
-            raise NotImplementedError(_LATER["replan"])
-        if sync == "overlap":
-            raise NotImplementedError(_LATER["overlap"])
-        if sync != "barrier":
-            raise ValueError(f"unknown sync mode {sync!r}")
-        if gate not in (None, False, 0):
-            raise NotImplementedError(_LATER["gate"])
+    def _check_residency(residency):
         if residency == "stream":
             raise NotImplementedError(_LATER["stream"])
         if residency not in (None, "resident"):
             raise ValueError(f"unknown residency {residency!r}")
+
+    @staticmethod
+    def _validate_async(program, sync, gate) -> tuple[str, bool]:
+        """Normalize/validate the barrier-relaxation knobs against the
+        program's algebra: overlap delivers stale reads, which only
+        label-correcting min-monoid convergence programs absorb; gating
+        needs a frontier, which only convergence programs maintain."""
+        if sync not in ("barrier", "overlap"):
+            raise ValueError(f"unknown sync mode {sync!r}; "
+                             "choose 'barrier' or 'overlap'")
+        if sync == "overlap" and (program.fixed_iters is not None
+                                  or program.combiner.name != "min"):
+            raise ValueError(
+                f"sync='overlap' needs a min-monoid convergence program "
+                f"(stale reads stay convergent only for label-correcting "
+                f"updates); {program.name!r} is not one")
+        if gate in (None, False, 0):
+            gate = False
+        elif gate in (True, "frontier"):
+            if program.fixed_iters is not None:
+                raise ValueError(
+                    f"gate='frontier' needs a convergence program (the gate "
+                    f"reads the frontier); {program.name!r} has fixed iters")
+            gate = True
+        else:
+            raise ValueError(f"unknown gate mode {gate!r}; "
+                             "choose None or 'frontier'")
+        return sync, gate
+
+    def _run_start(self, gate):
+        """Zero the run's wire bytes and gate counts (the skipped rows as a
+        device scalar when gating, so no superstep waits on the host)."""
+        if self._wire is not None:
+            self._wire["bytes"] = 0.0
+        self._gate_slots = 0
+        self._gate_skipped = (torch.zeros((), dtype=torch.int64,
+                                          device=self.device) if gate else 0)
+
+    def _run_end(self, supersteps, sync, gate):
+        """Publish the run's superstep count, wire bytes (grids) and launch
+        accounting: ``dispatch["gate"]`` holds the phase-1 launch slots (one
+        per chare row per push, the overlap's seed push of each segment
+        included), how many the gate skipped (one read of the device count)
+        and the fraction (0.0 when gating is off)."""
+        self.dispatch["supersteps"] = supersteps
+        if self._wire is not None:
+            self._record_wire(supersteps)
+        slots, skipped = self._gate_slots, int(self._gate_skipped)
+        self.dispatch["gate"] = {
+            "sync": sync, "enabled": gate, "launch_slots": slots,
+            "skipped_launches": skipped, "launched": slots - skipped,
+            "skipped_fraction": skipped / slots if slots else 0.0,
+        }
 
     @staticmethod
     def _program(program, params):
@@ -242,6 +401,78 @@ class Engine:
             raise TypeError("params only apply to registered program names")
         return program
 
+    @staticmethod
+    def _limit(program) -> int:
+        return (program.fixed_iters if program.fixed_iters is not None
+                else program.max_iters)
+
+    # -- the superstep loop --------------------------------------------------
+
+    def _loop(self, program, state, frontier, limit, sync="barrier",
+              gate=False, drain=False):
+        """Up to ``limit`` supersteps of one state ``[C, K]`` from
+        ``frontier`` (bool ``[C, K]``; ``None`` for a fixed-iteration run
+        that needs none); -> ``(state, frontier, supersteps)``.
+
+        Fixed-iteration programs run the plain counted loop (their frontier,
+        when given, is the last superstep's changes).  Convergence programs
+        loop while the last apply changed anything, quiesced vertices
+        sending the identity; under ``sync='overlap'`` the incoming frontier
+        seeds the pipeline's first push, each superstep combines the
+        previous superstep's partial while pushing the next, and the loop
+        ends after two quiet applies in a row.  ``drain`` (the segmented
+        path) folds the partial still in flight and keeps its changes in the
+        frontier, so a replan at the boundary never meets a partial.
+        """
+        aux = self.aux
+        if program.fixed_iters is not None:
+            for _ in range(limit):
+                incoming = self._propagate(program.update(state, aux),
+                                           program)
+                new = program.apply(state, incoming, aux)
+                if frontier is not None:
+                    frontier = new != state
+                state = new
+            return state, frontier, limit
+        sent = torch.full((), program.combiner.identity, dtype=state.dtype,
+                          device=self.device)
+
+        def masked(state, frontier):
+            # frontier masking: quiesced vertices send the identity
+            return torch.where(frontier, program.update(state, aux), sent)
+
+        it = 0
+        if sync == "overlap":
+            pending = self._push(program, masked(state, frontier), frontier,
+                                 gate)
+            frontier = torch.zeros_like(frontier)  # the seed is pushed once
+            quiet = 0
+            while quiet < 2 and it < limit:
+                incoming = self._combine(pending, program)
+                pending = self._push(program, masked(state, frontier),
+                                     frontier, gate)
+                new = program.apply(state, incoming, aux)
+                frontier = new != state
+                quiet = 0 if bool(frontier.any()) else quiet + 1
+                state = new
+                it += 1
+            if drain:
+                drained = program.apply(state, self._combine(pending, program),
+                                        aux)
+                frontier = frontier | (drained != state)
+                state = drained
+            return state, frontier, it
+        changed = True
+        while changed and it < limit:
+            new = program.apply(
+                state, self._propagate(masked(state, frontier), program,
+                                       frontier, gate), aux)
+            frontier = new != state
+            changed = bool(frontier.any())
+            state = new
+            it += 1
+        return state, frontier, it
+
     def run(self, program, replan=None, sync="barrier", gate=None,
             residency=None, **params) -> tuple:
         """Run a vertex program to completion; returns (state, iterations).
@@ -250,53 +481,158 @@ class Engine:
         or a ``VertexProgram`` instance.  The state comes back as a numpy
         array in original vertex order.  Programs with their own
         ``sources``, ``init_batch`` and ``finalize`` (personalized PageRank,
-        betweenness) run on the batched plane and return their finalized
-        result with the global superstep count.  ``replan``,
-        ``sync='overlap'``, ``gate`` and ``residency='stream'`` are not
-        ported yet and raise ``NotImplementedError``.
+        betweenness) run on the batched plane, with the same modes, and
+        return their finalized result with the global superstep count.
+
+        ``replan`` (a partitioner name or a ``ReplanPolicy``) runs the loop
+        in segments and may switch the placement at their boundaries; the
+        engine stays bound to the last placement.  ``sync='overlap'``
+        relaxes the barrier for min-monoid convergence programs, and
+        ``gate='frontier'`` skips the phase-1 work of chare rows the
+        frontier cannot reach (accounting in ``self.dispatch['gate']``);
+        both compose with ``replan``.  ``residency='stream'`` is not ported
+        yet and raises ``NotImplementedError``.
         """
         from repro_torch.core import programs as prog_mod
 
-        self._check_modes(replan, sync, gate, residency)
+        self._check_residency(residency)
         program = self._program(program, params)
+        sync, gate = self._validate_async(program, sync, gate)
         if (program.sources is not None and program.init_batch is not None
                 and program.finalize is not None):
             # inherently multi-source programs (betweenness pivots) run on
             # the batched plane and post-process the per-query rows on the
             # device; the iteration count is the global superstep count
             sets = prog_mod.seed_sets(program.sources)
-            plane, q_it = self._batch(program, sets)
+            plane, q_it = self._batch(program, sets, replan=replan,
+                                      sync=sync, gate=gate)
             out = program.finalize(self.pg.graph, sets, plane)
             return self._to_host(out), int(q_it.max())
 
-        aux = self.aux
         state = torch.from_numpy(program.init(self.pg)).to(self.device)
-        if self._wire is not None:
-            self._wire["bytes"] = 0.0
-        if program.fixed_iters is not None:
-            for _ in range(program.fixed_iters):
-                incoming = self._propagate(program.update(state, aux),
-                                           program)
-                state = program.apply(state, incoming, aux)
-            iters = program.fixed_iters
+        self._run_start(gate)
+        if replan is not None:
+            state, iters = self._run_replanned(program, replan, state, sync,
+                                               gate)
         else:
-            sent = torch.full((), program.combiner.identity,
-                              dtype=state.dtype, device=self.device)
-            frontier = torch.ones_like(state, dtype=torch.bool)
-            changed, iters = True, 0
-            while changed and iters < program.max_iters:
-                # frontier masking: quiesced vertices send the identity
-                vals = torch.where(frontier, program.update(state, aux), sent)
-                new = program.apply(state, self._propagate(vals, program),
-                                    aux)
-                frontier = new != state
-                changed = bool(frontier.any())
-                state = new
-                iters += 1
-        self.dispatch["supersteps"] = iters
-        if self._wire is not None:
-            self._record_wire(iters)
+            frontier = (None if program.fixed_iters is not None
+                        else torch.ones_like(state, dtype=torch.bool))
+            state, _, iters = self._loop(program, state, frontier,
+                                         self._limit(program), sync, gate)
+        self._run_end(iters, sync, gate)
         return self._to_host(self._unpermute(state)), iters
+
+    # -- mid-run replanning --------------------------------------------------
+
+    def _resolve_replan_policy(self, policy) -> ReplanPolicy:
+        """Validate a replan request at run entry, not supersteps later when
+        the trigger first fires: the target must name a known policy, and a
+        grid target must keep the chare count."""
+        if isinstance(policy, str):
+            policy = ReplanPolicy(partitioner=policy)
+        part_mod.get_partitioner(policy.partitioner)
+        shape = part_mod.grid_shape(policy.partitioner)
+        if shape is not None and shape[0] * shape[1] != self._C:
+            raise ValueError(
+                f"replan target {policy.partitioner!r} needs "
+                f"{shape[0] * shape[1]} chares, engine has {self._C}")
+        return policy
+
+    def _should_replan(self, policy, frontier) -> bool:
+        """The segment boundary's trigger; the skew mode reads the frontier
+        (collapsed over query columns on a plane) back to the host."""
+        if policy.mode == "always":
+            return True
+        f = frontier.any(dim=-1) if frontier.dim() == 3 else frontier
+        stats = part_mod.partition_stats(self.pg, frontier=f.cpu().numpy())
+        return stats["frontier_edge_imbalance"] > policy.threshold
+
+    def _replan_to(self, policy):
+        """The new partition a triggered boundary switches to, or None for
+        a no-op switch (the same placement)."""
+        new_plan = part_mod.make_plan(self.pg.graph, self._C,
+                                      policy.partitioner)
+        if new_plan.same_as(self.pg.plan):
+            return None
+        return self.pg.repartition(policy.partitioner, plan=new_plan)
+
+    def _move_state(self, init_state, state, frontier, new_pg):
+        """Carry state across a replan: plan B's ``g2l`` on top of plan A's
+        ``l2g`` (``PartitionPlan.padded_map_from``) moves the live slots in
+        one on-device ``index_copy``; padding takes the program's init fill
+        (``init_state``, built for the new partition), so min-monoid
+        programs stay bit-exact, and new padding enters quiesced.  A
+        trailing batch axis rides along.
+
+        1-D <-> 2-D switches compose the same algebra on the ROW plans
+        (``row_plan_of``): a grid's state is its row plan replicated per
+        column, so the move reads the old column-0 replica, scatters through
+        the composed row relabel and replicates into the new shape (for
+        1-D <-> 1-D the replica count is 1 on both sides).
+        """
+        move = part_mod.row_plan_of(new_pg.plan).padded_map_from(
+            part_mod.row_plan_of(self.pg.plan))
+        live = move >= 0
+        src = torch.from_numpy(np.nonzero(live)[0]).to(self.device)
+        tgt = torch.from_numpy(move[live]).to(self.device)
+        old_cols = self.pg.grid_shape[1] if self.pg.is_grid else 1
+        new_cols = new_pg.grid_shape[1] if new_pg.is_grid else 1
+        old_rows = self.pg.num_chunks // old_cols
+        new_rows = new_pg.num_chunks // new_cols
+        k_old, k_new = self.pg.chunk_size, new_pg.chunk_size
+
+        def rows_of(a, n_rows, n_cols, k):
+            """Column-0 replica of a [P, K, ...] plane, flat in row space."""
+            tail = tuple(a.shape[2:])
+            a = a.reshape((n_rows, n_cols, k) + tail)[:, 0]
+            return a.reshape((n_rows * k,) + tail)
+
+        def replicate(a):
+            """Row-space plane -> the new partition's replicated [P, K, ...]."""
+            tail = tuple(a.shape[1:])
+            a = a.reshape((new_rows, 1, k_new) + tail).expand(
+                (new_rows, new_cols, k_new) + tail)
+            return a.reshape((new_pg.num_chunks, k_new) + tail)
+
+        new_state = _relabel_gather(
+            rows_of(init_state, new_rows, new_cols, k_new),
+            rows_of(state, old_rows, old_cols, k_old), src, tgt)
+        f_rows = rows_of(frontier, old_rows, old_cols, k_old)
+        new_f = _relabel_gather(
+            f_rows.new_zeros((new_rows * k_new,) + tuple(f_rows.shape[1:])),
+            f_rows, src, tgt)
+        return replicate(new_state), replicate(new_f)
+
+    def _run_replanned(self, program, policy, state, sync, gate):
+        """The segmented superstep loop of ``run``: segments of
+        ``policy.every`` supersteps (each draining its in-flight partial
+        under overlap), a trigger at each boundary, and on a switch the
+        repartition, the state move and the rebind.  -> (state on the final
+        placement, supersteps)."""
+        policy = self._resolve_replan_policy(policy)
+        fixed = program.fixed_iters is not None
+        limit = self._limit(program)
+        frontier = torch.ones_like(state, dtype=torch.bool)
+        done = replans = 0
+        while done < limit:
+            state, frontier, it = self._loop(
+                program, state, frontier, min(policy.every, limit - done),
+                sync, gate, drain=True)
+            done += it
+            if not fixed and not bool(frontier.any()):
+                break  # quiesced: the last superstep changed nothing
+            if done >= limit or replans >= policy.max_replans:
+                continue
+            if not self._should_replan(policy, frontier):
+                continue
+            new_pg = self._replan_to(policy)
+            if new_pg is None:
+                continue  # no-op switch: keep the resident layout
+            init = torch.from_numpy(program.init(new_pg)).to(self.device)
+            state, frontier = self._move_state(init, state, frontier, new_pg)
+            self._rebind(new_pg)
+            replans += 1
+        return state, done
 
     # -- batched multi-query execution (DESIGN.md section 11) ----------------
 
@@ -318,23 +654,28 @@ class Engine:
         next power of two (``_bucket``).  Padding columns re-run query 0 and
         are dropped on the way out.  The reference also keys its compile
         cache by the bucket (``_batch_key``); the port compiles nothing per
-        program, so it has no such cache.  ``replan``,
-        ``sync='overlap'``, ``gate`` and ``residency='stream'`` are not
-        ported yet and raise ``NotImplementedError``.
+        program, so it has no such cache.  ``replan``, ``sync`` and
+        ``gate`` work as in ``run``: the replan trigger sees the frontier
+        collapsed over queries, and under overlap each query stays live
+        until two quiet applies of its column in a row.
+        ``residency='stream'`` is not ported yet and raises
+        ``NotImplementedError``.
 
         Returns ``(plane, iters)``: ``plane[i]`` is query i's converged
         per-vertex state in original vertex order ([n, V], after the
         program's ``finalize_batch``), ``iters[i]`` the supersteps query i
-        needed -- identical to its own ``run``.
+        needed -- identical to its own ``run`` under ``sync='barrier'``;
+        the query's own double-check count under ``sync='overlap'``.
         """
         from repro_torch.core import programs as prog_mod
 
-        self._check_modes(replan, sync, gate, residency)
+        self._check_residency(residency)
         program = self._program(program, params)
         if program.init_batch is None:
             raise ValueError(
                 f"program {program.name!r} has no batched init "
                 f"(VertexProgram.init_batch); run it with Engine.run")
+        sync, gate = self._validate_async(program, sync, gate)
         if sources is None:
             sources = program.sources
         if sources is not None and not isinstance(sources, (int, np.integer)):
@@ -343,10 +684,11 @@ class Engine:
                 raise ValueError("run_batch needs at least one query "
                                  "(sources is empty)")
         sets = prog_mod.seed_sets(sources)
-        plane, q_it = self._batch(program, sets, batch)
+        plane, q_it = self._batch(program, sets, batch, replan, sync, gate)
         return self._to_host(plane), q_it
 
-    def _batch(self, program, sets, batch=None):
+    def _batch(self, program, sets, batch=None, replan=None, sync="barrier",
+               gate=False):
         """The batched run on the device: (plane [n, V] in original vertex
         order after ``finalize_batch``, per-query supersteps as int64
         numpy)."""
@@ -356,7 +698,11 @@ class Engine:
             raise ValueError(f"batch={B} is smaller than {n} queries")
         padded = sets + (sets[0],) * (B - n)
         state, qp = self._batch_init(program, padded)
-        state, q_it = self._batch_loop(program, state, qp)
+        if replan is None:
+            state, q_it = self._batch_loop(program, state, qp, sync, gate)
+        else:
+            state, q_it = self._run_batch_replanned(program, padded, state,
+                                                    qp, replan, sync, gate)
         plane = self._unpermute(state)[:n]
         if program.finalize_batch is not None:
             plane = program.finalize_batch(self.pg.graph, sets, plane)
@@ -370,20 +716,35 @@ class Engine:
               else program.query_plane(self.pg, sets, self.device))
         return state, qp
 
-    def _batch_loop(self, program, state, qp=None):
-        """The superstep loop over a ``[C, K, B]`` query plane, with
-        PER-QUERY convergence masking and iteration counting.
+    def _batch_loop(self, program, state, qp=None, sync="barrier",
+                    gate=False):
+        """One whole batched run without replanning: ``_batch_segment`` from
+        an all-ones frontier up to the program's limit, with the run's
+        accounting.  Returns the final plane and ``q_it`` ``[B]``."""
+        self._run_start(gate)
+        state, _, q_it, iters = self._batch_segment(
+            program, state, torch.ones_like(state, dtype=torch.bool), qp,
+            self._limit(program), sync, gate)
+        self._run_end(iters, sync, gate)
+        return state, q_it
 
-        One push per superstep serves all B columns.  A query whose column
-        stopped changing sends the combiner identity from then on (its
-        frontier column is all-false), and ``q_it`` counts -- per query --
-        exactly the supersteps a sequential run of that query would have
-        executed: ``active[b]`` never turns back on, and the loop runs while
-        any query is active, so supersteps past a query's own convergence
-        are no-ops for it.  One host sync per superstep, as in ``run``.
-        Fixed-iteration programs run the plain counted loop: every column
-        takes exactly ``fixed_iters`` supersteps.  Returns the final plane
-        and ``q_it`` ``[B]``.
+    def _batch_segment(self, program, state, frontier, qp, limit,
+                       sync="barrier", gate=False):
+        """Up to ``limit`` supersteps over a ``[C, K, B]`` query plane, with
+        PER-QUERY convergence masking and iteration counting; -> ``(state,
+        frontier, q_it [B] int64, supersteps)``.
+
+        One push per superstep serves all B columns.  Under the barrier a
+        query whose column stopped changing sends the combiner identity from
+        then on, and ``q_it`` counts -- per query -- exactly the supersteps
+        a sequential run of it would have executed: ``active[b]`` never
+        turns back on, and the loop runs while any query is active.  Under
+        ``sync='overlap'`` a query stays live until two consecutive applies
+        leave its column unchanged, ``q_it`` counts its own supersteps, and
+        the in-flight partial is drained at the end.  One host sync per
+        superstep.  Fixed-iteration programs run the plain counted loop:
+        every column takes exactly ``limit`` supersteps, and the frontier
+        comes back as it went in.
         """
         # per-vertex aux as [C, K, 1], so update/apply broadcast over B;
         # the query plane is already [C, K, B]
@@ -391,35 +752,97 @@ class Engine:
         if qp is not None:
             aux["qplane"] = qp
         B = state.shape[-1]
-        if self._wire is not None:
-            self._wire["bytes"] = 0.0
         if program.fixed_iters is not None:
-            for _ in range(program.fixed_iters):
+            for _ in range(limit):
                 incoming = self._propagate(program.update(state, aux),
                                            program)
                 state = program.apply(state, incoming, aux)
-            iters = program.fixed_iters
-            q_it = torch.full((B,), iters, dtype=torch.int64)
-        else:
-            sent = torch.full((), program.combiner.identity,
-                              dtype=state.dtype, device=self.device)
-            frontier = torch.ones_like(state, dtype=torch.bool)
-            active = torch.ones(B, dtype=torch.bool, device=self.device)
-            q_it = torch.zeros(B, dtype=torch.int64, device=self.device)
-            iters = 0
-            while iters < program.max_iters and bool(active.any()):
-                vals = torch.where(frontier, program.update(state, aux), sent)
-                new = program.apply(state, self._propagate(vals, program),
-                                    aux)
+            return (state, frontier,
+                    torch.full((B,), limit, dtype=torch.int64), limit)
+        sent = torch.full((), program.combiner.identity, dtype=state.dtype,
+                          device=self.device)
+
+        def masked(state, frontier):
+            return torch.where(frontier, program.update(state, aux), sent)
+
+        def per_query(delta):
+            return delta.reshape(-1, B).any(dim=0)
+
+        q_it = torch.zeros(B, dtype=torch.int64, device=self.device)
+        it = 0
+        if sync == "overlap":
+            pending = self._push(program, masked(state, frontier), frontier,
+                                 gate)
+            frontier = torch.zeros_like(frontier)
+            q_quiet = torch.zeros(B, dtype=torch.int64, device=self.device)
+            while it < limit and bool((q_quiet < 2).any()):
+                live = q_quiet < 2
+                incoming = self._combine(pending, program)
+                pending = self._push(program, masked(state, frontier),
+                                     frontier, gate)
+                new = program.apply(state, incoming, aux)
                 frontier = new != state
-                q_it += active
-                active = frontier.reshape(-1, B).any(dim=0)
+                q_quiet = torch.where(per_query(frontier), 0, q_quiet + 1)
+                q_it += live
                 state = new
-                iters += 1
-        self.dispatch["supersteps"] = iters
-        if self._wire is not None:
-            self._record_wire(iters)
-        return state, q_it
+                it += 1
+            drained = program.apply(state, self._combine(pending, program),
+                                    aux)
+            return drained, frontier | (drained != state), q_it, it
+        active = per_query(frontier)
+        while it < limit and bool(active.any()):
+            new = program.apply(
+                state, self._propagate(masked(state, frontier), program,
+                                       frontier, gate), aux)
+            frontier = new != state
+            q_it += active
+            active = per_query(frontier)
+            state = new
+            it += 1
+        return state, frontier, q_it, it
+
+    def _run_batch_replanned(self, program, padded_sets, state, qp, policy,
+                             sync, gate):
+        """Batched twin of ``_run_replanned``: the trigger sees the frontier
+        collapsed over queries (a vertex is live if any query still touches
+        it), the state move carries the whole ``[C, K, B]`` plane, the
+        global superstep count grows by the longest query's count of each
+        segment, and the read-only query plane is rebuilt for the new
+        placement.  -> (plane on the final placement, q_it [B])."""
+        policy = self._resolve_replan_policy(policy)
+        fixed = program.fixed_iters is not None
+        limit = self._limit(program)
+        self._run_start(gate)
+        frontier = torch.ones_like(state, dtype=torch.bool)
+        q_iters = torch.zeros(state.shape[-1], dtype=torch.int64)
+        done = replans = 0
+        while done < limit:
+            state, frontier, q_it, _ = self._batch_segment(
+                program, state, frontier, qp,
+                min(policy.every, limit - done), sync, gate)
+            q_it = q_it.cpu()
+            q_iters += q_it
+            # the longest-still-active query is active for every executed
+            # superstep, so its count is the segment's global step count
+            done += int(q_it.max())
+            if not fixed and not bool(frontier.any()):
+                break  # all queries quiesced
+            if done >= limit or replans >= policy.max_replans:
+                continue
+            if not self._should_replan(policy, frontier):
+                continue
+            new_pg = self._replan_to(policy)
+            if new_pg is None:
+                continue
+            init = program.init_batch(new_pg, padded_sets, self.device)
+            state, frontier = self._move_state(init, state, frontier, new_pg)
+            self._rebind(new_pg)
+            if program.query_plane is not None:
+                # a pure function of the placement: rebuilt, not relabeled
+                qp = program.query_plane(new_pg, padded_sets, self.device)
+            replans += 1
+        self._run_end(done, sync, gate)
+        return state, q_iters
 
     def _unpermute(self, state):
         """Padded-id state -> original vertex order, on the device (callers

@@ -447,6 +447,41 @@ class PartitionedGraph:
             }
         return self._dev[key]
 
+    def device_gate_blocks(self, layout: str, device="cuda") -> torch.Tensor:
+        """``[C, nsb]`` bool on ``device``, ``nsb = ceil(K / BLOCK_V)``: the
+        source blocks each chare's edges of ``layout`` (``"basic"``,
+        ``"sd"``, ``"grid"`` or ``"pairwise"``) can gather from at all
+        (``blocks.band_source_mask`` of its band table; all ones for the
+        pairwise layout, which has none).  The frontier gate's geometry,
+        uploaded once per (partition, layout, device) and shared."""
+        key = (f"gate:{layout}", _device_key(device))
+        if key not in self._dev:
+            nsb = max(-(-self.chunk_size // blocks.BLOCK_V), 1)
+            band = {"basic": "band", "sd": "sd_band",
+                    "grid": "gr_band"}.get(layout)
+            mask = (blocks.band_source_mask(getattr(self, band), nsb) != 0
+                    if band is not None
+                    else np.ones((self.num_chunks, nsb), dtype=bool))
+            self._dev[key] = _upload(mask, device)
+        return self._dev[key]
+
+    def repartition(self, partitioner: str, plan=None) -> "PartitionedGraph":
+        """Re-place the same graph under another policy, cheaply.
+
+        Reuses this partition's plan-independent prep (``_prep``: COO
+        endpoints, degree and out-weight sums), so only the plan-dependent
+        work runs again, and the layouts stay demand-built (``eager=False``):
+        a replan whose engine reads one edge order never sorts the other.
+        The result starts with an empty device-upload cache, so nothing of
+        the old placement can be reused by an engine rebound to it.
+        ``plan`` (optional) is an already-built plan for ``partitioner``.
+        """
+        if plan is None:
+            plan = part_mod.make_plan(self.graph, self.num_chunks,
+                                      partitioner)
+        prep = self._prep if self._prep is not None else _edge_prep(self.graph)
+        return _materialize(self.graph, plan, partitioner, prep, eager=False)
+
     def device_relabel(self, device="cuda") -> dict:
         """Device copies of the relabel maps, uploaded once per device:
         ``global_to_local`` ``[V]`` (the un-permute of a result is one

@@ -101,6 +101,48 @@ class PartitionPlan:
                 and np.array_equal(self.order, other.order)
                 and np.array_equal(self.chunk_counts, other.chunk_counts))
 
+    # -- composition algebra (the replan state move) ------------------------
+
+    def compose(self, other: "PartitionPlan") -> "PartitionPlan":
+        """Sequential application: ``self`` then ``other``.
+
+        ``other`` is a plan over THIS plan's placement ranks (its ``order``
+        entries name ranks of ``self``); the composed plan places the
+        corresponding original ids where ``other`` sends their ranks, so a
+        replan applies plan B's ``g2l`` on top of plan A's without
+        translating chare state back to original ids.  Composing with the
+        ``contiguous`` plan of the same shape on either side is a no-op;
+        composition is associative.
+        """
+        if other.num_vertices != self.num_vertices:
+            raise ValueError(
+                f"cannot compose plans over {self.num_vertices} and "
+                f"{other.num_vertices} vertices")
+        return PartitionPlan(other.num_chunks, self.order[other.order],
+                             other.chunk_counts.copy())
+
+    def rebase(self, old: "PartitionPlan") -> "PartitionPlan":
+        """This plan expressed on top of ``old``'s placement: the delta
+        plan over ``old``'s ranks with ``old.compose(delta).same_as(self)``."""
+        if old.num_vertices != self.num_vertices:
+            raise ValueError("rebase requires plans over the same vertex set")
+        inv = np.empty(old.num_vertices, dtype=np.int64)
+        inv[old.order] = np.arange(old.num_vertices, dtype=np.int64)
+        return PartitionPlan(self.num_chunks, inv[self.order],
+                             self.chunk_counts.copy())
+
+    def padded_map_from(self, old: "PartitionPlan") -> np.ndarray:
+        """``[C_old * K_old]`` old padded id -> new padded id (-1 at
+        padding): plan B's ``g2l`` applied on top of plan A's ``l2g``,
+        built in rank space (``rebase`` and the two rank -> padded-slot
+        tables), so original vertex ids never materialize."""
+        delta = self.rebase(old)
+        old_pos = old._rank_positions()
+        new_pos = self._rank_positions()
+        m = np.full(old.num_chunks * old.chunk_size, -1, dtype=np.int64)
+        m[old_pos[delta.order]] = new_pos
+        return m
+
     def edges_per_chunk(self, graph: "Graph") -> np.ndarray:
         """[C] out-edges owned by each chunk under this placement."""
         vc = self.vertex_chunk

@@ -145,7 +145,8 @@ def make_program(name: str, **params) -> VertexProgram:
 
 def run_parallel(graph: Graph, algorithm: str, num_pes: int = 1,
                  strategy: str = "sortdest", segment_fn=None, push_fn="auto",
-                 partitioner: str = "contiguous", device=None, **params):
+                 partitioner: str = "contiguous", replan=None,
+                 sync: str = "barrier", gate=None, device=None, **params):
     """Partition + engine + run, in one call (tests and examples)."""
     from repro_torch.core.engine import Engine
     from repro_torch.core.graph import partition
@@ -153,7 +154,7 @@ def run_parallel(graph: Graph, algorithm: str, num_pes: int = 1,
     eng = Engine(partition(graph, num_pes, partitioner=partitioner),
                  strategy=strategy, push_fn=push_fn, segment_fn=segment_fn,
                  device=device)
-    return eng.run(algorithm, **params)
+    return eng.run(algorithm, replan=replan, sync=sync, gate=gate, **params)
 
 
 def _cache_key(name: str, params: dict) -> tuple:

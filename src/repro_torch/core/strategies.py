@@ -40,6 +40,11 @@ chare row, with the kernels' semantics: float-min values at or above
 ``float(SENTINEL)`` read as unreached.  A ``segment_fn`` hook
 (``ops.make_segment_fn``) takes the segment combine on either device.
 
+Phase 1 takes an optional row gate, ``row_active`` (``[C]`` int32 on the
+engine's device, 0 for a gated chare row; ``None``: every row active), the
+engine's frontier gate: a gated row's partial is the combiner identity
+(``phase1_identity``'s row), and the kernels read nothing of it.
+
 No collective moves bytes on one device, so ``grid2d``'s phase 2 counts
 what its reduces would put on the wire of a mesh with one rectangle per
 device (ring all-reduce: ``2 * bytes * (g-1)/g`` per rectangle for a group
@@ -113,44 +118,60 @@ def _row_offsets(idx, width):
     return (idx.long() + rows[:, None] * width).reshape(-1)
 
 
-def _gather(vals, src_local, edge_valid, combiner):
+def _gate_rows(x, row_active, fill):
+    """``x`` ``[C, ...]`` with the rows that ``row_active`` gates set to
+    ``fill`` (the plain versions' gate)."""
+    if row_active is None:
+        return x
+    live = (row_active != 0).reshape((-1,) + (1,) * (x.dim() - 1))
+    return torch.where(live, x, torch.full((), fill, dtype=x.dtype,
+                                           device=x.device))
+
+
+def _gather(vals, src_local, edge_valid, combiner, row_active=None):
     """Every chare row's ``vals[r, src_local[r]]``: ``[C, E(, B)]``.  On the
-    card the gather kernel of the monoid (invalid edges read the identity;
-    the mask after the edge transform decides either way)."""
+    card the gather kernel of the monoid (invalid edges and gated rows read
+    the identity; the mask after the edge transform decides either way)."""
     if vals.device.type == "cpu":
         C, E = src_local.shape
         tail = tuple(vals.shape[2:])
-        return vals.reshape((-1,) + tail).index_select(
+        got = vals.reshape((-1,) + tail).index_select(
             0, _row_offsets(src_local, vals.shape[1])).reshape((C, E) + tail)
+        return _gate_rows(got, row_active, combiner.identity)
     if combiner.name == "add":
-        return push_staged.gather_sum(src_local, edge_valid, vals)
-    return push_staged.gather_min(src_local, edge_valid, vals)
+        return push_staged.gather_sum(src_local, edge_valid, vals, row_active)
+    return push_staged.gather_min(src_local, edge_valid, vals, row_active)
 
 
-def _segment(combiner, segment_fn, data, seg_ids, num_segments):
+def _segment(combiner, segment_fn, data, seg_ids, num_segments,
+             row_active=None):
     """Every chare row's local combine: ``data`` ``[C, E(, B)]`` by
     ``seg_ids`` ``[C, E]`` -> ``[C, S(, B)]``.  A ``segment_fn`` hook
     receives the rows as they are and the active monoid via the ``combine``
     keyword (dtype inference cannot tell float add, PageRank, from float
-    min, SSSP).  Without one: the combiner's segment op on the CPU, the
-    scatter kernel on the card."""
+    min, SSSP), and a row gate via ``row_active`` when there is one.
+    Without one: the combiner's segment op on the CPU, the scatter kernel
+    on the card.  Gated rows come out as the identity."""
+    gate = {} if row_active is None else {"row_active": row_active}
     if segment_fn is not None:
-        return segment_fn(data, seg_ids, num_segments, combine=combiner.name)
+        return segment_fn(data, seg_ids, num_segments, combine=combiner.name,
+                          **gate)
     if data.device.type != "cpu":
         return ops.segment_reduce(data, seg_ids, num_segments,
-                                  combine=combiner.name)
+                                  combine=combiner.name, **gate)
     C, E = seg_ids.shape
     tail = tuple(data.shape[2:])
     out = combiner.segment(data.reshape((C * E,) + tail),
                            _row_offsets(seg_ids, num_segments),
                            C * num_segments)
-    return out.reshape((C, num_segments) + tail)
+    return _gate_rows(out.reshape((C, num_segments) + tail), row_active,
+                      combiner.identity)
 
 
 def _dense_contrib(vals, src_local, dst_global, edge_valid, edge_weight,
                    combiner, num_chunks, chunk_size, segment_fn=None,
                    edge_value=None, push_fn=None, band=None,
-                   edge_semiring=None, init=None):
+                   edge_semiring=None, init=None, row_active=None):
     """Every chare's local per-destination combine into a dense [C*K]
     buffer: ``vals`` ``[C, K(, B)]``, edges ``[C, Emax]`` -> ``[C, C*K(, B)]``,
     row c being what the reference computes on shard c.
@@ -164,20 +185,23 @@ def _dense_contrib(vals, src_local, dst_global, edge_valid, edge_weight,
     layout weights, ``"unit"`` the same with w=1.  A program whose
     ``edge_value`` is not declared kernel-expressible runs the staged path
     below instead: gather, ``edge_value``, mask, segment combine (through
-    ``segment_fn`` when given).
+    ``segment_fn`` when given).  ``row_active`` gates chare rows, in the
+    hook (which receives it by keyword when it is given) or in the staged
+    kernels.
     """
     S = num_chunks * chunk_size
     if push_fn is not None and (edge_value is None or edge_semiring):
         unit = edge_semiring == "unit" and edge_value is not None
         weight = edge_weight if edge_semiring == "weight" \
             and edge_value is not None else None
+        gate = {} if row_active is None else {"row_active": row_active}
         return push_fn(vals, src_local, dst_global, edge_valid, weight, S,
                        combine=combiner.name, band=band, unit=unit,
-                       init=init)
-    gathered = _gather(vals, src_local, edge_valid, combiner)
+                       init=init, **gate)
+    gathered = _gather(vals, src_local, edge_valid, combiner, row_active)
     contrib = _edge_transform(gathered, edge_weight, edge_value)
     contrib = combiner.mask(contrib, edge_valid)
-    out = _segment(combiner, segment_fn, contrib, dst_global, S)
+    out = _segment(combiner, segment_fn, contrib, dst_global, S, row_active)
     return out if init is None else combiner.merge(init, out)
 
 
@@ -185,7 +209,7 @@ def _dense_contrib(vals, src_local, dst_global, edge_valid, edge_weight,
 # Strategies, split into the reference's two phases:
 #
 #   phase1(vals, arrs, combiner, C, K, segment_fn=, edge_value=, push_fn=,
-#          edge_semiring=)                      -> partial
+#          edge_semiring=, row_active=)         -> partial
 #   phase2(partial, arrs, combiner, C, K, segment_fn=)
 #                                               -> incoming [C, K(, B)]
 #
@@ -197,11 +221,12 @@ def _dense_contrib(vals, src_local, dst_global, edge_valid, edge_weight,
 
 def reduction_phase1(vals, arrs, combiner, num_chunks, chunk_size,
                      segment_fn=None, edge_value=None, push_fn=None,
-                     edge_semiring=None):
+                     edge_semiring=None, row_active=None):
     return _dense_contrib(vals, arrs["src_local"], arrs["dst_global"],
                           arrs["edge_valid"], arrs["edge_weight"], combiner,
                           num_chunks, chunk_size, segment_fn, edge_value,
-                          push_fn, arrs["band"], edge_semiring)
+                          push_fn, arrs["band"], edge_semiring,
+                          row_active=row_active)
 
 
 def reduction_phase2(dense, arrs, combiner, num_chunks, chunk_size,
@@ -215,11 +240,12 @@ def reduction_phase2(dense, arrs, combiner, num_chunks, chunk_size,
 
 def sortdest_phase1(vals, arrs, combiner, num_chunks, chunk_size,
                     segment_fn=None, edge_value=None, push_fn=None,
-                    edge_semiring=None):
+                    edge_semiring=None, row_active=None):
     return _dense_contrib(vals, arrs["sd_src_local"], arrs["sd_dst_global"],
                           arrs["sd_edge_valid"], arrs["sd_edge_weight"],
                           combiner, num_chunks, chunk_size, segment_fn,
-                          edge_value, push_fn, arrs["sd_band"], edge_semiring)
+                          edge_value, push_fn, arrs["sd_band"], edge_semiring,
+                          row_active=row_active)
 
 
 def sortdest_phase2(dense, arrs, combiner, num_chunks, chunk_size,
@@ -236,17 +262,20 @@ def sortdest_phase2(dense, arrs, combiner, num_chunks, chunk_size,
 
 def basic_phase1(vals, pw_arrays, combiner, num_chunks, chunk_size,
                  segment_fn=None, edge_value=None, push_fn=None,
-                 edge_semiring=None):
+                 edge_semiring=None, row_active=None):
     """Every chare's (dst, value) pair payloads, ``[C, C, Pmax(, B)]``: row
     ``[c, k]`` is what chare c sends chare k.  ``push_fn`` does not apply:
     nothing is combined before sending, so the kernel route for this
-    variant is the receive side's segment combine."""
+    variant is the receive side's segment combine.  A gated sender's
+    payloads are all the identity."""
     C = num_chunks
     src = pw_arrays["pb_src_local"].reshape(C, -1)
     valid = pw_arrays["pb_valid"].reshape(C, -1)
-    payload = _edge_transform(_gather(vals, src, valid, combiner),
+    payload = _edge_transform(_gather(vals, src, valid, combiner, row_active),
                               pw_arrays["pb_weight"].reshape(C, -1),
                               edge_value)
+    if row_active is not None:
+        valid = (valid != 0) & (row_active != 0)[:, None]
     payload = combiner.mask(payload, valid)
     return payload.reshape(pw_arrays["pb_src_local"].shape
                            + tuple(payload.shape[2:]))
@@ -310,7 +339,7 @@ def _price(wire, payload_bytes, group):
 
 def grid2d_phase1(vals, arrs, combiner, num_chunks, chunk_size,
                   segment_fn=None, edge_value=None, push_fn=None,
-                  edge_semiring=None, grid_meta=None):
+                  edge_semiring=None, grid_meta=None, row_active=None):
     """Every rectangle's local push: gather from its (replicated) row-chunk
     state ``[R*C, Kr(, B)]``, segment-combine into the column-padded space
     -> ``[R*C, C*Kc(, B)]``, the fused kernel fed by ``gr_band``."""
@@ -318,7 +347,8 @@ def grid2d_phase1(vals, arrs, combiner, num_chunks, chunk_size,
     return _dense_contrib(vals, arrs["gr_src_local"], arrs["gr_dst_col"],
                           arrs["gr_edge_valid"], arrs["gr_edge_weight"],
                           combiner, C, Kc, segment_fn, edge_value, push_fn,
-                          arrs["gr_band"], edge_semiring)
+                          arrs["gr_band"], edge_semiring,
+                          row_active=row_active)
 
 
 def grid2d_phase2(dense, arrs, combiner, num_chunks, chunk_size,
@@ -379,6 +409,24 @@ PHASES = {
     "pairs": (sortdest_phase1, pairs_phase2),
     "grid2d": (grid2d_phase1, grid2d_phase2),
 }
+
+
+def phase1_identity(strategy, vals, arrs, combiner, num_chunks, chunk_size,
+                    grid_meta=None):
+    """An all-identity phase-1 partial of the strategy's shape and dtype --
+    what a push whose every row is gated gives, and the reference's
+    ``lax.cond`` branch for a skipped shard, with the chare axis leading:
+    ``[C, C*K(, B)]``, ``basic``'s ``[C, C, Pmax(, B)]``, ``grid2d``'s
+    ``[R*C, C*Kc(, B)]``.  Phase 2 over it contributes nothing."""
+    tail = tuple(vals.shape[2:])  # the batched plane's trailing [B]
+    if strategy == "basic":
+        shape = tuple(arrs["pb_src_local"].shape) + tail
+    elif strategy == "grid2d":
+        shape = (num_chunks, grid_meta[1] * grid_meta[2]) + tail
+    else:
+        shape = (num_chunks, num_chunks * chunk_size) + tail
+    return torch.full(shape, combiner.identity, dtype=vals.dtype,
+                      device=vals.device)
 
 
 def _compose(phase1, phase2):

@@ -66,6 +66,12 @@
 // In all of them, the band table lets a CTA skip empty (all-padding) edge
 // blocks, band hi == -1; the valid mask alone decides which edges count.
 //
+// The row gate (row_active, [rows] int32, or null for every row active):
+// a CTA or block of work whose row is gated returns before it loads
+// anything -- no edges, no vals, no scratch -- so a gated row of out keeps
+// what it held (the identity or the init seed).  It is the frontier gate's
+// per-row twin of the TPU engine's per-shard skip of the whole push.
+//
 // Exactness: int32 min and add are exact in any order.  Float min is exact
 // in any order too: the tiles min order keys, out takes the sign-split
 // atomics of atomics.cuh (int atomicMin on the bit pattern for values with
@@ -156,11 +162,12 @@ __global__ void __launch_bounds__(kBlockE) fused_push_kernel(
     const typename Op::T* __restrict__ weight,
     const typename Op::T* __restrict__ vals, typename Op::T* __restrict__ out,
     long long rows, long long E, long long NB, long long V, long long S,
-    int B, int cap) {
+    int B, int cap, const int* __restrict__ row_active) {
   using T = typename Op::T;
   const long long nblocks = rows * NB;
   for (long long blk = blockIdx.x; blk < nblocks; blk += gridDim.x) {
     const long long row = blk / NB;
+    if (row_active != nullptr && row_active[row] == 0) continue;  // gated
     const long long eb = blk - row * NB;
     if (band[(row * 4 + 1) * NB + eb] < 0) continue;  // empty edge block
     const long long ebase = row * E + eb * kBlockE;
@@ -259,6 +266,7 @@ struct Tiled {
   const int* merge_tiles;
   const int* work;
   void* scratch;
+  const int* row_active;  // [rows] int32, 0: a gated row; null: none gated
   long long rows, E, NB, NC, V, S, NT, NM, NW;
   int B;
   int cap;  // the tiled min's skip bound (fused_push_min_tiled_launch)
@@ -299,10 +307,11 @@ __global__ void __launch_bounds__(kBlockE) tiled_add_kernel(const Tiled a) {
   __shared__ int tags[kWarps * kTags];
   const int* item = a.work + 3LL * blockIdx.x;
   const long long chunk = item[0];  // row * NC + chunk within the row
+  const long long row = chunk / NC;
+  if (a.row_active != nullptr && a.row_active[row] == 0) return;  // gated
   const int blo = a.chunk_blocks[2 * chunk];
   const int bhi = a.chunk_blocks[2 * chunk + 1];
   if (bhi < blo) return;
-  const long long row = chunk / NC;
   const long long i0 = (chunk - row * NC) * kChunkBlocks;
   const long long i1 = i0 + kChunkBlocks < NB ? i0 + kChunkBlocks : NB;
   const int* seg_lo = a.band + (row * 4 + 2) * NB;
@@ -434,10 +443,12 @@ __global__ void __launch_bounds__(kBlockS) merge_kernel(const Tiled a) {
   const long long NC = a.NC, NT = a.NT, S = a.S;
   const int B = a.B;
   const long long tb = a.merge_tiles[blockIdx.x];  // row * NT + t
+  const long long row = tb / NT;
+  // a gated row's tile pass wrote no scratch: read none of it
+  if (a.row_active != nullptr && a.row_active[row] == 0) return;
   const int c0 = a.tile_chunks[2 * tb];
   const int c1 = a.tile_chunks[2 * tb + 1];
   if (c1 < c0) return;
-  const long long row = tb / NT;
   const int t = static_cast<int>(tb - row * NT);
   const long long s0 = static_cast<long long>(t) * kBlockS;
   const long long n = (S - s0 < kBlockS ? S - s0 : kBlockS) * B;
@@ -502,6 +513,7 @@ __global__ void __launch_bounds__(kBlockE) tiled_min_kernel(const Tiled a) {
   const int* item = a.work + 3LL * blockIdx.x;
   const long long chunk = item[0];  // row * NC + chunk within the row
   const long long row = chunk / NC;
+  if (a.row_active != nullptr && a.row_active[row] == 0) return;  // gated
   const long long i0 = (chunk - row * NC) * kChunkBlocks;
   const long long i1 = i0 + kChunkBlocks < NB ? i0 + kChunkBlocks : NB;
   const int* seg_lo = a.band + (row * 4 + 2) * NB;
@@ -659,7 +671,7 @@ cudaError_t launch(int weight_mode, const int* band, const int* src,
                    const int* dst, const int* valid, const void* weight,
                    const void* vals, void* out, long long rows, long long E,
                    long long NB, long long V, long long S, int B, int cap,
-                   cudaStream_t stream) {
+                   const int* row_active, cudaStream_t stream) {
   using T = typename Op::T;
   int device = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&device);
@@ -676,15 +688,15 @@ cudaError_t launch(int weight_mode, const int* band, const int* src,
   switch (weight_mode) {
     case kNone:
       fused_push_kernel<Op, kNone><<<grid, kBlockE, 0, stream>>>(
-          band, src, dst, valid, w, v, o, rows, E, NB, V, S, B, cap);
+          band, src, dst, valid, w, v, o, rows, E, NB, V, S, B, cap, row_active);
       break;
     case kArray:
       fused_push_kernel<Op, kArray><<<grid, kBlockE, 0, stream>>>(
-          band, src, dst, valid, w, v, o, rows, E, NB, V, S, B, cap);
+          band, src, dst, valid, w, v, o, rows, E, NB, V, S, B, cap, row_active);
       break;
     case kUnit:
       fused_push_kernel<Op, kUnit><<<grid, kBlockE, 0, stream>>>(
-          band, src, dst, valid, w, v, o, rows, E, NB, V, S, B, cap);
+          band, src, dst, valid, w, v, o, rows, E, NB, V, S, B, cap, row_active);
       break;
     default:
       return cudaErrorInvalidValue;
@@ -727,16 +739,18 @@ cudaError_t launch_tiled_min(int weight_mode, const Tiled& a,
 // [rows, 4, E / 256], vals [rows, V, B], out [rows, S, B] (already holding
 // the identity or the init seed).  cap (min only): the order key
 // (order_key in atomics.cuh) at and above which a contribution is skipped; out must
-// hold no value whose key is above it.  Returns cudaGetLastError() after
-// the launch (0 on success); launches nothing when there are no edge
-// blocks.
+// hold no value whose key is above it.  row_active: [rows] int32 (0: the
+// row is gated and keeps its out row), or null.  Returns
+// cudaGetLastError() after the launch (0 on success); launches nothing
+// when there are no edge blocks.
 extern "C" int fused_push_launch(int combine, int is_float, int weight_mode,
                                  const int* band, const int* src,
                                  const int* dst, const int* valid,
                                  const void* weight, const void* vals,
                                  void* out, long long rows, long long E,
                                  long long NB, long long V, long long S,
-                                 int B, int cap, void* stream) {
+                                 int B, int cap, const int* row_active,
+                                 void* stream) {
   if (rows * NB == 0) return static_cast<int>(cudaSuccess);
   if (B < 1 || E != NB * kBlockE) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -744,17 +758,17 @@ extern "C" int fused_push_launch(int combine, int is_float, int weight_mode,
   if (combine == 0) {
     err = is_float ? launch<AddFloat>(weight_mode, band, src, dst, valid,
                                       weight, vals, out, rows, E, NB, V, S, B,
-                                      cap, s)
+                                      cap, row_active, s)
                    : launch<AddInt>(weight_mode, band, src, dst, valid,
                                     weight, vals, out, rows, E, NB, V, S, B,
-                                    cap, s);
+                                    cap, row_active, s);
   } else {
     err = is_float ? launch<MinFloat>(weight_mode, band, src, dst, valid,
                                       weight, vals, out, rows, E, NB, V, S, B,
-                                      cap, s)
+                                      cap, row_active, s)
                    : launch<MinInt>(weight_mode, band, src, dst, valid,
                                     weight, vals, out, rows, E, NB, V, S, B,
-                                    cap, s);
+                                    cap, row_active, s);
   }
   return static_cast<int>(err);
 }
@@ -772,16 +786,18 @@ extern "C" int fused_push_launch(int combine, int is_float, int weight_mode,
 // range; a live chunk's pieces partition its range); and scratch
 // [rows, NC, 2, 256, B] of the output type.  Segment blocks must lie in
 // [0, ceil(S / 256)), and src, dst, valid and weight must be 16-byte
-// aligned (they are read four edges at a time).  Launches the tile pass
-// unless NW == 0, then the merge pass unless NM == 0; returns
-// cudaGetLastError() after them (0 on success).
+// aligned (they are read four edges at a time).  row_active as for
+// fused_push_launch.  Launches the tile pass unless NW == 0, then the merge
+// pass unless NM == 0; returns cudaGetLastError() after them (0 on
+// success).
 extern "C" int fused_push_add_tiled_launch(
     int is_float, int weight_mode, const int* band, const int* src,
     const int* dst, const int* valid, const void* weight, const void* vals,
     void* out, const int* chunk_blocks, const int* tile_chunks,
     const int* merge_tiles, const int* work, void* scratch, long long rows,
     long long E, long long NB, long long NC, long long V, long long S,
-    long long NT, long long NM, long long NW, int B, void* stream) {
+    long long NT, long long NM, long long NW, int B, const int* row_active,
+    void* stream) {
   if (rows * NB == 0 || NW == 0) return static_cast<int>(cudaSuccess);
   if (B < 1 || E != NB * kBlockE ||
       NC != (NB + kChunkBlocks - 1) / kChunkBlocks)
@@ -790,8 +806,8 @@ extern "C" int fused_push_add_tiled_launch(
   if ((bits(src) | bits(dst) | bits(valid) | bits(weight)) & 15)
     return static_cast<int>(cudaErrorMisalignedAddress);
   const Tiled a{band, src, dst, valid, weight, vals, out, chunk_blocks,
-                tile_chunks, merge_tiles, work, scratch, rows, E, NB, NC, V, S,
-                NT, NM, NW, B, 0};
+                tile_chunks, merge_tiles, work, scratch, row_active, rows, E,
+                NB, NC, V, S, NT, NM, NW, B, 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err = is_float ? launch_tiled_add<AddFloat>(weight_mode, a, s)
                                    : launch_tiled_add<AddInt>(weight_mode, a, s);
@@ -805,15 +821,15 @@ extern "C" int fused_push_add_tiled_launch(
 // schedule, on the rows the min tiles (chunk r * NC + c with NC =
 // ceil(NB / kChunkBlocks), and the first and last segment block of a
 // piece of its range).  Segment blocks must lie in [0, ceil(S / 256)),
-// and src, dst, valid and weight must be 16-byte aligned.  Returns
-// cudaGetLastError() after the launch (0 on success); launches nothing
-// when NW == 0.
+// and src, dst, valid and weight must be 16-byte aligned.  row_active as
+// for fused_push_launch.  Returns cudaGetLastError() after the launch (0
+// on success); launches nothing when NW == 0.
 extern "C" int fused_push_min_tiled_launch(
     int is_float, int weight_mode, const int* band, const int* src,
     const int* dst, const int* valid, const void* weight, const void* vals,
     void* out, const int* work, long long rows, long long E, long long NB,
     long long NC, long long V, long long S, long long NW, int B, int cap,
-    void* stream) {
+    const int* row_active, void* stream) {
   if (rows * NB == 0 || NW == 0) return static_cast<int>(cudaSuccess);
   if (B < 1 || E != NB * kBlockE ||
       NC != (NB + kChunkBlocks - 1) / kChunkBlocks)
@@ -822,8 +838,8 @@ extern "C" int fused_push_min_tiled_launch(
   if ((bits(src) | bits(dst) | bits(valid) | bits(weight)) & 15)
     return static_cast<int>(cudaErrorMisalignedAddress);
   const Tiled a{band, src, dst, valid, weight, vals, out, nullptr,
-                nullptr, nullptr, work, nullptr, rows, E, NB, NC, V, S,
-                0, 0, NW, B, cap};
+                nullptr, nullptr, work, nullptr, row_active, rows, E, NB, NC,
+                V, S, 0, 0, NW, B, cap};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       is_float ? launch_tiled_min<MinFloat>(weight_mode, a, s)

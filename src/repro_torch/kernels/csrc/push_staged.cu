@@ -28,6 +28,12 @@
 // 50 MB L2, so the gathers and the combines mostly hit L2 and the edge
 // streams from HBM dominate.
 //
+// The row gate (row_active, [rows] int32, or null for every row active):
+// the gather writes the identity over a gated row and reads nothing of it
+// (no src, valid or vals); the scatter skips the row, whose out row keeps
+// the identity.  It is the frontier gate's per-row twin of the TPU
+// engine's per-shard skip of the whole push.
+//
 // What the design does about it: the TPU kernels are one-hot matmuls and
 // mask-and-reduce tiles over dense (edge block x vertex block) grids only
 // because the TPU has no fast gather or scatter; Hopper has both.  The
@@ -117,13 +123,17 @@ template <typename In, typename Out, bool kMin>
 __global__ void __launch_bounds__(kThreads) gather_kernel(
     const int* __restrict__ src, const int* __restrict__ valid,
     const In* __restrict__ vals, Out* __restrict__ c, long long rows,
-    long long E, long long V, int B) {
+    long long E, long long V, int B, const int* __restrict__ row_active) {
   const long long n = rows * E * B;
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
                      threadIdx.x;
        i < n; i += stride) {
     const long long re = i / B;  // row * E + edge
+    if (row_active != nullptr && row_active[re / E] == 0) {
+      c[i] = identity<Out, kMin>();  // a gated row reads nothing
+      continue;
+    }
     const int b = static_cast<int>(i - re * B);
     const int s = src[re];
     Out v = identity<Out, kMin>();
@@ -178,7 +188,8 @@ __device__ __forceinline__ void scatter_one(T v, int d, int b, int B,
 template <typename T, bool kMin, bool kOneCol>
 __global__ void __launch_bounds__(kThreads) scatter_kernel(
     const int* __restrict__ dst, const T* __restrict__ c, T* __restrict__ out,
-    long long rows, long long E, long long S, int B) {
+    long long rows, long long E, long long S, int B,
+    const int* __restrict__ row_active) {
   using Slot = std::conditional_t<kMin, int, T>;
   __shared__ Slot tile[kTileWords];
   __shared__ int range[2][kThreads / 32];
@@ -187,6 +198,8 @@ __global__ void __launch_bounds__(kThreads) scatter_kernel(
   const int cap = order_key(identity<T, true>());  // min: skip at and above
   const long long base = static_cast<long long>(blockIdx.x) * kScatterChunk;
   for (long long row = blockIdx.y; row < rows; row += gridDim.y) {
+    // the whole CTA takes the same row: skipping it keeps the barriers
+    if (row_active != nullptr && row_active[row] == 0) continue;  // gated
     const int* drow = dst + row * E;
     const T* crow = c + row * E * B;
     T* orow = out + row * S * B;
@@ -275,28 +288,31 @@ cudaError_t grid_for(long long n, unsigned* grid) {
 template <typename In, typename Out, bool kMin>
 cudaError_t gather(const int* src, const int* valid, const void* vals,
                    void* c, long long rows, long long E, long long V, int B,
-                   cudaStream_t stream) {
+                   const int* row_active, cudaStream_t stream) {
   unsigned grid = 0;
   cudaError_t err = grid_for(rows * E * B, &grid);
   if (err != cudaSuccess) return err;
   gather_kernel<In, Out, kMin><<<grid, kThreads, 0, stream>>>(
       src, valid, static_cast<const In*>(vals), static_cast<Out*>(c), rows, E,
-      V, B);
+      V, B, row_active);
   return cudaGetLastError();
 }
 
 template <typename T, bool kMin>
 cudaError_t scatter(const int* dst, const void* c, void* out, long long rows,
-                    long long E, long long S, int B, cudaStream_t stream) {
+                    long long E, long long S, int B, const int* row_active,
+                    cudaStream_t stream) {
   const long long chunks = (E + kScatterChunk - 1) / kScatterChunk;
   const dim3 grid(static_cast<unsigned>(chunks),
                   static_cast<unsigned>(rows < 65535 ? rows : 65535));
   if (B == 1) {
     scatter_kernel<T, kMin, true><<<grid, kThreads, 0, stream>>>(
-        dst, static_cast<const T*>(c), static_cast<T*>(out), rows, E, S, B);
+        dst, static_cast<const T*>(c), static_cast<T*>(out), rows, E, S, B,
+        row_active);
   } else {
     scatter_kernel<T, kMin, false><<<grid, kThreads, 0, stream>>>(
-        dst, static_cast<const T*>(c), static_cast<T*>(out), rows, E, S, B);
+        dst, static_cast<const T*>(c), static_cast<T*>(out), rows, E, S, B,
+        row_active);
   }
   return cudaGetLastError();
 }
@@ -306,47 +322,51 @@ cudaError_t scatter(const int* dst, const void* c, void* out, long long rows,
 // combine: 0 = add (gather_sum), 1 = min (gather_min).  in_type: 0 =
 // float32, 1 = int32, 2 = bfloat16 (add only; c is then float32).  src and
 // valid are [rows, E] int32, vals [rows, V, B], c [rows, E, B] of the output
-// type (float32 for float inputs, int32 for int32).  Returns
+// type (float32 for float inputs, int32 for int32).  row_active: [rows]
+// int32 (0: the row is gated and gathers the identity), or null.  Returns
 // cudaGetLastError() after the launch (0 on success); launches nothing when
 // there are no items.
 extern "C" int staged_gather_launch(int combine, int in_type, const int* src,
                                     const int* valid, const void* vals,
                                     void* c, long long rows, long long E,
-                                    long long V, int B, void* stream) {
+                                    long long V, int B,
+                                    const int* row_active, void* stream) {
   if (B < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (rows * E == 0) return static_cast<int>(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   if (combine == 0) {
-    if (in_type == 0) err = gather<float, float, false>(src, valid, vals, c, rows, E, V, B, s);
-    if (in_type == 1) err = gather<int, int, false>(src, valid, vals, c, rows, E, V, B, s);
-    if (in_type == 2) err = gather<__nv_bfloat16, float, false>(src, valid, vals, c, rows, E, V, B, s);
+    if (in_type == 0) err = gather<float, float, false>(src, valid, vals, c, rows, E, V, B, row_active, s);
+    if (in_type == 1) err = gather<int, int, false>(src, valid, vals, c, rows, E, V, B, row_active, s);
+    if (in_type == 2) err = gather<__nv_bfloat16, float, false>(src, valid, vals, c, rows, E, V, B, row_active, s);
   } else if (combine == 1) {
-    if (in_type == 0) err = gather<float, float, true>(src, valid, vals, c, rows, E, V, B, s);
-    if (in_type == 1) err = gather<int, int, true>(src, valid, vals, c, rows, E, V, B, s);
+    if (in_type == 0) err = gather<float, float, true>(src, valid, vals, c, rows, E, V, B, row_active, s);
+    if (in_type == 1) err = gather<int, int, true>(src, valid, vals, c, rows, E, V, B, row_active, s);
   }
   return static_cast<int>(err);
 }
 
 // combine: 0 = add (scatter_sum), 1 = min (scatter_min).  is_float: 0 =
 // int32, 1 = float32 (c and out share it).  dst is [rows, E] int32, c
-// [rows, E, B], out [rows, S, B], already holding the identity.  Returns
-// cudaGetLastError() after the launch (0 on success); launches nothing when
-// there are no items.
+// [rows, E, B], out [rows, S, B], already holding the identity.
+// row_active: [rows] int32 (0: the row is gated and skipped), or null.
+// Returns cudaGetLastError() after the launch (0 on success); launches
+// nothing when there are no items.
 extern "C" int staged_scatter_launch(int combine, int is_float,
                                      const int* dst, const void* c, void* out,
                                      long long rows, long long E, long long S,
-                                     int B, void* stream) {
+                                     int B, const int* row_active,
+                                     void* stream) {
   if (B < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (rows * E == 0) return static_cast<int>(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   if (combine == 0) {
-    err = is_float ? scatter<float, false>(dst, c, out, rows, E, S, B, s)
-                   : scatter<int, false>(dst, c, out, rows, E, S, B, s);
+    err = is_float ? scatter<float, false>(dst, c, out, rows, E, S, B, row_active, s)
+                   : scatter<int, false>(dst, c, out, rows, E, S, B, row_active, s);
   } else if (combine == 1) {
-    err = is_float ? scatter<float, true>(dst, c, out, rows, E, S, B, s)
-                   : scatter<int, true>(dst, c, out, rows, E, S, B, s);
+    err = is_float ? scatter<float, true>(dst, c, out, rows, E, S, B, row_active, s)
+                   : scatter<int, true>(dst, c, out, rows, E, S, B, row_active, s);
   }
   return static_cast<int>(err);
 }

@@ -14,7 +14,10 @@ Each kernel is the CUDA kernel for tensors on the card and its plain torch
 version for tensors on the CPU.  Edge operands may be one layout row
 (``[E]``) or every chare row at once (``[C, E]`` with ``vals``
 ``[C, V(, B)]``).  ``segment_reduce``/``make_segment_fn`` expose the
-scatter half alone (the engine's ``segment_fn`` hook).
+scatter half alone (the engine's ``segment_fn`` hook).  Rowed calls take
+an optional row gate, ``row_active`` (``[C]`` int32, 0 for a gated row):
+a gated row's output is its ``init`` row or the identity, and its kernels
+read nothing of it (the engine's frontier gate).
 """
 
 from __future__ import annotations
@@ -92,7 +95,8 @@ def _bands_on_device(src, dst, valid, num_blocks):
 
 
 def push(vals, src, dst, valid, num_segments, combine="add", weight=None,
-         band=None, fused=True, unit_weight=False, init=None):
+         band=None, fused=True, unit_weight=False, init=None,
+         row_active=None):
     """out[s] = combine_{e: dst[e]==s, valid[e]==1} edge_value(vals[src[e]]).
 
     The paper's per-chare hot loop; arbitrary (unpadded) shapes accepted.
@@ -107,11 +111,13 @@ def push(vals, src, dst, valid, num_segments, combine="add", weight=None,
     transform with a constant 1.
     ``init`` (optional, ``[num_segments(, B)]``) seeds the accumulator with a
     prior partial instead of the combiner identity.  ``fused=False`` runs
-    the staged pair (``band`` unused).
+    the staged pair (``band`` unused).  ``row_active`` (rowed calls only)
+    gates chare rows.
     """
+    fused_mod.check_row_active(row_active, src, vals.device)
     if not fused:
         return _push_staged(vals, src, dst, valid, num_segments, combine,
-                            weight, unit_weight, init)
+                            weight, unit_weight, init, row_active)
     rowed = src.dim() == 2
     vdim = 1 if rowed else 0
     identity = 0 if combine == "add" else SENTINEL
@@ -138,7 +144,8 @@ def push(vals, src, dst, valid, num_segments, combine="add", weight=None,
         if combine == "min" and od.is_floating_point:
             init_p = torch.clamp(init_p, max=fused_mod.SENTINEL_F32)
     out = kernel(band, src_p, dst_p, valid_p, w_p, vals_p, nseg_p,
-                 combine=combine, unit_weight=unit_weight, init=init_p)
+                 combine=combine, unit_weight=unit_weight, init=init_p,
+                 row_active=row_active)
     out = out.narrow(vdim, 0, num_segments)
     if combine == "add":
         return out.to(vals.dtype)
@@ -146,23 +153,24 @@ def push(vals, src, dst, valid, num_segments, combine="add", weight=None,
 
 
 def _push_staged(vals, src, dst, valid, num_segments, combine, weight,
-                 unit_weight, init):
+                 unit_weight, init, row_active):
     """The staged pair: gather kernel, weight transform (a torch elementwise
     op, as it is an XLA op between the Pallas kernels in the reference),
     scatter kernel.  The kernels have no seed operand: ``init`` is folded
-    in afterwards with the combiner."""
+    in afterwards with the combiner (a gated row's scatter output is the
+    identity, so it folds to its ``init`` row)."""
     if combine == "add":
-        c = staged.gather_sum(src, valid, vals)
+        c = staged.gather_sum(src, valid, vals, row_active)
         if weight is not None:
             c = c * _per_edge(weight.to(c.dtype), c)
-        out = staged.scatter_sum(dst, c, num_segments)
+        out = staged.scatter_sum(dst, c, num_segments, row_active)
     else:
         if unit_weight and weight is None:
             weight = torch.ones_like(valid)  # the staged pair streams ones
-        c = staged.gather_min(src, valid, vals)
+        c = staged.gather_min(src, valid, vals, row_active)
         if weight is not None:
             c = _sat_add(c, weight)
-        out = staged.scatter_min(dst, c, num_segments)
+        out = staged.scatter_min(dst, c, num_segments, row_active)
     if init is not None:
         ip = init.to(out.dtype)
         if combine == "add":
@@ -176,7 +184,8 @@ def _push_staged(vals, src, dst, valid, num_segments, combine, weight,
     return _min_restore_identity(out)
 
 
-def segment_reduce(data, seg_ids, num_segments, combine="add"):
+def segment_reduce(data, seg_ids, num_segments, combine="add",
+                   row_active=None):
     """Scatter half only (data already gathered): the engine's segment hook.
 
     ``data`` ``[E(, B)]`` with ``seg_ids`` ``[E]``, or every chare row at
@@ -185,15 +194,18 @@ def segment_reduce(data, seg_ids, num_segments, combine="add"):
     sums above 2^24), float add in at least float32; the result has
     ``data``'s dtype.  Float min reads values at or above the int32
     sentinel as unreached and returns them, and empty segments, as +inf.
+    ``row_active`` (rowed calls) skips gated rows, whose output rows hold
+    the identity.
     """
     if combine == "add":
         acc = staged.gather_sum_dtype(data.dtype)
-        out = staged.scatter_sum(seg_ids, data.to(acc), num_segments)
+        out = staged.scatter_sum(seg_ids, data.to(acc), num_segments,
+                                 row_active)
         return out.to(data.dtype)
     if combine != "min":
         raise ValueError(f"unknown combine {combine!r}")
     return _min_restore_identity(staged.scatter_min(seg_ids, data,
-                                                    num_segments))
+                                                    num_segments, row_active))
 
 
 def make_segment_fn(combine=None):
@@ -207,10 +219,11 @@ def make_segment_fn(combine=None):
     the keyword falls back to dtype inference (float -> add, int -> min).
     """
 
-    def fn(data, seg_ids, num_segments, combine=combine):
+    def fn(data, seg_ids, num_segments, combine=combine, row_active=None):
         if combine is None:
             combine = "add" if data.dtype.is_floating_point else "min"
-        return segment_reduce(data, seg_ids, num_segments, combine=combine)
+        return segment_reduce(data, seg_ids, num_segments, combine=combine,
+                              row_active=row_active)
 
     return fn
 
@@ -224,16 +237,17 @@ def make_push_fn(fused=True):
     Contract (see ``strategies._dense_contrib``): strategies call
 
         push_fn(vals, src_local, dst, valid, weight, num_segments,
-                combine=..., band=..., unit=..., init=...)
+                combine=..., band=..., unit=..., init=..., row_active=...)
 
-    with ``weight=None`` when the program has no edge transform.
+    with ``weight=None`` when the program has no edge transform and
+    ``row_active`` the frontier gate's ``[C]`` row mask (``None``: no gate).
     """
 
     def fn(vals, src, dst, valid, weight, num_segments, combine, band=None,
-           unit=False, init=None):
+           unit=False, init=None, row_active=None):
         return push(vals, src, dst, valid, num_segments, combine=combine,
                     weight=weight, band=band, fused=fused, unit_weight=unit,
-                    init=init)
+                    init=init, row_active=row_active)
 
     fn.fused = fused  # which path the hook runs, for callers to inspect
     return fn

@@ -23,6 +23,14 @@ Edge operands are either one layout row (``src``/``dst``/``valid``/``weight``
 or all chare rows at once (``[C, E]``, ``[C, 4, E/BLOCK_E]``, ``[C, V(, B)]``
 -> ``[C, S(, B)]``, row r gathering from ``vals[r]`` into ``out[r]``), so
 one launch serves every chare of a superstep.
+
+A rowed call may gate rows (``row_active``, ``[C]`` int32 on the card's
+device, 0 for a gated row; ``None``: every row active): a gated row's
+output is its ``init`` row, or the identity where no ``init`` is given, and
+its kernel work returns before it reads any edge or value -- the frontier
+gate's per-row twin of the reference engine's per-shard skip
+(``strategies.phase1_identity``).  An active row's output is that of the
+call without the gate.  A gated launch counts as a launch.
 """
 
 from __future__ import annotations
@@ -256,7 +264,7 @@ def _weight_mode(weight, unit_weight, combine) -> str:
 
 
 def fused_push(band, src, dst, valid, weight, vals, num_segments, *,
-               combine="add", unit_weight=False, init=None):
+               combine="add", unit_weight=False, init=None, row_active=None):
     """Fused push over pre-padded inputs: one kernel launch (for add on
     seg-sorted rows, the tile pass and its merge pass; on a table with rows
     on both paths, the atomic kernel besides).
@@ -271,25 +279,37 @@ def fused_push(band, src, dst, valid, weight, vals, num_segments, *,
     in place of the combiner identity (0, or SENTINEL for min).  On CUDA,
     each row takes the kernel its band gives it (``tile_plan``, cached per
     band tensor); the tiled paths need every valid destination below
-    ``num_segments``.
+    ``num_segments``.  ``row_active`` gates chare rows (module docstring).
     """
     return _fused_push(band, src, dst, valid, weight, vals, num_segments,
-                       combine, unit_weight, init, atomic=False)
+                       combine, unit_weight, init, row_active, atomic=False)
 
 
 def fused_push_atomic(band, src, dst, valid, weight, vals, num_segments, *,
-                      combine="add", unit_weight=False, init=None):
+                      combine="add", unit_weight=False, init=None,
+                      row_active=None):
     """``fused_push`` with every row on the atomic kernel: no tile plan,
     so no host sync, and float add in no fixed order.  For a band table
     made for one call (``ops.push`` without a layout's band), whose plan
     would be computed and read back on every call, and to time the tiled
     paths against the kernel they replace."""
     return _fused_push(band, src, dst, valid, weight, vals, num_segments,
-                       combine, unit_weight, init, atomic=True)
+                       combine, unit_weight, init, row_active, atomic=True)
+
+
+def check_row_active(row_active, src, device):
+    """Refuse a row gate on a row-less (1-D) call, or one that is not
+    ``[C]`` int32 on ``device``."""
+    if row_active is None:
+        return
+    if src.dim() != 2:
+        raise ValueError("row_active gates chare rows; a 1-D (row-less) "
+                         "call has none")
+    _check(row_active, "row_active", torch.int32, (src.shape[0],), device)
 
 
 def _fused_push(band, src, dst, valid, weight, vals, num_segments, combine,
-                unit_weight, init, atomic):
+                unit_weight, init, row_active, atomic):
     if combine not in ("add", "min"):
         raise ValueError(f"unknown combine {combine!r}")
     mode = _weight_mode(weight, unit_weight, combine)
@@ -304,15 +324,16 @@ def _fused_push(band, src, dst, valid, weight, vals, num_segments, combine,
     if src.shape[-1] % BLOCK_E:
         raise ValueError(f"edge count {src.shape[-1]} is not padded to "
                          f"BLOCK_E={BLOCK_E}")
+    check_row_active(row_active, src, vals.device)
     if vals.is_cuda:
         return _launch(band, src, dst, valid, weight, vals, shape, combine,
-                       mode, out_dtype, init, atomic)
+                       mode, out_dtype, init, row_active, atomic)
     if vals.device.type != "cpu":
         raise ValueError(f"fused_push runs on CUDA or CPU tensors, not on "
                          f"{vals.device}")
     return fused_push_plain(band, src, dst, valid, weight, vals, num_segments,
                             combine=combine, unit_weight=unit_weight,
-                            init=init)
+                            init=init, row_active=row_active)
 
 
 def _identity(combine, dtype):
@@ -322,10 +343,13 @@ def _identity(combine, dtype):
 
 
 def fused_push_plain(band, src, dst, valid, weight, vals, num_segments, *,
-                     combine="add", unit_weight=False, init=None):
+                     combine="add", unit_weight=False, init=None,
+                     row_active=None):
     """Plain torch version of ``fused_push`` (same arguments, same result;
     float add up to summation order).  ``band`` is not read: it only lets
-    the kernel skip empty edge blocks."""
+    the kernel skip empty edge blocks.  A gated row's edges are dropped, so
+    its output row is its ``init`` row or the identity."""
+    check_row_active(row_active, src, vals.device)
     mode = _weight_mode(weight, unit_weight, combine)
     out_dtype = output_dtype(vals.dtype, combine)
     rowed = src.dim() == 2
@@ -339,7 +363,10 @@ def fused_push_plain(band, src, dst, valid, weight, vals, num_segments, *,
     tail = tuple(vals.shape[2:])
     dev = vals.device
     row = torch.arange(C, device=dev, dtype=torch.int64)[:, None]
-    keep = valid.reshape(-1) != 0
+    live = valid != 0
+    if row_active is not None:
+        live = live & (row_active != 0)[:, None]
+    keep = live.reshape(-1)
     gidx = (src.long() + row * V).reshape(-1)[keep]
     sidx = (dst.long() + row * num_segments).reshape(-1)[keep]
     c = vals.to(out_dtype).reshape((C * V,) + tail).index_select(0, gidx)
@@ -385,17 +412,17 @@ def _library():
         f.restype = ctypes.c_int
         f.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 7
                       + [ctypes.c_longlong] * 5 + [ctypes.c_int] * 2
-                      + [ctypes.c_void_p])
+                      + [ctypes.c_void_p] * 2)
         t = lib.fused_push_add_tiled_launch
         t.restype = ctypes.c_int
         t.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 12
-                      + [ctypes.c_longlong] * 9 + [ctypes.c_int,
-                                                   ctypes.c_void_p])
+                      + [ctypes.c_longlong] * 9 + [ctypes.c_int]
+                      + [ctypes.c_void_p] * 2)
         m = lib.fused_push_min_tiled_launch
         m.restype = ctypes.c_int
         m.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 8
                       + [ctypes.c_longlong] * 7 + [ctypes.c_int] * 2
-                      + [ctypes.c_void_p])
+                      + [ctypes.c_void_p] * 2)
         _lib = lib
     return _lib
 
@@ -431,7 +458,7 @@ def _min_cap(out_dtype, init):
 
 
 def _launch(band, src, dst, valid, weight, vals, shape, combine, mode,
-            out_dtype, init, atomic):
+            out_dtype, init, row_active, atomic):
     """Check the operands and launch the CUDA kernels on the current stream:
     the tiled kernels over the seg-sorted rows (for add the tile pass and
     its merge pass, for min one pass) and the atomic kernel over the others
@@ -474,6 +501,7 @@ def _launch(band, src, dst, valid, weight, vals, shape, combine, mode,
                              f"{S}")
     cap = _min_cap(out_dtype, init) if combine == "min" else 0
     is_float = int(out_dtype.is_floating_point)
+    gate = None if row_active is None else row_active.data_ptr()
     stream = torch.cuda.current_stream(dev).cuda_stream
     lib = _library()
     if plan is not None and (combine == "add" or plan.min_tiled):
@@ -487,7 +515,8 @@ def _launch(band, src, dst, valid, weight, vals, shape, combine, mode,
             0 if combine == "add" else 1, is_float, _CODES[mode],
             atomic_band.data_ptr(), src.data_ptr(), dst.data_ptr(),
             valid.data_ptr(), weight.data_ptr() if mode == "array" else None,
-            vals.data_ptr(), out.data_ptr(), C, E, NB, V, S, B, cap, stream)
+            vals.data_ptr(), out.data_ptr(), C, E, NB, V, S, B, cap, gate,
+            stream)
         if err != 0:
             raise RuntimeError(f"fused_push_{combine} kernel launch failed: "
                                f"cudaError {err}")
@@ -504,7 +533,7 @@ def _launch(band, src, dst, valid, weight, vals, shape, combine, mode,
                 is_float, _CODES[mode], band.data_ptr(), src.data_ptr(),
                 dst.data_ptr(), valid.data_ptr(), wptr, vals.data_ptr(),
                 out.data_ptr(), work.data_ptr(), C, E, NB,
-                plan.chunk_blocks.shape[1], V, S, work.shape[0], B, cap,
+                plan.chunk_blocks.shape[1], V, S, work.shape[0], B, cap, gate,
                 stream)
         else:
             scratch = torch.empty(
@@ -517,7 +546,8 @@ def _launch(band, src, dst, valid, weight, vals, shape, combine, mode,
                 plan.tile_chunks.data_ptr(), plan.merge_tiles.data_ptr(),
                 plan.work.data_ptr(), scratch.data_ptr(), C, E, NB,
                 plan.chunk_blocks.shape[1], V, S, plan.num_tiles,
-                plan.merge_tiles.numel(), plan.work.shape[0], B, stream)
+                plan.merge_tiles.numel(), plan.work.shape[0], B, gate,
+                stream)
         if err != 0:
             raise RuntimeError(f"tiled fused_push_{combine} kernel launch "
                                f"failed: cudaError {err}")

@@ -14,7 +14,10 @@ once (``[C, E]``, ``[C, V(, B)]``, ``[C, E(, B)]``, ``[C, S(, B)]``; row r
 gathers from ``vals[r]`` and scatters into ``out[r]``), so one launch serves
 every chare of a superstep.  No padding is needed.  A source outside
 ``[0, V)`` gathers the identity and a destination outside ``[0, S)`` is
-dropped, as the TPU kernels' one-hot tiles treat them.
+dropped, as the TPU kernels' one-hot tiles treat them.  A rowed call may
+gate rows (``row_active``, as ``push_fused`` takes it): the gather writes
+the identity over a gated row and reads nothing of it, the scatter leaves
+its output row at the identity.
 
 Dtypes: ``gather_sum`` keeps ints and widens floats to at least float32;
 ``gather_min`` keeps the dtype; the scatters give ``c``'s dtype.  The min
@@ -30,7 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.push_fused import (SENTINEL, SENTINEL_F32, _check,
-                                            launch_counts)
+                                            check_row_active, launch_counts)
 
 
 def gather_sum_dtype(vals_dtype: torch.dtype) -> torch.dtype:
@@ -54,7 +57,8 @@ def _tail(x, rowed):
 # ---------------------------------------------------------------------------
 
 
-def _gather_plain(src, valid, vals, out_dtype, fill, clamp):
+def _gather_plain(src, valid, vals, out_dtype, fill, clamp, row_active):
+    check_row_active(row_active, src, vals.device)
     rowed = src.dim() == 2
     if not rowed:
         src, valid, vals = src[None], valid[None], vals[None]
@@ -63,6 +67,8 @@ def _gather_plain(src, valid, vals, out_dtype, fill, clamp):
     tail = _tail(vals, True)
     s = src.long()
     keep = (valid != 0) & (s >= 0) & (s < V)
+    if row_active is not None:
+        keep = keep & (row_active != 0)[:, None]
     row = torch.arange(C, device=src.device, dtype=torch.int64)[:, None]
     idx = (torch.where(keep, s, 0) + row * V).reshape(-1)
     c = vals.to(out_dtype).reshape((C * V,) + tail).index_select(0, idx)
@@ -75,21 +81,22 @@ def _gather_plain(src, valid, vals, out_dtype, fill, clamp):
     return c if rowed else c[0]
 
 
-def gather_sum_plain(src, valid, vals):
+def gather_sum_plain(src, valid, vals, row_active=None):
     """Plain torch ``gather_sum``: ``vals[src]`` where valid, else 0."""
     return _gather_plain(src, valid, vals, gather_sum_dtype(vals.dtype), 0,
-                         False)
+                         False, row_active)
 
 
-def gather_min_plain(src, valid, vals):
+def gather_min_plain(src, valid, vals, row_active=None):
     """Plain torch ``gather_min``: ``vals[src]`` where valid, else the
     sentinel; float values clamped to ``float(SENTINEL)``."""
     return _gather_plain(src, valid, vals, vals.dtype,
                          _min_identity(vals.dtype),
-                         vals.dtype.is_floating_point)
+                         vals.dtype.is_floating_point, row_active)
 
 
-def _scatter_plain(dst, c, num_segments, combine):
+def _scatter_plain(dst, c, num_segments, combine, row_active):
+    check_row_active(row_active, dst, c.device)
     rowed = dst.dim() == 2
     if not rowed:
         dst, c = dst[None], c[None]
@@ -97,7 +104,10 @@ def _scatter_plain(dst, c, num_segments, combine):
     S = num_segments
     tail = _tail(c, True)
     d = dst.long()
-    keep = ((d >= 0) & (d < S)).reshape(-1)
+    keep = (d >= 0) & (d < S)
+    if row_active is not None:
+        keep = keep & (row_active != 0)[:, None]
+    keep = keep.reshape(-1)
     row = torch.arange(C, device=dst.device, dtype=torch.int64)[:, None]
     idx = (d + row * S).reshape(-1)[keep]
     data = c.reshape((C * E,) + tail)[keep]
@@ -114,15 +124,15 @@ def _scatter_plain(dst, c, num_segments, combine):
     return out if rowed else out[0]
 
 
-def scatter_sum_plain(dst, c, num_segments):
+def scatter_sum_plain(dst, c, num_segments, row_active=None):
     """Plain torch ``scatter_sum``: ``out[s] = sum_{dst[e]==s} c[e]``."""
-    return _scatter_plain(dst, c, num_segments, "add")
+    return _scatter_plain(dst, c, num_segments, "add", row_active)
 
 
-def scatter_min_plain(dst, c, num_segments):
+def scatter_min_plain(dst, c, num_segments, row_active=None):
     """Plain torch ``scatter_min``: ``out[s] = min(SENTINEL,
     min_{dst[e]==s} c[e])``."""
-    return _scatter_plain(dst, c, num_segments, "min")
+    return _scatter_plain(dst, c, num_segments, "min", row_active)
 
 
 # ---------------------------------------------------------------------------
@@ -139,33 +149,33 @@ def _route(x, name):
     return False
 
 
-def gather_sum(src, valid, vals):
+def gather_sum(src, valid, vals, row_active=None):
     """``c[e] = vals[src[e]]`` where ``valid[e]``, else 0."""
     if _route(vals, "gather_sum"):
-        return _gather(src, valid, vals, "add")
-    return gather_sum_plain(src, valid, vals)
+        return _gather(src, valid, vals, "add", row_active)
+    return gather_sum_plain(src, valid, vals, row_active)
 
 
-def gather_min(src, valid, vals):
+def gather_min(src, valid, vals, row_active=None):
     """``c[e] = vals[src[e]]`` where ``valid[e]``, else the sentinel."""
     if _route(vals, "gather_min"):
-        return _gather(src, valid, vals, "min")
-    return gather_min_plain(src, valid, vals)
+        return _gather(src, valid, vals, "min", row_active)
+    return gather_min_plain(src, valid, vals, row_active)
 
 
-def scatter_sum(dst, c, num_segments):
+def scatter_sum(dst, c, num_segments, row_active=None):
     """``out[s] = sum_{e: dst[e]==s} c[e]``, in ``c``'s dtype."""
     if _route(c, "scatter_sum"):
-        return _scatter(dst, c, num_segments, "add")
-    return scatter_sum_plain(dst, c, num_segments)
+        return _scatter(dst, c, num_segments, "add", row_active)
+    return scatter_sum_plain(dst, c, num_segments, row_active)
 
 
-def scatter_min(dst, c, num_segments):
+def scatter_min(dst, c, num_segments, row_active=None):
     """``out[s] = min(SENTINEL, min_{e: dst[e]==s} c[e])``, in ``c``'s
     dtype; no valid mask (contributions arrive already masked)."""
     if _route(c, "scatter_min"):
-        return _scatter(dst, c, num_segments, "min")
-    return scatter_min_plain(dst, c, num_segments)
+        return _scatter(dst, c, num_segments, "min", row_active)
+    return scatter_min_plain(dst, c, num_segments, row_active)
 
 
 _lib = None
@@ -182,13 +192,13 @@ def _library():
         g = lib.staged_gather_launch
         g.restype = ctypes.c_int
         g.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
-                      + [ctypes.c_longlong] * 3 + [ctypes.c_int,
-                                                   ctypes.c_void_p])
+                      + [ctypes.c_longlong] * 3 + [ctypes.c_int]
+                      + [ctypes.c_void_p] * 2)
         s = lib.staged_scatter_launch
         s.restype = ctypes.c_int
         s.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
-                      + [ctypes.c_longlong] * 3 + [ctypes.c_int,
-                                                   ctypes.c_void_p])
+                      + [ctypes.c_longlong] * 3 + [ctypes.c_int]
+                      + [ctypes.c_void_p] * 2)
         _lib = lib
     return _lib
 
@@ -202,7 +212,7 @@ def _rows(edges, values, rowed):
     return C, edges.shape[-1], B
 
 
-def _gather(src, valid, vals, combine):
+def _gather(src, valid, vals, combine, row_active):
     """Check the operands and launch the gather kernel."""
     rowed = src.dim() == 2
     if combine == "add":
@@ -220,12 +230,14 @@ def _gather(src, valid, vals, combine):
     dev = vals.device
     for name, t in (("src", src), ("valid", valid)):
         _check(t, name, torch.int32, src.shape, dev)
+    check_row_active(row_active, src, dev)
     vals = vals.contiguous()
     c = torch.empty(tuple(src.shape) + _tail(vals, rowed), dtype=out_dtype,
                     device=dev)
     err = _library().staged_gather_launch(
         0 if combine == "add" else 1, _IN_TYPES[vals.dtype], src.data_ptr(),
         valid.data_ptr(), vals.data_ptr(), c.data_ptr(), C, E, V, B,
+        None if row_active is None else row_active.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"gather_{_NAMES[combine]} kernel launch failed: "
@@ -235,7 +247,7 @@ def _gather(src, valid, vals, combine):
     return c
 
 
-def _scatter(dst, c, num_segments, combine):
+def _scatter(dst, c, num_segments, combine, row_active):
     """Check the operands and launch the scatter kernel."""
     if c.dtype not in (torch.float32, torch.int32):
         raise TypeError(f"the CUDA scatter_{_NAMES[combine]} kernel takes "
@@ -244,6 +256,7 @@ def _scatter(dst, c, num_segments, combine):
     C, E, B = _rows(dst, c, rowed)
     dev = c.device
     _check(dst, "dst", torch.int32, dst.shape, dev)
+    check_row_active(row_active, dst, dev)
     if tuple(c.shape[:dst.dim()]) != tuple(dst.shape):
         raise ValueError(f"c: shape {tuple(c.shape)} does not lead with the "
                          f"edge shape {tuple(dst.shape)}")
@@ -254,6 +267,7 @@ def _scatter(dst, c, num_segments, combine):
     err = _library().staged_scatter_launch(
         0 if combine == "add" else 1, int(c.dtype.is_floating_point),
         dst.data_ptr(), c.data_ptr(), out.data_ptr(), C, E, num_segments, B,
+        None if row_active is None else row_active.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"scatter_{_NAMES[combine]} kernel launch failed: "

@@ -1,6 +1,6 @@
 """Plain torch oracles for the push kernels: the twins of
 ``repro/kernels/ref.py``'s ``push_ref`` and gather/scatter references,
-and its numpy ``betweenness_ref``.
+and its numpy ``async_min_fixpoint_ref`` and ``betweenness_ref``.
 
 Edge arrays are 1-D ``[E]``; ``vals`` / the gathered data may carry a
 trailing batch axis (``[V, B]`` / ``[E, B]``).  Indices are widened to int64
@@ -72,6 +72,57 @@ def push_ref(vals, src, dst, valid, num_segments, combine="add", weight=None):
         out = torch.where(out >= SENTINEL, torch.full_like(out, float("inf")),
                           out)
     return out
+
+
+def async_min_fixpoint_ref(src, dst, init, weight=None, max_stale=1,
+                           ages=None, seed=0, max_sweeps=10_000):
+    """Serial stale-read superstep simulator for min-monoid label
+    correcting, in numpy: the reference the engine's ``sync="overlap"`` is
+    held to.
+
+    Sweep t relaxes every edge ``e`` reading ``history[t - age(t, e)]`` --
+    the source's state as of ``age`` sweeps ago, ``age <= max_stale`` drawn
+    per (sweep, edge) from ``seed`` unless an explicit ``[sweeps, E]``
+    ``ages`` schedule is given (age 0 is synchronous Jacobi; ``max_stale=1``
+    models the engine's double-buffered overlap).  The new state is
+    ``min(state, min_e relax(e))``, monotone non-increasing, so stale reads
+    only re-deliver values the fixpoint already absorbed.
+
+    Termination is the generalized double check: stop after ``max_stale +
+    1`` consecutive quiescent sweeps (every read reaches at most
+    ``max_stale`` sweeps back, so by then every in-flight read equals the
+    current state).
+
+    Returns ``(state, sweeps)``: the fixpoint and the sweeps executed,
+    the quiescent tail included.
+    """
+    src = np.asarray(src)
+    dst = np.asarray(dst)
+    state = np.asarray(init).copy()
+    E = len(src)
+    w = None if weight is None else np.asarray(weight)
+    rng = np.random.default_rng(seed)
+    history = [state.copy()]  # history[t] = state entering sweep t
+    quiet = 0
+    sweeps = 0
+    while quiet <= max_stale and sweeps < max_sweeps:
+        if ages is not None:
+            age = np.asarray(ages[min(sweeps, len(ages) - 1)])
+        else:
+            age = rng.integers(0, max_stale + 1, size=E)
+        age = np.minimum(age, sweeps)  # no history before sweep 0
+        read = np.stack(history[-(max_stale + 1):], axis=0)  # [<=S+1, V]
+        vals = read[len(read) - 1 - age, src]  # stale source labels
+        relax = vals if w is None else vals + w
+        new = state.copy()
+        np.minimum.at(new, dst, relax)
+        sweeps += 1
+        quiet = quiet + 1 if np.array_equal(new, state) else 0
+        state = new
+        history.append(state.copy())
+        if len(history) > max_stale + 1:
+            history.pop(0)
+    return state, sweeps
 
 
 def betweenness_ref(graph, pivots):

@@ -1238,3 +1238,178 @@ def test_grid_run_batch_on_cuda_matches_cpu(cuda, name):
         np.testing.assert_array_equal(got, want)
     else:
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# The row gate in the push kernels, and the engine's adaptive modes
+# ---------------------------------------------------------------------------
+
+ROW_MASKS = ("none", "all", "half")
+
+
+def row_mask(kind, rows, cuda):
+    """``None``, every row gated, or every other row gated."""
+    if kind == "none":
+        return None
+    keep = np.zeros(rows, np.int32) if kind == "all" \
+        else (np.arange(rows) % 2).astype(np.int32)
+    return torch.from_numpy(keep).to(cuda)
+
+
+def gated_rows_hold(got, mask, init, combine):
+    """Every gated row of ``got`` is its ``init`` row, or the kernel's
+    identity, bit for bit."""
+    if mask is None:
+        return True
+    off = (mask == 0).nonzero().flatten()
+    if init is not None:
+        want = init[off]
+    else:
+        fill = (0 if combine == "add" else push_fused.SENTINEL_F32
+                if got.dtype.is_floating_point else push_fused.SENTINEL)
+        want = torch.full_like(got[off], fill)
+    return same_bits(got[off].contiguous(), want.contiguous())
+
+
+@pytest.mark.parametrize("layout", ("sd", "basic", "grid"))
+@pytest.mark.parametrize("combine,dtype,mode", WIDE_CASES)
+@pytest.mark.parametrize("mask", ROW_MASKS)
+@pytest.mark.parametrize("B", (None, 4))
+@pytest.mark.parametrize("seeded", (False, True))
+def test_gated_fused_kernels_match_plain(cuda, layout, combine, dtype, mode,
+                                         mask, B, seeded):
+    """Both fused kernels with a row gate -- on the C=8 sd layout (tiled),
+    the basic layout (atomic) and grid(2,4)'s gr_band -- against the gated
+    plain version: gated rows are their init row or the identity, bit for
+    bit, and active rows equal the call without the gate (bit for bit on
+    the tiled add, whose order is fixed).  A gated launch still counts."""
+    if layout == "grid":
+        src, dst, valid, w, band, V, S = grid_layout(cuda)
+    else:
+        src, dst, valid, w, band, V, S = sd_layout(cuda, chares=8,
+                                                   layout=layout)
+    P = src.shape[0]
+    shape = (P, V) + (() if B is None else (B,))
+    vals = (draw_vals(shape, dtype, cuda) if combine == "add"
+            else draw_dist(shape, dtype, cuda))
+    if mode != "weight":
+        w = None
+    elif combine == "min":
+        w = min_weight(w, dtype)
+    od = push_fused.output_dtype(dtype, combine)
+    init = None
+    if seeded:
+        init = (draw_vals((P, S) + shape[2:], od, cuda, seed=3)
+                if combine == "add" else draw_dist((P, S) + shape[2:], od,
+                                                   cuda, seed=3))
+    ra = row_mask(mask, P, cuda)
+    kw = dict(combine=combine, unit_weight=mode == "unit", init=init)
+    push_fused.reset_launch_counts()
+    got = push_fused.fused_push(band, src, dst, valid, w, vals, S,
+                                row_active=ra, **kw)
+    assert push_fused.launch_counts[f"fused_push_{combine}"] == 1
+    want = push_fused.fused_push_plain(band, src, dst, valid, w, vals, S,
+                                       row_active=ra, **kw)
+    assert_kernel_equal(got, want, combine)
+    assert gated_rows_hold(got, ra, init, combine)
+    full = push_fused.fused_push(band, src, dst, valid, w, vals, S, **kw)
+    on = (torch.ones(P, dtype=torch.int32, device=cuda) if ra is None
+          else ra).nonzero().flatten()
+    if combine == "min" or layout != "basic":  # fixed order or exact
+        assert same_bits(got[on].contiguous(), full[on].contiguous())
+    else:
+        assert_kernel_equal(got[on], full[on], combine)
+
+
+@pytest.mark.parametrize("kernel,dtype", STAGED_CASES)
+@pytest.mark.parametrize("mask", ROW_MASKS)
+@pytest.mark.parametrize("B", (None, 4))
+def test_gated_staged_kernels_match_plain(cuda, kernel, dtype, mask, B):
+    """The staged gather and scatter with a row gate against their gated
+    plain versions: a gated row gathers the identity, a gated scatter row
+    holds it, active rows equal the ungated call."""
+    src, dst, valid, _, _, V, S = sd_layout(cuda, chares=8)
+    P = src.shape[0]
+    ra = row_mask(mask, P, cuda)
+    tail = () if B is None else (B,)
+    fn = getattr(push_staged, kernel)
+    plain = getattr(push_staged, kernel + "_plain")
+    combine = "min" if kernel.endswith("min") else "add"
+    shape = ((P, V) if kernel.startswith("gather")
+             else tuple(src.shape)) + tail
+    if dtype == torch.bfloat16:
+        x = draw_vals(shape, torch.float32, cuda).bfloat16()
+    else:
+        x = (draw_dist if combine == "min" else draw_vals)(shape, dtype, cuda)
+    args = (src, valid, x) if kernel.startswith("gather") else (dst, x, S)
+    push_fused.reset_launch_counts()
+    got = fn(*args, ra)
+    assert push_fused.launch_counts[kernel] == 1
+    assert_kernel_equal(got, plain(*args, ra), combine)
+    full = fn(*args)
+    if ra is not None:
+        off, on = (ra == 0).nonzero().flatten(), ra.nonzero().flatten()
+        ident = (0 if combine == "add" else push_fused.SENTINEL_F32
+                 if got.dtype.is_floating_point else push_fused.SENTINEL)
+        assert same_bits(got[off].contiguous(),
+                         torch.full_like(got[off], ident).contiguous())
+    else:
+        on = torch.arange(P, device=cuda)
+    assert_kernel_equal(got[on], full[on], combine)
+
+
+MODE_CASES = (dict(sync="overlap"), dict(gate="frontier"),
+              dict(sync="overlap", gate="frontier"),
+              dict(replan="degree_sorted"),
+              dict(sync="overlap", gate="frontier",
+                   replan="edge_balanced"))
+
+
+@pytest.mark.parametrize("kw", MODE_CASES, ids=lambda kw: "+".join(
+    f"{k}={v}" for k, v in kw.items()))
+@pytest.mark.parametrize("part", ((1, "contiguous"), (8, "contiguous"),
+                                  (8, "grid(2,4)")))
+@pytest.mark.parametrize("name", ("bfs", "sssp", "labelprop"))
+def test_modes_on_cuda_match_cpu(cuda, name, part, kw):
+    """Overlap, the gate and replan on the card agree with the same
+    engine on the CPU: min results bit for bit, equal superstep counts and
+    equal gate accounting; the gated pushes launch the kernels."""
+    from repro_torch.core import ReplanPolicy
+
+    pes, partitioner = part
+    kw = dict(kw)
+    if "replan" in kw:
+        kw["replan"] = ReplanPolicy(kw["replan"], every=2, mode="always")
+    spec = get_spec(name)
+    g = G.rmat(11, 14 << 11, seed=1)
+    if spec.weighted:
+        g = G.random_weights(g, seed=5)
+    g = spec.prepare_graph(g)
+    eng = Engine(G.partition(g, pes, partitioner=partitioner))
+    push_fused.reset_launch_counts()
+    got, iters = eng.run(name, **kw)
+    assert sum(push_fused.launch_counts.values()) > 0
+    cpu = Engine(G.partition(g, pes, partitioner=partitioner), device="cpu")
+    want, want_iters = cpu.run(name, **kw)
+    np.testing.assert_array_equal(got, want)
+    assert iters == want_iters
+    assert eng.dispatch["gate"] == cpu.dispatch["gate"]
+    assert eng.pg.partitioner == cpu.pg.partitioner
+
+
+@pytest.mark.parametrize("kw", MODE_CASES[:3] + MODE_CASES[4:])
+def test_batched_modes_on_cuda_match_cpu(cuda, kw):
+    """The batched plane under overlap, the gate and replan on the card
+    equals the CPU's, column for column, with equal per-query counts."""
+    from repro_torch.core import ReplanPolicy
+
+    kw = dict(kw)
+    if "replan" in kw:
+        kw["replan"] = ReplanPolicy(kw["replan"], every=2, mode="always")
+    g = G.random_weights(G.rmat(11, 14 << 11, seed=1), seed=5)
+    got, got_it = Engine(G.partition(g, 8)).run_batch(
+        "sssp", sources=[0, 5, 9, 77], **kw)
+    want, want_it = Engine(G.partition(g, 8), device="cpu").run_batch(
+        "sssp", sources=[0, 5, 9, 77], **kw)
+    np.testing.assert_array_equal(got_it, want_it)
+    np.testing.assert_array_equal(got, want)

@@ -386,19 +386,23 @@ def test_run_cost_on_cpu():
 def test_unported_options_raise():
     pg = TG.partition(port_graph("sssp", "rmat6"), 2)
     eng = Engine(pg, device="cpu")
+    # replan, sync="overlap" and gate="frontier" are ported (their cells are
+    # tests/test_torch_replan.py and tests/test_torch_async.py); only the
+    # streamed residency still raises
     cases = [
-        lambda: eng.run("sssp", replan="striped"),
-        lambda: eng.run("sssp", sync="overlap"),
-        lambda: eng.run("sssp", gate="frontier"),
         lambda: eng.run("sssp", residency="stream"),
-        lambda: eng.run_batch("bfs", sources=[0, 1], replan="striped"),
-        lambda: eng.run_batch("bfs", sources=[0, 1], sync="overlap"),
-        lambda: eng.run_batch("bfs", sources=[0, 1], gate="frontier"),
+        lambda: eng.run_batch("bfs", sources=[0, 1], residency="stream"),
         lambda: Engine(pg, device="cpu", residency="stream"),
     ]
     for case in cases:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             case()
+    for bad in (dict(replan="nope"), dict(sync="async"),
+                dict(gate="bands")):
+        with pytest.raises(ValueError):
+            eng.run("sssp", **bad)
+        with pytest.raises(ValueError):
+            eng.run_batch("bfs", sources=[0, 1], **bad)
     with pytest.raises(ValueError):
         Engine(pg, strategy="nope", device="cpu")
     # grid2d needs a grid(R,C) partition

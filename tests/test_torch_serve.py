@@ -557,10 +557,11 @@ def test_imbalance_table_equals_the_reference():
 def test_benchmark_run_prints_the_ported_sections(monkeypatch, tmp_path,
                                                   capsys):
     """``repro_torch.benchmarks.run`` prints the imbalance, wire,
-    wire_batch, throughput and serving rows by the reference's names
-    beside the table, cost, fig12 and grid rows (``test_torch_tables.py``
-    holds those), nothing of the sections not ported, passes the curve's
-    assertions and writes BENCH_cost.json's serving sections."""
+    wire_batch, throughput, serving and async rows by the reference's
+    names beside the table, cost, fig12 and grid rows
+    (``test_torch_tables.py`` holds those), nothing of the sections not
+    ported, passes the curve's and the async assertions and writes
+    BENCH_cost.json's serving and async sections."""
     monkeypatch.chdir(tmp_path)
     monkeypatch.setattr(serve, "time", FixedStepTime())
     out = brun.main(["--scale", "7", "--device", "cpu", "--json"])
@@ -569,7 +570,7 @@ def test_benchmark_run_prints_the_ported_sections(monkeypatch, tmp_path,
     assert heads == {"device", "imbalance", "wire", "wire_batch",
                      "throughput", "serving", "json", "table2", "table3",
                      "table4", "table5", "table6", "table7", "table8",
-                     "cost", "fig12", "grid"}
+                     "cost", "fig12", "grid", "async"}
     names = {line.split(",")[0] for line in lines}
     for name in ("throughput.soc-lj1-mini.bfs.batched@B16",
                  "throughput.soc-lj1-mini.bfs.seq_loop@B16",
@@ -580,12 +581,18 @@ def test_benchmark_run_prints_the_ported_sections(monkeypatch, tmp_path,
                  "serving.soc-lj1-mini.load1x", "serving.soc-lj1-mini.load4x",
                  "wire.soc-LiveJournal1.basic+edge_balanced@64",
                  "wire_batch.uk-2007-05.basic@B16",
-                 "imbalance.twitter_rv.degree_sorted@8"):
+                 "imbalance.twitter_rv.degree_sorted@8",
+                 "async.sssp.barrier@1", "async.sssp.overlap@1",
+                 "async.sssp.superstep_s",
+                 "async.gating_model.lockstep_skipped",
+                 "async.grid24.gate_skipped",
+                 "async.grid24.collective_ratio"):
         assert name in names, name
     assert lines[0] == "device,cpu,type=cpu count=1"
     saved = __import__("json").loads((tmp_path / "BENCH_cost.json")
                                      .read_text())
-    assert set(saved) >= {"throughput", "serving"}
+    assert set(saved) >= {"throughput", "serving", "async"}
+    assert saved["async"]["grid24"]["bit_exact"]
     assert saved["serving"]["checks"] == out["serving"]["checks"]
 
 
