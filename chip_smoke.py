@@ -75,10 +75,10 @@ Phases, each printing one JSON line with its seconds:
              run_batch.  Then one query at B=8 against B=1 (what an
              under-full plane costs); the port's latency_table on the
              main engine (loads 0.25, 1, 4; 8B queries per load;
-             ppr_iters=8; slo_factor=1.5), run once to warm up and then
+             ppr_iters=8; slo_factor=1.5), run once and reported (a
+             process's first curve meets dispatch stalls) and then
              measured, with the reference's two curve assertions on the
-             measured pass, which must hold (and the garbage collector's
-             pauses during it); throughput_table for bfs and
+             measured pass, which must hold; throughput_table for bfs and
              PPR at B=16 with a budget of 8 supersteps (PPR beside the
              reference's 3x bar, a finding, not a check); and the CLI,
              python -m repro_torch.launch.serve --graph --scale 20
@@ -130,7 +130,8 @@ Phases, each printing one JSON line with its seconds:
              sssp engine; on phase grid's grid(2,4) partition sssp with
              overlap and the gate against serial, its skipped share, a
              host recount of its gate from the frontiers the run went
-             through (and the masks the kernels got), its launches (counts
+             through and the layout's edge arrays (and the masks the
+             kernels got), its launches (counts
              zeroed before, read after) and async_grid_metrics; a replan
              in the middle of overlap (C=1, to degree_sorted); a B=8
              overlapped gated sssp plane against the barrier plane; at
@@ -173,12 +174,13 @@ Phases, each printing one JSON line with its seconds:
              beforehand.  The gated kernels under real supersteps' row
              masks kept by phase async: the fused min and the staged min
              pair on the chare-axis sd layout under a mask that gates some
-             rows but not all, each against the same call without the
-             gate in turns and its gated plain version, beside a bound
-             that counts the active rows' bytes only; and the fused min on
-             grid(2,4)'s gr_band with every row gated (the overlap
-             pipeline's empty half; every live push there keeps all 8
-             rectangles active) against the call without the gate
+             rows but not all, and the fused min on grid(2,4)'s gr_band
+             with every row gated (the overlap pipeline's empty half;
+             every live push there keeps all 8 rectangles active): each
+             held against its gated plain version, then timed against the
+             same call without the gate in turns and the plain version,
+             beside a bound that counts the active rows' reads and every
+             output row's write
   kernels_main  the kernels phase's operand matrices again on the main
              path's edge layout
   chares     2^chare-scale vertices at C chares for sortdest, reduction,
@@ -203,9 +205,9 @@ Then one JSON line with every kernel's numbers (launches from the main
 path for the fused pair, from staged_main for the staged four, from
 phase grid for the fused pair on gr_band, ``fused_push_add/grid`` and
 ``fused_push_min/grid``, and from phase async for the gated variants,
-``fused_push_min/gated``, ``gather_min/gated`` and ``scatter_min/gated``),
-the
-``nvidia-smi`` name and power limit, and as the last line ``{"ok": true,
+``fused_push_min/gated``, ``fused_push_min/gated/grid``, ``gather_min/gated``
+and ``scatter_min/gated``, each from the gated run its timed call came
+from), the ``nvidia-smi`` name and power limit, and as the last line ``{"ok": true,
 "device": {...}}``.  Any failure exits non-zero and prints no ok line.  Min
 programs and int32 sums must be bit-equal to the plain versions; float sums
 agree with them within rtol=1e-5, atol=1e-6*max|out| (the plain version sums
@@ -219,7 +221,6 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
-import contextlib
 import json
 import pathlib
 import subprocess
@@ -1267,17 +1268,15 @@ class Smoke:
         curve = lambda: tables.latency_table(
             engine=eng, B=B, loads=(0.25, 1.0, 4.0), queries_per_load=8 * B,
             ppr_iters=8, slo_factor=1.5)
-        # a warm-up pass first: the first curve of a process grows the
-        # pinned result cache and the device allocator under held results,
-        # and met dispatch stalls of 0.1-0.3 s that later passes, of this
-        # engine and of the parent commit's alike, did not meet
+        # the first curve of a process meets single dispatches of 0.08-0.28
+        # s that the curves after it do not, with or without the adaptive
+        # modes in the tree (PERF.md section 6, the serving A/B): it is run
+        # once and reported, and the second is checked
         warm = curve()
-        with self._gc_pauses() as pauses:
-            lt = curve()
+        lt = curve()
         checks = tables.curve_checks(lt["curve"])
         if not all(checks.values()):
-            raise AssertionError(f"latency curve checks {checks} (garbage "
-                                 f"collector pauses {pauses}): "
+            raise AssertionError(f"latency curve checks {checks}: "
                                  f"{lt['curve']}")
         throughput = [tables.throughput_table(engine=eng, algo=algo, B=16,
                                               budget=8)
@@ -1297,41 +1296,12 @@ class Smoke:
                 "greedy_groups": greedy, "serial_checked_bfs": serial,
                 "under_full": under, "pinned_alloc_s": pinned,
                 "latency": lt, "curve_checks": checks,
-                "gc_pauses_during_latency": pauses,
-                "warmup_curve": {
+                "first_curve": {
                     "checks": tables.curve_checks(warm["curve"]),
                     "p99_s": [c["p99_s"] for c in warm["curve"]],
                     "max_dispatch_s": [max(c["dispatch_seconds"])
                                        for c in warm["curve"]]},
                 "throughput": throughput, "cli": cli}
-
-    @staticmethod
-    @contextlib.contextmanager
-    def _gc_pauses():
-        """Record the Python garbage collector's pauses while the block
-        runs (host stalls the latency curve's dispatches could meet): a
-        dict of the count and the summed and longest seconds per
-        generation."""
-        import gc
-
-        out, start = {}, {}
-
-        def note(phase, info):
-            if phase == "start":
-                start["t"] = time.perf_counter()
-                return
-            dt = time.perf_counter() - start.pop("t", time.perf_counter())
-            g = out.setdefault(f"gen{info['generation']}",
-                               {"count": 0, "total_s": 0.0, "max_s": 0.0})
-            g["count"] += 1
-            g["total_s"] += dt
-            g["max_s"] = max(g["max_s"], dt)
-
-        gc.callbacks.append(note)
-        try:
-            yield out
-        finally:
-            gc.callbacks.remove(note)
 
     @staticmethod
     def _pinned_alloc(B, V):
@@ -2778,27 +2748,52 @@ class Smoke:
     @staticmethod
     def _recount(eng, frontiers):
         """The gate's skipped rows recounted on the host from the frontiers
-        a run went through: numpy ``band_source_mask`` of the bound layout
-        against each frontier's BLOCK_V blocks.  -> (skipped, masks)."""
+        a run went through and the bound layout's own edge arrays, sharing
+        no code with the engine's gate: per chare row, the source blocks
+        (``src_local // BLOCK_V``) of each BLOCK_E edge block's valid edges
+        as the inclusive range ``[min, max]`` the gate covers, and as the
+        exact set the edges read.  A row is active where a live frontier
+        block meets its ranges; a row whose edges read a live block must be
+        active (raises otherwise).  The pairwise layout gates on any
+        frontier at all.  -> (skipped, masks)."""
         import numpy as np
 
         from repro_torch.core import strategies as strat
-        from repro_torch.kernels import blocks
+        from repro_torch.kernels.blocks import BLOCK_E, BLOCK_V
 
-        nsb = eng._gate_nsb
-        layout = strat.STRATEGY_LAYOUT[eng.strategy]
-        band = {"basic": "band", "sd": "sd_band",
-                "grid": "gr_band"}.get(layout)
-        gmask = (blocks.band_source_mask(getattr(eng.pg, band), nsb) != 0
-                 if band else np.ones((eng._C, nsb), bool))
+        C, K, nsb = eng._C, eng._K, eng._gate_nsb
+        prefix = {"basic": "", "sd": "sd_", "grid": "gr_"}.get(
+            strat.STRATEGY_LAYOUT[eng.strategy])
+        if prefix is None:
+            ranged = exact = np.ones((C, nsb), bool)
+        else:
+            src = getattr(eng.pg, prefix + "src_local")
+            live = getattr(eng.pg, prefix + "edge_valid") != 0
+            pad = ((0, 0), (0, (-src.shape[1]) % BLOCK_E))
+            blk = np.pad(src // BLOCK_V, pad)
+            live = np.pad(live, pad)
+            exact = np.zeros((C, nsb), bool)
+            exact[np.nonzero(live)[0], blk[live]] = True
+            blk = blk.reshape(C, -1, BLOCK_E)
+            live = live.reshape(C, -1, BLOCK_E)
+            lo = np.where(live, blk, nsb).min(axis=2)
+            hi = np.where(live, blk, -1).max(axis=2)
+            del blk, live
+            ranged = np.zeros((C, nsb), bool)
+            for c, k in zip(*np.nonzero(hi >= 0)):
+                ranged[c, lo[c, k]:hi[c, k] + 1] = True
         masks = []
         for f in frontiers:
             f = f.numpy()
             if f.ndim == 3:
                 f = f.any(axis=-1)
-            masks.append(np.array([
-                (blocks.frontier_block_mask(f[c], nsb).astype(bool)
-                 & gmask[c]).any() for c in range(eng._C)]))
+            f = np.pad(f, ((0, 0), (0, nsb * BLOCK_V - K)))
+            fb = f.reshape(C, nsb, BLOCK_V).any(axis=2)
+            active = (fb & ranged).any(axis=1)
+            if ((fb & exact).any(axis=1) & ~active).any():
+                raise AssertionError("the gate's recount skips a row whose "
+                                     "edges read a live block")
+            masks.append(active)
         return sum(int((~m).sum()) for m in masks), masks
 
     def async_modes(self):
@@ -2959,8 +2954,6 @@ class Smoke:
         _, gw, _, pgw, _ = self._chare_graphs()
         ref, ref_it, _ = self._reference("sssp", gw, "chares")
         out = []
-        self.staged_gate_launches = dict.fromkeys(push_fused.launch_counts,
-                                                  0)
         for label, kw in (("sortdest", {}), ("push_fn=None",
                                              dict(push_fn=None)),
                           ("basic", dict(strategy="basic"))):
@@ -2981,12 +2974,20 @@ class Smoke:
 
                 self.staged_call = None
                 eng._push = keep
-            before = dict(push_fused.launch_counts)
+            push_fused.reset_launch_counts()
             got, it = eng.run("sssp", sync="overlap", gate="frontier")
-            if label != "sortdest":
-                for k in self.staged_gate_launches:
-                    self.staged_gate_launches[k] += \
-                        push_fused.launch_counts[k] - before[k]
+            launched = dict(push_fused.launch_counts)
+            # every push of a gated run is a gated launch: the fused min's
+            # on sortdest, the staged min pair's under push_fn=None (whose
+            # phase 2 launches no scatter); basic's phase-2 scatter is not
+            if label == "sortdest":
+                self.gated_launches = launched["fused_push_min"]
+            if label == "push_fn=None":
+                self.staged_gate_launches = launched
+                if not launched["gather_min"] == launched["scatter_min"] \
+                        == it + 1:
+                    raise AssertionError(f"chare {label}: launches "
+                                         f"{launched}, {it} supersteps")
             gate = dict(eng.dispatch["gate"])
             if not np.array_equal(got, ref) or not it <= 2 * ref_it + 2:
                 raise AssertionError(f"chare {label} overlap+gate differs")
@@ -2996,19 +2997,18 @@ class Smoke:
             if skipped != gate["skipped_launches"]:
                 raise AssertionError(f"chare {label}: {gate}, recount "
                                      f"{skipped}")
-            out.append({"engine": label, "supersteps": it, "gate": gate})
-        for k in ("gather_min", "scatter_min"):
-            if not self.staged_gate_launches[k]:
-                raise AssertionError(f"{k} was not launched by the gated "
-                                     "staged runs")
+            out.append({"engine": label, "supersteps": it, "gate": gate,
+                        "launches": {k: n for k, n in launched.items()
+                                     if n}})
         return out
 
     @staticmethod
     def _active_bound(band, ra, vals, S, weighted, live_rows=None):
-        """The gated call's least time: the bytes of its active rows only
+        """The gated call's least time: the bytes its active rows read
         (their band rows, the edge planes of their non-empty edge blocks,
-        their vals rows read once, their out rows written once) over HBM
-        bandwidth; the operations are far below it.  -> (ms, bytes)."""
+        their vals rows, once each), the row mask, and every output row
+        written once (a gated row's holds the identity) over HBM bandwidth;
+        the operations are far below it.  -> (ms, bytes)."""
         on = ra != 0
         C = band.shape[0]
         live = int(((band[:, 1] >= 0) & on[:, None]).sum())
@@ -3017,15 +3017,16 @@ class Smoke:
         row_vals = vals[0].numel() * vals.element_size()
         out_row = S * vals[0, 0].numel() * vals.element_size()
         nbytes = (band[0].numel() * 4 * rows + live * 256 * per_edge
-                  + rows * (row_vals + out_row))
+                  + rows * row_vals + C * (out_row + 4))
         return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
 
     def _gated_time(self):
-        """The gated kernels under a real superstep's row mask, against the
-        same call without the gate (in turns) and the gated plain version:
-        the fused min on the main graph's grid(2,4) gr_band (the mask and
-        vals of a push of phase async's grid run that gated some rows) and
-        the staged min pair on the chare-axis sd layout (from its
+        """The gated kernels under real supersteps' row masks, each held
+        against its gated plain version, then timed against the same call
+        without the gate (in turns) and the plain version: the fused min on
+        the main graph's grid(2,4) gr_band (a push of phase async's grid run
+        that gated every row) and on the chare-axis sd layout (one that
+        gated some rows), and the staged min pair on that layout (from its
         ``push_fn=None`` run).  Each goes on the kernels line."""
         import torch
 
@@ -3047,59 +3048,62 @@ class Smoke:
                 combine="min", unit_weight=kw["unit"], row_active=gate)
             return call, kw["band"], kw["row_active"], vals_p, S_p, weight
 
+        def fused_row(name, recorded, launches, timed_call):
+            """Hold a recorded gated call against its gated plain version,
+            time it in turns against the same call without the gate, and
+            put it on the kernels line."""
+            call, band, ra, vals_p, S_p, weight = prepared(recorded)
+            what = f"{name} ({timed_call})"
+            got, want = call(ra), call(ra, push_fused.fused_push_plain)
+            torch.cuda.synchronize()
+            err = self.compare(got, want, "min", what)
+            full = call(None)
+            self._gated_rows(got, full, ra, None,
+                             push_fused._identity("min", got.dtype), True,
+                             what)
+            del got, want, full
+            g1, f1 = self.cuda_ms(lambda: call(ra), 20), self.cuda_ms(
+                lambda: call(None), 20)
+            f2, g2 = self.cuda_ms(lambda: call(None), 20), self.cuda_ms(
+                lambda: call(ra), 20)
+            plain_ms = self.cuda_ms(
+                lambda: call(ra, push_fused.fused_push_plain), 3)
+            bound_ms, nbytes = self._active_bound(band, ra, vals_p, S_p,
+                                                  weight is not None)
+            out[name] = {
+                "active_rows": int((ra != 0).sum()), "rows": int(ra.numel()),
+                "ms": min(g1, g2), "ungated_ms": min(f1, f2),
+                "turns_ms": {"gated": [g1, g2], "ungated": [f1, f2]},
+                "plain_ms": plain_ms, "bound_ms": bound_ms, "bytes": nbytes,
+                "max_abs_err": err}
+            self.kernel_rows[name] = {
+                "name": name, "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/push_fused.cu",
+                "replaces": "src/repro/kernels/push_fused.py:104",
+                "launches": launches, "max_abs_err": err, "ms": min(g1, g2),
+                "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": "bytes", "library_ms": None,
+                "timed_call": timed_call, "ungated_ms": min(f1, f2)}
+
         # the pipeline's bubble on grid(2,4): every row gated (at scale 22
-        # every live push of the grid run keeps all 8 rectangles active)
+        # every live push of the grid run keeps all 8 rectangles active);
+        # launches: that gated run's
         if self.bubble_call is None:
             raise AssertionError("phase async saw no all-gated push on "
                                  "grid(2,4)")
-        call, band, ra, *_ = prepared(self.bubble_call)
-        g1, f1 = self.cuda_ms(lambda: call(ra), 20), self.cuda_ms(
-            lambda: call(None), 20)
-        f2, g2 = self.cuda_ms(lambda: call(None), 20), self.cuda_ms(
-            lambda: call(ra), 20)
-        out["fused_push_min/gated, every row, gr_band"] = {
-            "ms": min(g1, g2), "ungated_ms": min(f1, f2),
-            "turns_ms": {"gated": [g1, g2], "ungated": [f1, f2]}}
-        # some rows gated: a real superstep of the chare-axis sd run
+        fused_row("fused_push_min/gated/grid", self.bubble_call,
+                  self.async_launches["fused_push_min"],
+                  "sssp overlap+gate on grid(2,4) gr_band, the pipeline's "
+                  "empty half (every row gated)")
+        # some rows gated: a real superstep of the chare-axis sd run;
+        # launches: that gated run's
         if self.gated_call is None:
             raise AssertionError("phase async saw no fused push with some "
                                  "rows gated")
-        call, band, ra, vals_p, S_p, weight = prepared(self.gated_call)
-        what = "gated fused min, C=8 sd layout"
-        got, want = call(ra), call(ra, push_fused.fused_push_plain)
-        torch.cuda.synchronize()
-        err = self.compare(got, want, "min", what)
-        full = call(None)
-        self._gated_rows(got, full, ra, None, push_fused.SENTINEL_F32, True,
-                         what)
-        del got, want, full
-        g1, f1 = self.cuda_ms(lambda: call(ra), 20), self.cuda_ms(
-            lambda: call(None), 20)
-        f2, g2 = self.cuda_ms(lambda: call(None), 20), self.cuda_ms(
-            lambda: call(ra), 20)
-        plain_ms = self.cuda_ms(
-            lambda: call(ra, push_fused.fused_push_plain), 3)
-        bound_ms, nbytes = self._active_bound(band, ra, vals_p, S_p,
-                                              weight is not None)
-        out["fused_push_min/gated"] = {
-            "active_rows": int((ra != 0).sum()), "rows": int(ra.numel()),
-            "ms": min(g1, g2), "ungated_ms": min(f1, f2),
-            "turns_ms": {"gated": [g1, g2], "ungated": [f1, f2]},
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bytes": nbytes,
-            "max_abs_err": err}
-        self.kernel_rows["fused_push_min/gated"] = {
-            "name": "fused_push_min/gated", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/push_fused.cu",
-            "replaces": "src/repro/kernels/push_fused.py:104",
-            "launches": self.async_launches["fused_push_min"],
-            "max_abs_err": err, "ms": min(g1, g2), "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
-            "timed_call": "sssp overlap+gate, C=8 chare-axis sd layout, a "
-                          "superstep's row mask (launches: the grid(2,4) "
-                          "run's)",
-            "ungated_ms": min(f1, f2),
-            "every_row_gated_ms": out[
-                "fused_push_min/gated, every row, gr_band"]["ms"]}
+        fused_row("fused_push_min/gated", self.gated_call,
+                  self.gated_launches,
+                  f"sssp overlap+gate, C={self.args.chares} chare-axis sd "
+                  "layout, a superstep's row mask")
         # the staged min pair on the chare-axis sd layout
         if self.staged_call is None:
             raise AssertionError("phase async saw no staged push with some "
