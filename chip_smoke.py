@@ -33,7 +33,9 @@ Phases, each printing one JSON line with its seconds:
              the identity bit for bit, active rows equal the call without
              the gate (bit for bit; the tiled add is fixed-order)
   graph      the soc-LiveJournal1 stand-in (RMAT, 2^scale vertices, 14
-             edges per vertex) and its partitions, built on the host
+             edges per vertex) and its partitions; their layouts are built
+             on the card from 2^21 edges (the torch layout build), on the
+             host below
   main       the main path: Engine(pg, "sortdest") at C=1 runs pagerank,
              pagerank_weighted, sssp, bfs (source 0) and labelprop, checked
              against the serial references (connected components from scipy
@@ -114,7 +116,8 @@ Phases, each printing one JSON line with its seconds:
              bound to the target and the new sd table on the tiled path;
              launch counts zeroed before and read after; the seconds of
              each step of a switch (the plan and lazy repartition, the
-             state move, the rebind's layout build and upload) and the
+             state move, the rebind's layout build -- on the card from
+             2^21 edges -- and upload) and the
              device memory peak; sssp at B=16 across a replan equal to the
              main engine's plane without one; then at the chare scale (C
              chares) sssp across contiguous->grid(2,4),
@@ -138,6 +141,34 @@ Phases, each printing one JSON line with its seconds:
              the chare scale sssp with overlap and the gate on sortdest,
              push_fn=None and basic (the gated staged min pair) with host
              recounts; gating_model at the chare scale
+  stream     out-of-core streaming on the main graphs under grid(1,1):
+             the partitions built on the card (REPRO_DEVICE_BUILD=device,
+             asserted) against the host build of the same grid layout and
+             of the sd layout, array by array, both builds' seconds; the
+             resident grid(1,1) engine's sssp, bfs, pagerank,
+             pagerank_weighted, betweenness (4 pivots), B=16 planes (bfs,
+             sssp, PPR), a server at B=8 (4 bfs, 2 sssp, 2 PPR) and its
+             memory peak; then the same on an Engine(residency="stream")
+             under StreamConfig(budget_bytes=0.20 x total edge bytes)
+             (resident_edge_bytes <= budget < total, edge fraction <=
+             0.25), with no resident layout on the card: min programs and
+             planes bit for bit with equal superstep counts, the PageRanks
+             within rtol=1e-5 (< 1e-3 from serial), two streamed pagerank
+             runs bit-identical, served rows equal; launch counts zeroed
+             before and read after the streamed sssp and pagerank (one
+             fused launch per window fold); the single-query working set
+             within 2 windows + 16 vertex planes of what the engine holds,
+             every streamed peak below the resident one (reset before each
+             engine's runs); resident, streamed and serialized
+             (prefetch=False, equal results) seconds and per superstep,
+             overlap efficiency, copy and stall seconds, the H2D copies'
+             own seconds and rate; the gate on sssp/bfs and on the
+             reference's block chain (>= 0.4 of the slots skipped);
+             fetched edge bytes per query at B=16 <= 1/8 of B=1's and
+             queries/s; labelprop on the symmetrized graph; the layout
+             cache cold then warm at scale (origin "disk", bit-exact); and
+             both fused kernels on one window of the table, init-seeded,
+             the rectangle gated on and off, against the plain version
   cost       the paper's COST tables: run_table for every registered
              program on the three paper stand-ins (2^cost-scale vertices,
              cut from 2^20 so the phase takes about 4 min; 14, 24 and 35
@@ -207,7 +238,8 @@ phase grid for the fused pair on gr_band, ``fused_push_add/grid`` and
 ``fused_push_min/grid``, and from phase async for the gated variants,
 ``fused_push_min/gated``, ``fused_push_min/gated/grid``, ``gather_min/gated``
 and ``scatter_min/gated``, each from the gated run its timed call came
-from), the ``nvidia-smi`` name and power limit, and as the last line ``{"ok": true,
+from, and from phase stream for the windowed rows, ``fused_push_min/window``
+and ``fused_push_add/window``), the ``nvidia-smi`` name and power limit, and as the last line ``{"ok": true,
 "device": {...}}``.  Any failure exits non-zero and prints no ok line.  Min
 programs and int32 sums must be bit-equal to the plain versions; float sums
 agree with them within rtol=1e-5, atol=1e-6*max|out| (the plain version sums
@@ -682,14 +714,19 @@ class Smoke:
         t0 = time.perf_counter()
         self.pgw = G.partition(self.gw, 1, eager=False)
         self.pgu = G.partition(self.gu, 1, eager=False)
-        for pg in (self.pgw, self.pgu):
-            pg.sd_band  # build the sd layout (the only one C=1 sortdest reads)
         t_part = time.perf_counter() - t0
+        t_build = []
+        for pg in (self.pgw, self.pgu):
+            t0 = time.perf_counter()
+            pg.sd_band  # build the sd layout (the only one C=1 sortdest reads)
+            t_build.append(round(time.perf_counter() - t0, 3))
         return {"vertices": g.num_vertices, "edges": g.num_edges,
                 "undirected_edges": self.gu.num_edges,
                 "edges_per_vertex": round(g.num_edges / g.num_vertices, 3),
                 "rmat_s": round(t_gen, 3), "to_undirected_s": round(t_und, 3),
-                "partition_s": round(t_part, 3),
+                "partition_s": round(t_part, 3), "sd_build_s": t_build,
+                "layout_builds": [self.pgw.layout_builds["sd"],
+                                  self.pgu.layout_builds["sd"]],
                 "sd_emax": int(self.pgw.edge_valid.shape[1]),
                 "mean_degree_check": float(np.mean(g.out_degrees))}
 
@@ -2592,6 +2629,7 @@ class Smoke:
         import torch
 
         from repro_torch.core import Engine
+        from repro_torch.core import graph as G
         from repro_torch.kernels import push_fused
 
         timing, restore = self._replan_timers()
@@ -2627,7 +2665,12 @@ class Smoke:
                                              f"serial ({it}/{ref_it})")
                 plan = push_fused.tile_plan(eng.arrays["sd_band"])
                 row["new_table"] = {"tiled_rows": plan.num_tiled,
-                                    "min_tiled": plan.min_tiled}
+                                    "min_tiled": plan.min_tiled,
+                                    "build": eng.pg.layout_builds["sd"]}
+                if (self.gw.num_edges >= G._DEVICE_BUILD_MIN_EDGES
+                        and eng.pg.layout_builds["sd"] != "cuda"):
+                    raise AssertionError(f"replan {prog}: the rebind built "
+                                         "its layout on the host")
                 if plan.num_tiled != 1 or not plan.min_tiled:
                     raise AssertionError(f"replan {prog}: the new sd table "
                                          "does not take the tiled path")
@@ -3159,6 +3202,484 @@ class Smoke:
         del c
         return out
 
+    # -- out-of-core streaming (residency="stream") --------------------------
+
+    @staticmethod
+    def _block_chain(nblocks=8, per=256):
+        """The reference's gate fixture (``tests/test_stream.py``): each
+        vertex block a star from its first vertex, bridged to the next, so
+        a BFS frontier stays inside about one block and the window gate has
+        slots to skip even at grid(1,1)."""
+        import numpy as np
+
+        from repro_torch.core import from_edges
+
+        srcs, dsts = [], []
+        for b in range(nblocks):
+            lo = b * per
+            srcs += [lo] * (per - 1)
+            dsts += list(range(lo + 1, lo + per))
+            if b + 1 < nblocks:
+                srcs.append(lo + 1)
+                dsts.append(lo + per)
+        return from_edges(nblocks * per, np.array(srcs, np.int32),
+                          np.array(dsts, np.int32))
+
+    def _stream_builds(self):
+        """The grid(1,1) partitions of the main graphs, their layouts built
+        on the card (asserted), compared array by array with the host build
+        of the same grid layout, and phase graph's sd layout (built on the
+        card there, asserted) with the host build of the sd layout; the
+        seconds of each partition's relabel and of each layout build.
+        -> (pgw, pgu, record)."""
+        import os
+
+        import numpy as np
+        import torch
+
+        from repro_torch.core import graph as G
+
+        def build(mode, g, which, partitioner="grid(1,1)"):
+            old = os.environ.get("REPRO_DEVICE_BUILD")
+            os.environ["REPRO_DEVICE_BUILD"] = mode
+            try:
+                t0 = time.perf_counter()
+                pg = G.partition(g, 1, partitioner, eager=False)
+                t1 = time.perf_counter()
+                pg._layout(which)
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+            finally:
+                if old is None:
+                    del os.environ["REPRO_DEVICE_BUILD"]
+                else:
+                    os.environ["REPRO_DEVICE_BUILD"] = old
+            return pg, {"relabel_s": t1 - t0, "build_s": t2 - t1,
+                        "build": pg.layout_builds[which]}
+
+        def same(a, b, what):
+            for x, y, name in zip(a._layout(what), b._layout(what),
+                                  ("src", "dst", "weight", "band")):
+                if x.dtype != y.dtype or not np.array_equal(x, y):
+                    raise AssertionError(f"device-built {what} {name} "
+                                         "differs from the host build")
+
+        pgw, dev_w = build("device", self.gw, "grid")
+        pgu, dev_u = build("device", self.gu, "grid")
+        host_grid, host_w = build("host", self.gw, "grid")
+        host_sd, host_s = build("host", self.gw, "sd", "contiguous")
+        builds = {"grid": dev_w, "grid_undirected": dev_u,
+                  "grid_host": host_w, "sd_host": host_s,
+                  "sd": self.pgw.layout_builds["sd"]}
+        for key in ("grid", "grid_undirected", "sd"):
+            got = builds[key] if key == "sd" else builds[key]["build"]
+            if got != "cuda":
+                raise AssertionError(f"the {key} layout was built by {got}")
+        same(pgw, host_grid, "grid")
+        same(self.pgw, host_sd, "sd")
+        del host_grid, host_sd
+        torch.cuda.empty_cache()
+        return pgw, pgu, builds
+
+    def _stream_cases(self, eng, sources, seeds, launches=None):
+        """Every run phase stream holds the streamed engine to: -> dict of
+        results (numpy).  ``launches`` (optional) receives the launch
+        counts of each single-query run, zeroed just before it and read
+        just after."""
+        from repro_torch.kernels import push_fused
+        from repro_torch.launch import serve as S
+
+        out = {}
+        for prog in ("sssp", "bfs", "pagerank", "pagerank_weighted"):
+            push_fused.reset_launch_counts()
+            out[prog] = eng.run(prog)
+            if launches is not None:
+                launches[prog] = dict(push_fused.launch_counts)
+        out["betweenness"] = eng.run("betweenness", pivots=(0, 1, 2, 3))
+        for prog, srcs in (("bfs", sources), ("sssp", sources),
+                           ("personalized_pagerank", seeds)):
+            out[f"{prog}/B16"] = eng.run_batch(prog, sources=srcs, batch=16)
+        server = S.GraphQueryServer(eng, batch=8)
+        ids = ([server.submit("bfs", s) for s in sources[:4]]
+               + [server.submit("sssp", s) for s in sources[4:6]]
+               + [server.submit("personalized_pagerank", s, iters=4)
+                  for s in sources[6:8]])
+        server.drain()
+        out["served"] = [server.result(i) for i in ids]
+        out["served_programs"] = ["bfs"] * 4 + ["sssp"] * 2 + ["ppr"] * 2
+        return out
+
+    def _stream_held(self, got, want):
+        """Streamed results against resident ones: min programs and their
+        planes bit for bit with equal superstep counts, the PageRanks
+        within rtol=1e-5; -> max abs deviation of the float programs."""
+        import numpy as np
+
+        devs = {}
+        for key, result in got.items():
+            if key in ("served", "served_programs"):
+                continue
+            (g, it), (w, wit) = result, want[key]
+            exact = key.split("/")[0] in ("sssp", "bfs", "labelprop")
+            if exact:
+                ok = np.array_equal(g, w) and np.array_equal(it, wit)
+            else:
+                ok = (np.allclose(g, w, rtol=1e-5, atol=1e-7)
+                      and np.array_equal(it, wit))
+                devs[key] = float(np.max(np.abs(g - w)))
+            if not ok:
+                raise AssertionError(f"streamed {key} differs from resident "
+                                     f"(supersteps {it} / {wit})")
+        for prog, (g, it), (w, wit) in zip(got["served_programs"],
+                                           got["served"], want["served"]):
+            ok = (np.array_equal(g, w) if prog != "ppr"
+                  else np.allclose(g, w, rtol=1e-5, atol=1e-7))
+            if not ok or it != wit:
+                raise AssertionError(f"a served {prog} row differs from the "
+                                     "resident server's")
+        return devs
+
+    def stream(self):
+        """Out-of-core streaming on the main graphs; see the module
+        docstring."""
+        import shutil
+
+        import numpy as np
+        import torch
+
+        from repro_torch.core import Engine, StreamConfig
+        from repro_torch.core import graph as G
+        from repro_torch.kernels import push_fused
+
+        steps, clock = {}, [time.perf_counter()]
+
+        def step(name):
+            now = time.perf_counter()
+            steps[name] = round(now - clock[0], 3)
+            clock[0] = now
+            emit({"stream_step": name, "seconds": steps[name]})
+
+        pgw, pgu, builds = self._stream_builds()
+        step("builds")
+        total = pgw.shard_source(windows=1).total_edge_bytes
+        total_u = pgu.shard_source(windows=1).total_edge_bytes
+        budget, budget_u = int(0.20 * total), int(0.20 * total_u)
+        rng = np.random.default_rng(7)
+        live = np.flatnonzero(self.gw.out_degrees > 0)
+        sources = [0] + [int(s) for s in rng.choice(live, 15, replace=False)]
+        seeds = [s if i % 3 else (s, int(live[i]), int(live[-i - 1]))
+                 for i, s in enumerate(sources)]
+
+        def timed(fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0
+
+        # resident grid(1,1) first: its results, seconds and memory peak
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        res = Engine(pgw)
+        want = self._stream_cases(res, sources, seeds)
+        _, t_res = timed(lambda: res.run("sssp"))
+        peak_res = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        res_u = Engine(pgu)
+        want_lp = res_u.run("labelprop")
+        peak_res_u = torch.cuda.max_memory_allocated()
+        chain = self._block_chain()
+        pgc = G.partition(chain, 1, "grid(1,1)")
+        want_chain = Engine(pgc).run("bfs", source=0)
+        step("resident cases")
+        del res, res_u
+        for pg in (pgw, pgu, pgc):
+            pg._dev.clear()  # no resident plane for a streamed engine to see
+        torch.cuda.empty_cache()
+
+        # streamed: the same runs under the 20% budget
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        eng = Engine(pgw, residency="stream",
+                     stream=StreamConfig(budget_bytes=budget))
+        held = torch.cuda.memory_allocated() - base  # vertex planes, bands
+        st = dict(eng.dispatch["stream"])
+        if not (st["resident_edge_bytes"] <= budget < st["total_edge_bytes"]
+                and st["edge_fraction_resident"] <= 0.25):
+            raise AssertionError(f"stream sizing {st}")
+        if any(k[0].startswith(("dense", "gate")) for k in pgw._dev):
+            raise AssertionError("the streamed engine uploaded a resident "
+                                 "layout")
+        launches = {}
+        push_fused.reset_launch_counts()
+        got, it = eng.run("sssp")
+        launches["sssp"] = dict(push_fused.launch_counts)
+        fetched = eng.dispatch["stream"]["fetches"]
+        if not launches["sssp"]["fused_push_min"] == fetched \
+                == it * st["windows"]:
+            raise AssertionError(f"streamed sssp: {launches['sssp']} for "
+                                 f"{fetched} window folds")
+        # a single-query run's working set: the two device slots and at
+        # most 16 vertex planes of temporaries beside what the engine holds
+        peak_single = torch.cuda.max_memory_allocated() - base
+        single_bound = held + 2 * st["window_bytes"] \
+            + 16 * pgw.num_chunks * pgw.chunk_size * 4
+        step("streamed sssp, launches counted")
+        got = self._stream_cases(eng, sources, seeds, launches)
+        step("streamed cases")
+        for prog in ("bfs", "pagerank", "pagerank_weighted"):
+            combine = "min" if prog == "bfs" else "add"
+            if launches[prog][f"fused_push_{combine}"] != \
+                    got[prog][1] * st["windows"]:
+                raise AssertionError(f"streamed {prog}: {launches[prog]} for "
+                                     f"{got[prog][1]} supersteps")
+        devs = self._stream_held(got, want)
+        again = eng.run("pagerank")[0]
+        if not np.array_equal(again, got["pagerank"][0]):
+            raise AssertionError("two streamed pagerank runs differ")
+        serial = {p: self._reference(p, self.gw, "main")[0]
+                  for p in ("pagerank", "pagerank_weighted")}
+        serial_err = {p: float(np.max(np.abs(got[p][0] - serial[p])))
+                      for p in serial}
+        if not all(e < 1e-3 for e in serial_err.values()):
+            raise AssertionError(f"streamed pagerank vs serial {serial_err}")
+        peak_str = torch.cuda.max_memory_allocated()
+        if not peak_single <= single_bound:
+            raise AssertionError(f"streamed peak {peak_single} B above "
+                                 f"the engine's {held} + 2 windows + 16 "
+                                 f"vertex planes ({single_bound})")
+        if not peak_str < peak_res:
+            raise AssertionError(f"streamed peak {peak_str} B not below the "
+                                 f"resident {peak_res}")
+
+        # seconds: resident, streamed, serialized; the gate
+        (out_s, it_s), t_str = timed(lambda: eng.run("sssp"))
+        pipelined = dict(eng.dispatch["stream"])
+        eng0 = Engine(pgw, residency="stream",
+                      stream=StreamConfig(budget_bytes=budget, prefetch=False))
+        (out_0, it_0), t_ser = timed(lambda: eng0.run("sssp"))
+        serialized = dict(eng0.dispatch["stream"])
+        del eng0
+        gated = {}
+        for prog in ("sssp", "bfs"):
+            g, it = eng.run(prog, gate="frontier")
+            if not (np.array_equal(g, want[prog][0]) and it == want[prog][1]):
+                raise AssertionError(f"gated streamed {prog} differs")
+            gated[prog] = eng.dispatch["stream"]["fetch_skip_fraction"]
+        if not (np.array_equal(out_0, want["sssp"][0])
+                and it_0 == want["sssp"][1]):
+            raise AssertionError("serialized streamed sssp differs")
+
+        # the batched plane's edge bytes per query: B=16 against the same
+        # 16 queries one at a time.  Run alone, query i fetches every
+        # window in each of its own supersteps (q_it[i], equal to its B=1
+        # count); two of them are run at B=1 to hold that to the
+        # prefetcher's count, the rest take their q_it from the plane
+        _, t16 = timed(lambda: eng.run_batch("sssp", sources=sources,
+                                             batch=16))
+        per_q16 = eng.dispatch["stream"]["fetched_bytes_per_query"]
+        sweep = eng.dispatch["stream"]["fetched_bytes"] \
+            / eng.dispatch["stream"]["supersteps"]
+        q_it = want["sssp/B16"][1]
+        b1 = []
+        for i in (0, 1):
+            _, t1 = timed(lambda: eng.run_batch("sssp", sources=[sources[i]],
+                                                batch=1))
+            d = eng.dispatch["stream"]
+            if d["fetched_bytes"] != q_it[i] * sweep:
+                raise AssertionError(f"B=1 query {i}: {d['fetched_bytes']} "
+                                     f"B for {q_it[i]} supersteps")
+            b1.append(t1)
+        per_q1 = float(np.mean(q_it)) * sweep
+        if not per_q16 <= per_q1 / 8:
+            raise AssertionError(f"B=16 fetches {per_q16} B per query, the "
+                                 f"same queries one at a time {per_q1}")
+        step("gate, serialized, bytes per query")
+        windows = self._window_kernels(eng, launches)
+        step("windowed kernels")
+        del eng
+        torch.cuda.empty_cache()
+
+        # labelprop on the symmetrized graph, and the gate on the chain
+        torch.cuda.reset_peak_memory_stats()
+        eng_u = Engine(pgu, residency="stream",
+                       stream=StreamConfig(budget_bytes=budget_u))
+        lp = eng_u.run("labelprop")
+        peak_str_u = torch.cuda.max_memory_allocated()
+        if not (np.array_equal(lp[0], want_lp[0]) and lp[1] == want_lp[1]):
+            raise AssertionError("streamed labelprop differs")
+        if not peak_str_u < peak_res_u:
+            raise AssertionError(f"streamed labelprop peak {peak_str_u} B "
+                                 f"not below the resident {peak_res_u}")
+        st_u = dict(eng_u.dispatch["stream"])
+        del eng_u
+        ceng = Engine(pgc, residency="stream", stream=StreamConfig(windows=4))
+        g, it = ceng.run("bfs", source=0, gate="frontier")
+        chain_skip = ceng.dispatch["stream"]["fetch_skip_fraction"]
+        if not (np.array_equal(g, want_chain[0]) and it == want_chain[1]
+                and chain_skip >= 0.4):
+            raise AssertionError(f"gated chain bfs: skip {chain_skip}")
+        step("labelprop, chain")
+
+        # the layout cache at scale: cold (build + persist), warm (mmap)
+        cache = ROOT / "build" / "stream_cache"
+        shutil.rmtree(cache, ignore_errors=True)
+        try:
+            prep = lambda: G.partition(
+                self.gw, 1, "grid(1,1)", eager=False).shard_source(
+                    budget_bytes=budget, cache_dir=str(cache))
+            _, t_cold = timed(prep)  # relabel, build on the card, persist
+            sb, t_warm = timed(prep)  # relabel, memory-map
+            if sb.origin != "disk":
+                raise AssertionError("the warm layout cache missed")
+            warm = Engine(G.partition(self.gw, 1, "grid(1,1)", eager=False),
+                          residency="stream", stream=StreamConfig(
+                              budget_bytes=budget, cache_dir=str(cache)))
+            if warm.dispatch["stream"]["origin"] != "disk":
+                raise AssertionError("the warm layout cache missed")
+            g, it = warm.run("sssp")
+            if not (np.array_equal(g, want["sssp"][0])
+                    and it == want["sssp"][1]):
+                raise AssertionError("warm-cache streamed sssp differs")
+            del warm
+        finally:
+            shutil.rmtree(cache, ignore_errors=True)
+        step("layout cache")
+
+        def rates(d):
+            keep = ("copy_s", "stall_s", "overlap_efficiency", "h2d_s",
+                    "h2d_bytes", "fetched_bytes", "fetches",
+                    "edge_bandwidth_bytes_per_s")
+            out = {k: d[k] for k in keep}
+            out["h2d_bytes_per_s"] = (d["h2d_bytes"] / d["h2d_s"]
+                                      if d["h2d_s"] else 0.0)
+            return out
+
+        return {
+            "builds": builds, "sizing": st, "labelprop_sizing": st_u,
+            "supersteps": it_s,
+            "resident_s": t_res, "streamed_s": t_str, "serialized_s": t_ser,
+            "superstep_resident_s": t_res / it_s,
+            "superstep_streamed_s": t_str / it_s,
+            "superstep_serialized_s": t_ser / it_0,
+            "pipelined": rates(pipelined), "serialized": rates(serialized),
+            "gate_fetch_skip_fraction": gated,
+            "chain_fetch_skip_fraction": chain_skip,
+            "bytes_per_query": {"B1_mean_of_16": per_q1, "B16": per_q16,
+                                "ratio": per_q16 / per_q1,
+                                "query_supersteps": [int(x) for x in q_it]},
+            "queries_per_s": {"B1": 1 / float(np.mean(b1)),
+                              "B16": 16 / t16},
+            "step_s": steps,
+            "cache_cold_s": t_cold, "cache_warm_s": t_warm,
+            "peak_device_bytes": {
+                "resident": peak_res, "streamed": peak_str,
+                "streamed_single_over_base": peak_single,
+                "single_bound": single_bound, "engine_held": held,
+                "resident_labelprop": peak_res_u,
+                "streamed_labelprop": peak_str_u},
+            "launches": {p: {k: n for k, n in c.items() if n}
+                         for p, c in launches.items()},
+            "max_abs_dev_vs_resident": devs,
+            "max_abs_err_vs_serial": serial_err,
+            "windowed_kernels": windows,
+        }
+
+    def _window_kernels(self, eng, launches):
+        """The fused min and the fused add on one window of the streamed
+        sssp/pagerank table (a middle window, from a pinned staging slot),
+        seeded with a non-identity init, with the window's rectangle gated
+        off and on: each held against ``fused_push_plain`` with the same
+        init and gate, then timed (gate on and off in turns) beside the
+        plain version and the bound on the window's bytes (the init read
+        besides).  Each goes on the kernels line as ``<kernel>/window``."""
+        import torch
+
+        from repro_torch.kernels import push_fused
+        from repro_torch.kernels.blocks import BLOCK_S, BLOCK_V
+
+        sb = eng._source
+        k = min(1, sb.num_windows - 1)
+        staging = sb.make_staging(pin_memory=True)
+        sb.read_window(k, staging)
+        wd = {n: t.to("cuda") for n, t in
+              sb.staged_views(staging["buffer"]).items()}
+        band = eng._win_bands[k]
+        P = eng._C
+        V = eng._K + (-eng._K) % BLOCK_V  # the padded widths ops.push passes
+        S = eng._grid_meta[1] * eng._grid_meta[2]
+        S += (-S) % BLOCK_S
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        out = {}
+        for combine, weighted, prog in (("min", True, "sssp"),
+                                        ("add", False, "pagerank")):
+            if combine == "min":
+                vals = torch.rand((P, V), generator=gen, device="cuda") * 100
+                vals[:, ::3] = push_fused.SENTINEL_F32  # a third unreached
+                init = torch.rand((P, S), generator=gen, device="cuda") * 100
+                init[:, 1::3] = push_fused.SENTINEL_F32
+            else:
+                vals = torch.rand((P, V), generator=gen, device="cuda")
+                init = torch.rand((P, S), generator=gen, device="cuda")
+            w = wd["gr_edge_weight"] if weighted else None
+            name = f"fused_push_{combine}/window"
+
+            def call(ra, fn=push_fused.fused_push):
+                return fn(band, wd["gr_src_local"], wd["gr_dst_col"],
+                          wd["gr_edge_valid"], w, vals, S, combine=combine,
+                          init=init, row_active=ra)
+
+            on = torch.ones(P, dtype=torch.int32, device="cuda")
+            off = torch.zeros(P, dtype=torch.int32, device="cuda")
+            errs = []
+            for ra in (on, off):
+                got, want = call(ra), call(ra, push_fused.fused_push_plain)
+                torch.cuda.synchronize()
+                errs.append(self.compare(got, want, combine, name))
+            if not torch.equal(call(off), init):
+                raise AssertionError(f"{name}: a gated rectangle lost init")
+            if not torch.equal(call(on), call(on)) or (
+                    combine == "min" and not torch.equal(call(on),
+                                                         call(None))):
+                raise AssertionError(f"{name}: repeated calls differ")
+            m1, g1 = self.cuda_ms(lambda: call(on), 20), \
+                self.cuda_ms(lambda: call(off), 20)
+            g2, m2 = self.cuda_ms(lambda: call(off), 20), \
+                self.cuda_ms(lambda: call(on), 20)
+            plain_ms = self.cuda_ms(
+                lambda: call(on, push_fused.fused_push_plain), 3)
+            live = int((band[:, 1] >= 0).sum())
+            per_edge = 12 + (4 if weighted else 0)
+            nbytes = (band.numel() * 4 + live * 256 * per_edge
+                      + vals.numel() * 4 + 2 * init.numel() * 4)
+            ops = 2 * int(wd["gr_edge_valid"].sum())
+            bound_ms = max(nbytes / HBM_BYTES_PER_S,
+                           ops / FP32_OPS_PER_S) * 1e3
+            n = launches[prog][f"fused_push_{combine}"]
+            out[name] = {"window": k, "edges": int(wd["gr_edge_valid"].sum()),
+                         "ms": min(m1, m2), "gated_off_ms": min(g1, g2),
+                         "turns_ms": {"on": [m1, m2], "off": [g1, g2]},
+                         "plain_ms": plain_ms, "bound_ms": bound_ms,
+                         "bytes": nbytes, "max_abs_err": max(errs),
+                         "launches": n}
+            self.kernel_rows[name] = {
+                "name": name, "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/push_fused.cu",
+                "replaces": ("src/repro/kernels/push_fused.py:104"
+                             if combine == "min"
+                             else "src/repro/kernels/push_fused.py:54"),
+                "launches": n, "max_abs_err": max(errs), "ms": min(m1, m2),
+                "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
+                >= ops / FP32_OPS_PER_S else "operations",
+                "library_ms": None,
+                "timed_call": f"{prog} window {k} of {sb.num_windows}, "
+                              "grid(1,1), init-seeded, rectangle active "
+                              "(gated off: gated_off_ms)",
+                "gated_off_ms": min(g1, g2)}
+        del staging, wd
+        return out
+
     def quickstart(self):
         """The port's quickstart twin on the card, at its default scale."""
         from repro_torch import quickstart
@@ -3189,7 +3710,7 @@ def main(argv=None) -> int:
     try:
         for name in ("device", "build", "kernels", "graph", "main",
                      "reproducible", "batch", "serve", "grid", "replan",
-                     "async", "cost", "staged_main",
+                     "async", "stream", "cost", "staged_main",
                      "profile",
                      "kernel_time",
                      "kernels_main",

@@ -36,20 +36,25 @@ a ``device`` row naming what the measured rows ran on:
                grid(2,4) overlap + gate run (8 rectangles on one device)
                with both lowerings' counted wire bytes, under the
                reference's three assertions
+  streaming.*  out-of-core streaming against the resident engine at
+               grid(1,1) (SSSP): seconds, per-superstep seconds, overlap
+               efficiency, edge bandwidth, the gate's fetch-skip fraction,
+               the layout cache's cold/warm prep, and the batched plane's
+               edge bytes and queries/s per query at B=16 against B=1
+               (<= 1/8 enforced, the reference's bar)
 
 The table sections iterate the vertex-program registry; a wrong result
 fails the run.  Quick mode keeps the engine sweep on the default placement;
 the full run also measures the edge-balanced policy per strategy.
 
 Sections of the reference that print nothing here, by ROADMAP queue 1 item:
-  throughput.model, serving.model, kernel.*, dispatch.*
-                               item 4: their cost models are the TPU's,
+  throughput.model, serving.model, streaming.model, kernel.*,
+  dispatch.*                   item 4: their cost models are the TPU's,
                                and wait for a model of the card
-  streaming.*                  item 9
   roofline.*                   item 12 (the dry-run roofline)
 
 ``--json`` writes the ``algorithms``, ``grid``, ``throughput``,
-``serving`` and ``async`` sections of ``BENCH_cost.json``.
+``serving``, ``async`` and ``streaming`` sections of ``BENCH_cost.json``.
 """
 
 from __future__ import annotations
@@ -162,6 +167,53 @@ def async_rows(scale, repeats, device, record):
     return rows
 
 
+def streaming_rows(scale, repeats, device, record):
+    """The measured ``streaming.*`` rows by the reference's names, under
+    its two assertions (streamed SSSP bit-exact with resident; B=16 fetches
+    at most 1/8 of B=1's edge bytes per query).  Fills ``record`` with the
+    ``streaming`` section of BENCH_cost.json.  -> list of (name, value,
+    derived)."""
+    from repro_torch.benchmarks import tables
+
+    st = tables.streaming_table(scale_log2=scale, repeats=repeats,
+                                device=device)
+    if not st["bit_exact"]:
+        raise AssertionError("streamed SSSP diverged from resident")
+    b1, b16 = st["batched"]["B1"], st["batched"]["B16"]
+    ratio = st["batched"]["bytes_per_query_ratio"]
+    if ratio > 0.125:
+        raise AssertionError(f"B=16 streams more than 1/8 of B=1's edge "
+                             f"bytes per query: {st['batched']}")
+    record.update(st)
+    return [
+        ("streaming.sssp.resident@1", f"{st['resident_s']:.4f}",
+         f"iters={st['iters']}"),
+        ("streaming.sssp.streamed@1", f"{st['streamed_s']:.4f}",
+         f"windows={st['windows']} "
+         f"edge_fraction_resident={st['edge_fraction_resident']:.3f}"),
+        ("streaming.sssp.superstep_s", f"{st['superstep_streamed_s']:.2e}",
+         f"resident={st['superstep_resident_s']:.2e} s/superstep"),
+        ("streaming.overlap_efficiency", f"{st['overlap_efficiency']:.3f}",
+         f"copy={st['copy_s']:.3f}s stall={st['stall_s']:.3f}s "
+         f"serialized={st['serialized_s']:.4f}s"),
+        ("streaming.edge_bandwidth",
+         f"{st['edge_bandwidth_bytes_per_s']:.3e}",
+         "effective edge bytes/s through the window pipeline"),
+        ("streaming.gate_skip_fraction", f"{st['gate_skip_fraction']:.3f}",
+         "window fetches skipped under gate='frontier'"),
+        ("streaming.cache_prep_speedup", f"{st['cache_speedup']:.2f}",
+         f"cold={st['cache_cold_s']:.3f}s warm={st['cache_warm_s']:.3f}s "
+         "(mmap'd layout cache)"),
+        ("streaming.batched.bytes_per_query@B16",
+         f"{b16['edge_bytes_per_query']:.3e}",
+         f"B1={b1['edge_bytes_per_query']:.3e} ratio={ratio:.3f} "
+         "(<=0.125 enforced)"),
+        ("streaming.batched.qps@B16", f"{b16['queries_per_sec']:.2f}",
+         f"B1={b1['queries_per_sec']:.2f} queries/s through the streamed "
+         "run_batch plane"),
+    ]
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--scale", type=int, default=13,
@@ -170,7 +222,8 @@ def main(argv=None) -> dict:
                     help="smaller graphs / fewer repeats")
     ap.add_argument("--json", action="store_true",
                     help="write the algorithms, grid, throughput, "
-                         "serving and async sections of BENCH_cost.json")
+                         "serving, async and streaming sections of "
+                         "BENCH_cost.json")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
     args = ap.parse_args(argv)
@@ -272,6 +325,12 @@ def main(argv=None) -> dict:
     cost_json["async"] = {}
     for name, value, derived in async_rows(scale, repeats, device,
                                            cost_json["async"]):
+        emit(name, value, derived)
+
+    # ---- out-of-core streaming (residency="stream") ------------------------
+    cost_json["streaming"] = {}
+    for name, value, derived in streaming_rows(scale, repeats, device,
+                                               cost_json["streaming"]):
         emit(name, value, derived)
 
     if args.json:

@@ -6,7 +6,8 @@ Public API, for what is ported:
     Partitioner registry / PartitionPlan /
     GridPlan (the grid(R,C) family)         repro_torch.core.partitioners
     Engine (strategy x vertex program) /
-    ReplanPolicy                            repro_torch.core.engine
+    ReplanPolicy / StreamConfig             repro_torch.core.engine
+    ShardSource (out-of-core edge windows)  repro_torch.core.graph
     VertexProgram / registry / run_parallel repro_torch.core.programs
     pagerank_serial / pagerank_parallel     repro_torch.core.pagerank
     labelprop_serial / labelprop_parallel   repro_torch.core.labelprop
@@ -20,14 +21,14 @@ from repro_torch.core.graph import (Graph, PartitionedGraph, from_edges,
                                     graph_from_reference, partition, rmat,
                                     erdos_renyi, ring, two_cliques,
                                     random_weights, load_dataset,
-                                    dataset_names)
+                                    dataset_names, ShardSource)
 from repro_torch.core.partitioners import (GridPlan, PartitionPlan,
                                            PartitionerSpec, get_partitioner,
                                            grid_shape, make_plan,
                                            partition_stats,
                                            partitioner_names, policy_label,
                                            register_partitioner)
-from repro_torch.core.engine import Engine, ReplanPolicy
+from repro_torch.core.engine import Engine, ReplanPolicy, StreamConfig
 from repro_torch.core.programs import (VertexProgram, ProgramSpec,
                                        make_program, get_spec,
                                        registered_names, run_parallel,

@@ -63,13 +63,28 @@ Three adaptive modes ride on the loop, in ``run`` and ``run_batch`` alike:
     row granularity.  Skipped rows accumulate on the device and are read
     once per run into ``Engine.dispatch["gate"]``.
 
-``residency="stream"`` is not ported yet.
+``residency="stream"`` (on a ``grid(R,C)`` partition) runs out of core:
+the edge planes stay on the host, or memory-mapped on disk from the layout
+cache, and reach the card one double-buffered window at a time
+(``_StreamPrefetcher``: a worker thread fills pinned staging slots, a side
+copy stream takes them to the device, CUDA events order the copies against
+the window folds).  Each superstep folds every window into the running
+phase-1 partial through the push kernels' ``init=`` seed, then runs phase 2
+and the apply; the host loop reads the convergence flag and the frontier
+blocks back in one small copy and gates whole windows on them
+(``gate="frontier"``: a slot the frontier cannot reach is never read).  Min
+programs are bit-exact against the resident run with equal superstep
+counts; add programs differ in float association only.  The accounting
+lands in ``Engine.dispatch["stream"]``.
 """
 
 from __future__ import annotations
 
+import collections
+import concurrent.futures
 import dataclasses
 import functools
+import time
 
 import numpy as np
 import torch
@@ -78,11 +93,6 @@ from repro_torch.core import partitioners as part_mod
 from repro_torch.core import strategies as strat
 from repro_torch.core.graph import PartitionedGraph
 from repro_torch.kernels import blocks
-
-_LATER = {
-    "stream": "residency='stream' is not ported yet (ROADMAP queue 1, "
-              "item 9)",
-}
 
 
 def resolve_device(device=None) -> torch.device:
@@ -130,6 +140,191 @@ class ReplanPolicy:
 
 
 @dataclasses.dataclass
+class StreamConfig:
+    """Sizing and placement knobs for ``residency="stream"``.
+
+    Exactly one of ``windows`` / ``budget_bytes`` sizes the edge windows:
+    ``windows`` asks for that many sweeps per superstep, ``budget_bytes``
+    caps the DEVICE-resident edge working set (two staging windows -- the
+    double buffer) and takes the widest window that fits.  ``cache_dir``
+    points shard reads at the on-disk layout cache
+    (``checkpoint.save_layout_cache``): the edge planes are memory-mapped
+    and never fully materialized in host memory either.
+    ``prefetch=False`` serializes fetch and compute (the no-overlap
+    baseline the overlap efficiency is defined against).
+    """
+
+    windows: int | None = None
+    budget_bytes: int | None = None
+    cache_dir: str | None = None
+    prefetch: bool = True
+
+    def __post_init__(self):
+        if self.windows is not None and self.budget_bytes is not None:
+            raise ValueError("pass windows OR budget_bytes, not both")
+        if self.windows is not None and self.windows < 1:
+            raise ValueError("windows must be >= 1")
+
+
+class _StreamPrefetcher:
+    """Double-buffered host->device pipeline for edge windows.
+
+    Two pinned host staging slots (``ShardSource.make_staging``), two
+    device slots of the same flat layout, and one worker thread.  While the
+    card folds window k, the worker copies window k+1 out of the (possibly
+    memory-mapped) ``ShardSource`` into a host slot with numpy slice copies,
+    which release the GIL.  ``take()`` hands the filled slot to a side copy
+    stream: one ``copy_(non_blocking=True)`` of the whole slot, after which
+    the copy records ``copied[slot]`` and the compute stream waits on it
+    before the fold that reads the slot.  The fold's caller records
+    ``consumed[slot]`` after it (``folded``), and the next copy into that
+    device slot waits on it; before the worker overwrites a host slot it
+    synchronizes on that slot's ``copied`` event.  So the worker runs at
+    most two windows ahead and nothing on the host waits on the device but
+    the worker.
+
+    Accounting, as the reference defines it: ``copy_s`` is data-movement
+    work on the host (the staging read and the copy's enqueue); ``stall_s``
+    is the share of it the compute pipeline was exposed to.  A consumer
+    wait counts as a stall only if the device had nothing left to run: the
+    device-busy probe (an event recorded after the last dispatched work,
+    ``mark``, read with ``query()``) is sampled at both ends of the wait
+    (busy at both: hidden; at one: half; at neither: exposed).  The
+    worker's waits on ``copied`` are backpressure, not copy work, and are
+    left out.  ``pipelined=False`` reads inside ``take()`` once the device
+    is idle and copies on the compute stream, charging the read in full
+    (``stall_s == copy_s``): the serialized baseline with the same code.
+    On the card each copy is also timed with CUDA events (``h2d_s``,
+    ``h2d_bytes``: the H2D link's own rate).  On the CPU the same class
+    runs without streams or pinning: the folds read the host slots.
+    """
+
+    def __init__(self, source, device, pipelined=True):
+        self.source = source
+        self.device = device
+        self.pipelined = pipelined
+        self.cuda = device.type == "cuda"
+        self._host = [source.make_staging(pin_memory=self.cuda)
+                      for _ in range(2)]
+        if self.cuda:
+            self._dev = [torch.empty_like(h["buffer"], device=device)
+                         for h in self._host]
+            self._views = [source.staged_views(b) for b in self._dev]
+            self._copy = torch.cuda.Stream(device) if pipelined else None
+            self._copied = [torch.cuda.Event(), torch.cuda.Event()]
+            self._consumed = [torch.cuda.Event(), torch.cuda.Event()]
+            self._probe = torch.cuda.Event()
+            self._timing = []  # (start, end) events of each H2D copy
+        else:
+            self._views = [source.staged_views(h["buffer"])
+                           for h in self._host]
+        self._marked = False  # has the probe been recorded yet
+        self._seq = 0
+        self._pending = collections.deque()
+        self._ex = (concurrent.futures.ThreadPoolExecutor(max_workers=1)
+                    if pipelined else None)
+        self.copy_s = 0.0
+        self.stall_s = 0.0
+        self.bytes_read = 0
+        self.fetches = 0
+        self.h2d_s = 0.0
+        self.h2d_bytes = 0
+
+    def mark(self):
+        """Record the device-busy probe after the work just dispatched."""
+        if self.cuda:
+            self._probe.record()
+        self._marked = True
+
+    def folded(self, slot):
+        """The fold that reads device slot ``slot`` is dispatched: the next
+        copy into the slot waits for it."""
+        if self.cuda:
+            self._consumed[slot].record()
+        self.mark()
+
+    def _device_busy(self):
+        return self.cuda and self._marked and not self._probe.query()
+
+    def _read(self, k, slot, active):
+        bp = 0.0
+        if self.cuda:
+            # backpressure, not copy work: the copy that read this host
+            # slot's previous window must be done before it is overwritten
+            t0 = time.perf_counter()
+            self._copied[slot].synchronize()
+            bp = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        nbytes = self.source.read_window(k, self._host[slot], active)
+        return slot, nbytes, time.perf_counter() - t0, bp
+
+    def submit(self, k, active):
+        """Queue window ``k`` (rectangles ``active``) into the next slot."""
+        slot = self._seq % 2
+        self._seq += 1
+        if self._ex is not None:
+            self._pending.append(self._ex.submit(self._read, k, slot,
+                                                 active))
+        else:
+            self._pending.append((k, slot, active))
+
+    def _upload(self, slot):
+        """Enqueue the H2D copy of a filled host slot; the compute stream
+        waits on it."""
+        compute = torch.cuda.current_stream(self.device)
+        stream = self._copy if self._copy is not None else compute
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with torch.cuda.stream(stream):
+            stream.wait_event(self._consumed[slot])
+            start.record(stream)
+            self._dev[slot].copy_(self._host[slot]["buffer"],
+                                  non_blocking=True)
+            end.record(stream)
+            self._copied[slot].record(stream)
+        compute.wait_event(self._copied[slot])
+        self._timing.append((start, end))
+        self.h2d_bytes += self._dev[slot].numel() * 4
+
+    def take(self):
+        """-> (the next window's planes on the device, its slot)."""
+        item = self._pending.popleft()
+        if self._ex is not None:
+            busy0 = self._device_busy()
+            t0 = time.perf_counter()
+            slot, nbytes, dt_read, bp = item.result()
+            wait = max(0.0, time.perf_counter() - t0 - bp)
+            busy1 = self._device_busy()
+            # the wait stalls the pipeline only as far as the device ran
+            # dry during it
+            self.stall_s += wait * (0.0 if busy0 and busy1
+                                    else 0.5 if busy0 or busy1 else 1.0)
+        else:
+            if self._device_busy():
+                self._probe.synchronize()  # serialized: nothing overlaps
+            slot, nbytes, dt_read, _ = self._read(*item)
+            self.stall_s += dt_read
+        t1 = time.perf_counter()
+        if self.cuda:
+            self._upload(slot)
+        put = time.perf_counter() - t1
+        self.copy_s += dt_read + put
+        if self._ex is None or not self._device_busy():
+            self.stall_s += put
+        self.bytes_read += nbytes
+        self.fetches += 1
+        return self._views[slot], slot
+
+    def close(self):
+        if self._ex is not None:
+            self._ex.shutdown(wait=True)
+        if self.cuda:
+            (self._copy or torch.cuda.current_stream(self.device)) \
+                .synchronize()
+            self.h2d_s = sum(s.elapsed_time(e) for s, e in self._timing) / 1e3
+
+
+@dataclasses.dataclass
 class Engine:
     """Runs vertex programs on a partitioned graph with a chosen strategy.
 
@@ -145,7 +340,9 @@ class Engine:
     and the constructor's 1-D ``strategy`` is what a replan back to a 1-D
     placement rebinds to; asking for ``grid2d`` on a 1-D partition is an
     error.  ``collectives`` picks grid2d's phase-2 lowering: ``"auto"``
-    (``"grouped"``), ``"grouped"`` or ``"full"``.
+    (``"grouped"``), ``"grouped"`` or ``"full"``.  ``residency="stream"``
+    (a grid partition only) keeps the edge planes off the device and
+    streams them in windows sized by ``stream`` (a ``StreamConfig``).
     """
 
     pg: PartitionedGraph
@@ -155,12 +352,20 @@ class Engine:
     segment_fn: object = None
     residency: str = "resident"
     collectives: str = "auto"
+    stream: StreamConfig | None = None
 
     def __post_init__(self):
-        if self.residency == "stream":
-            raise NotImplementedError(_LATER["stream"])
-        if self.residency != "resident":
-            raise ValueError(f"unknown residency {self.residency!r}")
+        if self.residency not in ("resident", "stream"):
+            raise ValueError(f"unknown residency {self.residency!r}; "
+                             "choose 'resident' or 'stream'")
+        if self.residency == "stream" and not self.pg.is_grid:
+            raise ValueError(
+                "residency='stream' needs a grid(R,C) partition -- the "
+                "window schedule walks edge rectangles (use grid(1,1) for "
+                "a single PE)")
+        if self.stream is not None and self.residency != "stream":
+            raise ValueError("stream config given but residency is "
+                             f"{self.residency!r}")
         if self.collectives not in ("auto", "grouped", "full"):
             raise ValueError(f"unknown collectives mode {self.collectives!r}")
         if self.strategy not in strat.PHASES:
@@ -190,21 +395,44 @@ class Engine:
         resolve the strategy and the adaptive dispatch."""
         self.pg = pg
         self.strategy = "grid2d" if pg.is_grid else self._strategy_request
-        # layouts are uploaded once per (partition, device) and shared:
-        # engines of a strategy sweep alias the same tensors, and a new
-        # partition's upload learns its tile plans there (device_arrays)
+        self._source = None
         layout = strat.STRATEGY_LAYOUT[self.strategy]
-        self.arrays = (pg.device_pairwise(self.device) if layout == "pairwise"
-                       else pg.device_arrays(layout, self.device))
+        if self.residency == "stream":
+            # out of core: only the vertex planes and the row->col map go to
+            # the device; the edge planes stay on the host (or on disk,
+            # memory-mapped) and come up one window at a time.  The source
+            # is built first, so a layout cache hit feeds the band table the
+            # dispatch prices.  Each window's band table is uploaded and
+            # learns its own tile plan here, once: a recycled staging slot
+            # never carries a plan of another window
+            cfg = self.stream or StreamConfig()
+            self._source = pg.shard_source(windows=cfg.windows,
+                                           budget_bytes=cfg.budget_bytes,
+                                           cache_dir=cfg.cache_dir)
+            self.arrays = {"gr_row_to_col": pg.device_row_to_col(self.device)}
+            self._win_bands = self._source.window_bands(self.device)
+            if self.device.type == "cuda":
+                from repro_torch.kernels import push_fused
+
+                for band in self._win_bands:
+                    push_fused.tile_plan(band)
+        else:
+            # layouts are uploaded once per (partition, device) and shared:
+            # engines of a strategy sweep alias the same tensors, and a new
+            # partition's upload learns its tile plans there (device_arrays)
+            self.arrays = (pg.device_pairwise(self.device)
+                           if layout == "pairwise"
+                           else pg.device_arrays(layout, self.device))
         self.aux = pg.device_aux(self.device)
         self._C, self._K = pg.num_chunks, pg.chunk_size
         # frontier-gate geometry: the state's BLOCK_V source blocks per chare
         self._gate_nsb = max(-(-self._K // blocks.BLOCK_V), 1)
         p1, p2 = strat.PHASES[self.strategy]
         self._wire = None
+        self._grid_meta = None
         if pg.is_grid:
             rows, cols = pg.grid_shape
-            meta = (rows, cols, pg.col_chunk_size)
+            meta = self._grid_meta = (rows, cols, pg.col_chunk_size)
             self._collectives = ("grouped" if self.collectives == "auto"
                                  else self.collectives)
             self._wire = {"bytes": 0.0}
@@ -214,8 +442,23 @@ class Engine:
                                    wire=self._wire)
         self._phases = (p1, p2)
         self.dispatch = self._resolve_dispatch()
+        self.dispatch["residency"] = self.residency
         if pg.is_grid:
             self._record_wire(0)
+        if self._source is not None:
+            sb, cfg = self._source, self.stream or StreamConfig()
+            self.dispatch["stream"] = {
+                "windows": sb.num_windows,
+                "blocks_per_window": sb.blocks_per_window,
+                "window_bytes": sb.window_bytes,
+                # the device-resident edge working set: two staging windows
+                "resident_edge_bytes": 2 * sb.window_bytes,
+                "total_edge_bytes": sb.total_edge_bytes,
+                "edge_fraction_resident":
+                    2 * sb.window_bytes / sb.total_edge_bytes,
+                "budget_bytes": cfg.budget_bytes,
+                "origin": sb.origin,
+            }
 
     def _rebind(self, pg: PartitionedGraph):
         """Replan rebind: switch to a re-partitioned layout of the same
@@ -329,12 +572,39 @@ class Engine:
 
     # -- mode checks and per-run accounting ----------------------------------
 
-    @staticmethod
-    def _check_residency(residency):
+    def _check_residency(self, residency, replan, sync) -> bool:
+        """Refuse a run the bound residency cannot serve; -> whether the run
+        streams.  A streamed engine holds no resident edge planes, and a
+        resident one never streams; replan and overlap are resident-path
+        features (the streamed schedule has no segment boundary to relabel
+        at, and already pipelines its copies behind compute)."""
+        residency = self.residency if residency is None else residency
+        if residency not in ("resident", "stream"):
+            raise ValueError(f"unknown residency {residency!r}; "
+                             "choose 'resident' or 'stream'")
+        if residency == "stream" and self.residency != "stream":
+            raise ValueError(
+                "this engine is bound resident; build it with "
+                "Engine(..., residency='stream') so the edge planes "
+                "are never uploaded in the first place")
+        if residency == "resident" and self.residency == "stream":
+            raise ValueError(
+                "this engine is bound with residency='stream' and holds no "
+                "resident edge planes; build a resident Engine for "
+                "residency='resident' runs")
         if residency == "stream":
-            raise NotImplementedError(_LATER["stream"])
-        if residency not in (None, "resident"):
-            raise ValueError(f"unknown residency {residency!r}")
+            if replan is not None:
+                raise ValueError(
+                    "replan is a resident-path feature: the streamed "
+                    "schedule has no segment checkpoints to relabel at; "
+                    "run replan=... on an Engine(residency='resident') of "
+                    "the same graph, or drop it for the streamed schedule")
+            if sync != "barrier":
+                raise ValueError(
+                    "residency='stream' already pipelines H2D copies "
+                    "behind compute; run sync='overlap' on a resident "
+                    "Engine, or keep the default sync='barrier' here")
+        return residency == "stream"
 
     @staticmethod
     def _validate_async(program, sync, gate) -> tuple[str, bool]:
@@ -490,13 +760,18 @@ class Engine:
         relaxes the barrier for min-monoid convergence programs, and
         ``gate='frontier'`` skips the phase-1 work of chare rows the
         frontier cannot reach (accounting in ``self.dispatch['gate']``);
-        both compose with ``replan``.  ``residency='stream'`` is not ported
-        yet and raises ``NotImplementedError``.
+        both compose with ``replan``.
+
+        On an ``Engine(residency='stream')`` the run takes the out-of-core
+        window schedule (``residency`` may name it, and must not name the
+        other): composes with ``gate='frontier'`` (a gated window slot is
+        never fetched), not with ``replan`` or ``sync='overlap'``.  Metrics
+        land in ``self.dispatch['stream']``.
         """
         from repro_torch.core import programs as prog_mod
 
-        self._check_residency(residency)
         program = self._program(program, params)
+        streamed = self._check_residency(residency, replan, sync)
         sync, gate = self._validate_async(program, sync, gate)
         if (program.sources is not None and program.init_batch is not None
                 and program.finalize is not None):
@@ -509,6 +784,8 @@ class Engine:
             out = program.finalize(self.pg.graph, sets, plane)
             return self._to_host(out), int(q_it.max())
 
+        if streamed:
+            return self._run_streamed(program, gate)
         state = torch.from_numpy(program.init(self.pg)).to(self.device)
         self._run_start(gate)
         if replan is not None:
@@ -634,6 +911,185 @@ class Engine:
             replans += 1
         return state, done
 
+    # -- streamed execution (residency='stream') -----------------------------
+
+    def _stream_prep(self, program, state, frontier, aux):
+        """The superstep's values to push: ``update``, frontier-masked for
+        convergence programs (quiesced vertices send the identity)."""
+        vals = program.update(state, aux)
+        if program.fixed_iters is not None:
+            return vals
+        sent = torch.full((), program.combiner.identity, dtype=vals.dtype,
+                          device=self.device)
+        return torch.where(frontier, vals, sent)
+
+    def _stream_sweep(self, pf, program, sched, active, vals, partial, gate):
+        """Walk one superstep's fetch schedule through the prefetcher,
+        folding each window into the running partial
+        (``grid2d_phase1_window`` with the window's own band table; under
+        the gate the window's row mask keeps the unfetched rectangles at
+        their partial)."""
+        if len(sched):
+            pf.submit(int(sched[0]), active[:, sched[0]])
+            for i, k in enumerate(sched):
+                if i + 1 < len(sched):
+                    nxt = int(sched[i + 1])
+                    pf.submit(nxt, active[:, nxt])
+                wd, slot = pf.take()
+                arrs = dict(wd, gr_band=self._win_bands[int(k)])
+                partial = strat.grid2d_phase1_window(
+                    vals, arrs, partial, program.combiner, self._C, self._K,
+                    segment_fn=self.segment_fn,
+                    edge_value=program.edge_value, push_fn=self.push_fn,
+                    edge_semiring=program.edge_semiring,
+                    grid_meta=self._grid_meta,
+                    row_active=wd["row_active"] if gate else None)
+                pf.folded(slot)
+        return partial
+
+    def _stream_summary(self, delta):
+        """What the host loop steers by, in ONE small device->host copy:
+        the convergence flags (``[1]``, or per query ``[B]``) and the
+        frontier collapsed to BLOCK_V source blocks (``[C, nsb(, B)]``
+        bool), which the host gate intersects with each window's band
+        source blocks."""
+        nsb = self._gate_nsb
+        tail = tuple(delta.shape[2:])
+        width = nsb * blocks.BLOCK_V
+        f = delta
+        if width != self._K:
+            f = torch.cat([f, f.new_zeros((self._C, width - self._K) + tail)],
+                          1)
+        fb = f.reshape((self._C, nsb, blocks.BLOCK_V) + tail).any(dim=2)
+        changed = (delta.reshape((-1,) + tail).any(dim=0) if tail
+                   else delta.any()).reshape(-1)
+        host = self._to_host(torch.cat([changed.to(torch.int32),
+                                        fb.reshape(-1).to(torch.int32)]))
+        nq = changed.numel()
+        return host[:nq] != 0, host[nq:].reshape(fb.shape) != 0
+
+    def _stream_record(self, pf, it, slots_total, slots_skipped, gate,
+                       **extra):
+        """Publish one streamed run's prefetcher accounting into
+        ``dispatch['stream']`` (the reference's fields, and the copies' own
+        device time and bytes on the card) and its window-slot counts as
+        the gate record."""
+        overlap = (1.0 - pf.stall_s / pf.copy_s) if pf.copy_s > 0 else 1.0
+        self.dispatch["stream"].update({
+            "supersteps": it,
+            "fetches": pf.fetches,
+            "fetched_bytes": pf.bytes_read,
+            "copy_s": pf.copy_s,
+            "stall_s": pf.stall_s,
+            "overlap_efficiency": max(0.0, min(1.0, overlap)),
+            "edge_bandwidth_bytes_per_s":
+                pf.bytes_read / pf.copy_s if pf.copy_s > 0 else 0.0,
+            "fetch_slots": slots_total,
+            "fetch_skipped": slots_skipped,
+            "fetch_skip_fraction":
+                slots_skipped / slots_total if slots_total else 0.0,
+            "pipelined": bool(pf.pipelined),
+            "h2d_s": pf.h2d_s,
+            "h2d_bytes": pf.h2d_bytes,
+            **extra,
+        })
+        # window-granular slot accounting doubles as the gate record
+        self._gate_slots, self._gate_skipped = slots_total, slots_skipped
+        self._run_end(it, "barrier", gate)
+
+    def _stream_schedule(self, gate_masks, fb_host):
+        """-> (the [C, nw] active slots, the windows to fetch in order, the
+        skipped slot count)."""
+        nw = self._source.num_windows
+        if gate_masks is None:
+            active = np.ones((self._C, nw), dtype=bool)
+        else:
+            active = self._source.active_windows(gate_masks, fb_host)
+        sched = np.flatnonzero(active.any(axis=0))
+        return active, sched, self._C * nw - int(active.sum())
+
+    def _run_streamed(self, program, gate):
+        """``run`` out of core: the streamed loop from the program's initial
+        state; -> (state in original vertex order, supersteps)."""
+        state = torch.from_numpy(program.init(self.pg)).to(self.device)
+        state, it, _ = self._stream_loop(program, state, self.aux, gate)
+        return self._to_host(self._unpermute(state)), it
+
+    def _run_streamed_batch(self, program, state, qp, gate):
+        """``run_batch`` out of core: the streamed loop over a ``[C, K, B]``
+        query plane; -> (state, q_it [B] int64)."""
+        aux = {k: v[..., None] for k, v in self.aux.items()}
+        if qp is not None:
+            aux["qplane"] = qp
+        state, _, q_it = self._stream_loop(program, state, aux, gate)
+        return state, torch.from_numpy(q_it)
+
+    def _stream_loop(self, program, state, aux, gate):
+        """The out-of-core superstep loop: per superstep, walk the edge
+        windows through the double-buffered prefetcher, folding each into
+        the running phase-1 partial, then phase 2 and the apply.  The host
+        loop keeps the resident loops' semantics -- the all-ones initial
+        frontier, frontier masking, and on a ``[C, K, B]`` plane per-query
+        convergence (``q_it[b]`` counts the supersteps entered while column
+        b was still changing; the loop runs while any column is) -- so min
+        programs are bit-exact against ``residency='resident'`` with equal
+        superstep counts.  One fetched window serves every column of its
+        fold, so a plane's edge bytes per query fall B-fold.
+
+        Under the gate a (rectangle, window) slot whose band source blocks
+        miss the live frontier -- on a plane, of every live column (the
+        union gate) -- is never READ, and a window with no active rectangle
+        drops out of the fetch schedule.  -> (state, supersteps, q_it [B]
+        int64 numpy, ``[1]`` for a single state)."""
+        cfg = self.stream or StreamConfig()
+        _, cols, kc = self._grid_meta
+        nsb = self._gate_nsb
+        tail = tuple(state.shape[2:])  # the plane's trailing [B]
+        frontier = torch.ones_like(state, dtype=torch.bool)
+        fixed = program.fixed_iters is not None
+        limit = self._limit(program)
+        gate_masks = self._source.gate_masks(nsb) if gate else None
+        fb_host = np.ones((self._C, nsb) + tail, dtype=bool)
+        live = np.ones(tail[0] if tail else 1, dtype=bool)
+        q_it = np.zeros(live.shape, dtype=np.int64)
+        self._run_start(False)
+        pf = _StreamPrefetcher(self._source, self.device, cfg.prefetch)
+        it = 0
+        slots_total = slots_skipped = 0
+        try:
+            while live.any() and it < limit:
+                vals = self._stream_prep(program, state, frontier, aux)
+                pf.mark()
+                # quiesced columns are all-zero in fb_host already; the mask
+                # keeps the union over LIVE columns explicit
+                active, sched, skipped = self._stream_schedule(
+                    gate_masks, fb_host & live if tail else fb_host)
+                slots_total += active.size
+                slots_skipped += skipped
+                partial = torch.full((self._C, cols * kc) + tail,
+                                     program.combiner.identity,
+                                     dtype=vals.dtype, device=self.device)
+                partial = self._stream_sweep(pf, program, sched, active,
+                                             vals, partial, gate)
+                new = program.apply(state, self._combine(partial, program),
+                                    aux)
+                pf.mark()
+                q_it += live
+                it += 1
+                if not fixed:
+                    frontier = new != state
+                    live, fb_host = self._stream_summary(frontier)
+                state = new
+        finally:
+            pf.close()
+        extra = {}
+        if tail:
+            extra = {"batch": tail[0],
+                     "fetched_bytes_per_query": pf.bytes_read / tail[0]}
+        self._stream_record(pf, it, slots_total, slots_skipped, gate,
+                            **extra)
+        return state, it, q_it
+
     # -- batched multi-query execution (DESIGN.md section 11) ----------------
 
     @staticmethod
@@ -657,9 +1113,11 @@ class Engine:
         program, so it has no such cache.  ``replan``, ``sync`` and
         ``gate`` work as in ``run``: the replan trigger sees the frontier
         collapsed over queries, and under overlap each query stays live
-        until two quiet applies of its column in a row.
-        ``residency='stream'`` is not ported yet and raises
-        ``NotImplementedError``.
+        until two quiet applies of its column in a row.  On a streamed
+        engine the plane runs the window schedule: each window's upload is
+        folded into all B columns, so the edge bytes fetched per query fall
+        B-fold (``dispatch['stream']['fetched_bytes_per_query']``), with
+        per-query convergence on the host.
 
         Returns ``(plane, iters)``: ``plane[i]`` is query i's converged
         per-vertex state in original vertex order ([n, V], after the
@@ -669,8 +1127,8 @@ class Engine:
         """
         from repro_torch.core import programs as prog_mod
 
-        self._check_residency(residency)
         program = self._program(program, params)
+        self._check_residency(residency, replan, sync)
         if program.init_batch is None:
             raise ValueError(
                 f"program {program.name!r} has no batched init "
@@ -698,7 +1156,9 @@ class Engine:
             raise ValueError(f"batch={B} is smaller than {n} queries")
         padded = sets + (sets[0],) * (B - n)
         state, qp = self._batch_init(program, padded)
-        if replan is None:
+        if self.residency == "stream":
+            state, q_it = self._run_streamed_batch(program, state, qp, gate)
+        elif replan is None:
             state, q_it = self._batch_loop(program, state, qp, sync, gate)
         else:
             state, q_it = self._run_batch_replanned(program, padded, state,

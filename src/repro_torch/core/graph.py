@@ -5,9 +5,16 @@ assigns contiguous chunks of vertices to actors (chares); each chare stores
 its local vertices in index order plus the destinations of their outgoing
 edges.  ``Graph`` is the global CSR; ``PartitionedGraph`` is the chare
 decomposition with padded, rectangular ``[C, ...]`` per-chunk arrays.  The
-host layout build is numpy and produces arrays equal to the reference's for
-the same graph, partitioner and chare count; ``device_arrays`` /
-``device_aux`` / ``device_pairwise`` upload them as torch tensors.
+layout build (a stable sort into the tile-bucket order, the rectangle pack
+and the band table) produces arrays equal to the reference's for the same
+graph, partitioner and chare count: on the host in numpy, or, for graphs
+from 2^21 edges where a card is present, on the device in torch
+(``REPRO_DEVICE_BUILD=device|host|auto``), bit for bit the same.
+``device_arrays`` / ``device_aux`` / ``device_pairwise`` upload the layouts
+as torch tensors.  Out-of-core runs never upload the edge planes: a
+``ShardSource`` (``PartitionedGraph.shard_source``) serves them one edge
+window at a time, from host memory or memory-mapped from the disk layout
+cache (``repro_torch.checkpoint``).
 
 Real datasets from the paper (soc-LiveJournal1, twitter_rv, uk-2007-05) are
 not available offline; ``load_dataset`` provides scaled RMAT stand-ins with
@@ -17,6 +24,7 @@ the same edge/vertex ratios (14x, 24x, 35x).
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -228,6 +236,10 @@ class PartitionedGraph:
                                    compare=False)
     # plan-independent prep products (COO endpoints, degree and weight sums)
     _prep: object = dataclasses.field(default=None, repr=False, compare=False)
+    # which build made each layout: "host" (numpy), "cuda" or "cpu" (the
+    # torch build on that device), "disk" (a layout cache hit)
+    layout_builds: dict = dataclasses.field(default_factory=dict, repr=False,
+                                            compare=False)
     # grid-only metadata (_GridMeta: shape, column geometry, row->col map);
     # None for 1-D placements
     _grid: object = dataclasses.field(default=None, repr=False, compare=False)
@@ -253,11 +265,13 @@ class PartitionedGraph:
     # -- edge layouts --------------------------------------------------------
 
     def _layout(self, which: str) -> tuple:
-        """Build-or-fetch one edge layout: the bounded radix sort into the
-        (owner, tile-bucket) order, the rectangle pack, and the band table.
-        1-D placements expose ``basic``/``sd``; grid placements the single
-        ``grid`` layout (owners are edge rectangles, destinations
-        column-padded ids)."""
+        """Build-or-fetch one edge layout: the stable sort into the (owner,
+        tile-bucket) order, the rectangle pack, and the band table -- on the
+        host (bounded radix sort) or on a device (``_build_layout_device``,
+        where ``_device_build_enabled`` names one), recorded in
+        ``layout_builds``.  1-D placements expose ``basic``/``sd``; grid
+        placements the single ``grid`` layout (owners are edge rectangles,
+        destinations column-padded ids)."""
         if which not in self._lazy:
             if which not in ("basic", "sd", "grid"):
                 raise ValueError(f"unknown layout {which!r}")
@@ -281,12 +295,19 @@ class PartitionedGraph:
                 # scatters into its narrow column block, so the same order
                 # keeps its bands tight)
                 key = (owner_k * b.nseg + b.seg_blk) * b.nsb + b.src_blk
-            order = _stable_argsort_bounded(key, key_bound)
-            s, d, w = _pack_edges(order, b.src_local, b.dst, b.wgt,
-                                  b.owner, b.per_chunk_e, C, b.emax)
-            band = blocks.edge_bands_grouped(b.src_blk[order],
-                                             b.seg_blk[order],
-                                             b.per_chunk_e, b.emax)
+            device = (_device_build_enabled(len(key), C, b.emax)
+                      if key_dtype is INT else None)
+            if device is not None:
+                s, d, w, band = _build_layout_device(b, key, C, device)
+                self.layout_builds[which] = device.type
+            else:
+                order = _stable_argsort_bounded(key, key_bound)
+                s, d, w = _pack_edges(order, b.src_local, b.dst, b.wgt,
+                                      b.owner, b.per_chunk_e, C, b.emax)
+                band = blocks.edge_bands_grouped(b.src_blk[order],
+                                                 b.seg_blk[order],
+                                                 b.per_chunk_e, b.emax)
+                self.layout_builds[which] = "host"
             self._lazy[which] = (s, d, w, band)
         return self._lazy[which]
 
@@ -465,6 +486,15 @@ class PartitionedGraph:
             self._dev[key] = _upload(mask, device)
         return self._dev[key]
 
+    def device_row_to_col(self, device="cuda") -> torch.Tensor:
+        """``gr_row_to_col`` on ``device`` alone, uploaded once per device:
+        the one grid array phase 2 reads, and so all that a streamed engine
+        keeps resident besides the vertex planes."""
+        key = ("row_to_col", _device_key(device))
+        if key not in self._dev:
+            self._dev[key] = _upload(self.gr_row_to_col, device)
+        return self._dev[key]
+
     def repartition(self, partitioner: str, plan=None) -> "PartitionedGraph":
         """Re-place the same graph under another policy, cheaply.
 
@@ -493,6 +523,73 @@ class PartitionedGraph:
                 k: _upload(getattr(self, k).astype(np.int64), device)
                 for k in ("global_to_local", "local_to_global")}
         return self._dev[key]
+
+    # -- out-of-core streaming -----------------------------------------------
+
+    def cached_layout(self, which: str, cache_dir: str) -> tuple:
+        """Disk-backed ``_layout``: a warm cache entry memory-maps the packed
+        planes straight off disk (no sort, no pack, no host copy); a cold
+        one builds once through ``_layout`` and persists atomically.  The
+        entry is keyed by ``checkpoint.layout_fingerprint`` (graph bytes,
+        partitioner spec, chare count, layout name), so a changed graph or
+        policy misses and rebuilds."""
+        from repro_torch.checkpoint import store
+
+        fp = store.layout_fingerprint(self.graph, self.partitioner,
+                                      self.num_chunks, which)
+        hit = store.open_layout_cache(cache_dir, fp)
+        if which in self._lazy or hit is None:
+            # built here (an eager partition already holds it, or a miss
+            # builds it now): serve it, and persist a missing entry so later
+            # processes warm-start off disk
+            s, d, w, band = self._layout(which)
+            if hit is None:
+                store.save_layout_cache(cache_dir, fp, {
+                    "src": s, "dst": d, "weight": w, "band": band})
+            return self._lazy[which]
+        self._lazy[which] = (hit["src"], hit["dst"], hit["weight"],
+                             hit["band"])
+        self.layout_builds[which] = "disk"
+        return self._lazy[which]
+
+    def shard_source(self, windows: int | None = None,
+                     budget_bytes: int | None = None,
+                     cache_dir: str | None = None) -> "ShardSource":
+        """The windowed edge-shard provider for ``residency="stream"``.
+
+        The window width comes from ``windows`` (a count) or is the widest
+        for which TWO staging windows -- the double buffer -- fit under
+        ``budget_bytes``; by default 8 windows.  With ``cache_dir`` the
+        planes come from the disk layout cache (memory-mapped on a warm
+        hit), so the host never holds a second copy of the edge layout.
+        """
+        if not self.is_grid:
+            raise ValueError(
+                "residency='stream' needs a grid(R,C) partition: rectangles "
+                "are the independently bounded shard unit (use grid(1,1) "
+                "for a single PE)")
+        if cache_dir is not None:
+            s, d, w, band = self.cached_layout("grid", cache_dir)
+        else:
+            s, d, w, band = self._layout("grid")
+        nb = blocks.num_edge_blocks(s.shape[1])
+        per_block = _window_block_bytes(self.num_chunks)
+        if windows is not None:
+            if windows < 1:
+                raise ValueError(f"windows must be >= 1, got {windows}")
+            nbw = max(-(-nb // int(windows)), 1)
+        elif budget_bytes is not None:
+            nbw = int(budget_bytes // (2 * per_block))
+            if nbw < 1:
+                raise ValueError(
+                    f"budget_bytes={budget_bytes} cannot hold the "
+                    f"double-buffered working set: two single-block staging "
+                    f"windows need {2 * per_block} bytes")
+            nbw = min(nbw, nb)
+        else:
+            nbw = max(-(-nb // 8), 1)
+        return ShardSource(src=s, dst=d, valid=self.gr_edge_valid, weight=w,
+                           band=band, blocks_per_window=nbw)
 
 
 def _stable_argsort_bounded(keys: np.ndarray, bound: int) -> np.ndarray:
@@ -535,6 +632,290 @@ def _pack_edges(order_idx, src_local, dst, wgt, owner, per_chunk_e,
     d.ravel()[flat] = do
     w.ravel()[flat] = wgt[order_idx]
     return s, d, w
+
+
+# Edge count from which the ``auto`` layout build runs on the card instead
+# of the host radix path: scale-20 stand-ins cross it, every test-sized
+# graph stays on the host build.  REPRO_DEVICE_BUILD=device|host overrides.
+_DEVICE_BUILD_MIN_EDGES = 1 << 21
+
+
+def _device_build_enabled(num_edges: int, num_chunks: int, emax: int):
+    """The device the layout build runs on, or ``None`` for the host build.
+    ``REPRO_DEVICE_BUILD``: ``host`` (or ``0``) never; ``device`` (or ``1``)
+    always, on the card where there is one and else on the CPU; ``auto``
+    (the default) on the card from ``_DEVICE_BUILD_MIN_EDGES`` edges.  The
+    device pack scatters int32 flat indices into ``[C, NB*BLOCK_E]``, so a
+    padded plane past int32 range keeps the host build."""
+    mode = os.environ.get("REPRO_DEVICE_BUILD", "auto")
+    if mode in ("host", "0"):
+        return None
+    nb = blocks.num_edge_blocks(emax)
+    if num_chunks * nb * blocks.BLOCK_E >= 1 << 31:
+        return None
+    cuda = torch.cuda.is_available()
+    if mode in ("device", "1"):
+        return torch.device("cuda" if cuda else "cpu")
+    if cuda and num_edges >= _DEVICE_BUILD_MIN_EDGES:
+        return torch.device("cuda")
+    return None
+
+
+def _build_layout_device(b: "_EdgeBase", key: np.ndarray, C: int,
+                         device) -> tuple:
+    """The layout build in torch on ``device``, bit-identical to the host
+    build: the stable sort into (owner, tile-bucket) order, the rectangle
+    pack scatter and the band min/max.  Stability is the whole contract:
+    equal keys give an equal permutation, so the packed planes and the band
+    table equal the host radix path's bit for bit.  The packed planes come
+    back to the host (they live there for the streamed shard source and the
+    layout cache); the edge arrays go up once."""
+    E = len(key)
+    nb = blocks.num_edge_blocks(b.emax)
+    emax_p = nb * blocks.BLOCK_E
+    starts = np.zeros(C, dtype=np.int64)
+    np.cumsum(b.per_chunk_e[:-1], out=starts[1:])
+    row_off = np.arange(C, dtype=np.int64) * emax_p - starts
+
+    def up(a, dtype=INT):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(
+            device)
+
+    order = torch.sort(up(key), stable=True).indices
+    # flat slot of each edge in the padded [C, emax_p] plane: the same
+    # ascending row offset + within-row rank as _pack_edges
+    flat = (torch.arange(E, dtype=torch.int64, device=device)
+            + up(row_off, np.int64)[up(b.owner).index_select(0, order)
+                                    .long()])
+
+    def packed(a, fill, dtype=INT):
+        vals = up(a, dtype).index_select(0, order)
+        plane = torch.full((C * emax_p,), fill, dtype=vals.dtype,
+                           device=device)
+        return plane.index_copy_(0, flat, vals)
+
+    def host(plane):
+        return plane.reshape(C, emax_p)[:, :b.emax].contiguous().cpu().numpy()
+
+    s = host(packed(b.src_local, 0))
+    d = host(packed(b.dst, 0))
+    w = host(packed(b.wgt, 1.0, WEIGHT))
+    # band min/max over BLOCK_E columns: a fill that never wins at the
+    # padding slots, then the (0, -1, 0, -1) empty-block convention
+    shape = (C, nb, blocks.BLOCK_E)
+    big = 1 << 30
+    rows = []
+    for blk in (b.src_blk, b.seg_blk):
+        lo = packed(blk, big).reshape(shape).amin(dim=2)
+        hi = packed(blk, -1).reshape(shape).amax(dim=2)
+        rows += [torch.where(hi < 0, 0, lo), hi]
+    band = torch.stack(rows, dim=1).to(torch.int32).cpu().numpy()
+    return s, d, w, band
+
+
+def _window_block_bytes(num_rects: int) -> int:
+    """Staged bytes one BLOCK_E window column costs across all rectangles:
+    src/dst/valid int32 + weight float32 planes plus the 4-row band slice."""
+    return num_rects * blocks.BLOCK_E * 16 + num_rects * 4 * 4
+
+
+# the staged edge planes, keyed as the resident grid arrays, and the
+# ShardSource fields they are cut from
+_STAGED_PLANES = (("gr_src_local", "src"), ("gr_dst_col", "dst"),
+                  ("gr_edge_valid", "valid"), ("gr_edge_weight", "weight"))
+
+
+@dataclasses.dataclass
+class ShardSource:
+    """Windowed edge-shard provider for ``residency="stream"``.
+
+    Wraps one grid layout's packed planes -- host ndarrays or memory-mapped
+    layout-cache files -- and serves BLOCK_E-aligned *edge windows*: window
+    ``k`` of rectangle ``p`` is columns ``[k*W, (k+1)*W)`` of the
+    ``[P, Emax]`` pack plus the matching band-table slice.  The streamed
+    engine keeps only two staging windows on the device (the double
+    buffer), so the device's edge footprint is ``2/num_windows`` of the
+    resident layout whatever the graph's size.
+
+    A staging slot (``make_staging``) is one flat int32 buffer holding the
+    four edge planes and the window's row mask (``row_active``), so one
+    copy takes a window to the device; the band slice stays beside it on
+    the host (the engine's window folds read each window's band table from
+    the device, ``window_bands``).
+    """
+
+    src: np.ndarray      # [P, Emax] int32 row-local sources
+    dst: np.ndarray      # [P, Emax] int32 column-padded destinations
+    valid: np.ndarray    # [P, Emax] int32 padding mask
+    weight: np.ndarray   # [P, Emax] float32
+    band: np.ndarray     # [P, 4, NB] int32
+    blocks_per_window: int
+
+    @property
+    def num_rects(self) -> int:
+        return self.src.shape[0]
+
+    @property
+    def emax(self) -> int:
+        return self.src.shape[1]
+
+    @property
+    def num_blocks(self) -> int:
+        return blocks.num_edge_blocks(self.emax)
+
+    @property
+    def num_windows(self) -> int:
+        return -(-self.num_blocks // self.blocks_per_window)
+
+    @property
+    def window_edges(self) -> int:
+        return self.blocks_per_window * blocks.BLOCK_E
+
+    @property
+    def origin(self) -> str:
+        """"disk" when the planes are memory-mapped cache files."""
+        return "disk" if isinstance(self.src, np.memmap) else "memory"
+
+    @property
+    def total_edge_bytes(self) -> int:
+        """Bytes the RESIDENT path would upload for the edge layout."""
+        return (self.src.nbytes + self.dst.nbytes + self.valid.nbytes
+                + self.weight.nbytes + self.band.nbytes)
+
+    @property
+    def window_bytes(self) -> int:
+        """Device bytes of ONE staging window (all rectangles)."""
+        return _window_block_bytes(self.num_rects) * self.blocks_per_window
+
+    @property
+    def staging_words(self) -> int:
+        """int32 words of a staging slot's buffer: four ``[P, W]`` edge
+        planes and the ``[P]`` row mask."""
+        return 4 * self.num_rects * self.window_edges + self.num_rects
+
+    def staged_views(self, buf) -> dict:
+        """The planes of one staging buffer (a flat int32 numpy array, or a
+        torch tensor on any device): the edge planes ``[P, W]`` by their
+        resident names (the weight plane's words read as float32) and the
+        row mask ``row_active`` ``[P]``."""
+        P, W = self.num_rects, self.window_edges
+        f32 = np.float32 if isinstance(buf, np.ndarray) else torch.float32
+        out = {}
+        for i, (name, _) in enumerate(_STAGED_PLANES):
+            plane = buf[i * P * W:(i + 1) * P * W].reshape(P, W)
+            out[name] = plane.view(f32) if name == "gr_edge_weight" else plane
+        out["row_active"] = buf[4 * P * W:4 * P * W + P]
+        return out
+
+    def make_staging(self, pin_memory: bool = False) -> dict:
+        """One recycled host staging slot: ``staged_views`` of a fresh
+        buffer (in pinned memory if asked), the band slice ``gr_band``
+        ``[P, 4, blocks_per_window]``, and the buffer itself (``buffer``,
+        a CPU torch tensor, what a copy to the device takes)."""
+        buf = torch.zeros(self.staging_words, dtype=torch.int32,
+                          pin_memory=pin_memory)
+        out = self.staged_views(buf.numpy())
+        out["gr_edge_weight"][...] = 1.0
+        out["gr_band"] = np.zeros(
+            (self.num_rects, 4, self.blocks_per_window), dtype=INT)
+        out["buffer"] = buf
+        return out
+
+    def _band_slice(self, k: int):
+        blo = k * self.blocks_per_window
+        return blo, min(self.num_blocks, blo + self.blocks_per_window)
+
+    def window_bands(self, device) -> list:
+        """Each window's band table ``[P, 4, blocks_per_window]`` on
+        ``device``, the ragged tail padded with empty blocks (0, -1, 0, -1)
+        as ``read_window`` pads it: one tensor per window, so each learns
+        its own tile plan (``push_fused.tile_plan`` caches plans per band
+        tensor)."""
+        out = []
+        for k in range(self.num_windows):
+            blo, bhi = self._band_slice(k)
+            t = np.zeros((self.num_rects, 4, self.blocks_per_window),
+                         dtype=INT)
+            t[:, 1::2] = -1
+            t[:, :, :bhi - blo] = self.band[:, :, blo:bhi]
+            out.append(torch.from_numpy(t).to(device))
+        return out
+
+    def gate_masks(self, num_src_blocks: int) -> np.ndarray:
+        """``[P, num_windows, nsb]`` bool: which gather-side source blocks
+        each (rectangle, window) shard can read -- ``band_source_mask`` at
+        window granularity.  A slot whose mask misses the live frontier is
+        neither fetched nor pushed."""
+        P, nw = self.num_rects, self.num_windows
+        out = np.zeros((P, nw, num_src_blocks), dtype=bool)
+        for k in range(nw):
+            blo, bhi = self._band_slice(k)
+            sub = np.ascontiguousarray(self.band[:, :, blo:bhi])
+            out[:, k, :] = blocks.band_source_mask(sub, num_src_blocks) != 0
+        return out
+
+    @staticmethod
+    def active_windows(gate_masks: np.ndarray,
+                       frontier_blocks: np.ndarray) -> np.ndarray:
+        """``[P, num_windows]`` bool fetch schedule: which (rectangle,
+        window) slots the live frontier can reach at all.
+
+        ``frontier_blocks`` is the BLOCK_V-granular frontier summary --
+        ``[P, nsb]`` for one query, or ``[P, nsb, B]`` for the batched
+        plane, where a slot stays active iff ANY live query column's
+        frontier meets its band source blocks (the union gate: a window may
+        be skipped only when it is dead for every query, and a fetched
+        window contributes the identity to the columns whose frontier
+        misses it).
+        """
+        fb = np.asarray(frontier_blocks)
+        if fb.ndim == 3:
+            fb = fb.any(axis=2)  # union over query columns
+        return (gate_masks & fb[:, None, :]).any(axis=2)
+
+    def read_window(self, k: int, staging: dict,
+                    active: np.ndarray | None = None) -> int:
+        """Copy window ``k`` into the recycled ``staging`` slot; returns the
+        bytes read from the backing store.
+
+        Rectangles with ``active[p] == False`` are not read: their staged
+        edge rows keep what a previous window left, with the validity row,
+        the band slice and ``row_active`` cleared, so every push path treats
+        them as empty (the identity contribution frontier gating relies on).
+        The ragged tail window is zero-masked the same way.  With every
+        rectangle active the planes copy as whole slices (no temporary),
+        else row by row.
+        """
+        lo = k * self.window_edges
+        hi = min(self.emax, lo + self.window_edges)
+        blo, bhi = self._band_slice(k)
+        n, nbk = max(hi - lo, 0), max(bhi - blo, 0)
+        act = (np.ones(self.num_rects, dtype=bool) if active is None
+               else np.asarray(active, dtype=bool))
+        staging["row_active"][...] = act
+        bband = staging["gr_band"]
+        bband[:, 0::2, :] = 0  # empty-block convention: (0, -1, 0, -1)
+        bband[:, 1::2, :] = -1
+        valid = staging["gr_edge_valid"]
+        valid[:, n:] = 0
+        valid[~act] = 0
+        rows = np.flatnonzero(act) if n else np.zeros(0, dtype=np.int64)
+        if len(rows) == 0:
+            return 0
+        every = len(rows) == self.num_rects
+        read = 0
+        for name, field in _STAGED_PLANES:
+            plane, out = getattr(self, field), staging[name]
+            if every:
+                np.copyto(out[:, :n], plane[:, lo:hi])
+            else:
+                for p in rows:
+                    np.copyto(out[p, :n], plane[p, lo:hi])
+            read += len(rows) * n * plane.itemsize
+        for p in rows:
+            bband[p, :, :nbk] = self.band[p, :, blo:bhi]
+        read += len(rows) * 4 * nbk * self.band.itemsize
+        return read
 
 
 @dataclasses.dataclass(frozen=True)

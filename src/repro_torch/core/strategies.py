@@ -339,16 +339,41 @@ def _price(wire, payload_bytes, group):
 
 def grid2d_phase1(vals, arrs, combiner, num_chunks, chunk_size,
                   segment_fn=None, edge_value=None, push_fn=None,
-                  edge_semiring=None, grid_meta=None, row_active=None):
+                  edge_semiring=None, grid_meta=None, row_active=None,
+                  init=None):
     """Every rectangle's local push: gather from its (replicated) row-chunk
     state ``[R*C, Kr(, B)]``, segment-combine into the column-padded space
-    -> ``[R*C, C*Kc(, B)]``, the fused kernel fed by ``gr_band``."""
+    -> ``[R*C, C*Kc(, B)]``, the fused kernel fed by ``gr_band``.  ``init``
+    (optional, the output's shape) seeds the combine with a prior
+    partial."""
     R, C, Kc = grid_meta
     return _dense_contrib(vals, arrs["gr_src_local"], arrs["gr_dst_col"],
                           arrs["gr_edge_valid"], arrs["gr_edge_weight"],
                           combiner, C, Kc, segment_fn, edge_value, push_fn,
-                          arrs["gr_band"], edge_semiring,
+                          arrs["gr_band"], edge_semiring, init=init,
                           row_active=row_active)
+
+
+def grid2d_phase1_window(vals, window_arrays, partial, combiner, num_chunks,
+                         chunk_size, segment_fn=None, edge_value=None,
+                         push_fn=None, edge_semiring=None, grid_meta=None,
+                         row_active=None):
+    """Streamed phase 1: fold ONE edge window into the running rectangle
+    partial (``residency="stream"``).
+
+    ``window_arrays`` carries the resident grid layout's ``gr_*`` names,
+    cut to one BLOCK_E-aligned edge window, so the window's fold IS
+    ``grid2d_phase1`` seeded with ``init=partial``.  Each edge lies in
+    exactly one window, so min recovers the resident result bit for bit and
+    add differs only in float association.  ``row_active`` gates the
+    rectangles the window does not fetch: their rows keep ``partial``.
+    ``vals``/``partial`` may carry a trailing ``[B]`` query axis, so one
+    window's upload serves every column of the fold.
+    """
+    return grid2d_phase1(vals, window_arrays, combiner, num_chunks,
+                         chunk_size, segment_fn, edge_value, push_fn,
+                         edge_semiring, grid_meta, row_active=row_active,
+                         init=partial)
 
 
 def grid2d_phase2(dense, arrs, combiner, num_chunks, chunk_size,
@@ -460,6 +485,11 @@ def grid2d(vals, arrs, combiner, num_chunks, chunk_size, segment_fn=None,
 STRATEGIES = {name: _compose(*ph) for name, ph in PHASES.items()
               if name != "grid2d"}
 STRATEGIES["grid2d"] = grid2d
+
+# Strategies whose phase 1 admits the windowed out-of-core schedule
+# (``residency="stream"``): phase 1 must be a pure per-shard fold over edge
+# slices with a combiner merge -- today that is the grid rectangle layout.
+STREAMABLE = {"grid2d"}
 
 # Which edge layout each strategy's local combine reads -- the engine's
 # adaptive dispatch prices the matching band table ("pairwise" has no push

@@ -18,9 +18,11 @@ cannot starve BFS.
 The server runs on CUDA unless ``--device cpu`` is given.  A dispatch is
 timed on the host clock around ``run_batch``, which ends in one blocking
 copy of the result into pinned host memory (``Engine._to_host``), so the
-measured time covers the device's work.  LM serving (``BatchedServer``)
-and ``--residency stream`` are not ported yet and raise
-``NotImplementedError``.
+measured time covers the device's work.  ``--residency stream`` serves
+out of core: the engine keeps the edge planes on the host and sweeps each
+prefetched edge window once for all B admitted queries (``--windows``
+windows a superstep).  LM serving (``BatchedServer``) is not ported yet and
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ from collections import deque
 
 import numpy as np
 
-from repro_torch.core.engine import _LATER, resolve_device
+from repro_torch.core.engine import resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -296,12 +298,19 @@ def _graph_main(args):
     """Serve ``args.queries`` queries of ``args.programs`` on an RMAT graph
     of ``2^args.scale`` vertices; returns the metrics it prints."""
     from repro_torch.core import Engine, partition, rmat
+    from repro_torch.core.engine import StreamConfig
 
-    if getattr(args, "residency", "resident") == "stream":
-        raise NotImplementedError(_LATER["stream"])
     device = resolve_device(getattr(args, "device", None))  # before any work
     g = rmat(args.scale, 8 * (2 ** args.scale), seed=0, weighted=True)
-    eng = Engine(partition(g, 1), device=device)
+    if getattr(args, "residency", "resident") == "stream":
+        # out-of-core serving: the edge planes never become device-resident;
+        # every dispatched batch sweeps each prefetched edge window once for
+        # all B admitted queries
+        eng = Engine(partition(g, 1, partitioner="grid(1,1)"), device=device,
+                     residency="stream",
+                     stream=StreamConfig(windows=getattr(args, "windows", 4)))
+    else:
+        eng = Engine(partition(g, 1), device=device)
     policy = DeadlinePolicy() if args.policy == "deadline" else GreedyPolicy()
     server = GraphQueryServer(eng, batch=args.batch, policy=policy)
     rng = np.random.default_rng(0)
@@ -367,8 +376,9 @@ def main(argv=None):
                     help="fixed iterations for personalized_pagerank traffic")
     ap.add_argument("--residency", choices=("resident", "stream"),
                     default="resident",
-                    help="graph residency for --graph serving ('stream' is "
-                         "not ported yet)")
+                    help="graph residency for --graph serving: 'stream' "
+                         "serves out-of-core, sweeping each prefetched edge "
+                         "window once for all B admitted queries")
     ap.add_argument("--windows", type=int, default=4,
                     help="edge-window count for --residency=stream")
     ap.add_argument("--device", default=None,

@@ -134,7 +134,9 @@ def test_run_batch_argument_errors():
         eng.run_batch("bfs", sources=[()])
     with pytest.raises(TypeError, match="params"):
         eng.run_batch(TPROG.make_program("bfs"), sources=[0], source=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # a resident engine never streams (the streamed cells are
+    # tests/test_torch_stream.py)
+    with pytest.raises(ValueError, match="residency='stream'"):
         eng.run_batch("bfs", sources=[0], residency="stream")
     with pytest.raises(ValueError, match="sync"):
         eng.run_batch("bfs", sources=[0], sync="bogus")

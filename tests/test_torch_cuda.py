@@ -22,7 +22,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import Engine, get_spec
+from repro_torch.core import Engine, StreamConfig, get_spec
 from repro_torch.core import graph as G
 from repro_torch.kernels import _build, ops, push_fused, push_staged
 from repro_torch.kernels.blocks import BLOCK_E, BLOCK_S
@@ -1413,3 +1413,164 @@ def test_batched_modes_on_cuda_match_cpu(cuda, kw):
         "sssp", sources=[0, 5, 9, 77], **kw)
     np.testing.assert_array_equal(got_it, want_it)
     np.testing.assert_array_equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# Out-of-core streaming: the fused kernels on window operands, each window's
+# own tile plan, the streamed engine and its prefetcher's ordering
+# ---------------------------------------------------------------------------
+
+
+def stream_source(shape=(1, 1), scale=13, windows=4):
+    """A weighted RMAT grid partition and its ShardSource."""
+    R, C = shape
+    pg = G.partition(G.random_weights(G.rmat(scale, 14 << scale, seed=1),
+                                      seed=5), R * C,
+                     partitioner=f"grid({R},{C})")
+    return pg, pg.shard_source(windows=windows)
+
+
+def window_operands(sb, k, cuda, active=None):
+    """Window ``k`` read into a pinned staging slot and copied to the card:
+    (the staged planes, the window's own band table)."""
+    staging = sb.make_staging(pin_memory=True)
+    sb.read_window(k, staging, active)
+    wd = {n: t.to(cuda) for n, t in
+          sb.staged_views(staging["buffer"]).items()}
+    return wd, sb.window_bands(cuda)[k]
+
+
+@pytest.mark.parametrize("combine,dtype,mode", WIDE_CASES)
+@pytest.mark.parametrize("gated", (False, True))
+@pytest.mark.parametrize("k", (0, -1))
+def test_windowed_fused_kernels_match_plain(cuda, combine, dtype, mode,
+                                            gated, k):
+    """Both fused kernels on one window of grid(2,4)'s table (a full window
+    and the ragged tail), seeded with a non-identity init and gated by the
+    window's row mask (rectangles 1 and 6 skipped), against the plain
+    version with the same init and gate: gated rows keep init bit for bit,
+    and the tiled add is bit-identical from call to call."""
+    pg, sb = stream_source((2, 4))
+    k = k % sb.num_windows
+    P = pg.num_chunks
+    active = np.ones(P, dtype=bool)
+    if gated:
+        active[[1, 6]] = False
+    wd, band = window_operands(sb, k, cuda, active)
+    V = pg.chunk_size
+    S = pg.grid_shape[1] * pg.col_chunk_size
+    vals = (draw_vals((P, V), dtype, cuda) if combine == "add"
+            else draw_dist((P, V), dtype, cuda))
+    od = push_fused.output_dtype(dtype, combine)
+    init = (draw_vals((P, S), od, cuda, seed=3) if combine == "add"
+            else draw_dist((P, S), od, cuda, seed=3))
+    if combine == "min" and od.is_floating_point:
+        init = torch.clamp(init, max=push_fused.SENTINEL_F32)
+    w = wd["gr_edge_weight"] if mode == "weight" else None
+    if w is not None and combine == "min":
+        w = min_weight(w, dtype)
+    ra = wd["row_active"]
+    kw = dict(combine=combine, unit_weight=mode == "unit", init=init,
+              row_active=ra)
+    args = (band, wd["gr_src_local"], wd["gr_dst_col"], wd["gr_edge_valid"],
+            w, vals, S)
+    push_fused.reset_launch_counts()
+    got = push_fused.fused_push(*args, **kw)
+    assert push_fused.launch_counts[f"fused_push_{combine}"] == 1
+    want = push_fused.fused_push_plain(*args, **kw)
+    assert_kernel_equal(got, want, combine)
+    assert gated_rows_hold(got, ra, init, combine)
+    if combine == "add" and dtype == torch.float32:
+        assert same_bits(push_fused.fused_push(*args, **kw), got)
+
+
+def test_window_tile_plans_are_their_own(cuda):
+    """Two windows of one table learn different tile plans, and a streamed
+    run hands the kernels each window's own band tensor (learned at bind),
+    never a recycled staging tensor: every band a push received is the
+    engine's table for the window it folds, in fetch order."""
+    pg, sb = stream_source(windows=4)
+    eng = Engine(pg, residency="stream", stream=StreamConfig(windows=4))
+    p0 = push_fused.tile_plan(eng._win_bands[0])
+    p1 = push_fused.tile_plan(eng._win_bands[1])
+    assert not torch.equal(p0.chunk_blocks, p1.chunk_blocks)
+    for k, band in enumerate(eng._win_bands):
+        fresh = push_fused.tile_plan(band.clone())
+        assert torch.equal(push_fused.tile_plan(band).work, fresh.work), k
+    seen = []
+    hook = eng.push_fn
+
+    def recording(*args, band=None, **kw):
+        seen.append(band)
+        return hook(*args, band=band, **kw)
+
+    recording.fused = True
+    eng.push_fn = recording
+    _, it = eng.run("bfs")
+    nw = eng.dispatch["stream"]["windows"]
+    assert len(seen) == it * nw
+    assert all(b is eng._win_bands[i % nw] for i, b in enumerate(seen))
+
+
+@pytest.mark.parametrize("prefetch", (True, False))
+@pytest.mark.parametrize("name", PROGRAMS)
+def test_streamed_engine_on_cuda_matches_resident(cuda, name, prefetch):
+    """The streamed engine on the card (grid(1,1), 5 windows) against the
+    resident grid(1,1) engine on the card and the streamed engine on the
+    CPU: min bit for bit with equal superstep counts, add within 1e-5; one
+    fused launch per window fold; the copies timed on the card."""
+    spec = get_spec(name)
+    g = G.rmat(12, 14 << 12, seed=1)
+    if spec.weighted:
+        g = G.random_weights(g, seed=5)
+    g = spec.prepare_graph(g)
+    cfg = StreamConfig(windows=5, prefetch=prefetch)
+    eng = Engine(G.partition(g, 1, "grid(1,1)"), residency="stream",
+                 stream=cfg)
+    push_fused.reset_launch_counts()
+    got, it = eng.run(name)
+    st = eng.dispatch["stream"]
+    combine = spec.make(**spec.defaults).combiner.name
+    assert push_fused.launch_counts[f"fused_push_{combine}"] == st["fetches"]
+    assert st["h2d_s"] > 0 and st["h2d_bytes"] > 0
+    assert st["pipelined"] is prefetch
+    want, want_it = Engine(G.partition(g, 1, "grid(1,1)")).run(name)
+    cpu, cpu_it = Engine(G.partition(g, 1, "grid(1,1)"), device="cpu",
+                         residency="stream", stream=cfg).run(name)
+    assert it == want_it == cpu_it
+    if spec.exact or name == "labelprop":
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(got, cpu)
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-7)
+        np.testing.assert_allclose(got, cpu, rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize("prefetch", (True, False))
+def test_prefetcher_orders_copies_behind_slow_folds(cuda, prefetch):
+    """A deliberately slow fold (a device spin before each window's push)
+    leaves the copy stream far ahead of the compute stream: a copy into a
+    device slot before the fold that read it finished, or a refill of a
+    pinned slot before its copy finished, would corrupt a window.  The
+    results stay equal to the resident run's, batched plane included."""
+    g = G.random_weights(G.rmat(12, 14 << 12, seed=1), seed=5)
+    eng = Engine(G.partition(g, 1, "grid(1,1)"), residency="stream",
+                 stream=StreamConfig(windows=6, prefetch=prefetch))
+    hook = eng.push_fn
+
+    def slow(*args, **kw):
+        torch.cuda._sleep(2_000_000)  # about a millisecond of spinning
+        return hook(*args, **kw)
+
+    slow.fused = True
+    eng.push_fn = slow
+    res = Engine(G.partition(g, 1, "grid(1,1)"))
+    for prog in ("sssp", "bfs"):
+        got, it = eng.run(prog)
+        want, want_it = res.run(prog)
+        np.testing.assert_array_equal(got, want)
+        assert it == want_it
+    got, git = eng.run_batch("sssp", sources=[0, 3, 9, 40])
+    want, wit = res.run_batch("sssp", sources=[0, 3, 9, 40])
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(git, wit)

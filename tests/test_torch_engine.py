@@ -386,16 +386,18 @@ def test_run_cost_on_cpu():
 def test_unported_options_raise():
     pg = TG.partition(port_graph("sssp", "rmat6"), 2)
     eng = Engine(pg, device="cpu")
-    # replan, sync="overlap" and gate="frontier" are ported (their cells are
-    # tests/test_torch_replan.py and tests/test_torch_async.py); only the
-    # streamed residency still raises
+    # replan, sync="overlap", gate="frontier" and the streamed residency
+    # are ported (their cells are tests/test_torch_replan.py,
+    # tests/test_torch_async.py and tests/test_torch_stream.py): a resident
+    # engine refuses to stream, and a 1-D partition cannot stream at all
     cases = [
-        lambda: eng.run("sssp", residency="stream"),
-        lambda: eng.run_batch("bfs", sources=[0, 1], residency="stream"),
-        lambda: Engine(pg, device="cpu", residency="stream"),
+        (lambda: eng.run("sssp", residency="stream"), "residency='stream'"),
+        (lambda: eng.run_batch("bfs", sources=[0, 1], residency="stream"),
+         "residency='stream'"),
+        (lambda: Engine(pg, device="cpu", residency="stream"), "grid"),
     ]
-    for case in cases:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for case, match in cases:
+        with pytest.raises(ValueError, match=match):
             case()
     for bad in (dict(replan="nope"), dict(sync="async"),
                 dict(gate="bands")):

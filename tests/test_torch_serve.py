@@ -321,11 +321,29 @@ def test_cli_serves_on_the_cpu_and_matches_the_reference_admissions(
 
 @pytest.mark.parametrize("argv,item", [
     (["--arch", "qwen1.5-4b", "--smoke"], "item 12"),
-    (["--graph", "--residency", "stream", "--device", "cpu"], "item 9"),
 ])
 def test_cli_refuses_what_is_not_ported(argv, item):
     with pytest.raises(NotImplementedError, match=item):
         serve.main(argv)
+
+
+def test_cli_serves_streamed_and_matches_the_reference(monkeypatch):
+    """``--residency stream`` serves out of core: with a fixed dispatch step
+    both CLIs admit the same queries in the same dispatches over a streamed
+    grid(1,1) engine."""
+    argv = ["--graph", "--device", "cpu", "--scale", "6", "--queries", "12",
+            "--batch", "4", "--residency", "stream", "--windows", "3",
+            "--programs", "bfs,personalized_pagerank", "--ppr-iters", "3"]
+    monkeypatch.setattr(serve, "time", FixedStepTime())
+    got = serve.main(argv)
+    args = vars(_cli_args(queries=12, policy="greedy", deadline=None,
+                          ppr_iters=3, residency="stream", windows=3))
+    args.pop("device")
+    monkeypatch.setattr(rserve, "time", FixedStepTime())
+    want = rserve._graph_main(argparse.Namespace(**args))
+    for key in ("queries", "warmup", "drained", "dispatches",
+                "deadline_missed"):
+        assert got[key] == want[key], key
 
 
 # ---------------------------------------------------------------------------
@@ -557,11 +575,11 @@ def test_imbalance_table_equals_the_reference():
 def test_benchmark_run_prints_the_ported_sections(monkeypatch, tmp_path,
                                                   capsys):
     """``repro_torch.benchmarks.run`` prints the imbalance, wire,
-    wire_batch, throughput, serving and async rows by the reference's
-    names beside the table, cost, fig12 and grid rows
+    wire_batch, throughput, serving, async and streaming rows by the
+    reference's names beside the table, cost, fig12 and grid rows
     (``test_torch_tables.py`` holds those), nothing of the sections not
-    ported, passes the curve's and the async assertions and writes
-    BENCH_cost.json's serving and async sections."""
+    ported, passes the curve's, the async and the streaming assertions and
+    writes BENCH_cost.json's serving, async and streaming sections."""
     monkeypatch.chdir(tmp_path)
     monkeypatch.setattr(serve, "time", FixedStepTime())
     out = brun.main(["--scale", "7", "--device", "cpu", "--json"])
@@ -570,7 +588,7 @@ def test_benchmark_run_prints_the_ported_sections(monkeypatch, tmp_path,
     assert heads == {"device", "imbalance", "wire", "wire_batch",
                      "throughput", "serving", "json", "table2", "table3",
                      "table4", "table5", "table6", "table7", "table8",
-                     "cost", "fig12", "grid", "async"}
+                     "cost", "fig12", "grid", "async", "streaming"}
     names = {line.split(",")[0] for line in lines}
     for name in ("throughput.soc-lj1-mini.bfs.batched@B16",
                  "throughput.soc-lj1-mini.bfs.seq_loop@B16",
@@ -586,13 +604,22 @@ def test_benchmark_run_prints_the_ported_sections(monkeypatch, tmp_path,
                  "async.sssp.superstep_s",
                  "async.gating_model.lockstep_skipped",
                  "async.grid24.gate_skipped",
-                 "async.grid24.collective_ratio"):
+                 "async.grid24.collective_ratio",
+                 "streaming.sssp.resident@1", "streaming.sssp.streamed@1",
+                 "streaming.sssp.superstep_s",
+                 "streaming.overlap_efficiency", "streaming.edge_bandwidth",
+                 "streaming.gate_skip_fraction",
+                 "streaming.cache_prep_speedup",
+                 "streaming.batched.bytes_per_query@B16",
+                 "streaming.batched.qps@B16"):
         assert name in names, name
     assert lines[0] == "device,cpu,type=cpu count=1"
     saved = __import__("json").loads((tmp_path / "BENCH_cost.json")
                                      .read_text())
-    assert set(saved) >= {"throughput", "serving", "async"}
+    assert set(saved) >= {"throughput", "serving", "async", "streaming"}
     assert saved["async"]["grid24"]["bit_exact"]
+    assert saved["streaming"]["bit_exact"]
+    assert saved["streaming"]["batched"]["bytes_per_query_ratio"] <= 0.125
     assert saved["serving"]["checks"] == out["serving"]["checks"]
 
 
