@@ -77,10 +77,12 @@ Phases, each printing one JSON line with its seconds:
              run_batch.  Then one query at B=8 against B=1 (what an
              under-full plane costs); the port's latency_table on the
              main engine (loads 0.25, 1, 4; 8B queries per load;
-             ppr_iters=8; slo_factor=1.5), run once and reported (a
-             process's first curve meets dispatch stalls) and then
-             measured, with the reference's two curve assertions on the
-             measured pass, which must hold; throughput_table for bfs and
+             ppr_iters=8; slo_factor=1.5), the process's first, with the
+             reference's two curve assertions, which must hold
+             (latency_table fills torch's pinned cache with the result
+             blocks a load holds before the loads; no dispatch of a load
+             may create a pinned block, counted by
+             torch.cuda.host_memory_stats); throughput_table for bfs and
              PPR at B=16 with a budget of 8 supersteps (PPR beside the
              reference's 3x bar, a finding, not a check); and the CLI,
              python -m repro_torch.launch.serve --graph --scale 20
@@ -231,6 +233,29 @@ Phases, each printing one JSON line with its seconds:
              seconds on the staged-choice graph with either hook
   quickstart  python -m repro_torch.quickstart's main() on the card; all
              its checks must hold
+  lm         the LM serving path at full width: gemma3-1b (26 layers,
+             d_model 1152, 4 heads, 1 KV head, head_dim 256, d_ff 6912,
+             vocab 262,144, window 512; 999,811,584 parameters, 2.0 GB in
+             bf16) with parameters from init_params on the card (seed 0).
+             BatchedServer with 8 requests, prompts of 64 tokens
+             (np.random.default_rng(0)) and 512 generated, so positions pass
+             512; the greedy tokens in range.  Prefill seconds, decode ms
+             a step and tokens/s (host clock; the 496 steps after the
+             first 16),
+             the device profile of 4 decode steps (busy share, kernel
+             launches), the peak memory, and the bound of a decode step:
+             the parameter bytes read once at 3.35 TB/s.  Then a seeded
+             random stream of 64 + 512 tokens, teacher-forced through
+             decode_step, so the 21 local layers' ring buffers wrap holding
+             distinct tokens: its logits at positions 63, 300 and 575
+             against the forward over the stream on the card, and its next
+             16 steps after position 63 against the same parameters on the
+             CPU (from the card's cache), each within 1e-2 of max |logit|
+             and each row's RMS error within 1e-2 of its logits' RMS.
+             Then the CLI,
+             python -m repro_torch.launch.serve --arch gemma3-1b
+             --requests 8 --prompt-len 16 --gen 16, which must print its two
+             lines
 
 Then one JSON line with every kernel's numbers (launches from the main
 path for the fused pair, from staged_main for the staged four, from
@@ -307,9 +332,12 @@ class Smoke:
         return start.elapsed_time(end) / iters
 
     @staticmethod
-    def compare(got, want, combine, what):
+    def compare(got, want, combine, what, operands=None):
         """Min and int sums bit-equal; float sums within the stated
-        tolerance.  Returns the max abs error."""
+        tolerance.  Returns the max abs error.  A mismatch first saves the
+        operands (when given), the kernel's output and the plain output
+        under ``build/mismatch/`` and prints the path and the first
+        indices that differ."""
         import torch
 
         if got.shape != want.shape or got.dtype != want.dtype:
@@ -317,17 +345,42 @@ class Smoke:
                                  f"{tuple(want.shape)}/{want.dtype}")
         if combine == "min" or not got.dtype.is_floating_point:
             if not torch.equal(got, want):
-                bad = int((got != want).sum())
-                raise AssertionError(f"{what}: {bad} elements differ")
+                bad = got != want
+                Smoke._keep_mismatch(what, got, want, operands, bad)
+                raise AssertionError(f"{what}: {int(bad.sum())} elements "
+                                     "differ")
             return 0.0
         err = (got.double() - want.double()).abs()
         scale = float(want.double().abs().max()) if want.numel() else 0.0
         tol = 1e-6 * scale + ADD_RTOL * want.double().abs()
         if bool((err > tol).any()):
+            Smoke._keep_mismatch(what, got, want, operands, err > tol)
             raise AssertionError(f"{what}: max abs err {float(err.max())} "
                                  f"beyond rtol={ADD_RTOL}, "
                                  f"atol=1e-6*{scale}")
         return float(err.max()) if err.numel() else 0.0
+
+    @staticmethod
+    def _keep_mismatch(what, got, want, operands, bad):
+        """Save a failed comparison for diagnosis (``torch.save``: the
+        operands, the kernel's output, the plain output) and print where
+        it is and the first differing indices with both values."""
+        import re
+
+        import torch
+
+        out_dir = ROOT / "build" / "mismatch"  # git ignores build/
+        out_dir.mkdir(parents=True, exist_ok=True)
+        path = out_dir / (re.sub(r"[^A-Za-z0-9_.=-]+", "_", what) + ".pt")
+        cpu = lambda x: x.detach().cpu() if isinstance(x, torch.Tensor) else x
+        torch.save({"what": what, "got": cpu(got), "want": cpu(want),
+                    "operands": {k: cpu(v) for k, v in
+                                 (operands or {}).items()}}, path)
+        idx = bad.nonzero()[:10].cpu().tolist()
+        first = [{"index": i, "got": float(got[tuple(i)]),
+                  "want": float(want[tuple(i)])} for i in idx]
+        print(f"chip_smoke: {what} mismatch kept at {path}; first "
+              f"differing: {first}", file=sys.stderr, flush=True)
 
     # -- phases --------------------------------------------------------------
 
@@ -377,7 +430,9 @@ class Smoke:
         want = fused_push_plain(band, src, dst, valid, w, vals, S,
                                 combine=combine, unit_weight=unit, init=init)
         torch.cuda.synchronize()
-        return self.compare(got, want, combine, what)
+        return self.compare(got, want, combine, what, operands=dict(
+            band=band, src=src, dst=dst, valid=valid, w=w, vals=vals, S=S,
+            combine=combine, unit_weight=unit, init=init))
 
     def _kernel_matrix(self, band, src, dst, valid, V, S, seed, float_vals,
                        batches=(None, 4)):
@@ -1174,6 +1229,29 @@ class Smoke:
             self.events.append((start, end))
             return out
 
+    class _PinnedCounted:
+        """An engine whose ``run_batch`` counts the pinned host blocks torch
+        created for it (``torch.cuda.host_memory_stats``: blocks its cache
+        could not serve) and their seconds, one pair per call."""
+
+        def __init__(self, eng):
+            self.eng, self.fresh = eng, []
+
+        def __getattr__(self, name):
+            return getattr(self.eng, name)
+
+        def run_batch(self, *args, **kw):
+            import torch
+
+            s0 = torch.cuda.host_memory_stats()
+            out = self.eng.run_batch(*args, **kw)
+            s1 = torch.cuda.host_memory_stats()
+            self.fresh.append((
+                s1["num_host_alloc"] - s0["num_host_alloc"],
+                (s1.get("host_alloc_time.total", 0)
+                 - s0.get("host_alloc_time.total", 0)) / 1e6))
+            return out
+
     @staticmethod
     def _serve_queue(server, timed, traffic, deadline=None):
         """Submit ``traffic`` ((program, source, params) triples) and step
@@ -1302,15 +1380,25 @@ class Smoke:
         del alone
         under = self._under_full(eng, srcs[1], B)
         pinned = self._pinned_alloc(B, self.gw.num_vertices)
-        curve = lambda: tables.latency_table(
-            engine=eng, B=B, loads=(0.25, 1.0, 4.0), queries_per_load=8 * B,
-            ppr_iters=8, slo_factor=1.5)
-        # the first curve of a process meets single dispatches of 0.08-0.28
-        # s that the curves after it do not, with or without the adaptive
-        # modes in the tree (PERF.md section 6, the serving A/B): it is run
-        # once and reported, and the second is checked
-        warm = curve()
-        lt = curve()
+        # the process's first curve, checked: latency_table fills torch's
+        # pinned cache with a load's result blocks before its loads, where
+        # a fresh 128 MiB cudaHostAlloc inside a dispatch once stalled it
+        # for 0.08-0.28 s (scripts/torch_serve_first_curve.py); no
+        # dispatch of a load may allocate one
+        counted = self._PinnedCounted(eng)
+        lt = tables.latency_table(
+            engine=counted, B=B, loads=(0.25, 1.0, 4.0),
+            queries_per_load=8 * B, ppr_iters=8, slo_factor=1.5)
+        in_loads = counted.fresh[-sum(r["dispatches"] for r in lt["curve"]):]
+        pinned_fresh = {
+            "load_dispatches": len(in_loads),
+            "fresh_blocks": sum(n for n, _ in in_loads),
+            "fresh_s": sum(t for _, t in in_loads),
+            "warm_drain_fresh_blocks": sum(
+                n for n, _ in counted.fresh[:-len(in_loads)])}
+        if pinned_fresh["fresh_blocks"]:
+            raise AssertionError(f"the loads allocated pinned blocks: "
+                                 f"{pinned_fresh}")
         checks = tables.curve_checks(lt["curve"])
         if not all(checks.values()):
             raise AssertionError(f"latency curve checks {checks}: "
@@ -1333,11 +1421,7 @@ class Smoke:
                 "greedy_groups": greedy, "serial_checked_bfs": serial,
                 "under_full": under, "pinned_alloc_s": pinned,
                 "latency": lt, "curve_checks": checks,
-                "first_curve": {
-                    "checks": tables.curve_checks(warm["curve"]),
-                    "p99_s": [c["p99_s"] for c in warm["curve"]],
-                    "max_dispatch_s": [max(c["dispatch_seconds"])
-                                       for c in warm["curve"]]},
+                "latency_pinned_fresh": pinned_fresh,
                 "throughput": throughput, "cli": cli}
 
     @staticmethod
@@ -1817,6 +1901,181 @@ class Smoke:
             out[label] = self._device_profile(lambda: eng.run(name))
         return out
 
+    def lm(self, arch="gemma3-1b", smoke=False, R=8, P=64, G=512, mid=300):
+        """The LM serving path at full width (gemma3-1b); see the module
+        docstring.  ``R`` requests, prompts of ``P`` tokens, ``G``
+        generated, logits also read at position ``mid``; a rehearsal passes
+        ``smoke=True`` and smaller sizes."""
+        import contextlib
+        import io
+
+        import numpy as np
+        import torch
+
+        from repro_torch import configs
+        from repro_torch.launch import serve as S
+        from repro_torch.models import model as M
+
+        cfg = (configs.smoke_config if smoke else configs.get_config)(arch)
+        dev = torch.device("cuda")
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                               dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        leaves = [t for layer in params["layers"] for part in layer.values()
+                  for t in part.values()] + [params["embed"]["table"]]
+        # the config's count leaves out the final norm's d_model scales
+        n_params = sum(t.numel() for t in leaves)
+        leaves.append(params["final_norm"]["scale"])
+        param_bytes = sum(t.numel() * t.element_size() for t in leaves)
+        if n_params != cfg.param_count():
+            raise AssertionError(f"{n_params} parameters, the config counts "
+                                 f"{cfg.param_count()}")
+        first_steps = 16
+        marks = (P - 1, mid, P + G - 1)  # 63, 300, 575
+        server = S.BatchedServer(cfg, params, R, P + G + 1)
+        ring = tuple(server.cache["slot00"]["k"].shape)
+        full = tuple(server.cache["slot05"]["k"].shape)
+        if ring[2] != cfg.window or full[2] != P + G + 1:
+            raise AssertionError(f"caches {ring} (local) and {full} (global)")
+        rng = np.random.default_rng(0)
+        prompts = rng.integers(0, cfg.vocab_size, (R, P), dtype=np.int32)
+        cache_bytes = sum(c[k].numel() * c[k].element_size()
+                          for c in server.cache.values() for k in c)
+
+        # greedy serving, timed: the prefill, then 16 untimed decode steps
+        # and the remaining 496 in one call
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        first = server.prefill(prompts)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        toks = [prompts, first.cpu().numpy(), server.decode(first_steps)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks.append(server.decode(G - first_steps))
+        decode_s = time.perf_counter() - t0
+        steps = G - first_steps
+        seq = np.concatenate(toks, axis=1)  # [R, P + G + 1]
+        if seq.shape != (R, P + G + 1) or server.pos != P + G or \
+                seq.min() < 0 or seq.max() >= cfg.vocab_size:
+            raise AssertionError(f"tokens {seq.shape}, pos {server.pos}")
+        profile = self._device_profile(lambda: server.decode(4))
+        decode_peak = torch.cuda.max_memory_allocated() - base
+        del server
+
+        # teacher-forced decode of a seeded random stream (with random
+        # weights and tied embeddings, greedy decode repeats one token, so
+        # its wrapped ring would hold identical tokens): every ring slot
+        # holds a distinct token when the ring wraps at position 512
+        stream = torch.as_tensor(rng.integers(
+            0, cfg.vocab_size, (R, P + G), dtype=np.int32), device=dev)
+        cache = M.init_cache(cfg, R, P + G + 1, dev)
+        logits, step_logits = {}, []
+        with torch.no_grad():
+            for t in range(P + G):
+                lg, cache = M.decode_step(params, stream[:, t:t + 1], t,
+                                          cache, cfg)
+                if t in marks:
+                    logits[t] = lg[:, 0].clone()
+                if t == P - 1:  # the CPU's starting cache
+                    prefilled = {k: {kk: vv.to("cpu", copy=True)
+                                     for kk, vv in c.items()}
+                                 for k, c in cache.items()}
+                if P <= t < P + first_steps:
+                    step_logits.append(lg[:, 0].cpu())
+        del cache
+
+        def agree(got, want, where):
+            """The bound of tests/test_serve.py:33 (max |err| within 1e-2
+            of max |logit|), and the same 1e-2 on each row's RMS error
+            against its logits' RMS: one outlier logit (the input token's
+            own, about 1,190 under tied embeddings) sets the max, the RMS
+            is the scale of the row's 262,144 logits."""
+            got, want = got.float(), want.float()
+            err = (got - want).abs()
+            rel = float(err.max() / want.abs().max())
+            rms = float((err.square().mean(-1).sqrt()
+                         / want.square().mean(-1).sqrt()).max())
+            if not (rel < 1e-2 and rms < 1e-2):
+                raise AssertionError(f"{where}: max |err| {rel} of max "
+                                     f"|logit|, RMS error {rms} of the RMS")
+            return {"max_abs_err": float(err.max()),
+                    "max_abs": float(want.abs().max()),
+                    "rms_logit": float(want.square().mean(-1).sqrt().min()),
+                    "rel": rel, "rms_rel": rms}
+
+        # teacher-forced forward over the same stream
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            fwd, _ = M.forward(params, {"tokens": stream}, cfg)
+        torch.cuda.synchronize()
+        forward_s = time.perf_counter() - t0
+        vs_forward = {str(mark): agree(logits[mark], fwd[:, mark],
+                                       f"decode logits at {mark}")
+                      for mark in marks}
+        del fwd
+
+        # the same parameters on the CPU, from the stream's cache at
+        # position 63, for the next 16 decode steps
+        t0 = time.perf_counter()
+        cpu = {k: ({kk: vv.cpu() for kk, vv in v.items()}
+                   if isinstance(v, dict) else v) for k, v in params.items()
+               if k != "layers"}
+        cpu["layers"] = [{part: {k: t.cpu() for k, t in d.items()}
+                          for part, d in layer.items()}
+                         for layer in params["layers"]]
+        cache, cpu_stream, vs_cpu = prefilled, stream.cpu(), []
+        with torch.no_grad():
+            for t in range(P, P + first_steps):
+                lg, cache = M.decode_step(cpu, cpu_stream[:, t:t + 1], t,
+                                          cache, cfg)
+                vs_cpu.append(agree(step_logits[t - P], lg[:, 0],
+                                    f"position {t}, card against CPU"))
+        cpu_s = time.perf_counter() - t0
+        del cpu, cache, params, leaves, logits, step_logits, stream
+        torch.cuda.empty_cache()
+
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            cli = S.main(["--arch", arch, "--requests", str(R),
+                          "--prompt-len", "16", "--gen", "16"]
+                         + ["--smoke"] * smoke)
+        lines = out.getvalue().splitlines()
+        print("\n".join(lines), flush=True)
+        if len(lines) != 2 or \
+                not lines[0].startswith(f"[serve] {R} reqs") or \
+                not lines[1].startswith("[serve] sample output tokens"):
+            raise AssertionError(f"the CLI printed {lines}")
+        return {
+            "arch": cfg.name, "parameters": n_params,
+            "parameter_bytes": param_bytes, "cache_bytes": cache_bytes,
+            "cache_shapes": {"local": ring, "global": full},
+            "requests": R, "prompt_len": P, "generated": G,
+            "init_s": init_s, "prefill_s": prefill_s,
+            "prefill_tok_per_s": R * P / prefill_s,
+            "decode_timed_steps": steps, "decode_s": decode_s,
+            "decode_ms_per_step": decode_s / steps * 1e3,
+            "decode_tok_per_s": R * steps / decode_s,
+            "decode_bound_ms": param_bytes / HBM_BYTES_PER_S * 1e3,
+            "decode_bound_with_cache_ms":
+                (param_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3,
+            "decode_profile_4_steps": profile,
+            "forward_s": forward_s, "vs_forward": vs_forward,
+            "vs_cpu_max_rel": max(r["rel"] for r in vs_cpu),
+            "vs_cpu_max_rms_rel": max(r["rms_rel"] for r in vs_cpu),
+            "cpu_s": cpu_s, "peak_bytes": decode_peak,
+            "peak_bytes_with_forward":
+                torch.cuda.max_memory_allocated() - base,
+            "sample_tokens": seq[0, P:P + 10].tolist(),
+            "cli": {k: v for k, v in cli.items() if k != "tokens"},
+            "nvidia_smi": self.smi}
+
     @staticmethod
     def _device_profile(fn):
         """Device time by kernel over one call of ``fn`` (torch.profiler,
@@ -1840,6 +2099,7 @@ class Smoke:
                       key=lambda r: -r[1])
         busy_ms = sum(r[1] for r in rows)
         return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+                "device_ops": sum(r[2] for r in rows),
                 "device_busy_share": busy_ms / wall_ms if busy_ms else None,
                 "by_kernel": [{"name": k[:90], "device_ms": ms, "calls": n}
                               for k, ms, n in rows[:10]]}
@@ -3691,6 +3951,12 @@ class Smoke:
         return {"checks": checks}
 
 
+PHASES = ("device", "build", "kernels", "graph", "main", "reproducible",
+          "batch", "serve", "grid", "replan", "async", "stream", "cost",
+          "staged_main", "profile", "kernel_time", "kernels_main", "chares",
+          "push_choice", "quickstart", "lm")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=int, default=22,
@@ -3708,13 +3974,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT / "src"))
     smoke = Smoke(args)
     try:
-        for name in ("device", "build", "kernels", "graph", "main",
-                     "reproducible", "batch", "serve", "grid", "replan",
-                     "async", "stream", "cost", "staged_main",
-                     "profile",
-                     "kernel_time",
-                     "kernels_main",
-                     "chares", "push_choice", "quickstart"):
+        for name in PHASES:
             smoke.phase(name, getattr(smoke, {"async": "async_modes"}.get(
                 name, name)))
     except Exception:  # report the failing phase, print no ok line

@@ -51,7 +51,7 @@ Sections of the reference that print nothing here, by ROADMAP queue 1 item:
   throughput.model, serving.model, streaming.model, kernel.*,
   dispatch.*                   item 4: their cost models are the TPU's,
                                and wait for a model of the card
-  roofline.*                   item 12 (the dry-run roofline)
+  roofline.*                   item 12.11 (the dry-run roofline)
 
 ``--json`` writes the ``algorithms``, ``grid``, ``throughput``,
 ``serving``, ``async`` and ``streaming`` sections of ``BENCH_cost.json``.

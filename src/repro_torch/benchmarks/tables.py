@@ -28,6 +28,7 @@ import math
 from collections import deque
 
 import numpy as np
+import torch
 
 from repro_torch.benchmarks.graphx_analogue import (bench, labelprop_dataflow,
                                                     pagerank_dataflow)
@@ -257,6 +258,7 @@ def latency_table(scale_log2: int = 11, B: int = 8,
     slo = {prog: slo_factor * t for prog, t in budgets.items()}
     warm_times = dict(warm.dispatch_times)
     del warm  # frees the warm drains' unread result blocks
+    _warm_pinned_results(engine, B, N)
 
     rows = []
     for load in loads:
@@ -317,6 +319,29 @@ def latency_table(scale_log2: int = 11, B: int = 8,
             "capacity_qps": capacity, "dispatch_s": t_d,
             "budget_s": budgets, "slo_s": slo,
             "curve": rows}
+
+
+def _warm_pinned_results(engine, B, N):
+    """Fill torch's pinned host cache with the result blocks one load can
+    hold, before the loads run.  A load's server keeps every dispatch's
+    ``[b, V]`` 4-byte result (b <= B queries) until the load ends, and a
+    block the cache cannot serve is a fresh ``cudaHostAlloc`` inside that
+    dispatch: 15-129 ms for 128 MiB on an H100's host, the stalls of a
+    process's first curve (``scripts/torch_serve_first_curve.py``).  torch
+    rounds a pinned block up to a power of two and serves a request from
+    its own size class only, so each class that a result of 1..B rows
+    falls in gets as many blocks as N queries can fill there, all held at
+    once and then freed into the cache.  A no-op off CUDA."""
+    device = getattr(engine, "device", None)
+    if device is None or torch.device(device).type != "cuda":
+        return
+    row = engine.pg.graph.num_vertices * 4
+    fewest = {}  # size class -> the fewest rows that fall in it
+    for b in range(B, 0, -1):
+        fewest[1 << (b * row - 1).bit_length()] = b
+    held = [torch.empty(b * row, dtype=torch.uint8, pin_memory=True)
+            for b in fewest.values() for _ in range(-(-N // b))]
+    del held
 
 
 def _hold_ends(server, now) -> float:

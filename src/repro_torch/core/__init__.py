@@ -4,7 +4,8 @@ The port of ``repro.core`` (the JAX reference, which stays as it is).
 Public API, for what is ported:
     Graph / partition / generators          repro_torch.core.graph
     Partitioner registry / PartitionPlan /
-    GridPlan (the grid(R,C) family)         repro_torch.core.partitioners
+    GridPlan (the grid(R,C) family) /
+    row_plan_of                             repro_torch.core.partitioners
     Engine (strategy x vertex program) /
     ReplanPolicy / StreamConfig             repro_torch.core.engine
     ShardSource (out-of-core edge windows)  repro_torch.core.graph
@@ -27,7 +28,7 @@ from repro_torch.core.partitioners import (GridPlan, PartitionPlan,
                                            grid_shape, make_plan,
                                            partition_stats,
                                            partitioner_names, policy_label,
-                                           register_partitioner)
+                                           register_partitioner, row_plan_of)
 from repro_torch.core.engine import Engine, ReplanPolicy, StreamConfig
 from repro_torch.core.programs import (VertexProgram, ProgramSpec,
                                        make_program, get_spec,

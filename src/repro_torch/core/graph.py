@@ -244,6 +244,15 @@ class PartitionedGraph:
     # None for 1-D placements
     _grid: object = dataclasses.field(default=None, repr=False, compare=False)
 
+    @property
+    def padded_vertices(self) -> int:
+        return self.num_chunks * self.chunk_size
+
+    def chunk_of(self, v: np.ndarray) -> np.ndarray:
+        """Owning chunk of a *padded* id (use ``global_to_local`` first for
+        original ids)."""
+        return v // self.chunk_size
+
     # -- 2-D grid views ------------------------------------------------------
 
     @property

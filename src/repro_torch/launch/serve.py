@@ -1,7 +1,16 @@
-"""The persistent graph-query server over ``Engine.run_batch``.
+"""Serving: the LM batched-decode server, and the persistent
+graph-query server over ``Engine.run_batch``.
 
-The twin of the graph half of ``repro/launch/serve.py`` (DESIGN.md sections
-11 and 14).  Submitted queries (program + source) queue up; each ``step()``
+The twin of ``repro/launch/serve.py`` (DESIGN.md sections 11 and 14).
+
+LM mode -- ``BatchedServer``: requests arrive with prompts, get packed
+into a static batch of slots, prefilled (one decode step per prompt token)
+and decoded together, greedily:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b \
+        --requests 8 --prompt-len 16 --gen 16
+
+Graph mode -- submitted queries (program + source) queue up; each ``step()``
 admits up to B compatible requests (same program and params: they share
 one plane) and dispatches ONE fixed-width ``run_batch`` call, so every
 admitted query rides the same edge sweep.  Admission is pluggable:
@@ -21,8 +30,7 @@ copy of the result into pinned host memory (``Engine._to_host``), so the
 measured time covers the device's work.  ``--residency stream`` serves
 out of core: the engine keeps the edge planes on the host and sweeps each
 prefetched edge window once for all B admitted queries (``--windows``
-windows a superstep).  LM serving (``BatchedServer``) is not ported yet and
-raises ``NotImplementedError``.
+windows a superstep).
 """
 
 from __future__ import annotations
@@ -34,8 +42,98 @@ import time
 from collections import deque
 
 import numpy as np
+import torch
 
 from repro_torch.core.engine import resolve_device
+from repro_torch.models import model as M
+from repro_torch.models import serve as SV
+
+
+class BatchedServer:
+    """Slot-based batching: a static batch of ``batch_slots`` requests,
+    prefilled through decode steps, then decoded together, greedily.
+
+    The cache and the current tokens stay on ``device`` (CUDA unless the
+    caller names another); ``decode`` copies its tokens to the host once,
+    at its end.  ``logits`` holds the last step's logits [B,1,V] f32.
+    """
+
+    def __init__(self, cfg, params, batch_slots: int, max_len: int,
+                 device=None):
+        self.cfg, self.params = cfg, params
+        self.B, self.max_len = batch_slots, max_len
+        self.device = resolve_device(device)
+        self.cache = M.init_cache(cfg, batch_slots, max_len, self.device)
+        self.pos = 0
+        self.tokens = torch.zeros((batch_slots, 1), dtype=torch.int32,
+                                  device=self.device)
+        self.logits = None
+
+    def _step(self, tokens):
+        self.logits, self.cache = M.decode_step(self.params, tokens, self.pos,
+                                                self.cache, self.cfg)
+        self.pos += 1
+
+    def prefill(self, prompts: np.ndarray):
+        """prompts: [B, S0] i32 -- runs the prompt through decode steps;
+        returns the first generated tokens [B, 1] (on the device)."""
+        B, S0 = prompts.shape
+        assert B == self.B
+        prompts = torch.as_tensor(np.asarray(prompts, np.int32),
+                                  device=self.device)
+        self.pos = 0
+        for i in range(S0):
+            self._step(prompts[:, i:i + 1])
+        self.tokens = SV.sample_greedy(self.logits)
+        return self.tokens
+
+    def decode(self, steps: int) -> np.ndarray:
+        """``steps`` greedy decode steps -> the new tokens [B, steps]."""
+        out = []
+        for _ in range(steps):
+            self._step(self.tokens)
+            self.tokens = SV.sample_greedy(self.logits)
+            out.append(self.tokens[:, 0])
+        return torch.stack(out, dim=1).cpu().numpy()  # [B, steps]
+
+
+def _lm_main(args):
+    """Serve ``args.requests`` random prompts of ``args.prompt_len`` tokens
+    and decode ``args.gen`` tokens each on ``args.arch`` (random parameters
+    from seed 0); returns the metrics it prints."""
+    from repro_torch import configs
+
+    cfg = (configs.smoke_config if args.smoke else configs.get_config)(
+        args.arch)
+    if cfg.encoder_only:
+        raise SystemExit(f"{args.arch} is encoder-only: no decode serving")
+    M.require_ported(cfg)  # refusals first, then the device, then work
+    device = resolve_device(getattr(args, "device", None))
+    params = M.init_params(
+        cfg, torch.Generator(device=device).manual_seed(0), device)
+    max_len = args.prompt_len + args.gen + 1
+    server = BatchedServer(cfg, params, args.requests, max_len, device=device)
+
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab_size, (args.requests, args.prompt_len),
+                           dtype=np.int32)
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    sync()
+    t0 = time.time()
+    server.prefill(prompts)
+    sync()
+    t_prefill = time.time() - t0
+    t0 = time.time()
+    toks = server.decode(args.gen)  # ends in its copy to the host
+    t_decode = time.time() - t0
+    tps = args.requests * args.gen / t_decode
+    print(f"[serve] {args.requests} reqs: prefill {t_prefill:.2f}s, "
+          f"decode {args.gen} steps in {t_decode:.2f}s ({tps:.1f} tok/s)")
+    print("[serve] sample output tokens:", toks[0, :10])
+    return dict(arch=cfg.name, requests=args.requests,
+                prompt_len=args.prompt_len, gen=args.gen,
+                prefill_s=t_prefill, decode_s=t_decode, tok_per_s=tps,
+                tokens=toks)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -384,11 +482,11 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
     args = ap.parse_args(argv)
-    if not args.graph:
-        raise NotImplementedError(
-            "LM serving (BatchedServer, --arch) is not ported yet (ROADMAP "
-            "queue 1, item 12); pass --graph to serve graph queries")
-    return _graph_main(args)
+    if args.graph:
+        return _graph_main(args)
+    if args.arch is None:
+        ap.error("--arch is required unless --graph is given")
+    return _lm_main(args)
 
 
 if __name__ == "__main__":

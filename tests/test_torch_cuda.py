@@ -1070,6 +1070,26 @@ def test_unpermute_returns_pinned_host_memory_from_one_copy(cuda):
         "bfs", source=5)[0])
 
 
+def test_warmed_pinned_cache_serves_a_load_of_results(cuda):
+    """latency_table's warm before its loads: afterwards, a load's worth of
+    held results of each width 1..B (N queries' worth) comes from torch's
+    pinned cache, with no fresh cudaHostAlloc."""
+    from repro_torch.benchmarks import tables
+
+    g = G.rmat(12, 32 << 10, seed=2)
+    eng = Engine(G.partition(g, 1))
+    eng.run_batch("bfs", sources=[0], batch=4)  # builds the kernels
+    B, N = 4, 8
+    tables._warm_pinned_results(eng, B, N)
+    fresh = torch.cuda.host_memory_stats()["num_host_alloc"]
+    for b in range(1, B + 1):
+        held = [eng.run_batch("bfs", sources=list(range(s, s + b)),
+                              batch=B)[0] for s in range(-(-N // b))]
+        assert all(h.shape == (b, g.num_vertices) for h in held)
+        del held
+    assert torch.cuda.host_memory_stats()["num_host_alloc"] == fresh
+
+
 # ---------------------------------------------------------------------------
 # The graph query server on the card
 # ---------------------------------------------------------------------------

@@ -207,6 +207,35 @@ def test_graph_properties_equal():
     assert g.num_edges == ref_g.num_edges
 
 
+@pytest.mark.parametrize("partitioner", ["contiguous", "degree_sorted",
+                                         "grid(2,2)"])
+def test_padded_vertices_and_chunk_of_equal_reference(partitioner):
+    ref_g = graph("rmat10")
+    rp = RG.partition(ref_g, 4, partitioner=partitioner)
+    tp = TG.partition(to_port(ref_g), 4, partitioner=partitioner)
+    assert tp.padded_vertices == rp.padded_vertices
+    v = np.arange(rp.padded_vertices)
+    np.testing.assert_array_equal(tp.chunk_of(v), rp.chunk_of(v))
+    # an original id goes through global_to_local first
+    g2l = tp.global_to_local
+    np.testing.assert_array_equal(tp.chunk_of(g2l), rp.chunk_of(g2l))
+
+
+def test_row_plan_of_exported_and_equal_reference():
+    from repro.core import row_plan_of as r_row_plan_of
+    from repro_torch.core import row_plan_of
+
+    ref_g = weighted("rmat10")
+    for partitioner in ("contiguous", "edge_balanced", "grid(2,4)"):
+        rp = RG.partition(ref_g, 8, partitioner=partitioner)
+        tp = TG.partition(to_port(ref_g), 8, partitioner=partitioner)
+        want, got = r_row_plan_of(rp.plan), row_plan_of(tp.plan)
+        np.testing.assert_array_equal(got.order, want.order)
+        np.testing.assert_array_equal(got.chunk_counts, want.chunk_counts)
+        assert got.chunk_size == want.chunk_size
+        assert (got is tp.plan) == (want is rp.plan)
+
+
 def test_graph_from_reference_round_trips():
     for ref_g in (graph("rmat10"), weighted("two_cliques10"),
                   graph("single_vertex")):
@@ -306,7 +335,12 @@ def test_import_leaves_jax_and_repro_out():
             "repro_torch.configs, repro_torch.configs.graphs, "
             "repro_torch.launch.serve, repro_torch.benchmarks.run, "
             "repro_torch.benchmarks.tables, "
-            "repro_torch.benchmarks.graphx_analogue\n"
+            "repro_torch.benchmarks.graphx_analogue, "
+            "repro_torch.checkpoint, repro_torch.models, "
+            "repro_torch.models.config, repro_torch.models.layers, "
+            "repro_torch.models.frontends, repro_torch.models.model, "
+            "repro_torch.models.serve, repro_torch.configs.gemma3_1b, "
+            "repro_torch.configs.jamba_1_5_large_398b\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.'))\n"

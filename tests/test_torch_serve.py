@@ -320,7 +320,7 @@ def test_cli_serves_on_the_cpu_and_matches_the_reference_admissions(
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--arch", "qwen1.5-4b", "--smoke"], "item 12"),
+    (["--arch", "jamba-1.5-large-398b", "--smoke"], "item 12"),
 ])
 def test_cli_refuses_what_is_not_ported(argv, item):
     with pytest.raises(NotImplementedError, match=item):
