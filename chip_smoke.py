@@ -255,7 +255,35 @@ Phases, each printing one JSON line with its seconds:
              Then the CLI,
              python -m repro_torch.launch.serve --arch gemma3-1b
              --requests 8 --prompt-len 16 --gen 16, which must print its two
-             lines
+             lines.  Then xlstm-350m at full width and depth (24 layers,
+             d_model 1024, 4 heads, expand 2; 259,350,528 parameters in
+             the leaves, beside the config's analytic count): the same
+             serving at 8 requests, 64 + 448 tokens; a seeded stream of
+             512 tokens (two MLSTM_CHUNKs) teacher-forced through
+             decode_step, its logits at 63, 300 and 511 against the
+             forward; the card's forward against the CPU's on two rows of
+             the stream.  Then jamba-1.5-large at full width (d_model
+             8192, 64/8 heads, d_ff 24,576, 16 experts top 2) cut from 72
+             to 4 layers (mamba/dense, mamba/moe, mamba/dense, attn/moe;
+             a full 8-layer period is about 90 GB in bf16): serving at 8
+             requests, 64 + 128 tokens, at the published capacity (decode
+             drops tokens there); a 320-token stream (one MAMBA_CHUNK
+             crossed) at B=4 teacher-forced against the forward at
+             capacity factor E/k, where neither drops a token, at 63,
+             255 and 319 (rows whose routing margin at the mark exceeds
+             1e-3); the first MoE layer's moe_fwd_dense against a
+             per-token oracle at the published capacity, at T=8 (C=2)
+             and T=2048 (C=321): keep masks bit-equal, outputs by the
+             two tests; the first mamba layer alone, forward and 16
+             decode steps, card against CPU.  Then llama4-scout and
+             kimi-k2 at their smoke configs: served at 8 requests, 16 +
+             8 tokens, the served tokens teacher-forced on the card and
+             the CPU (rows with a clear routing); and the dispatch at
+             kimi-k2's 384 experts, top 8, at smoke width against the
+             oracle.  Each architecture's decode ms a step and tokens/s,
+             prefill seconds, kernels a step and busy share (4 profiled
+             steps), peak memory, and the step's bound (parameters once,
+             recurrent states read and written, at 3.35 TB/s)
 
 Then one JSON line with every kernel's numbers (launches from the main
 path for the fused pair, from staged_main for the staged four, from
@@ -1901,54 +1929,181 @@ class Smoke:
             out[label] = self._device_profile(lambda: eng.run(name))
         return out
 
-    def lm(self, arch="gemma3-1b", smoke=False, R=8, P=64, G=512, mid=300):
-        """The LM serving path at full width (gemma3-1b); see the module
-        docstring.  ``R`` requests, prompts of ``P`` tokens, ``G``
-        generated, logits also read at position ``mid``; a rehearsal passes
-        ``smoke=True`` and smaller sizes."""
-        import contextlib
-        import io
+    # -- phase lm -----------------------------------------------------------
 
-        import numpy as np
+    def lm(self, smoke=False, R=8, P=64, G=512, mid=300):
+        """The LM serving path at full width; see the module docstring.
+        gemma3-1b serves ``R`` requests, prompts of ``P`` tokens, ``G``
+        generated, logits also read at position ``mid``; then xlstm-350m,
+        jamba-1.5-large cut to 4 layers, and llama4-scout and kimi-k2 at
+        their smoke configs.  A rehearsal passes ``smoke=True`` (every
+        architecture at its smoke config) and smaller sizes."""
+        parts = (("gemma3-1b", lambda: self._lm_dense(smoke, R, P, G, mid)),
+                 ("xlstm-350m", lambda: self._lm_xlstm(smoke)),
+                 ("jamba-1.5-large-398b/4L", lambda: self._lm_jamba(smoke)),
+                 ("moe_smoke", self._lm_moe_smoke))
+        seconds = {}
+        for name, run in parts:  # one line each, as each ends
+            t0 = time.perf_counter()
+            emit({"lm": name, **json.loads(json.dumps(run(), default=str))})
+            seconds[name] = round(time.perf_counter() - t0, 3)
+        return {"lm_seconds": seconds}
+
+    @staticmethod
+    def _agree(got, want, where):
+        """The bound of tests/test_serve.py:33 (max |err| within 1e-2 of
+        max |ref|), and the same 1e-2 on each row's RMS error against its
+        RMS (rows along the last axis): one outlier logit (the input
+        token's own, about 1,190 under gemma3's tied embeddings) sets the
+        max, the RMS is the scale of the row.  A row that is zero in
+        ``want`` (a token whose every slot was dropped) must be zero in
+        ``got``."""
         import torch
 
-        from repro_torch import configs
-        from repro_torch.launch import serve as S
+        got, want = got.float(), want.float().to(got.device)
+        err = (got - want).abs()
+        rel = float(err.max() / want.abs().max())
+        err_rms, want_rms = (t.square().mean(-1).sqrt() for t in (err, want))
+        rms = float(torch.where(want_rms > 0, err_rms / want_rms,
+                                err_rms * float("inf")).nan_to_num(0.0)
+                    .max())
+        if not (rel < 1e-2 and rms < 1e-2):
+            raise AssertionError(f"{where}: max |err| {rel} of max |ref|, "
+                                 f"RMS error {rms} of the RMS")
+        return {"max_abs_err": float(err.max()),
+                "max_abs": float(want.abs().max()),
+                "rms_ref": float(want.square().mean(-1).sqrt().min()),
+                "rel": rel, "rms_rel": rms}
+
+    @staticmethod
+    def _on_cpu(tree):
+        """A copy of a tree of tensors (dicts, lists) on the CPU."""
+        if isinstance(tree, dict):
+            return {k: Smoke._on_cpu(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [Smoke._on_cpu(v) for v in tree]
+        return tree.to("cpu", copy=True)
+
+    @staticmethod
+    def _patched(module, name, wrap):
+        """A context in which ``module.name`` is ``wrap(original)``."""
+        import contextlib
+
+        @contextlib.contextmanager
+        def opened():
+            original = getattr(module, name)
+            setattr(module, name, wrap(original))
+            try:
+                yield
+            finally:
+                setattr(module, name, original)
+
+        return opened()
+
+    @staticmethod
+    def _route_margins(margins):
+        """Record, while open, each call of the port's router: every
+        token's margin between its k-th and (k+1)-th gate.  Two paths
+        that reach a router by different bf16 sums may route a token
+        whose margin is that small either way."""
+        import torch
+
+        from repro_torch.models import moe as MOE
+
+        def wrap(route):
+            def recording(xt, router, cfg):
+                got = route(xt, router, cfg)
+                g = torch.sort(got[2], dim=-1, descending=True).values
+                margins.append(g[:, cfg.top_k - 1] - g[:, cfg.top_k])
+                return got
+            return recording
+
+        return Smoke._patched(MOE, "_route", wrap)
+
+    @staticmethod
+    def _dropped_slots(counts):
+        """Record, while open, each MoE dispatch's (slots, dropped slots)."""
+        from repro_torch.models import moe as MOE
+
+        def wrap(plan):
+            def recording(e_ids, num_buckets, C):
+                got = plan(e_ids, num_buckets, C)
+                counts.append((e_ids.numel(), int((~got[1]).sum())))
+                return got
+            return recording
+
+        return Smoke._patched(MOE, "dispatch_plan", wrap)
+
+    @staticmethod
+    def _host_syncs(fn):
+        """The host syncs one call of ``fn`` makes (torch.cuda's sync debug
+        mode warns once for each synchronizing op), by the line of the
+        port that made each."""
+        import warnings
+
+        import torch
+
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        where = [f"{pathlib.Path(w.filename).name}:{w.lineno}"
+                 for w in caught if "synchroniz" in str(w.message)]
+        return {"count": len(where),
+                "by_line": {k: where.count(k) for k in sorted(set(where))}}
+
+    def _lm_model(self, cfg, dev):
+        """Parameters from init_params on the card (seed 0): (params,
+        seconds, count, bytes).  The count must equal that of
+        abstract_params, whose leaves the CPU tests hold equal to the
+        reference's leaf by leaf."""
+        import torch
+
+        from repro_torch.checkpoint.store import _leaves
         from repro_torch.models import model as M
 
-        cfg = (configs.smoke_config if smoke else configs.get_config)(arch)
-        dev = torch.device("cuda")
-        torch.cuda.empty_cache()
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                                dev)
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
-        leaves = [t for layer in params["layers"] for part in layer.values()
-                  for t in part.values()] + [params["embed"]["table"]]
-        # the config's count leaves out the final norm's d_model scales
-        n_params = sum(t.numel() for t in leaves)
-        leaves.append(params["final_norm"]["scale"])
-        param_bytes = sum(t.numel() * t.element_size() for t in leaves)
-        if n_params != cfg.param_count():
-            raise AssertionError(f"{n_params} parameters, the config counts "
-                                 f"{cfg.param_count()}")
-        first_steps = 16
-        marks = (P - 1, mid, P + G - 1)  # 63, 300, 575
+        leaves = [t for _, t in _leaves(params)]
+        n = sum(t.numel() for t in leaves)
+        want = sum(t.numel() for _, t in _leaves(M.abstract_params(cfg)))
+        if n != want:
+            raise AssertionError(f"{cfg.name}: {n} parameters, "
+                                 f"abstract_params has {want}")
+        return params, init_s, n, sum(t.numel() * t.element_size()
+                                      for t in leaves)
+
+    def _lm_serve(self, cfg, params, R, P, G, param_bytes, first_steps=16):
+        """Greedy serving, timed: BatchedServer with ``R`` requests,
+        prompts of ``P`` tokens (np.random.default_rng(0)) and ``G``
+        generated; the prefill, then ``first_steps`` untimed decode steps
+        and the rest in one call (host clock; decode ends in its copy of
+        the tokens to the host); the device profile of 4 more steps, the
+        host syncs of one, and (with MoE) the slots 16 more drop.  The
+        step's bound: the parameters read once and the recurrent states
+        read and written, at 3.35 TB/s (and the attention caches read once
+        beside it).  Returns (metrics, tokens [R, P + G + 1], server)."""
+        import numpy as np
+        import torch
+
+        from repro_torch.launch import serve as S
+
         server = S.BatchedServer(cfg, params, R, P + G + 1)
-        ring = tuple(server.cache["slot00"]["k"].shape)
-        full = tuple(server.cache["slot05"]["k"].shape)
-        if ring[2] != cfg.window or full[2] != P + G + 1:
-            raise AssertionError(f"caches {ring} (local) and {full} (global)")
         rng = np.random.default_rng(0)
         prompts = rng.integers(0, cfg.vocab_size, (R, P), dtype=np.int32)
-        cache_bytes = sum(c[k].numel() * c[k].element_size()
-                          for c in server.cache.values() for k in c)
-
-        # greedy serving, timed: the prefill, then 16 untimed decode steps
-        # and the remaining 496 in one call
+        nbytes = lambda t: t.numel() * t.element_size()
+        kv_bytes = sum(nbytes(c[k]) for c in server.cache.values()
+                       for k in c if k in ("k", "v"))
+        state_bytes = sum(nbytes(c[k]) for c in server.cache.values()
+                          for k in c if k not in ("k", "v"))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         first = server.prefill(prompts)
@@ -1963,8 +2118,99 @@ class Smoke:
         seq = np.concatenate(toks, axis=1)  # [R, P + G + 1]
         if seq.shape != (R, P + G + 1) or server.pos != P + G or \
                 seq.min() < 0 or seq.max() >= cfg.vocab_size:
-            raise AssertionError(f"tokens {seq.shape}, pos {server.pos}")
+            raise AssertionError(f"{cfg.name}: tokens {seq.shape}, pos "
+                                 f"{server.pos}")
         profile = self._device_profile(lambda: server.decode(4))
+        syncs = self._host_syncs(lambda: server.decode(1))
+        drops = []
+        if cfg.num_experts:  # the published capacity's drops in decode
+            with self._dropped_slots(drops):
+                server.decode(16)
+        bound = (param_bytes + 2 * state_bytes) / HBM_BYTES_PER_S * 1e3
+        return {
+            "requests": R, "prompt_len": P, "generated": G,
+            "cache_bytes": kv_bytes + state_bytes,
+            "recurrent_state_bytes": state_bytes,
+            "prefill_s": prefill_s, "prefill_tok_per_s": R * P / prefill_s,
+            "decode_timed_steps": steps, "decode_s": decode_s,
+            "decode_ms_per_step": decode_s / steps * 1e3,
+            "decode_tok_per_s": R * steps / decode_s,
+            "decode_bound_ms": bound,
+            "decode_bound_with_cache_ms":
+                bound + kv_bytes / HBM_BYTES_PER_S * 1e3,
+            "decode_profile_4_steps": profile,
+            "kernels_per_step": profile["device_ops"] / 4,
+            "host_syncs_one_step": syncs,
+            "decode_16_steps_slots_dropped": [sum(n for n, _ in drops),
+                                              sum(d for _, d in drops)],
+            "sample_tokens": seq[0, P:P + 10].tolist()}, seq, server
+
+    @staticmethod
+    def _teacher_forced(cfg, params, stream, marks, max_len, keep_at=None,
+                        next_steps=0, margins=None):
+        """decode_step over every position of ``stream`` [B, T] from an
+        empty cache: the logits at ``marks``; where ``keep_at`` is given, a
+        CPU copy of the cache after that position and the logits of the
+        ``next_steps`` steps after it (on the CPU).  ``margins``, a dict,
+        gets each step's routing margins: the smallest over the MoE layers
+        for each row ([B], see ``_route_margins``)."""
+        import contextlib
+
+        import torch
+
+        from repro_torch.models import model as M
+
+        cache = M.init_cache(cfg, stream.shape[0], max_len, stream.device)
+        logits, kept, after, record = {}, None, [], []
+        recording = (contextlib.nullcontext() if margins is None
+                     else Smoke._route_margins(record))
+        with torch.no_grad(), recording:
+            for t in range(stream.shape[1]):
+                record.clear()
+                lg, cache = M.decode_step(params, stream[:, t:t + 1], t,
+                                          cache, cfg)
+                if margins is not None:
+                    margins[t] = torch.stack(record).min(0).values
+                if t in marks:
+                    logits[t] = lg[:, 0].clone()
+                if t == keep_at:
+                    kept = Smoke._on_cpu(cache)
+                if keep_at is not None and keep_at < t <= keep_at + next_steps:
+                    after.append(lg[:, 0].cpu())
+        return logits, kept, after
+
+    def _lm_dense(self, smoke, R, P, G, mid):
+        """gemma3-1b at full width (the module docstring's first item)."""
+        import contextlib
+        import io
+
+        import numpy as np
+        import torch
+
+        from repro_torch import configs
+        from repro_torch.launch import serve as S
+        from repro_torch.models import model as M
+
+        arch = "gemma3-1b"
+        cfg = (configs.smoke_config if smoke else configs.get_config)(arch)
+        dev = torch.device("cuda")
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        params, init_s, n_params, param_bytes = self._lm_model(cfg, dev)
+        # the config's count leaves out the final norm's d_model scales
+        if n_params - cfg.d_model != cfg.param_count():
+            raise AssertionError(f"{n_params - cfg.d_model} parameters "
+                                 f"outside the final norm, the config "
+                                 f"counts {cfg.param_count()}")
+        first_steps = 16
+        marks = (P - 1, mid, P + G - 1)  # 63, 300, 575
+        serving, _, server = self._lm_serve(cfg, params, R, P, G,
+                                            param_bytes, first_steps)
+        ring = tuple(server.cache["slot00"]["k"].shape)
+        full = tuple(server.cache["slot05"]["k"].shape)
+        if ring[2] != cfg.window or full[2] != P + G + 1:
+            raise AssertionError(f"caches {ring} (local) and {full} (global)")
         decode_peak = torch.cuda.max_memory_allocated() - base
         del server
 
@@ -1972,42 +2218,13 @@ class Smoke:
         # weights and tied embeddings, greedy decode repeats one token, so
         # its wrapped ring would hold identical tokens): every ring slot
         # holds a distinct token when the ring wraps at position 512
+        rng = np.random.default_rng(0)
+        rng.integers(0, cfg.vocab_size, (R, P), dtype=np.int32)  # prompts
         stream = torch.as_tensor(rng.integers(
             0, cfg.vocab_size, (R, P + G), dtype=np.int32), device=dev)
-        cache = M.init_cache(cfg, R, P + G + 1, dev)
-        logits, step_logits = {}, []
-        with torch.no_grad():
-            for t in range(P + G):
-                lg, cache = M.decode_step(params, stream[:, t:t + 1], t,
-                                          cache, cfg)
-                if t in marks:
-                    logits[t] = lg[:, 0].clone()
-                if t == P - 1:  # the CPU's starting cache
-                    prefilled = {k: {kk: vv.to("cpu", copy=True)
-                                     for kk, vv in c.items()}
-                                 for k, c in cache.items()}
-                if P <= t < P + first_steps:
-                    step_logits.append(lg[:, 0].cpu())
-        del cache
-
-        def agree(got, want, where):
-            """The bound of tests/test_serve.py:33 (max |err| within 1e-2
-            of max |logit|), and the same 1e-2 on each row's RMS error
-            against its logits' RMS: one outlier logit (the input token's
-            own, about 1,190 under tied embeddings) sets the max, the RMS
-            is the scale of the row's 262,144 logits."""
-            got, want = got.float(), want.float()
-            err = (got - want).abs()
-            rel = float(err.max() / want.abs().max())
-            rms = float((err.square().mean(-1).sqrt()
-                         / want.square().mean(-1).sqrt()).max())
-            if not (rel < 1e-2 and rms < 1e-2):
-                raise AssertionError(f"{where}: max |err| {rel} of max "
-                                     f"|logit|, RMS error {rms} of the RMS")
-            return {"max_abs_err": float(err.max()),
-                    "max_abs": float(want.abs().max()),
-                    "rms_logit": float(want.square().mean(-1).sqrt().min()),
-                    "rel": rel, "rms_rel": rms}
+        logits, prefilled, step_logits = self._teacher_forced(
+            cfg, params, stream, marks, P + G + 1, keep_at=P - 1,
+            next_steps=first_steps)
 
         # teacher-forced forward over the same stream
         torch.cuda.synchronize()
@@ -2016,29 +2233,24 @@ class Smoke:
             fwd, _ = M.forward(params, {"tokens": stream}, cfg)
         torch.cuda.synchronize()
         forward_s = time.perf_counter() - t0
-        vs_forward = {str(mark): agree(logits[mark], fwd[:, mark],
-                                       f"decode logits at {mark}")
-                      for mark in marks}
+        vs_forward = {str(m): self._agree(logits[m], fwd[:, m],
+                                          f"decode logits at {m}")
+                      for m in marks}
         del fwd
 
         # the same parameters on the CPU, from the stream's cache at
         # position 63, for the next 16 decode steps
         t0 = time.perf_counter()
-        cpu = {k: ({kk: vv.cpu() for kk, vv in v.items()}
-                   if isinstance(v, dict) else v) for k, v in params.items()
-               if k != "layers"}
-        cpu["layers"] = [{part: {k: t.cpu() for k, t in d.items()}
-                          for part, d in layer.items()}
-                         for layer in params["layers"]]
-        cache, cpu_stream, vs_cpu = prefilled, stream.cpu(), []
+        cpu, cache, cpu_stream, vs_cpu = self._on_cpu(params), prefilled, \
+            stream.cpu(), []
         with torch.no_grad():
             for t in range(P, P + first_steps):
                 lg, cache = M.decode_step(cpu, cpu_stream[:, t:t + 1], t,
                                           cache, cfg)
-                vs_cpu.append(agree(step_logits[t - P], lg[:, 0],
-                                    f"position {t}, card against CPU"))
+                vs_cpu.append(self._agree(step_logits[t - P], lg[:, 0],
+                                          f"position {t}, card against CPU"))
         cpu_s = time.perf_counter() - t0
-        del cpu, cache, params, leaves, logits, step_logits, stream
+        del cpu, cache, params, logits, step_logits, stream
         torch.cuda.empty_cache()
 
         out = io.StringIO()
@@ -2054,27 +2266,346 @@ class Smoke:
             raise AssertionError(f"the CLI printed {lines}")
         return {
             "arch": cfg.name, "parameters": n_params,
-            "parameter_bytes": param_bytes, "cache_bytes": cache_bytes,
+            "parameter_bytes": param_bytes,
             "cache_shapes": {"local": ring, "global": full},
-            "requests": R, "prompt_len": P, "generated": G,
-            "init_s": init_s, "prefill_s": prefill_s,
-            "prefill_tok_per_s": R * P / prefill_s,
-            "decode_timed_steps": steps, "decode_s": decode_s,
-            "decode_ms_per_step": decode_s / steps * 1e3,
-            "decode_tok_per_s": R * steps / decode_s,
-            "decode_bound_ms": param_bytes / HBM_BYTES_PER_S * 1e3,
-            "decode_bound_with_cache_ms":
-                (param_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3,
-            "decode_profile_4_steps": profile,
+            "init_s": init_s, **serving,
             "forward_s": forward_s, "vs_forward": vs_forward,
             "vs_cpu_max_rel": max(r["rel"] for r in vs_cpu),
             "vs_cpu_max_rms_rel": max(r["rms_rel"] for r in vs_cpu),
             "cpu_s": cpu_s, "peak_bytes": decode_peak,
             "peak_bytes_with_forward":
                 torch.cuda.max_memory_allocated() - base,
-            "sample_tokens": seq[0, P:P + 10].tolist(),
             "cli": {k: v for k, v in cli.items() if k != "tokens"},
             "nvidia_smi": self.smi}
+
+    def _lm_xlstm(self, smoke, R=8, P=64, G=448, rows_on_cpu=2):
+        """xlstm-350m at full width and depth: serving, a 512-token stream
+        teacher-forced against the forward, the forward on the card
+        against the CPU's (the module docstring's second item)."""
+        import numpy as np
+        import torch
+
+        from repro_torch import configs
+        from repro_torch.models import layers as L
+        from repro_torch.models import model as M
+
+        arch = "xlstm-350m"
+        cfg = (configs.smoke_config if smoke else configs.get_config)(arch)
+        dev = torch.device("cuda")
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        params, init_s, n_params, param_bytes = self._lm_model(cfg, dev)
+        serving, _, server = self._lm_serve(cfg, params, R, P, G,
+                                            param_bytes)
+        decode_peak = torch.cuda.max_memory_allocated() - base
+        del server
+
+        # 512 = two MLSTM_CHUNKs: the mLSTM forward takes S <= 256 or a
+        # multiple of 256
+        T, marks = P + G, (P - 1, 300, P + G - 1)  # 63, 300, 511
+        stream = torch.as_tensor(np.random.default_rng(1).integers(
+            0, cfg.vocab_size, (R, T), dtype=np.int32), device=dev)
+        t0 = time.perf_counter()
+        logits, _, _ = self._teacher_forced(cfg, params, stream, marks,
+                                            T + 1)
+        torch.cuda.synchronize()
+        forced_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            x, _ = M.backbone(params, {"tokens": stream}, cfg)
+            fwd = {m: L.logits_fwd(M.head_params(params, cfg), x[:, m:m + 1],
+                                     cfg.final_logit_softcap)[:, 0]
+                   for m in marks}
+        torch.cuda.synchronize()
+        forward_s = time.perf_counter() - t0
+        vs_forward = {str(m): self._agree(logits[m], fwd[m],
+                                          f"xlstm decode logits at {m}")
+                      for m in marks}
+        del x
+
+        # the forward on the CPU over the stream's first rows
+        t0 = time.perf_counter()
+        cpu = self._on_cpu(params)
+        with torch.no_grad():
+            x, _ = M.backbone(cpu, {"tokens": stream[:rows_on_cpu].cpu()},
+                              cfg)
+            vs_cpu = {str(m): self._agree(
+                fwd[m][:rows_on_cpu], L.logits_fwd(
+                    M.head_params(cpu, cfg), x[:, m:m + 1],
+                    cfg.final_logit_softcap)[:, 0],
+                f"xlstm forward at {m}, card against CPU") for m in marks}
+        cpu_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        del cpu, x, params, fwd, logits, stream
+        torch.cuda.empty_cache()
+        return {"arch": cfg.name, "parameters": n_params,
+                "param_count_of_config": cfg.param_count(),
+                "parameter_bytes": param_bytes, "init_s": init_s, **serving,
+                "stream": T, "forced_decode_s": forced_s,
+                "forward_s": forward_s, "vs_forward": vs_forward,
+                "cpu_rows": rows_on_cpu, "vs_cpu": vs_cpu, "cpu_s": cpu_s,
+                "peak_bytes": decode_peak, "peak_bytes_with_forward": peak,
+                "nvidia_smi": self.smi}
+
+    @staticmethod
+    def _moe_oracle(p, x, top_vals, top_idx, C):
+        """A plain per-token MoE at capacity ``C`` on the routing given:
+        slots in token-major order, each expert's arrivals counted one by
+        one on the host (a slot past ``C`` is dropped), each kept slot's
+        SwiGLU on its own row (a row of a product per expert); the slots'
+        outputs, weighted by their normalized gates, summed in slot order.
+        All in the activation dtype, as the reference states its expert
+        and combine arithmetic (bf16 products, the stepwise logistic of
+        ``silu``, a bf16 combine, slot 0 first): an f32 oracle sits 1.1%
+        of a row's RMS from it at kimi-k2's top 8.  Returns (keep [T, k]
+        bool numpy, out [T, d] in x's dtype)."""
+        import numpy as np
+        import torch
+
+        from repro_torch.models.layers import silu
+
+        T, k = top_idx.shape
+        idx = top_idx.cpu().numpy()
+        seen = np.zeros(int(p["router"].shape[1]), np.int64)
+        keep = np.zeros((T, k), bool)
+        for t in range(T):
+            for j in range(k):
+                keep[t, j] = seen[idx[t, j]] < C
+                seen[idx[t, j]] += 1
+        y = torch.zeros((T, k, x.shape[1]), dtype=x.dtype, device=x.device)
+        for e in np.unique(idx[keep]):
+            tok, slot = (torch.as_tensor(a, device=x.device)
+                         for a in np.nonzero(keep & (idx == e)))
+            rows = x[tok]
+            h = silu(rows @ p["w_gate"][e]) * (rows @ p["w_in"][e])
+            y[tok, slot] = h @ p["w_out"][e]
+        w = (top_vals * torch.as_tensor(keep, device=x.device)).to(x.dtype)
+        out = torch.zeros((T, x.shape[1]), dtype=x.dtype, device=x.device)
+        for j in range(k):
+            out = out + w[:, j, None] * y[:, j]
+        return keep, out
+
+    def _moe_dispatch(self, p, cfg, T, seed, distinct=None):
+        """moe_fwd_dense on [1, T, d] seeded bf16 inputs (``distinct`` rows
+        repeated in turn, where given: a concentrated routing that
+        overflows the capacity) against ``_moe_oracle`` at the
+        configuration's capacity: the keep mask bit-equal, the outputs by
+        ``_agree``; the port's routing against a plain softmax and top-k
+        of the same gates."""
+        import numpy as np
+        import torch
+
+        from repro_torch.models import moe as MOE
+
+        dev = p["router"].device
+        g = torch.Generator(device=dev).manual_seed(seed)
+        x = torch.randn((distinct or T, cfg.d_model), generator=g,
+                        device=dev).to(torch.bfloat16)
+        x = x[torch.arange(T, device=dev) % x.shape[0]]
+        C = MOE.capacity(T, cfg)
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, aux = MOE.moe_fwd_dense(p, x[None], cfg)
+            torch.cuda.synchronize()
+            port_s = time.perf_counter() - t0
+            top_vals, top_idx, gates = MOE._route(x, p["router"], cfg)
+            plain = torch.topk(torch.softmax(x.float() @ p["router"], -1),
+                               cfg.top_k, dim=-1)
+            srt = torch.sort(gates, -1, descending=True).values
+            clear = srt[:, cfg.top_k - 1] - srt[:, cfg.top_k] > 1e-6
+            if not torch.equal(torch.sort(plain.indices[clear], -1).values,
+                               torch.sort(top_idx[clear], -1).values):
+                raise AssertionError(f"{cfg.name} T={T}: routing differs "
+                                     "from softmax + top-k")
+            _, keep, _ = MOE.dispatch_plan(top_idx.reshape(-1),
+                                           cfg.num_experts, C)
+            keep = keep.reshape(T, cfg.top_k).cpu().numpy()
+            want_keep, want = self._moe_oracle(p, x, top_vals, top_idx, C)
+        if not np.array_equal(keep, want_keep):
+            raise AssertionError(f"{cfg.name} T={T}: keep masks differ in "
+                                 f"{int((keep != want_keep).sum())} slots")
+        return {"T": T, "distinct_rows": distinct, "capacity": C,
+                "experts": cfg.num_experts,
+                "top_k": cfg.top_k, "dropped_slots": int((~keep).sum()),
+                "near_tie_tokens": int((~clear).sum()),
+                "aux": float(aux), "port_s": port_s,
+                **self._agree(out[0], want,
+                              f"{cfg.name} MoE at T={T} against the oracle")}
+
+    def _lm_jamba(self, smoke, R=8, P=64, G=128, B=4, T=320):
+        """jamba-1.5-large at full width cut to 4 layers: serving at the
+        published capacity, a 320-token stream teacher-forced against the
+        forward at a capacity that drops nothing, the first MoE layer
+        against the per-token oracle at the published capacity, the first
+        mamba layer on the card against the CPU (the module docstring's
+        third item)."""
+        import dataclasses
+
+        import numpy as np
+        import torch
+
+        from repro_torch import configs
+        from repro_torch.models import layers as L
+        from repro_torch.models import model as M
+        from repro_torch.models import ssm as SSM
+
+        arch = "jamba-1.5-large-398b"
+        full = (configs.smoke_config if smoke else configs.get_config)(arch)
+        # one 8-layer period holds four MoE layers of 9.66 B parameters:
+        # about 90 GB in bf16, over the card's 80 GB
+        cfg = dataclasses.replace(full, num_layers=4,
+                                  layer_pattern=full.layer_pattern[:4])
+        dev = torch.device("cuda")
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        params, init_s, n_params, param_bytes = self._lm_model(cfg, dev)
+        serving, _, server = self._lm_serve(cfg, params, R, P, G,
+                                            param_bytes)
+        decode_peak = torch.cuda.max_memory_allocated() - base
+        del server
+
+        # decode against the forward where neither drops a token: C > T
+        nodrop = dataclasses.replace(
+            cfg, capacity_factor=cfg.num_experts / cfg.top_k)
+        marks = (63, 255, T - 1)  # T = 320 crosses one MAMBA_CHUNK
+        stream = torch.as_tensor(np.random.default_rng(2).integers(
+            0, cfg.vocab_size, (B, T), dtype=np.int32), device=dev)
+        margins = {}
+        t0 = time.perf_counter()
+        logits, _, _ = self._teacher_forced(nodrop, params, stream, marks,
+                                            T + 1, margins=margins)
+        torch.cuda.synchronize()
+        forced_s = time.perf_counter() - t0
+        near = sum(int((m <= 1e-3).sum()) for m in margins.values())
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            x, aux = M.backbone(params, {"tokens": stream}, nodrop)
+            fwd = {m: L.logits_fwd(M.head_params(params, cfg), x[:, m:m + 1],
+                                     cfg.final_logit_softcap)[:, 0]
+                   for m in marks}
+        torch.cuda.synchronize()
+        forward_s = time.perf_counter() - t0
+        del x
+        vs_forward = {}
+        for m in marks:
+            clear = margins[m] > 1e-3  # the margin rule at the mark
+            if not bool(clear.any()):
+                raise AssertionError(f"jamba at {m}: every row near a tie")
+            vs_forward[str(m)] = {"rows": int(clear.sum()), **self._agree(
+                logits[m][clear], fwd[m][clear],
+                f"jamba decode logits at {m}")}
+        del logits, fwd, stream
+
+        # the dispatch at the published capacity: the first MoE layer
+        moe = params["layers"][1]["moe"]
+        dispatch = [self._moe_dispatch(moe, cfg, n, seed, distinct)
+                    for n, seed, distinct in ((8, 3, None), (2048, 4, None),
+                                              (8, 9, 2), (2048, 10, 64))]
+
+        # the first mamba layer alone, on the card against the CPU
+        pm = params["layers"][0]["mamba"]
+        pc = self._on_cpu(pm)
+        g = torch.Generator(device=dev).manual_seed(5)
+        xm = torch.randn((2, 80, cfg.d_model), generator=g, device=dev).to(
+            torch.bfloat16)
+        xc = xm.cpu()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            yg, cg = SSM.mamba_fwd(pm, xm[:, :64], cfg, want_cache=True)
+            yc, cc = SSM.mamba_fwd(pc, xc[:, :64], cfg, want_cache=True)
+            # a state's rows: one sequence's [di, N] each
+            mamba = {"forward": self._agree(yg, yc, "mamba forward, card "
+                                            "against CPU"),
+                     "state": self._agree(cg["ssm"].flatten(1),
+                                          cc["ssm"].flatten(1), "mamba "
+                                          "state, card against CPU")}
+            steps = []
+            for t in range(64, 80):
+                og, cg = SSM.mamba_decode(pm, xm[:, t:t + 1], cg, cfg)
+                oc, cc = SSM.mamba_decode(pc, xc[:, t:t + 1], cc, cfg)
+                steps.append(self._agree(og, oc, f"mamba decode step {t}, "
+                                         "card against CPU"))
+        mamba["decode_max_rel"] = max(s["rel"] for s in steps)
+        mamba["decode_max_rms_rel"] = max(s["rms_rel"] for s in steps)
+        mamba["final_state"] = self._agree(cg["ssm"].flatten(1),
+                                           cc["ssm"].flatten(1),
+                                           "mamba state after 16 steps")
+        mamba["cpu_s"] = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        del params, moe, pm, pc, cg, cc
+        torch.cuda.empty_cache()
+        return {"arch": cfg.name, "layers": cfg.num_layers,
+                "layer_pattern": cfg.layer_pattern, "parameters": n_params,
+                "parameter_bytes": param_bytes, "init_s": init_s,
+                "capacity_factor": cfg.capacity_factor, **serving,
+                "stream": T, "stream_rows": B, "forced_decode_s": forced_s,
+                "forward_s": forward_s, "forward_aux": float(aux),
+                "near_tie_routings_in_stream": near,
+                "vs_forward": vs_forward, "dispatch": dispatch,
+                "mamba_layer_vs_cpu": mamba, "peak_bytes": decode_peak,
+                "peak_bytes_with_forward": peak, "nvidia_smi": self.smi}
+
+    def _lm_moe_smoke(self, R=8, P=16, G=8):
+        """llama4-scout and kimi-k2 at their smoke configs on the card:
+        BatchedServer, then the served tokens teacher-forced through
+        decode_step on the card and on the CPU, each step within
+        ``_agree`` on the rows whose routing is clear; and the dispatch at
+        kimi-k2's 384 experts, top 8, at smoke width against the oracle."""
+        import dataclasses
+
+        import torch
+
+        from repro_torch import configs
+        from repro_torch.models import model as M
+        from repro_torch.models import moe as MOE
+
+        dev = torch.device("cuda")
+        out = {}
+        for arch in ("llama4-scout-17b-a16e", "kimi-k2-1t-a32b"):
+            cfg = configs.smoke_config(arch)
+            params, _, n_params, param_bytes = self._lm_model(cfg, dev)
+            serving, seq, server = self._lm_serve(cfg, params, R, P, G,
+                                                  param_bytes, first_steps=2)
+            del server
+            stream = torch.as_tensor(seq[:, :P + G], device=dev)
+            cpu, cpu_stream = self._on_cpu(params), stream.cpu()
+            cache = M.init_cache(cfg, R, P + G + 1, dev)
+            ccache = M.init_cache(cfg, R, P + G + 1, "cpu")
+            rows, worst = 0, {"rel": 0.0, "rms_rel": 0.0}
+            margins = []
+            with torch.no_grad():
+                for t in range(P + G):
+                    margins.clear()
+                    with self._route_margins(margins):
+                        lg, cache = M.decode_step(params, stream[:, t:t + 1],
+                                                  t, cache, cfg)
+                    lc, ccache = M.decode_step(cpu, cpu_stream[:, t:t + 1],
+                                               t, ccache, cfg)
+                    clear = torch.stack(margins).min(0).values > 1e-3
+                    if bool(clear.any()):
+                        got = self._agree(lg[clear, 0], lc[clear.cpu(), 0],
+                                          f"{arch} step {t}, card against "
+                                          "CPU")
+                        worst = {k: max(worst[k], got[k]) for k in worst}
+                    rows += int(clear.sum())
+            if rows < (P + G) * R // 2:
+                raise AssertionError(f"{arch}: {rows} clear rows")
+            out[arch] = {"arch": cfg.name, "parameters": n_params,
+                         **serving, "vs_cpu_rows": rows,
+                         "vs_cpu_max_rel": worst["rel"],
+                         "vs_cpu_max_rms_rel": worst["rms_rel"]}
+            del params, cpu, cache, ccache
+        kimi = configs.smoke_config("kimi-k2-1t-a32b")
+        wide = dataclasses.replace(kimi, num_experts=384, top_k=8)
+        p = MOE.init_moe(wide, torch.Generator(device=dev).manual_seed(6),
+                         dev)
+        out["dispatch_384x8"] = [self._moe_dispatch(p, wide, n, seed)
+                                 for n, seed in ((8, 7), (2048, 8))]
+        torch.cuda.empty_cache()
+        return out
 
     @staticmethod
     def _device_profile(fn):

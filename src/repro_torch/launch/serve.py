@@ -107,7 +107,6 @@ def _lm_main(args):
         args.arch)
     if cfg.encoder_only:
         raise SystemExit(f"{args.arch} is encoder-only: no decode serving")
-    M.require_ported(cfg)  # refusals first, then the device, then work
     device = resolve_device(getattr(args, "device", None))
     params = M.init_params(
         cfg, torch.Generator(device=device).manual_seed(0), device)

@@ -23,16 +23,16 @@ PDT = torch.bfloat16  # parameter/activation dtype
 NEG_INF = -1e30
 
 
-def _normal(shape, scale, generator, device):
-    """``N(0, 1) * scale`` drawn in f32 and rounded to bf16 (the reference's
-    ``(normal(key, shape) * scale).astype(PDT)``); an empty tensor on the
-    ``meta`` device."""
+def _normal(shape, scale, generator, device, dtype=PDT):
+    """``N(0, 1) * scale`` drawn in f32 and rounded to ``dtype`` (the
+    reference's ``(normal(key, shape) * scale).astype(PDT)``); an empty
+    tensor on the ``meta`` device."""
     device = torch.device(device)
     if device.type == "meta":
-        return torch.empty(shape, dtype=PDT, device=device)
+        return torch.empty(shape, dtype=dtype, device=device)
     x = torch.randn(shape, generator=generator, device=device,
                     dtype=torch.float32)
-    return (x * scale).to(PDT)
+    return (x * scale).to(dtype)
 
 
 # ---------------------------------------------------------------------------

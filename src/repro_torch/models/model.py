@@ -1,7 +1,8 @@
 """Model assembly: block pattern -> layer stack, forward/prefill/decode.
 
-The port of ``repro/models/model.py`` for the dense block families
-(``attn``/``local`` mixers, ``dense``/``none`` MLPs).  The reference stacks
+The port of ``repro/models/model.py``, every block family: ``attn``/
+``local`` (``layers``), ``mamba``/``mlstm``/``slstm`` (``ssm``) mixers and
+``dense``/``moe``/``none`` MLPs (``moe``).  The reference stacks
 each pattern slot's parameters over ``cfg.repeats`` and runs the slot as one
 ``lax.scan``; the port keeps one parameter dict per layer and runs the
 stack as a Python loop over repeats x pattern, then the tail:
@@ -13,8 +14,9 @@ stack as a Python loop over repeats x pattern, then the tail:
 ``params_from_reference`` / ``params_to_reference`` move a parameter tree
 between the two layouts (the reference's ``slots``/``tail`` leaves are
 unstacked over ``repeats``).  The decode cache keeps the reference's
-layout (``slotNN`` leaves ``[repeats, B, W, KV, hd]``, ``tailNN`` leaves
-``[B, W, KV, hd]``), so ``configs.input_specs`` matches it leaf by leaf;
+layout (``slotNN`` leaves stacked over repeats, ``[repeats, B, W, KV, hd]``
+for attention and ``[repeats, ...]`` of each SSM state; ``tailNN`` leaves
+unstacked), so ``configs.input_specs`` matches it leaf by leaf;
 ``decode_step`` writes each layer's slice in place.
 
 Input contract (see ``configs.input_specs``):
@@ -23,9 +25,7 @@ Input contract (see ``configs.input_specs``):
     audio:  {"frames": bf16[B,S,d]}             (stub conv frontend)
 
 Placement constraints (the reference's ``sharding.constrain``) are dropped:
-on one device they are no-ops.  Mamba/mLSTM/sLSTM mixers and MoE MLPs are
-not ported yet: ``init_params`` and ``init_cache`` refuse them before any
-work.
+on one device they are no-ops.
 """
 
 from __future__ import annotations
@@ -35,22 +35,11 @@ import torch
 
 from repro_torch.core.engine import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
+from repro_torch.models import ssm as SSM
 from repro_torch.models.config import ModelConfig
 
 F32 = torch.float32
-
-_NOT_PORTED = frozenset({"mamba", "mlstm", "slstm", "moe"})
-
-
-def require_ported(cfg: ModelConfig):
-    """Raise before any work if a block needs a module the port lacks."""
-    later = sorted({part for block in cfg.layer_pattern + cfg.tail_pattern
-                    for part in block if part in _NOT_PORTED})
-    if later:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(later)} blocks are not ported yet "
-            "(ROADMAP queue 1, item 12.3 for the SSM mixers mamba, mlstm "
-            "and slstm, item 12.4 for MoE)")
 
 
 def layer_blocks(cfg: ModelConfig):
@@ -68,13 +57,22 @@ def layer_blocks(cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 
+_MIXER_INIT = {"attn": L.init_attention, "local": L.init_attention,
+               "mamba": SSM.init_mamba, "mlstm": SSM.init_mlstm,
+               "slstm": SSM.init_slstm}
+
+
 def _init_block(cfg, block, generator, device):
     mixer, mlp = block
     p = {"norm1": L.init_rmsnorm(cfg.d_model, device),
-         "attn": L.init_attention(cfg, generator, device)}
+         "attn" if mixer == "local" else mixer:
+             _MIXER_INIT[mixer](cfg, generator, device)}
     if mlp == "dense":
         p["norm2"] = L.init_rmsnorm(cfg.d_model, device)
         p["mlp"] = L.init_mlp(cfg.d_model, cfg.d_ff, generator, device)
+    elif mlp == "moe":
+        p["norm2"] = L.init_rmsnorm(cfg.d_model, device)
+        p["moe"] = MOE.init_moe(cfg, generator, device)
     return p
 
 
@@ -82,8 +80,8 @@ def init_params(cfg: ModelConfig, generator=None, device=None):
     """Random parameters drawn from ``generator`` (a ``torch.Generator`` on
     ``device``; seed 0 if None), on CUDA unless ``device`` names another.
     The reference's scales: N(0,1) embeddings, fan-in-scaled projections,
-    unit norms, zero QKV biases."""
-    require_ported(cfg)
+    unit norms, zero QKV biases, the SSM mixers' f32 gates and constants
+    (mamba's ``b_dt``, ``a_log``, ``d_skip``), an f32 MoE router."""
     device = torch.device("meta") if str(device) == "meta" \
         else resolve_device(device)
     if generator is None and device.type != "meta":
@@ -128,7 +126,6 @@ def params_from_reference(tree, cfg: ModelConfig, device=None):
     leaves, bf16 through a uint16 view, or tensors): ``slots`` leaves
     unstacked over ``repeats``, ``tail``, ``embed``, ``final_norm`` and
     ``lm_head`` mapped as they are.  Bit-exact."""
-    require_ported(cfg)
     device = resolve_device(device)
     move = lambda leaf: _tensor(leaf).to(device)
     out = {k: _map(move, tree[k]) for k in ("embed", "final_norm", "lm_head")
@@ -171,33 +168,74 @@ def params_to_reference(params, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 
-def _apply_block(block, p, x, positions, cfg):
+_MIXER_FWD = {"mamba": SSM.mamba_fwd, "mlstm": SSM.mlstm_fwd,
+              "slstm": SSM.slstm_fwd}
+
+
+def _apply_block(block, p, x, positions, cfg, xf=None):
+    """One block over the full sequence -> ``(x, xf, aux)``: the residual
+    stream, the f32 sum it was rounded from, and the MoE aux loss (None
+    without MoE).  norm1 reads ``xf`` where the caller passes it (see
+    ``_carries_f32``), else ``x``."""
     mixer, mlp = block
-    h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
-    out, _ = L.attention_fwd(p["attn"], h, positions, cfg, mixer)
+    h = L.rmsnorm(p["norm1"], x if xf is None else xf,
+                  cfg.norm_eps).to(x.dtype)
+    if mixer in ("attn", "local"):
+        out, _ = L.attention_fwd(p["attn"], h, positions, cfg, mixer)
+    else:
+        out = _MIXER_FWD[mixer](p[mixer], h, cfg)
     return _residual_mlp(mlp, p, x, out, cfg)
 
 
 def _residual_mlp(mlp, p, x, out, cfg):
-    """``x + out``, then the dense MLP's residual.  The reference's compiled
-    block feeds norm2 the f32 sum ``x + out`` (XLA keeps the excess
-    precision of an add fused into the norm's f32 convert) while the
-    residual stream itself is the sum rounded to bf16; the port does
-    both."""
+    """``x + out``, then the dense or MoE MLP's residual -> ``(x, xf,
+    aux)``.  The reference's compiled block feeds norm2 the f32 sum ``x +
+    out`` (XLA keeps the excess precision of an add fused into the norm's
+    f32 convert) while the residual stream itself is the sum rounded to
+    bf16; the port does both, and returns the block's last f32 sum beside
+    its rounding for the next block's norm1."""
     xf = x.float() + out  # out promotes to f32 exactly
     x = xf.to(x.dtype)
+    if mlp == "none":
+        return x, xf, None
+    h = L.rmsnorm(p["norm2"], xf, cfg.norm_eps).to(x.dtype)
     if mlp == "dense":
-        h = L.rmsnorm(p["norm2"], xf, cfg.norm_eps).to(x.dtype)
-        x = x + L.mlp_fwd(p["mlp"], h)
-    return x
+        out, aux = L.mlp_fwd(p["mlp"], h), None
+    else:
+        out, aux = MOE.moe_fwd(p["moe"], h, cfg)
+    xf = x.float() + out
+    return xf.to(x.dtype), xf, aux
+
+
+def _carries_f32(key):
+    """Whether the block at ``key`` reads the previous block's f32 sum in
+    its norm1.  The reference runs a pattern's blocks in one compiled scan
+    body, where the sum of one block's last add stays f32 into the next
+    block's norm as into norm2; the scan's carry between repeats, and so
+    the first block of a repeat and of the tail, is the bf16 stream."""
+    return key not in ("slot00", "tail00")
+
+
+def _final_input(x, xf, cfg):
+    """What the final norm reads: the last block's f32 sum where that
+    block is a tail block (compiled with the norm, outside the scan), the
+    scan's bf16 carry otherwise."""
+    return xf if cfg.tail_pattern else x
 
 
 def _stack_fwd(params, x, positions, cfg):
-    """Run every layer in order. Returns (x, aux_loss); dense blocks add no
-    auxiliary loss, so aux is an f32 zero as in the reference."""
-    for (_, _, block), p in zip(layer_blocks(cfg), params["layers"]):
-        x = _apply_block(block, p, x, positions, cfg)
-    return x, torch.zeros((), dtype=F32, device=x.device)
+    """Run every layer in order. Returns (x, aux_loss): the stream the
+    final norm reads (``_final_input``), and the MoE blocks' aux losses
+    summed in f32 in layer order (an f32 zero without MoE), as the
+    reference carries them through its scans."""
+    aux = torch.zeros((), dtype=F32, device=x.device)
+    xf = None
+    for (key, _, block), p in zip(layer_blocks(cfg), params["layers"]):
+        x, xf, a = _apply_block(block, p, x, positions, cfg,
+                                xf if _carries_f32(key) else None)
+        if a is not None:
+            aux = aux + a
+    return _final_input(x, xf, cfg), aux
 
 
 def _embed_inputs(params, batch, cfg):
@@ -216,7 +254,7 @@ def backbone(params, batch, cfg: ModelConfig):
     x = _embed_inputs(params, batch, cfg)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     x, aux = _stack_fwd(params, x, positions, cfg)
-    return L.rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
+    return L.rmsnorm(params["final_norm"], x, cfg.norm_eps).to(L.PDT), aux
 
 
 def head_params(params, cfg: ModelConfig):
@@ -248,8 +286,14 @@ def _cache_len(cfg, mixer, max_len):
     return max_len
 
 
+_MIXER_CACHE = {"mamba": SSM.mamba_init_cache, "mlstm": SSM.mlstm_init_cache,
+                "slstm": SSM.slstm_init_cache}
+
+
 def _init_block_cache(cfg, block, batch, max_len, device, lead=()):
     mixer, _ = block
+    if mixer in _MIXER_CACHE:
+        return _MIXER_CACHE[mixer](cfg, batch, device, lead)
     n = _cache_len(cfg, mixer, max_len)
     shape = lead + (batch, n, cfg.num_kv_heads, cfg.hd)
     return {"k": torch.zeros(shape, dtype=L.PDT, device=device),
@@ -260,7 +304,6 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
     """Decode cache: per pattern slot, stacked over repeats (the
     reference's layout); per tail block, one.  ``device="meta"`` gives the
     shapes without storage."""
-    require_ported(cfg)
     device = torch.device("meta") if str(device) == "meta" \
         else resolve_device(device)
     cache = {}
@@ -273,15 +316,29 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
     return cache
 
 
-def _decode_block(block, p, x, pos, cache, cfg):
+_MIXER_DECODE = {"mamba": SSM.mamba_decode, "mlstm": SSM.mlstm_decode,
+                 "slstm": SSM.slstm_decode}
+
+
+def _decode_block(block, p, x, pos, cache, cfg, xf=None):
+    """One block at one position -> ``(x, xf)`` (see ``_apply_block``);
+    ``cache`` holds this layer's views of the decode cache, which are
+    updated in place."""
     mixer, mlp = block
-    h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
-    # ring-buffer semantics live inside attention_decode: when the cache
-    # is window-sized the slot wraps, otherwise it degenerates to a full
-    # cache
-    out, _ = L.attention_decode(p["attn"], h, pos, cache["k"], cache["v"],
-                                cfg, mixer)
-    return _residual_mlp(mlp, p, x, out, cfg)
+    h = L.rmsnorm(p["norm1"], x if xf is None else xf,
+                  cfg.norm_eps).to(x.dtype)
+    if mixer in ("attn", "local"):
+        # ring-buffer semantics live inside attention_decode: when the
+        # cache is window-sized the slot wraps, otherwise it degenerates to
+        # a full cache
+        out, _ = L.attention_decode(p["attn"], h, pos, cache["k"],
+                                    cache["v"], cfg, mixer)
+    else:
+        out, new = _MIXER_DECODE[mixer](p[mixer], h, cache, cfg)
+        for k, v in new.items():
+            cache[k].copy_(v)
+    # the decode step drops the MoE aux loss, as the reference's does
+    return _residual_mlp(mlp, p, x, out, cfg)[:2]
 
 
 def decode_step(params, tokens, pos, cache, cfg: ModelConfig):
@@ -289,12 +346,15 @@ def decode_step(params, tokens, pos, cache, cfg: ModelConfig):
     [B,1,V] f32, cache).  The cache is updated in place and returned."""
     pos = int(pos)
     x = L.embed(params["embed"], tokens, cfg.d_model)
+    xf = None
     for (key, r, block), p in zip(layer_blocks(cfg), params["layers"]):
         c = cache[key]
         if r is not None:
-            c = {"k": c["k"][r], "v": c["v"][r]}
-        x = _decode_block(block, p, x, pos, c, cfg)
-    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+            c = {k: v[r] for k, v in c.items()}
+        x, xf = _decode_block(block, p, x, pos, c, cfg,
+                              xf if _carries_f32(key) else None)
+    x = L.rmsnorm(params["final_norm"], _final_input(x, xf, cfg),
+                  cfg.norm_eps).to(L.PDT)
     logits = L.logits_fwd(head_params(params, cfg), x,
                           cfg.final_logit_softcap)
     return logits, cache

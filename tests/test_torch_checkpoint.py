@@ -248,6 +248,37 @@ def test_reference_lm_params_restore_through_params_from_reference(tmp_path):
         same_trees(back, got)
 
 
+@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "xlstm-350m"])
+def test_ssm_moe_params_cross_package_round_trips(tmp_path, arch):
+    """The SSM and MoE leaves (mamba's f32 ``w_dt``/``b_dt``/``a_log``/
+    ``d_skip``, mLSTM's f32 ``w_gates``, sLSTM's ``r_gates``, the f32
+    router and the ``[E, ...]`` experts) both ways: ``repro`` writes and
+    the port restores bit for bit; the port writes its tree in the
+    reference's layout and ``repro`` restores it bit for bit against its
+    own abstract parameters."""
+    rcfg, tcfg = RC.smoke_config(arch), TC.smoke_config(arch)
+    rp = jax.jit(RM.init_params, static_argnums=1)(jax.random.key(0), rcfg)
+    rsave(str(tmp_path / "ref"), 1, rp)
+    like = TM.params_to_reference(TM.abstract_params(tcfg), tcfg)
+    restored, _ = restore_checkpoint(str(tmp_path / "ref"), like,
+                                     device="cpu")
+    got = TM.params_from_reference(restored, tcfg, device="cpu")
+    same_trees(got, TM.params_from_reference(jax.tree.map(np.asarray, rp),
+                                             tcfg, device="cpu"))
+    # the port's own draw, written by the port, read by the reference
+    tp = TM.init_params(tcfg, torch.Generator().manual_seed(3), "cpu")
+    save_checkpoint(str(tmp_path / "port"), 2, TM.params_to_reference(tp,
+                                                                      tcfg))
+    back, step = rrestore(str(tmp_path / "port"), RM.abstract_params(rcfg))
+    assert step == 2
+    rl = jax.tree_util.tree_flatten_with_path(back)[0]
+    tl = list(_leaves(TM.params_to_reference(tp, tcfg)))
+    assert len(rl) == len(tl)
+    for (_, a), (_, b) in zip(tl, rl):
+        assert str(a.dtype).removeprefix("torch.") == str(b.dtype)
+        assert np.array_equal(bits(a), _ref_bits(b))
+
+
 def test_fp8_leaves_roundtrip(tmp_path):
     """fp8 leaves take the same-width uint8 view and come back bit-exact,
     in both packages."""

@@ -319,14 +319,6 @@ def test_cli_serves_on_the_cpu_and_matches_the_reference_admissions(
     assert "[serve-graph] sample result" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["--arch", "jamba-1.5-large-398b", "--smoke"], "item 12"),
-])
-def test_cli_refuses_what_is_not_ported(argv, item):
-    with pytest.raises(NotImplementedError, match=item):
-        serve.main(argv)
-
-
 def test_cli_serves_streamed_and_matches_the_reference(monkeypatch):
     """``--residency stream`` serves out of core: with a fixed dispatch step
     both CLIs admit the same queries in the same dispatches over a streamed
