@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
     python3 chip_smoke.py [--scale 22] [--chare-scale 18] [--chares 8] \
-        [--cost-scale 17]
+        [--cost-scale 16]
 
 Phases, each printing one JSON line with its seconds:
 
@@ -173,7 +173,7 @@ Phases, each printing one JSON line with its seconds:
              the rectangle gated on and off, against the plain version
   cost       the paper's COST tables: run_table for every registered
              program on the three paper stand-ins (2^cost-scale vertices,
-             cut from 2^20 so the phase takes about 4 min; 14, 24 and 35
+             cut from 2^20 so the whole run stays within 1,000 s; 14, 24 and 35
              edges per vertex) with the contiguous and
              edge-balanced placements and 3 repeats (the reference's full
              run), then the cost.*, fig12.* and grid.* rows by the
@@ -284,6 +284,32 @@ Phases, each printing one JSON line with its seconds:
              prefill seconds, kernels a step and busy share (4 profiled
              steps), peak memory, and the step's bound (parameters once,
              recurrent states read and written, at 3.35 TB/s)
+  train      the training path (repro_torch.models.train,
+             repro_torch.optim, repro_torch.data, repro_torch.launch.train):
+             gemma3-1b at full width and depth (26 layers, d_model 1152,
+             vocab 262,144), random weights from seed 0, B=8, S=1024 (two
+             cross-entropy chunks of 512), AdamW with f32 moments under
+             WSD (peak 1e-3, warmup 2), 16 steps on SyntheticLM's batches
+             drawn on the card (timed on their own; batch_at must be a
+             function of the step); the loss must fall (the last 4 steps'
+             mean below the first 4's); an AsyncCheckpointer save at step
+             8, restored into a fresh state on the card bit for bit, then
+             steps 9-12 again within 1e-3 of the straight run; one step at
+             microbatches=2 against 1 from the restored state (params
+             within rtol 1e-2, atol 2e-3, tests/test_train.py:41; loss
+             within 1e-4); two steps under torch.profiler (kernels a step,
+             busy share); the gradient's peak memory with remat "dots"
+             at B=8, and "dots" and "none" on its first 4 rows (equal
+             losses; "none" at B=8 does not fit beside the state); two
+             steps through train_loop.  Each
+             step's host-clock ms (it ends in loss.item()), tokens/s, the
+             checkpoint's bytes and seconds, and the step's bound (FLOPs
+             from the config over 989 TFLOP/s, the state's bytes over
+             3.35 TB/s).  Then every architecture's smoke config, one
+             step, card against CPU on the same parameters and batch: the
+             loss within 1e-3, the gradient norm within 2e-2, every
+             gradient leaf within max(3e-2, the CPU gradient's own change
+             under a rounding-level perturbation) of its max
 
 Then one JSON line with every kernel's numbers (launches from the main
 path for the fused pair, from staged_main for the staged four, from
@@ -307,6 +333,7 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import json
+import math
 import pathlib
 import subprocess
 import sys
@@ -318,6 +345,7 @@ PORT = ROOT / "src" / "repro_torch"
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12     # H100 SXM data sheet, float32 outside tensor cores
+BF16_OPS_PER_S = 989e12    # H100 SXM data sheet, dense bf16 tensor cores
 ADD_RTOL = 1e-5
 
 
@@ -2635,6 +2663,387 @@ class Smoke:
                 "by_kernel": [{"name": k[:90], "device_ms": ms, "calls": n}
                               for k, ms, n in rows[:10]]}
 
+    # -- phase train ---------------------------------------------------------
+
+    def train(self, smoke=False, B=8, S=1024, steps=16):
+        """The training path; see the module docstring.  gemma3-1b at full
+        width and depth trains ``steps`` steps at ``B`` x ``S``, then every
+        architecture's smoke config takes one step on the card against the
+        CPU.  A rehearsal passes ``smoke=True`` (gemma3's smoke config) and
+        smaller sizes."""
+        seconds = {}
+        for name, run in (("gemma3-1b",
+                           lambda: self._train_gemma(smoke, B, S, steps)),
+                          ("smoke_archs", self._train_smoke_archs)):
+            t0 = time.perf_counter()
+            emit({"train": name, **json.loads(json.dumps(run(), default=str))})
+            seconds[name] = round(time.perf_counter() - t0, 3)
+        return {"train_seconds": seconds}
+
+    @staticmethod
+    def _train_bound(cfg, B, S, state_bytes):
+        """The least time a train step could take on the card: the larger
+        of its FLOPs over the dense bf16 peak and its bytes over the HBM
+        rate.  FLOPs: every product's forward (2 x its weights x tokens;
+        the tied head's V x d too) and the attention scores and values
+        over the keys each query sees (causal, the window on local
+        layers), times 3 for the backward; no recompute.  Bytes: the
+        state read once and written once (parameters and both moments;
+        the batch is noise)."""
+        d, hd, H, KV = cfg.d_model, cfg.hd, cfg.num_heads, cfg.num_kv_heads
+        mixers = [m for m, _ in cfg.layer_pattern] * cfg.repeats + \
+            [m for m, _ in cfg.tail_pattern]
+        if set(mixers) - {"attn", "local"} or cfg.num_experts:
+            raise ValueError("the bound counts dense attention models")
+        proj = d * H * hd + 2 * d * KV * hd + H * hd * d + 3 * d * cfg.d_ff
+        weights = len(mixers) * proj + cfg.vocab_size * d
+        keys = 0
+        for m in mixers:
+            w = cfg.window if m == "local" and cfg.window else S
+            keys += sum(min(i + 1, w) for i in range(S))
+        fwd = 2 * weights * B * S + 4 * B * keys * H * hd
+        flops = 3 * fwd
+        byts = 2 * state_bytes
+        ms = max(flops / BF16_OPS_PER_S, byts / HBM_BYTES_PER_S) * 1e3
+        return {"flops": flops, "bytes": byts, "bound_ms": ms,
+                "bound_by": "operations" if flops / BF16_OPS_PER_S
+                > byts / HBM_BYTES_PER_S else "bytes"}
+
+    def _train_gemma(self, smoke, B, S, steps):
+        """gemma3-1b at full width and depth (the module docstring)."""
+        import dataclasses
+        import shutil
+
+        import torch
+
+        from repro_torch import configs
+        from repro_torch.checkpoint import AsyncCheckpointer
+        from repro_torch.checkpoint.store import _leaves
+        from repro_torch.data import SyntheticLM
+        from repro_torch.launch import train as LT
+        from repro_torch.models import train as T
+
+        cfg = (configs.smoke_config if smoke else configs.get_config)(
+            "gemma3-1b")
+        dev = torch.device("cuda")
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()  # by the earlier phases
+        opt = T.make_optimizer(peak_lr=1e-3, warmup=2, total=steps)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = T.init_state(torch.Generator(device=dev).manual_seed(0), cfg,
+                             opt, dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        leaves = [t for _, t in _leaves(state)]
+        state_bytes = sum(t.numel() * t.element_size() for t in leaves)
+        n_params = sum(t.numel() for _, t in _leaves(state.params))
+        if n_params - cfg.d_model != cfg.param_count():
+            raise AssertionError(f"{n_params} parameters; the config counts "
+                                 f"{cfg.param_count()} and the final norm")
+
+        # the data: every batch of the run, drawn on the card and timed
+        pipe = SyntheticLM(cfg.vocab_size, B, S, seed=0, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batches = [pipe.batch_at(s) for s in range(steps)]
+        torch.cuda.synchronize()
+        data_ms = (time.perf_counter() - t0) * 1e3 / steps
+        again = pipe.batch_at(steps // 2)["tokens"]
+        if not torch.equal(again, batches[steps // 2]["tokens"]):
+            raise AssertionError("batch_at is not a function of the step")
+
+        # the straight run, a checkpoint at its half
+        step_fn = T.make_train_step(cfg, opt)
+        ckdir = ROOT / "build" / "train_ckpt"  # git ignores build/
+        shutil.rmtree(ckdir, ignore_errors=True)
+        ckpt = AsyncCheckpointer(str(ckdir))
+        half = steps // 2
+        losses, norms, step_s = [], [], []
+        torch.cuda.reset_peak_memory_stats()
+        for s in range(steps):
+            t0 = time.perf_counter()
+            state, m = step_fn(state, batches[s])
+            losses.append(m["loss"].item())
+            step_s.append(time.perf_counter() - t0)
+            norms.append(float(m["grad_norm"]))
+            if s + 1 == half:
+                t0 = time.perf_counter()
+                ckpt.save(half, state)  # the host snapshot, then a thread
+                snapshot_s = time.perf_counter() - t0
+                # a host copy to hold the restore to (on the card it would
+                # cost the steps after it 10 GB)
+                saved = [t.to("cpu", copy=True) for _, t in _leaves(state)]
+        t0 = time.perf_counter()
+        ckpt.wait()
+        wait_s = time.perf_counter() - t0
+        if not all(map(math.isfinite, losses + norms)):
+            raise AssertionError(f"losses {losses}, norms {norms}")
+        first, last = (sum(losses[:4]) / 4, sum(losses[-4:]) / 4)
+        if not last < first:
+            raise AssertionError(f"the loss did not fall: {losses}")
+        ck_bytes = sum(f.stat().st_size for f in
+                       (ckdir / f"step_{half:08d}").iterdir())
+        emit({"train_progress": "straight run", "losses": losses,
+              "step_ms": [x * 1e3 for x in step_s], "data_ms": data_ms,
+              "checkpoint_bytes": ck_bytes, "snapshot_s": snapshot_s,
+              "write_left_s": wait_s, "held_before_bytes": held,
+              "peak_bytes": torch.cuda.max_memory_allocated()})
+        del state
+
+        # the resume: restore the half's checkpoint into a fresh state
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restored, at = LT.restore_state(str(ckdir), cfg, opt, dev)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        if at != half or int(restored.step) != half:
+            raise AssertionError(f"restored step {at} / {restored.step}")
+        for (path, a), b in zip(_leaves(restored), saved):
+            if a.device.type != "cuda" or not torch.equal(a.cpu(), b):
+                raise AssertionError(f"restored leaf {path} differs")
+        del saved
+        shutil.rmtree(ckdir, ignore_errors=True)
+
+        # microbatches=2 against 1 from the restored state, on the next batch
+        s1, m1 = step_fn(restored, batches[half])
+        s2, m2 = T.make_train_step(cfg, opt, microbatches=2)(
+            restored, batches[half])
+        mb_loss = abs(float(m2["loss"]) - float(m1["loss"])) / \
+            abs(float(m1["loss"]))
+        mb_err = 0.0
+        for (path, a), (_, b) in zip(_leaves(s1.params), _leaves(s2.params)):
+            # tests/test_train.py:41: rtol 1e-2, atol 2e-3
+            if not torch.allclose(a.float(), b.float(), rtol=1e-2, atol=2e-3):
+                raise AssertionError(f"microbatches 2 against 1: {path}")
+            mb_err = max(mb_err, float((a.float() - b.float()).abs().max()))
+        if mb_loss > 1e-4:
+            raise AssertionError(f"microbatch loss {m2['loss']} vs "
+                                 f"{m1['loss']}")
+        del s2, restored
+
+        # the resumed run against the straight one, steps half+1 .. half+4
+        resumed, state = [float(m1["loss"])], s1
+        del s1
+        for s in range(half + 1, half + 4):
+            state, m = step_fn(state, batches[s])
+            resumed.append(m["loss"].item())
+        resume_rel = max(abs(a - b) / abs(b) for a, b in
+                         zip(resumed, losses[half:half + 4]))
+        emit({"train_progress": "resumed", "restore_s": restore_s,
+              "resumed": resumed, "microbatch_loss_rel": mb_loss,
+              "microbatch_max_abs": mb_err})
+        if resume_rel > 1e-3:
+            raise AssertionError(f"resumed {resumed} against "
+                                 f"{losses[half:half + 4]}")
+
+        # two steps under the profiler; then one step's peak memory with
+        # remat "dots" and "none" from the same state and batch
+        def two_steps():
+            st = state
+            for s in (0, 1):
+                st, mm = step_fn(st, batches[s])
+                mm["loss"].item()
+
+        profile = self._device_profile(two_steps)
+        emit({"train_progress": "profiled", "kernels_per_step":
+              profile["device_ops"] / 2,
+              "busy_share": profile["device_busy_share"]})
+        # the gradient's peak above the state (the optimizer's new state
+        # comes after the activations are freed): "dots" at B, then both
+        # on the batch's first B/2 rows ("none" at B=8 needs more than the
+        # card holds beside the state)
+        small = {k: v[:B // 2] for k, v in batches[0].items()}
+        peaks, remat_loss = {}, {}
+        for remat, batch in (("dots", batches[0]), ("dots", small),
+                             ("none", small)):
+            key = f"{remat}_B{batch['tokens'].shape[0]}"
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            mm, grads = T.value_and_grad(
+                state.params, batch, dataclasses.replace(cfg, remat=remat))
+            remat_loss[key] = mm["loss"].item()
+            peaks[key] = torch.cuda.max_memory_allocated() - before
+            del mm, grads
+            emit({"train_progress": f"remat {key}", "peak_bytes": peaks[key]})
+        half_b = f"_B{B // 2}"
+        if remat_loss["dots" + half_b] != remat_loss["none" + half_b]:
+            raise AssertionError(f"remat changed the loss: {remat_loss}")
+        del state
+        torch.cuda.empty_cache()
+
+        # the user's entry point, two steps at the same size
+        t0 = time.perf_counter()
+        loop = LT.train_loop(cfg, steps=2, batch=B, seq=S, log_every=1,
+                             peak_lr=1e-3)
+        loop_s = time.perf_counter() - t0
+        if not all(map(math.isfinite, loop["history"])):
+            raise AssertionError(f"train_loop: {loop['history']}")
+        torch.cuda.empty_cache()
+
+        warm = sorted(step_s[2:])
+        step_ms = warm[len(warm) // 2] * 1e3
+        bound = self._train_bound(cfg, B, S, state_bytes)
+        return {
+            "arch": cfg.name, "B": B, "S": S, "steps": steps,
+            "parameters": n_params, "state_bytes": state_bytes,
+            "init_s": init_s, "losses": losses, "grad_norms": norms,
+            "loss_first4_mean": first, "loss_last4_mean": last,
+            "step_ms": [s * 1e3 for s in step_s],
+            "step_ms_median_warm": step_ms,
+            "tokens_per_s": B * S / (step_ms / 1e3),
+            "data_ms_per_batch": data_ms,
+            "kernels_per_step": profile["device_ops"] / 2,
+            "busy_share": profile["device_busy_share"],
+            "profile_2_steps": profile,
+            "peak_bytes_gradient": peaks,
+            "checkpoint": {"bytes": ck_bytes, "snapshot_s": snapshot_s,
+                           "write_left_after_run_s": wait_s,
+                           "restore_s": restore_s},
+            "resumed_losses": resumed, "resume_max_rel": resume_rel,
+            "microbatch_loss_rel": mb_loss, "microbatch_max_abs": mb_err,
+            "remat_losses": remat_loss,
+            "train_loop": {"history": loop["history"], "seconds": loop_s},
+            **bound, "step_over_bound": step_ms / bound["bound_ms"],
+            "nvidia_smi": self.smi}
+
+    @staticmethod
+    def _train_batch(cfg, seed, device, Bs=2, Ss=32):
+        """One training batch of the model's contract from a numpy seed (the
+        CPU tests' make_batch)."""
+        import numpy as np
+        import torch
+
+        rng = np.random.default_rng(seed)
+        labels = rng.integers(0, cfg.vocab_size, (Bs, Ss), dtype=np.int32)
+        if cfg.frontend == "audio":
+            frames = torch.as_tensor(rng.standard_normal((Bs, Ss, cfg.d_model)))
+            return {"frames": frames.to(torch.bfloat16).to(device),
+                    "labels": torch.as_tensor(labels, device=device)}
+        toks = rng.integers(0, cfg.vocab_size, (Bs, Ss - cfg.frontend_len),
+                            dtype=np.int32)
+        out = {"tokens": torch.as_tensor(toks, device=device),
+               "labels": torch.as_tensor(
+                   toks if cfg.frontend != "vision" else labels,
+                   device=device)}
+        if cfg.frontend == "vision":
+            out["patches"] = torch.as_tensor(rng.standard_normal(
+                (Bs, cfg.frontend_len, cfg.d_model))).to(torch.bfloat16) \
+                .to(device)
+        return out
+
+    @staticmethod
+    def _leaf_errors(got, want):
+        """Per gradient leaf, max |got - want| over max |want| (a leaf zero
+        in ``want`` must be zero in ``got``)."""
+        from repro_torch.checkpoint.store import _leaves
+
+        out = {}
+        for (path, a), (_, b) in zip(_leaves(got), _leaves(want)):
+            scale = float(b.abs().max())
+            err = float((a.cpu().float() - b.float()).abs().max())
+            out["/".join(map(str, path))] = err / scale if scale else \
+                (0.0 if err == 0 else math.inf)
+        return out
+
+    def _grad_sensitivity(self, params, batch, cfg, grads, trials=2):
+        """How far two bf16 evaluations of this gradient may fall apart on
+        their own: the largest per-leaf change (of the leaf's max) of the
+        bf16 leaves' gradients when every f32 leaf (the norm scales, in
+        each layer; the SSM gates and the router) takes relative
+        N(0, 2^-9) noise, half a bf16 ulp, as another card's rounding
+        would move the activations they scale; the largest over
+        ``trials`` draws on the CPU."""
+        import torch
+
+        from repro_torch.checkpoint.store import _leaves
+        from repro_torch.models import train as T
+        from repro_torch.optim.transforms import tree_map
+
+        f32 = {"/".join(map(str, path)) for path, t in _leaves(grads)
+               if t.dtype == torch.float32}
+        worst = 0.0
+        for trial in range(trials):
+            gen = torch.Generator().manual_seed(100 + trial)
+            noisy = tree_map(lambda t: t * (1 + 2.0 ** -9 * torch.randn(
+                t.shape, generator=gen)) if t.dtype == torch.float32 else t,
+                params)
+            got = T.value_and_grad(noisy, batch, cfg)[1]
+            errors = self._leaf_errors(got, grads)
+            worst = max([worst] + [e for k, e in errors.items()
+                                   if k not in f32])
+        return worst
+
+    def _train_smoke_archs(self):
+        """Every architecture's smoke config, one step, card against CPU on
+        the same parameters (drawn on the CPU, copied) and the same batch
+        (for the MoE archs the first numpy seed whose every routing clears
+        the next gate by 1e-3 on the CPU, the margin rule): the loss within
+        1e-3, the global gradient norm within 2e-2, every gradient leaf
+        within max(3e-2, the gradient's own sensitivity, _grad_sensitivity)
+        of its max -- the CPU tests' fixed bound where the gradient is well
+        conditioned, its bf16 spread where it is not (xlstm, whose CPU test
+        holds it to the reference's own spread, and paligemma); then the
+        optimizer's update on the card."""
+        import torch
+
+        from repro_torch import configs
+        from repro_torch.checkpoint.store import _leaves
+        from repro_torch.models import model as M
+        from repro_torch.models import train as T
+        from repro_torch.optim import apply_updates, global_norm
+        from repro_torch.optim.transforms import tree_map
+
+        dev, cpu = torch.device("cuda"), torch.device("cpu")
+        rows = {}
+        for arch in configs.list_archs():
+            cfg = configs.smoke_config(arch)
+            opt = T.make_optimizer(peak_lr=1e-3, warmup=2, total=16)
+            state = T.init_state(torch.Generator().manual_seed(0), cfg, opt,
+                                 cpu)
+            seed = 0
+            while cfg.num_experts:
+                margins = []
+                with self._route_margins(margins), torch.no_grad():
+                    M.backbone(T.model_params(state.params, cfg),
+                               self._train_batch(cfg, seed, cpu), cfg)
+                if float(torch.cat(margins).min()) >= 1e-3:
+                    break
+                seed += 1
+            batch = self._train_batch(cfg, seed, cpu)
+            mc, gc = T.value_and_grad(state.params, batch, cfg)
+            params = tree_map(lambda t: t.to(dev), state.params)
+            md, gd = T.value_and_grad(params,
+                                      self._train_batch(cfg, seed, dev), cfg)
+            loss_rel = abs(float(md["loss"]) - float(mc["loss"])) / \
+                abs(float(mc["loss"]))
+            nc, nd = float(global_norm(gc)), float(global_norm(gd))
+            errors = self._leaf_errors(gd, gc)
+            worst_at = max(errors, key=errors.get)
+            sensitivity = self._grad_sensitivity(state.params, batch, cfg, gc)
+            bound = max(3e-2, sensitivity)
+            if loss_rel > 1e-3 or abs(nd - nc) > 2e-2 * nc or \
+                    errors[worst_at] > bound:
+                raise AssertionError(
+                    f"{arch}: loss {md['loss']} vs {mc['loss']}, norm {nd} vs "
+                    f"{nc}, leaf {worst_at} at {errors[worst_at]} of its max "
+                    f"(bound {bound})")
+            updates, _ = opt.update(gd, opt.init(params), params)
+            new = apply_updates(params, updates)
+            if not all(bool(torch.isfinite(t.float()).all())
+                       for _, t in _leaves(new)):
+                raise AssertionError(f"{arch}: the update is not finite")
+            rows[arch] = {"seed": seed, "loss_card": float(md["loss"]),
+                          "loss_rel": loss_rel, "grad_norm_rel":
+                          abs(nd - nc) / nc, "worst_leaf": worst_at,
+                          "worst_leaf_rel": errors[worst_at],
+                          "sensitivity": sensitivity, "bound": bound}
+            del params, gd, new, updates
+        torch.cuda.empty_cache()
+        return rows
+
     def kernel_time(self):
         import torch
 
@@ -4485,7 +4894,7 @@ class Smoke:
 PHASES = ("device", "build", "kernels", "graph", "main", "reproducible",
           "batch", "serve", "grid", "replan", "async", "stream", "cost",
           "staged_main", "profile", "kernel_time", "kernels_main", "chares",
-          "push_choice", "quickstart", "lm")
+          "push_choice", "quickstart", "lm", "train")
 
 
 def main(argv=None) -> int:
@@ -4495,7 +4904,7 @@ def main(argv=None) -> int:
     ap.add_argument("--chare-scale", type=int, default=18,
                     help="log2 vertices of the chare-axis graph")
     ap.add_argument("--chares", type=int, default=8)
-    ap.add_argument("--cost-scale", type=int, default=17,
+    ap.add_argument("--cost-scale", type=int, default=16,
                     help="log2 vertices of the paper graphs of phase cost")
     args = ap.parse_args(argv)
     if not (PORT / "kernels" / "csrc").is_dir():

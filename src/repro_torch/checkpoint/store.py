@@ -4,11 +4,12 @@ disk layout cache the streamed execution mode reads shards from.
 The port of ``repro/checkpoint/store.py``, in the same file formats, so an
 entry written by either package is read by the other.
 
-Tensor trees (nested dicts, lists and tuples of tensors; state dicts), one
-directory per step:
+Tensor trees (nested dicts, lists, tuples and dataclasses of tensors; state
+dicts, train states), one directory per step:
     <dir>/step_00000100/
         arrays.npz        every leaf, keyed by its '/'-joined path (dict
-                          key or list index; dict keys in sorted order)
+                          key, list index or dataclass field; dict keys in
+                          sorted order)
         meta.json         {"step": 100, "keys": [<sorted leaf keys>]}
     <dir>/step_00000100.tmp_*   (staging; atomically renamed on completion)
 npz cannot hold bfloat16 or the fp8 types: such a leaf is stored as its
@@ -36,6 +37,7 @@ changed) miss on fingerprint and are rebuilt, never silently reused.
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
 import os
@@ -81,9 +83,15 @@ def _decode(arr: np.ndarray, dtype_name: str | None) -> torch.Tensor:
     return torch.from_numpy(signed).view(getattr(torch, dtype_name))
 
 
+def _is_dataclass(tree) -> bool:
+    return dataclasses.is_dataclass(tree) and not isinstance(tree, type)
+
+
 def _leaves(tree, path=()):
     """``(path, leaf)`` pairs in the reference's order: dict keys sorted,
-    list and tuple items by index, ``None`` an empty subtree."""
+    list and tuple items by index, a dataclass's fields by name in their
+    order (``TrainState``: ``step``, ``params``, ``opt_state``), ``None``
+    an empty subtree."""
     if tree is None:
         return
     if isinstance(tree, dict):
@@ -92,6 +100,9 @@ def _leaves(tree, path=()):
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
             yield from _leaves(v, path + (i,))
+    elif _is_dataclass(tree):
+        for f in dataclasses.fields(tree):
+            yield from _leaves(getattr(tree, f.name), path + (f.name,))
     else:
         yield path, tree
 
@@ -109,6 +120,10 @@ def _rebuild(tree, new, path=()):
     if isinstance(tree, (list, tuple)):
         return type(tree)(_rebuild(v, new, path + (i,))
                           for i, v in enumerate(tree))
+    if _is_dataclass(tree):
+        return dataclasses.replace(tree, **{
+            f.name: _rebuild(getattr(tree, f.name), new, path + (f.name,))
+            for f in dataclasses.fields(tree)})
     return new[path]
 
 

@@ -1,4 +1,3 @@
 """LM model substrate of the port: configs, layers, the SSM mixers, MoE, the
-model with its frontends, and the serving steps (the twin of
-``repro.models``; sharding and training are ROADMAP queue 1, items 12.6
-and 12.7)."""
+model with its frontends, the serving steps, the sharding rule tables and
+the training step (the twin of ``repro.models``)."""

@@ -32,6 +32,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.core.engine import resolve_device
 from repro_torch.models import layers as L
@@ -125,14 +127,18 @@ def params_from_reference(tree, cfg: ModelConfig, device=None):
     """The port's parameters from the reference's parameter tree (numpy
     leaves, bf16 through a uint16 view, or tensors): ``slots`` leaves
     unstacked over ``repeats``, ``tail``, ``embed``, ``final_norm`` and
-    ``lm_head`` mapped as they are.  Bit-exact."""
+    ``lm_head`` mapped as they are.  Bit-exact.  Tensors already on
+    ``device`` are not copied: each layer's leaf is a view of its stacked
+    leaf (one ``unbind`` a leaf), so autograd carries a layer's gradient
+    back into the stacked leaf (``repro_torch.models.train``)."""
     device = resolve_device(device)
     move = lambda leaf: _tensor(leaf).to(device)
     out = {k: _map(move, tree[k]) for k in ("embed", "final_norm", "lm_head")
            if k in tree}
-    slots = {key: _map(_tensor, slot) for key, slot in tree["slots"].items()}
+    slots = {key: _map(lambda a: move(a).unbind(0), slot)
+             for key, slot in tree["slots"].items()}
     out["layers"] = [
-        _map(lambda a, r=r: a[r].to(device), slots[key])
+        _map(lambda a, r=r: a[r], slots[key])
         if r is not None else _map(move, tree["tail"][key])
         for key, r, _ in layer_blocks(cfg)]
     return out
@@ -223,16 +229,47 @@ def _final_input(x, xf, cfg):
     return xf if cfg.tail_pattern else x
 
 
+def _save_dots(ctx, op, *args, **kwargs):
+    """The selective-checkpoint policy of ``remat="dots"`` (the reference's
+    ``checkpoint_dots_with_no_batch_dims``): keep the output of every
+    product without batch dims -- an einsum's ``bmm`` over a batch of one
+    -- and recompute the rest."""
+    if op is torch.ops.aten.bmm.default and args[0].shape[0] == 1:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_block(remat, *args):
+    """``_apply_block`` under ``torch.utils.checkpoint``: its backward
+    recomputes the block from its inputs (``"full"``) or from its inputs
+    and its saved products (``"dots"``).  The recompute runs the same ops
+    on the same inputs, so no loss or gradient bit changes."""
+    context = {} if remat == "full" else {
+        "context_fn": lambda: create_selective_checkpoint_contexts(_save_dots)}
+    return checkpoint(_apply_block, *args, use_reentrant=False, **context)
+
+
 def _stack_fwd(params, x, positions, cfg):
     """Run every layer in order. Returns (x, aux_loss): the stream the
     final norm reads (``_final_input``), and the MoE blocks' aux losses
     summed in f32 in layer order (an f32 zero without MoE), as the
-    reference carries them through its scans."""
+    reference carries them through its scans.
+
+    Where autograd records the call (training) and ``cfg.remat`` is not
+    ``"none"``, each block is its own checkpoint (``_remat_block``): the
+    backward's high-water mark is one block's activations.  The
+    reference nests a second checkpoint around each pattern repeat; one
+    level already keeps only the residual stream between blocks."""
+    apply = _apply_block
+    # autograd records the call: the train step asks for every leaf's grad
+    if cfg.remat != "none" and torch.is_grad_enabled() and \
+            params["final_norm"]["scale"].requires_grad:
+        apply = lambda *args: _remat_block(cfg.remat, *args)
     aux = torch.zeros((), dtype=F32, device=x.device)
     xf = None
     for (key, _, block), p in zip(layer_blocks(cfg), params["layers"]):
-        x, xf, a = _apply_block(block, p, x, positions, cfg,
-                                xf if _carries_f32(key) else None)
+        x, xf, a = apply(block, p, x, positions, cfg,
+                         xf if _carries_f32(key) else None)
         if a is not None:
             aux = aux + a
     return _final_input(x, xf, cfg), aux
@@ -314,6 +351,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
         cache[f"tail{i:02d}"] = _init_block_cache(cfg, block, batch, max_len,
                                                   device)
     return cache
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, max_len: int):
+    """The decode cache on the ``meta`` device: shapes and dtypes, no
+    storage (the reference's ``jax.eval_shape`` twin)."""
+    return init_cache(cfg, batch, max_len, device="meta")
 
 
 _MIXER_DECODE = {"mamba": SSM.mamba_decode, "mlstm": SSM.mlstm_decode,

@@ -2,17 +2,20 @@
 
 The port of ``repro/models/serve.py``.  ``make_prefill_step`` is a full
 forward pass that keeps the last position's logits; ``make_decode_step``
-is ONE new token against a KV cache, the memory-bound regime.  The
-reference's ``cache_specs`` places the cache on a mesh; on one device
-there is nothing to place, so it has no twin.
+is ONE new token against a KV cache, the memory-bound regime.
+``cache_specs`` says where the cache would live on a mesh (spec tuples,
+as ``repro_torch.models.sharding``); on one device nothing is placed.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.sharding import map_leaves
 
 
 def make_decode_step(cfg: ModelConfig):
@@ -82,3 +85,49 @@ def generate(params, batch, cfg: ModelConfig, steps: int, max_len: int,
                if temperature > 0 else sample_greedy(logits))
         out.append(tok[:, 0])
     return torch.stack(out, dim=1)  # [B, steps]
+
+
+# ---------------------------------------------------------------------------
+# Cache sharding specs
+# ---------------------------------------------------------------------------
+
+
+def cache_specs(cache_shape, cfg: ModelConfig, mesh):
+    """Spec tree for the decode cache (leaves with ``.shape``: the tensors
+    of ``model.abstract_cache``).
+
+    KV tensors are [repeats?, B, S, KV, hd]: batch over (pod,data), heads
+    over model when divisible, else seq over model (sequence parallelism --
+    the long_500k cells and kv=1 archs land here).  SSM states shard their
+    feature axis over model.
+    """
+    sizes = dict(mesh.shape)
+    batch_names = tuple(n for n in ("pod", "data") if n in sizes)
+    model_n = sizes.get("model", 1)
+    bsz = math.prod(sizes[n] for n in batch_names)
+    batch_spec = batch_names if len(batch_names) > 1 else \
+        (batch_names[0] if batch_names else None)
+
+    def leaf(_, x):
+        shape = tuple(x.shape)
+        nd = len(shape)
+        spec = [None] * nd
+        if nd >= 4:  # KV cache [*, B, S, KV, hd] or [B, S, KV, hd]
+            off = nd - 4
+            if batch_names and shape[off] % bsz == 0:
+                spec[off] = batch_spec
+            if model_n > 1 and shape[off + 2] % model_n == 0:
+                spec[off + 2] = "model"      # heads TP
+            elif model_n > 1 and shape[off + 1] % model_n == 0:
+                spec[off + 1] = "model"      # seq SP fallback (kv=1 archs)
+        elif nd >= 2:  # SSM states [*, B, di, N] / [*, B, di]
+            off = 1 if nd == 2 else nd - 3
+            if batch_names and shape[off] % bsz == 0:
+                spec[off] = batch_spec
+            for i in range(nd - 1, off, -1):
+                if model_n > 1 and shape[i] % model_n == 0:
+                    spec[i] = "model"
+                    break
+        return tuple(spec)
+
+    return map_leaves(leaf, cache_shape)

@@ -340,7 +340,11 @@ def test_import_leaves_jax_and_repro_out():
             "repro_torch.models.config, repro_torch.models.layers, "
             "repro_torch.models.frontends, repro_torch.models.model, "
             "repro_torch.models.serve, repro_torch.configs.gemma3_1b, "
-            "repro_torch.configs.jamba_1_5_large_398b\n"
+            "repro_torch.configs.jamba_1_5_large_398b, "
+            "repro_torch.models.sharding, repro_torch.models.train, "
+            "repro_torch.optim, repro_torch.data, "
+            "repro_torch.launch.train, repro_torch.launch.elastic, "
+            "repro_torch.launch.mesh\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.'))\n"
