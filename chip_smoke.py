@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
     python3 chip_smoke.py [--scale 22] [--chare-scale 18] [--chares 8] \
-        [--cost-scale 16]
+        [--cost-scale 15]
 
 Phases, each printing one JSON line with its seconds:
 
@@ -310,6 +310,21 @@ Phases, each printing one JSON line with its seconds:
              loss within 1e-3, the gradient norm within 2e-2, every
              gradient leaf within max(3e-2, the CPU gradient's own change
              under a rounding-level perturbation) of its max
+  dryrun     the dry run's model of the card (repro_torch.launch.dryrun,
+             opanalysis; repro_torch.benchmarks.kernelbench): gemma3-1b's
+             train step at train's shape (B=8, S=1024) and a decode step at
+             B=8 (a 1024-token cache) traced on the meta device, then run
+             once on the card under the same analyzer: FLOPs and launches
+             by op must be equal, meta against card.  Beside them: the
+             launches against the profiler's kernels a step (phases train
+             and lm), the roofline's bound against the step's measured ms,
+             the trace's peak against torch.cuda.max_memory_allocated, and
+             the traced train FLOPs against train's hand count.  Then the
+             kernel table's bytes from kernelbench at the main graphs'
+             shapes, which must equal the table's at scale 22 (fused
+             740,181,472 / 974,503,392 / 1,407,251,232, gather 719,742,976,
+             scatter 485,421,056), with the modeled ms beside phase
+             kernel_time's
 
 Then one JSON line with every kernel's numbers (launches from the main
 path for the fused pair, from staged_main for the staged four, from
@@ -343,9 +358,11 @@ import traceback
 ROOT = pathlib.Path(__file__).resolve().parent
 PORT = ROOT / "src" / "repro_torch"
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-FP32_OPS_PER_S = 67e12     # H100 SXM data sheet, float32 outside tensor cores
-BF16_OPS_PER_S = 989e12    # H100 SXM data sheet, dense bf16 tensor cores
+sys.path.insert(0, str(ROOT / "src"))
+try:  # the card's constants live in the port (main refuses a bare copy)
+    from repro_torch.launch.mesh import HBM_BW, PEAK_FLOPS_BF16, PEAK_FLOPS_F32
+except ImportError:
+    HBM_BW = PEAK_FLOPS_BF16 = PEAK_FLOPS_F32 = None
 ADD_RTOL = 1e-5
 
 
@@ -362,6 +379,10 @@ class Smoke:
         # kernel_time: the fused min's (some rows gated on the chare axis,
         # every row on grid(2,4)) and the staged pair's
         self.gated_call = self.bubble_call = self.staged_call = None
+        # read by phase dryrun: phase lm's serving metrics by architecture,
+        # phase train's gemma3-1b result, phase kernel_time's rows
+        self.lm_serving, self.train_result = {}, None
+        self.kernel_time_calls = self.staged_time_calls = None
 
     # -- helpers -------------------------------------------------------------
 
@@ -893,6 +914,15 @@ class Smoke:
             self.refs[(key, name)] = (ref, it, time.perf_counter() - t0)
         return self.refs[(key, name)]
 
+    def _references(self, graphs, key):
+        """The serial references of ``graphs`` ({program: graph}) computed
+        at once, one thread each (numpy on the host, mostly outside the
+        GIL), into ``_reference``'s cache; each one's seconds are its own
+        thread's, so they overlap."""
+        with concurrent.futures.ThreadPoolExecutor(len(graphs)) as pool:
+            list(pool.map(lambda item: self._reference(*item, key),
+                          graphs.items()))
+
     def _check_program(self, eng, name, graph, C, key,
                        labelprop_iters=False):
         """Warm run + timed run of one program; checks against the serial
@@ -960,14 +990,16 @@ class Smoke:
             if eng.dispatch["choice"] != "fused" or \
                     eng.dispatch["kernel"] != "cuda":
                 raise AssertionError(f"{name}: dispatch {eng.dispatch}")
+        names = ("pagerank", "pagerank_weighted", "sssp", "bfs", "labelprop")
+        graphs = {name: self.gu if name == "labelprop" else self.gw
+                  for name in names}
+        self._references(graphs, "main")
         torch.cuda.reset_peak_memory_stats()
         rows = []
         push_fused.reset_launch_counts()
-        for name in ("pagerank", "pagerank_weighted", "sssp", "bfs",
-                     "labelprop"):
-            graph = self.gu if name == "labelprop" else self.gw
-            rows.append(self._check_program(engines[name], name, graph, 1,
-                                            "main"))
+        for name in names:
+            rows.append(self._check_program(engines[name], name,
+                                            graphs[name], 1, "main"))
         self.main_launches = dict(push_fused.launch_counts)
         for k in ("fused_push_add", "fused_push_min", "fused_push_add_tiled",
                   "fused_push_add_merge", "fused_push_min_tiled"):
@@ -2154,8 +2186,8 @@ class Smoke:
         if cfg.num_experts:  # the published capacity's drops in decode
             with self._dropped_slots(drops):
                 server.decode(16)
-        bound = (param_bytes + 2 * state_bytes) / HBM_BYTES_PER_S * 1e3
-        return {
+        bound = (param_bytes + 2 * state_bytes) / HBM_BW * 1e3
+        self.lm_serving[cfg.name] = metrics = {
             "requests": R, "prompt_len": P, "generated": G,
             "cache_bytes": kv_bytes + state_bytes,
             "recurrent_state_bytes": state_bytes,
@@ -2165,13 +2197,14 @@ class Smoke:
             "decode_tok_per_s": R * steps / decode_s,
             "decode_bound_ms": bound,
             "decode_bound_with_cache_ms":
-                bound + kv_bytes / HBM_BYTES_PER_S * 1e3,
+                bound + kv_bytes / HBM_BW * 1e3,
             "decode_profile_4_steps": profile,
             "kernels_per_step": profile["device_ops"] / 4,
             "host_syncs_one_step": syncs,
             "decode_16_steps_slots_dropped": [sum(n for n, _ in drops),
                                               sum(d for _, d in drops)],
-            "sample_tokens": seq[0, P:P + 10].tolist()}, seq, server
+            "sample_tokens": seq[0, P:P + 10].tolist()}
+        return metrics, seq, server
 
     @staticmethod
     def _teacher_forced(cfg, params, stream, marks, max_len, keep_at=None,
@@ -2704,10 +2737,10 @@ class Smoke:
         fwd = 2 * weights * B * S + 4 * B * keys * H * hd
         flops = 3 * fwd
         byts = 2 * state_bytes
-        ms = max(flops / BF16_OPS_PER_S, byts / HBM_BYTES_PER_S) * 1e3
+        ms = max(flops / PEAK_FLOPS_BF16, byts / HBM_BW) * 1e3
         return {"flops": flops, "bytes": byts, "bound_ms": ms,
-                "bound_by": "operations" if flops / BF16_OPS_PER_S
-                > byts / HBM_BYTES_PER_S else "bytes"}
+                "bound_by": "operations" if flops / PEAK_FLOPS_BF16
+                > byts / HBM_BW else "bytes"}
 
     def _train_gemma(self, smoke, B, S, steps):
         """gemma3-1b at full width and depth (the module docstring)."""
@@ -2886,7 +2919,7 @@ class Smoke:
         warm = sorted(step_s[2:])
         step_ms = warm[len(warm) // 2] * 1e3
         bound = self._train_bound(cfg, B, S, state_bytes)
-        return {
+        self.train_result = result = {
             "arch": cfg.name, "B": B, "S": S, "steps": steps,
             "parameters": n_params, "state_bytes": state_bytes,
             "init_s": init_s, "losses": losses, "grad_norms": norms,
@@ -2908,6 +2941,7 @@ class Smoke:
             "train_loop": {"history": loop["history"], "seconds": loop_s},
             **bound, "step_over_bound": step_ms / bound["bound_ms"],
             "nvidia_smi": self.smi}
+        return result
 
     @staticmethod
     def _train_batch(cfg, seed, device, Bs=2, Ss=32):
@@ -3044,6 +3078,174 @@ class Smoke:
         torch.cuda.empty_cache()
         return rows
 
+    # -- phase dryrun --------------------------------------------------------
+
+    # the kernel table's bytes at the main graphs' shapes (PERF.md section 6)
+    TABLE_BYTES_22 = {"fused/pagerank": 740_181_472,
+                      "fused/pagerank_weighted": 974_503_392,
+                      "fused/labelprop": 1_407_251_232,
+                      "gather": 719_742_976, "scatter": 485_421_056}
+
+    def dryrun(self, smoke=False, B=8, S=1024):
+        """The dry run's model held to the card (the module docstring).  A
+        rehearsal passes ``smoke=True`` (gemma3's smoke config) and smaller
+        sizes."""
+        from repro_torch import configs
+
+        cfg = (configs.smoke_config if smoke else configs.get_config)(
+            "gemma3-1b")
+        out = {"nvidia_smi": self.smi}
+        for kind in ("train", "decode"):
+            row = self._dryrun_step(cfg, kind, B, S)
+            emit({"dryrun": kind, **row})
+            out[kind] = row
+        out["kernels"] = self._dryrun_kernels()
+        return out
+
+    def _dryrun_step(self, cfg, kind, B, S):
+        """One step of ``kind`` traced on meta and run once on the card
+        under the analyzer: the counts must be equal."""
+        import torch
+
+        from repro_torch.launch import dryrun as D
+        from repro_torch.launch import opanalysis as OA
+        from repro_torch.models import model as M
+        from repro_torch.models import train as T
+        from repro_torch.models.config import ShapeConfig
+
+        t0 = time.perf_counter()
+        fn, args = D.build_cell(cfg, ShapeConfig(kind, S, B, kind))
+        res, meta = OA.analyze(fn, *args)
+        memory = D.card_memory(args, res, meta)
+        trace_s = time.perf_counter() - t0
+        del res, args
+        rl = D.roofline(meta)
+
+        dev = torch.device("cuda")
+        torch.cuda.empty_cache()
+        gen = torch.Generator(device=dev).manual_seed(0)
+        toks = torch.randint(0, cfg.vocab_size, (B, S if kind == "train"
+                                                 else 1), generator=gen,
+                             device=dev, dtype=torch.int32)
+        if kind == "train":
+            state = T.init_state(gen, cfg, device=dev)
+            batch = {"tokens": toks, "labels": toks}
+            card_args = (state, batch)
+        else:
+            params = M.init_params(cfg, gen, dev)
+            cache = M.init_cache(cfg, B, S, dev)
+            card_args = (params, toks, S - 1, cache)
+        arg_bytes = sum(OA.storages(card_args).values())
+        fn(*card_args)  # warm (cuBLAS handles, the allocator's pools)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        res, card = OA.analyze(fn, *card_args)
+        torch.cuda.synchronize()
+        card_peak = torch.cuda.max_memory_allocated() - before
+        del res
+
+        def one():
+            r = fn(*card_args)
+            if kind == "train":
+                r[1]["loss"].item()
+            else:
+                r[0].float().sum().item()
+
+        step_ms = []
+        for _ in range(3 if kind == "train" else 10):
+            t0 = time.perf_counter()
+            one()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        del card_args
+        if kind == "train":
+            del state, batch
+        else:
+            del params, cache
+        torch.cuda.empty_cache()
+
+        same = {"flops": card.flops == meta.flops,
+                "flops_by_dtype": dict(card.flops_by_dtype)
+                == dict(meta.flops_by_dtype),
+                "ops": dict(card.ops) == dict(meta.ops)}
+        row = {"arch": cfg.name, "B": B, "S": S, "trace_s": trace_s,
+               "flops": meta.flops, "flops_by_dtype": dict(meta.flops_by_dtype),
+               "launches": meta.launches, "card_launches": card.launches,
+               "bytes_accessed": meta.bytes_accessed,
+               "card_bytes_accessed": card.bytes_accessed,
+               "equal": same, "roofline": rl,
+               "bound_ms": max(rl["compute_s"], rl["memory_s"]) * 1e3,
+               "step_ms": sorted(step_ms)[len(step_ms) // 2],
+               "memory": memory,
+               "trace_peak_above_args": meta.peak_live_bytes
+               - memory["argument_bytes"],
+               "card_trace_peak_above_args": card.peak_live_bytes
+               - arg_bytes,
+               "card_max_allocated_above_args": card_peak}
+        row["step_over_bound"] = row["step_ms"] / row["bound_ms"]
+        if kind == "train":
+            t = self.train_result or {}
+            row["profiler_kernels_per_step"] = t.get("kernels_per_step")
+            row["train_phase_step_ms"] = t.get("step_ms_median_warm")
+            hand = self._train_bound(cfg, B, S, sum(
+                OA.storages(T.abstract_state(cfg)).values()))
+            row["hand_count_flops"] = hand["flops"]
+            row["flops_over_hand_count"] = meta.flops / hand["flops"]
+        else:
+            lm = self.lm_serving.get(cfg.name, {})
+            row["profiler_kernels_per_step"] = lm.get("kernels_per_step")
+            row["lm_phase_decode_ms"] = lm.get("decode_ms_per_step")
+        if not all(same.values()):
+            diff = {k: (meta.ops.get(k, 0), card.ops.get(k, 0))
+                    for k in set(meta.ops) | set(card.ops)
+                    if meta.ops.get(k, 0) != card.ops.get(k, 0)}
+            raise AssertionError(f"dryrun {kind}: meta and card differ: "
+                                 f"{same}, flops {meta.flops} / "
+                                 f"{card.flops}, ops (meta, card) {diff}")
+        return row
+
+    def _dryrun_kernels(self):
+        """kernelbench's card model at the main graphs' shapes against the
+        kernel table's bytes (held at scale 22), with the modeled ms beside
+        phase kernel_time's."""
+        from repro_torch.benchmarks import kernelbench as KB
+
+        a = self.engines["pagerank"].arrays
+        au = self.engines["labelprop"].arrays
+        K, Ku = self.pgw.chunk_size, self.pgu.chunk_size
+        E = a["sd_src_local"].numel()
+        valid = int(a["sd_edge_valid"].sum())
+        valid_u = int(au["sd_edge_valid"].sum())
+        model = {
+            "fused/pagerank": (KB.fused_bytes(a["sd_band"], K, K),
+                               KB.fused_operations(valid)),
+            "fused/pagerank_weighted": (
+                KB.fused_bytes(a["sd_band"], K, K, weighted=True),
+                KB.fused_operations(valid)),
+            "fused/labelprop": (KB.fused_bytes(au["sd_band"], Ku, Ku),
+                                KB.fused_operations(valid_u)),
+            "gather": (KB.gather_bytes(E, K), 0),
+            "scatter": (KB.scatter_bytes(E, K), KB.scatter_operations(E))}
+        timed = {f"fused/{r['program']}": r["ms"]
+                 for r in self.kernel_time_calls or ()
+                 if r["case"] == "dense"}
+        timed.update({r["kernel"].split("_")[0]: r["ms"]
+                      for r in self.staged_time_calls or ()
+                      if r["layout"] == "sd" and r["B"] == 1
+                      and r["kernel"].endswith("_sum")})
+        rows = {k: {"bytes": b, "operations": o,
+                    "model_ms": KB.bound_s(b, o) * 1e3,
+                    "kernel_time_ms": timed.get(k),
+                    "table_bytes": self.TABLE_BYTES_22[k]}
+                for k, (b, o) in model.items()}
+        if self.args.scale == 22:
+            bad = {k: (r["bytes"], r["table_bytes"]) for k, r in rows.items()
+                   if r["bytes"] != r["table_bytes"]}
+            if bad:
+                raise AssertionError(f"kernelbench's bytes against the "
+                                     f"kernel table's: {bad}")
+        return rows
+
     def kernel_time(self):
         import torch
 
@@ -3167,7 +3369,9 @@ class Smoke:
                 **{b: {k: rb[k] for k in ("program", "ms", "plain_ms",
                                           "bound_ms", "atomic_ms")}
                    for b, rb in wide.items()}}
-        return {"calls": rows, "staged_calls": self._staged_time(),
+        self.kernel_time_calls = rows
+        self.staged_time_calls = self._staged_time()
+        return {"calls": rows, "staged_calls": self.staged_time_calls,
                 "gated_calls": self._gated_time()}
 
     def _min_paths(self, args, kw, got, what):
@@ -3265,6 +3469,7 @@ class Smoke:
         ``index_select`` as a yardstick only (it has no valid mask)."""
         import torch
 
+        from repro_torch.benchmarks import kernelbench as KB
         from repro_torch.kernels import push_staged as ps
         from repro_torch.kernels.push_fused import SENTINEL_F32
 
@@ -3300,14 +3505,14 @@ class Smoke:
                                    f"gather_{half}/{layout}/B={B}")
                 del want
                 src64 = src.reshape(-1).long()
-                nbytes = 8 * E + 4 * E * B + 4 * K * B
+                nbytes = KB.gather_bytes(E, K, B)
                 rows.append({
                     "kernel": f"gather_{half}", "layout": layout,
                     "program": prog, "B": B, "edges": E,
                     "ms": self.cuda_ms(lambda: gather(src, valid, vals), 20),
                     "plain_ms": self.cuda_ms(
                         lambda: gplain(src, valid, vals), 3),
-                    "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                    "bound_ms": KB.bound_s(nbytes) * 1e3,
                     "bytes": nbytes, "max_abs_err": err,
                     "library_ms": None,
                     "yardstick_ms": self.cuda_ms(
@@ -3335,7 +3540,8 @@ class Smoke:
                         .expand_as(cflat)
                     lib = lambda: out.scatter_reduce_(
                         0, dst64, cflat, reduce="amin", include_self=True)
-                nbytes, ops = 4 * E + 4 * E * B + 4 * K * B, E * B
+                nbytes = KB.scatter_bytes(E, K, B)
+                ops = KB.scatter_operations(E, B)
                 # kernel and library call in turns: k, lib, lib, k
                 k1 = self.cuda_ms(lambda: scatter(dst, c, K), 20)
                 l1, l2 = self.cuda_ms(lib, 20), self.cuda_ms(lib, 20)
@@ -3345,8 +3551,7 @@ class Smoke:
                     "program": prog, "B": B, "edges": E,
                     "ms": min(k1, k2),
                     "plain_ms": self.cuda_ms(lambda: splain(dst, c, K), 3),
-                    "bound_ms": max(nbytes / HBM_BYTES_PER_S,
-                                    ops / FP32_OPS_PER_S) * 1e3,
+                    "bound_ms": KB.bound_s(nbytes, ops) * 1e3,
                     "bytes": nbytes, "max_abs_err": err,
                     "library_ms": min(l1, l2),
                     "turns_ms": {"kernel": [k1, k2], "library": [l1, l2]}})
@@ -3376,22 +3581,20 @@ class Smoke:
 
     @staticmethod
     def _bound(a, vals, S, weighted, layout="sd"):
-        """Least time for one call: the bytes it must move (band table, the
-        edge planes of the non-empty edge blocks, vals read once, out
-        written once) over HBM bandwidth, or its operations (one transform
-        and one combine per valid edge and column) over the float32 rate,
-        whichever is larger.  ``layout`` names the arrays' prefix: ``sd``
-        or ``gr`` (the grid's rectangle layout)."""
-        band = a[f"{layout}_band"]
-        live_blocks = int((band[:, 1] >= 0).sum())
-        per_edge = 12 + (4 if weighted else 0)
+        """Least time for one call (``kernelbench``'s card model): the bytes
+        it must move (band table, the edge planes of the non-empty edge
+        blocks, vals read once, out written once) over HBM bandwidth, or
+        its operations (one transform and one combine per valid edge and
+        column) over the float32 rate, whichever is larger.  ``layout``
+        names the arrays' prefix: ``sd`` or ``gr`` (the grid's rectangle
+        layout)."""
+        from repro_torch.benchmarks import kernelbench as KB
+
         B = vals[0, 0].numel()
-        nbytes = (band.numel() * 4 + live_blocks * 256 * per_edge
-                  + vals.numel() * vals.element_size()
-                  + vals.shape[0] * S * B * vals.element_size())
-        ops = 2 * int(a[f"{layout}_edge_valid"].sum()) * B
-        ms = max(nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S) * 1e3
-        return ms, nbytes, ops
+        nbytes = KB.fused_bytes(a[f"{layout}_band"], vals.shape[1], S, B,
+                                weighted)
+        ops = KB.fused_operations(int(a[f"{layout}_edge_valid"].sum()), B)
+        return KB.bound_s(nbytes, ops) * 1e3, nbytes, ops
 
     def _yardstick(self, a, vals, S, combine):
         """One PyTorch call over values gathered beforehand: ``index_add_``
@@ -4261,7 +4464,7 @@ class Smoke:
         out_row = S * vals[0, 0].numel() * vals.element_size()
         nbytes = (band[0].numel() * 4 * rows + live * 256 * per_edge
                   + rows * row_vals + C * (out_row + 4))
-        return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
+        return nbytes / HBM_BW * 1e3, nbytes
 
     def _gated_time(self):
         """The gated kernels under real supersteps' row masks, each held
@@ -4378,7 +4581,7 @@ class Smoke:
             # its out rows
             nbytes = rows * (E * 16 if kernel == "gather_min"
                              else E * 8 + S * 4)
-            bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            bound_ms = nbytes / HBM_BW * 1e3
             out[f"{kernel}/gated"] = {
                 "active_rows": rows, "rows": int(ra.numel()),
                 "ms": min(g1, g2), "ungated_ms": min(f1, f2),
@@ -4432,6 +4635,7 @@ class Smoke:
         card there, asserted) with the host build of the sd layout; the
         seconds of each partition's relabel and of each layout build.
         -> (pgw, pgu, record)."""
+        import contextlib
         import os
 
         import numpy as np
@@ -4439,21 +4643,25 @@ class Smoke:
 
         from repro_torch.core import graph as G
 
-        def build(mode, g, which, partitioner="grid(1,1)"):
+        @contextlib.contextmanager
+        def builds_on(mode):
             old = os.environ.get("REPRO_DEVICE_BUILD")
             os.environ["REPRO_DEVICE_BUILD"] = mode
             try:
-                t0 = time.perf_counter()
-                pg = G.partition(g, 1, partitioner, eager=False)
-                t1 = time.perf_counter()
-                pg._layout(which)
-                torch.cuda.synchronize()
-                t2 = time.perf_counter()
+                yield
             finally:
                 if old is None:
                     del os.environ["REPRO_DEVICE_BUILD"]
                 else:
                     os.environ["REPRO_DEVICE_BUILD"] = old
+
+        def build(g, which, partitioner="grid(1,1)"):
+            t0 = time.perf_counter()
+            pg = G.partition(g, 1, partitioner, eager=False)
+            t1 = time.perf_counter()
+            pg._layout(which)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
             return pg, {"relabel_s": t1 - t0, "build_s": t2 - t1,
                         "build": pg.layout_builds[which]}
 
@@ -4464,10 +4672,16 @@ class Smoke:
                     raise AssertionError(f"device-built {what} {name} "
                                          "differs from the host build")
 
-        pgw, dev_w = build("device", self.gw, "grid")
-        pgu, dev_u = build("device", self.gu, "grid")
-        host_grid, host_w = build("host", self.gw, "grid")
-        host_sd, host_s = build("host", self.gw, "sd", "contiguous")
+        with builds_on("device"):
+            pgw, dev_w = build(self.gw, "grid")
+            pgu, dev_u = build(self.gu, "grid")
+        # the two host builds at once, one thread each (numpy, mostly
+        # outside the GIL): their seconds overlap
+        with builds_on("host"), concurrent.futures.ThreadPoolExecutor(2) as \
+                pool:
+            (host_grid, host_w), (host_sd, host_s) = pool.map(
+                lambda args: build(*args),
+                ((self.gw, "grid"), (self.gw, "sd", "contiguous")))
         builds = {"grid": dev_w, "grid_undirected": dev_u,
                   "grid_host": host_w, "sd_host": host_s,
                   "sd": self.pgw.layout_builds["sd"]}
@@ -4853,8 +5067,8 @@ class Smoke:
             nbytes = (band.numel() * 4 + live * 256 * per_edge
                       + vals.numel() * 4 + 2 * init.numel() * 4)
             ops = 2 * int(wd["gr_edge_valid"].sum())
-            bound_ms = max(nbytes / HBM_BYTES_PER_S,
-                           ops / FP32_OPS_PER_S) * 1e3
+            bound_ms = max(nbytes / HBM_BW,
+                           ops / PEAK_FLOPS_F32) * 1e3
             n = launches[prog][f"fused_push_{combine}"]
             out[name] = {"window": k, "edges": int(wd["gr_edge_valid"].sum()),
                          "ms": min(m1, m2), "gated_off_ms": min(g1, g2),
@@ -4870,8 +5084,8 @@ class Smoke:
                              else "src/repro/kernels/push_fused.py:54"),
                 "launches": n, "max_abs_err": max(errs), "ms": min(m1, m2),
                 "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
-                >= ops / FP32_OPS_PER_S else "operations",
+                "bound_by": "bytes" if nbytes / HBM_BW
+                >= ops / PEAK_FLOPS_F32 else "operations",
                 "library_ms": None,
                 "timed_call": f"{prog} window {k} of {sb.num_windows}, "
                               "grid(1,1), init-seeded, rectangle active "
@@ -4894,7 +5108,7 @@ class Smoke:
 PHASES = ("device", "build", "kernels", "graph", "main", "reproducible",
           "batch", "serve", "grid", "replan", "async", "stream", "cost",
           "staged_main", "profile", "kernel_time", "kernels_main", "chares",
-          "push_choice", "quickstart", "lm", "train")
+          "push_choice", "quickstart", "lm", "train", "dryrun")
 
 
 def main(argv=None) -> int:
@@ -4904,7 +5118,7 @@ def main(argv=None) -> int:
     ap.add_argument("--chare-scale", type=int, default=18,
                     help="log2 vertices of the chare-axis graph")
     ap.add_argument("--chares", type=int, default=8)
-    ap.add_argument("--cost-scale", type=int, default=16,
+    ap.add_argument("--cost-scale", type=int, default=15,
                     help="log2 vertices of the paper graphs of phase cost")
     args = ap.parse_args(argv)
     if not (PORT / "kernels" / "csrc").is_dir():

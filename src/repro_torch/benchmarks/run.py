@@ -41,20 +41,30 @@ a ``device`` row naming what the measured rows ran on:
                efficiency, edge bandwidth, the gate's fetch-skip fraction,
                the layout cache's cold/warm prep, and the batched plane's
                edge bytes and queries/s per query at B=16 against B=1
-               (<= 1/8 enforced, the reference's bar)
+               (<= 1/8 enforced, the reference's bar); then the card's
+               window-pipeline model (streaming.model.*)
+  kernel.*     push validation (each path against the plain oracle), the
+               plain push's seconds, and the card's cost model of the
+               staged pair and the fused kernel on the RMAT stand-in's real
+               layout (band-pruned tiles, launches, bytes-bound seconds)
+  dispatch.*   what push_fn='auto' chose per layout (the power-law stand-in
+               and a near-uniform contrast graph)
+  throughput.model / serving.model
+               the card's amortization models of the batched plane (bfs
+               at B=16, the fixed-iteration PPR plane)
+  roofline.*   dry-run roofline aggregates (reads experiments/dryrun_torch/,
+               written by repro_torch.launch.dryrun)
 
 The table sections iterate the vertex-program registry; a wrong result
 fails the run.  Quick mode keeps the engine sweep on the default placement;
-the full run also measures the edge-balanced policy per strategy.
+the full run also measures the edge-balanced policy per strategy.  The
+models' rows (``kernel.push.card_model_*``, ``*.model.*``) are the card's
+(``benchmarks/kernelbench.py``), not the reference's TPU models.
 
-Sections of the reference that print nothing here, by ROADMAP queue 1 item:
-  throughput.model, serving.model, streaming.model, kernel.*,
-  dispatch.*                   item 4: their cost models are the TPU's,
-                               and wait for a model of the card
-  roofline.*                   item 12.11 (the dry-run roofline)
-
-``--json`` writes the ``algorithms``, ``grid``, ``throughput``,
-``serving``, ``async`` and ``streaming`` sections of ``BENCH_cost.json``.
+``--json`` writes ``BENCH_cost.json`` (the ``algorithms``, ``grid``,
+``adaptive_dispatch``, ``throughput``, ``serving``, ``async`` and
+``streaming`` sections) and ``BENCH_kernels.json`` (validation errors, the
+plain push's seconds, the card's cost model and the launch counts).
 """
 
 from __future__ import annotations
@@ -214,6 +224,94 @@ def streaming_rows(scale, repeats, device, record):
     ]
 
 
+def kernel_rows(scale, device, record):
+    """The ``kernel.*`` and ``dispatch.*`` rows by the reference's names
+    (the TPU model's ``tpu_model_*`` as ``card_model_*``): each push path
+    against the plain oracle, the plain push's seconds, and the card's cost
+    model on the RMAT stand-in's layout (8 chares) and on a near-uniform
+    contrast graph.  Fills ``record`` with BENCH_kernels.json's sections
+    and ``adaptive_dispatch``.  -> (list of (name, value, derived), the
+    stand-in's partition for the model rows)."""
+    from repro_torch.benchmarks import kernelbench
+    from repro_torch.core import load_dataset, partition
+    from repro_torch.core.graph import erdos_renyi
+
+    err_staged = kernelbench.validate(fused=False, device=device)
+    err_fused = kernelbench.validate(fused=True, device=device)
+    t, E = kernelbench.bench_ref(device=device)
+    pg = partition(load_dataset("soc-lj1-mini", scale_log2=scale), 8)
+    cm = kernelbench.layout_cost_model(pg)
+    rows = [("kernel.push.staged_maxerr", f"{err_staged:.2e}", ""),
+            ("kernel.push.fused_maxerr", f"{err_fused:.2e}", ""),
+            ("kernel.push.ref_jnp", f"{t:.4f}",
+             f"{E / t / 1e6:.1f} Medges/s (the plain torch push)"),
+            ("kernel.push.tiles_staged", cm["staged"]["tiles"],
+             f"launches={cm['staged']['launches']}"),
+            ("kernel.push.tiles_fused", cm["fused"]["tiles"],
+             f"launches={cm['fused']['launches']} "
+             f"occupancy={cm['tile_occupancy']:.3f}"),
+            ("kernel.push.tile_ratio", f"{cm['tile_ratio']:.2f}",
+             "dense/fused: >=4 expected on power-law graphs")]
+    for path in ("staged", "fused"):
+        m = cm[path]
+        rows.append((f"kernel.push.card_model_{path}",
+                     f"{max(m['compute_s'], m['hbm_s']):.2e}",
+                     f"bound={m['bound']} bytes={m['hbm_bytes']}"))
+    uniform = erdos_renyi(1 << scale, 2 * (1 << scale), seed=1)
+    cmu = kernelbench.layout_cost_model(partition(uniform, 8))
+    adaptive = {"rmat_standin": cm["dispatch"], "near_uniform": cmu["dispatch"]}
+    for gname, d in adaptive.items():
+        rows.append((f"dispatch.{gname}", d["choice"],
+                     f"max_occ={d['max_occupancy']:.3f} "
+                     f"tiles_fused={d['tiles_fused']} "
+                     f"tiles_staged={d['tiles_staged']}"))
+    record.update({"validation": {"staged_maxerr": err_staged,
+                                  "fused_maxerr": err_fused},
+                   "ref_plain": {"seconds": t, "medges_per_s": E / t / 1e6},
+                   "cost_model": cm,
+                   "launches": dict(kernelbench.LAUNCHES),
+                   "adaptive_dispatch": adaptive})
+    return rows, pg
+
+
+def streaming_model_rows(scale):
+    """The ``streaming.model.*`` rows: the card's window-pipeline model on
+    the weighted stand-in at grid(1,1), at B=1 and B=16.  -> (rows, the
+    two models)."""
+    from repro_torch.benchmarks import kernelbench
+    from repro_torch.core import load_dataset, partition
+
+    pg = partition(load_dataset("soc-lj1-mini", scale_log2=scale,
+                                weighted=True), 1, "grid(1,1)")
+    sm = kernelbench.streaming_cost_model(pg)
+    smb = kernelbench.streaming_cost_model(pg, batch=16)
+    link = (f"host link {sm['host_link_bw']:.3e} B/s (PCIe 5.0 x16 data "
+            f"sheet; measured H2D {sm['measured_h2d_bw']:.3e})")
+    return [
+        ("streaming.model.hiding", f"{sm['hiding']:.3f}",
+         f"bound={sm['bound']} pipelined={sm['pipelined_superstep_s']:.2e}s "
+         f"serialized={sm['serialized_superstep_s']:.2e}s {link}"),
+        ("streaming.model.crossover", f"{sm['crossover_intensity']:.0f}",
+         f"operations/byte needed to hide the host link; layout sustains "
+         f"{sm['intensity_flops_per_byte']:.3f} -> crossover at "
+         f"B={sm['crossover_batch']}"),
+        ("streaming.model.batched_hiding", f"{smb['hiding']:.3f}",
+         f"B=16: compute per window scales 16x and copy is unchanged; "
+         f"edge_bytes_per_query={smb['edge_bytes_per_query']:.3e} "
+         f"bound={smb['bound']}")], sm, smb
+
+
+def roofline_rows(dirname="experiments/dryrun_torch"):
+    """The ``roofline.*`` rows: aggregates of the dry-run's records."""
+    from repro_torch.benchmarks import roofline
+
+    s = roofline.summarize(roofline.load_records(dirname))
+    if not s:
+        return [("roofline.cells_compiled", 0,
+                 "run repro_torch.launch.dryrun first")]
+    return [(f"roofline.{k}", v, "") for k, v in s.items()]
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--scale", type=int, default=13,
@@ -221,9 +319,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--quick", action="store_true",
                     help="smaller graphs / fewer repeats")
     ap.add_argument("--json", action="store_true",
-                    help="write the algorithms, grid, throughput, "
-                         "serving, async and streaming sections of "
-                         "BENCH_cost.json")
+                    help="write BENCH_cost.json and BENCH_kernels.json")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
     args = ap.parse_args(argv)
@@ -232,7 +328,7 @@ def main(argv=None) -> dict:
 
     import torch
 
-    from repro_torch.benchmarks import tables
+    from repro_torch.benchmarks import kernelbench, tables
     from repro_torch.core import registered_names
     from repro_torch.core.engine import resolve_device
 
@@ -277,7 +373,18 @@ def main(argv=None) -> dict:
     for line in lines:
         emit(*line)
 
+    # ---- kernels: validation, plain timing, the card's cost model ----------
+    kernels_json = {"schema": 1, "scale_log2": scale, "device": name}
+    lines, pg = kernel_rows(scale, device, kernels_json)
+    for line in lines:
+        emit(*line)
+    cost_json["adaptive_dispatch"] = kernels_json.pop("adaptive_dispatch")
+
     # ---- batched multi-query throughput (DESIGN.md section 11) -------------
+    bm = kernelbench.batched_cost_model(pg, 16)
+    emit("throughput.model.speedup@B16", f"{bm['speedup']:.2f}",
+         f"tiles/query {bm['tiles_per_query_seq']} -> "
+         f"{bm['tiles_per_query_batched']:.0f} (the card's model)")
     tp = tables.throughput_table(scale_log2=scale, repeats=repeats,
                                  device=device)
     emit(f"throughput.{tp['graph']}.{tp['algo']}.batched@B{tp['B']}",
@@ -287,9 +394,13 @@ def main(argv=None) -> dict:
     emit(f"throughput.{tp['graph']}.{tp['algo']}.measured_speedup",
          f"{tp['measured_speedup']:.2f}",
          f"budget={tp['superstep_budget']} supersteps")
-    cost_json["throughput"] = tp
+    cost_json["throughput"] = {**tp, "model": bm}
 
     # ---- deadline-aware serving (DESIGN.md section 14) ---------------------
+    fm = kernelbench.fixediter_cost_model(pg, 16, iters=8)
+    emit("serving.model.ppr_speedup@B16", f"{fm['speedup']:.2f}",
+         f"fixed-iter plane: {fm['iters']} supersteps/query (the card's "
+         "model)")
     ppr = tables.throughput_table(scale_log2=scale, repeats=repeats,
                                   algo="personalized_pagerank", B=16,
                                   device=device)
@@ -319,7 +430,8 @@ def main(argv=None) -> dict:
     if not checks["p99_rises_1.2x"]:
         raise AssertionError(f"latency curve is flat across offered loads: "
                              f"{lt['curve']}")
-    cost_json["serving"] = {**lt, "ppr_throughput": ppr, "checks": checks}
+    cost_json["serving"] = {**lt, "ppr_throughput": ppr, "checks": checks,
+                            "model": fm}
 
     # ---- barrier-relaxed execution (DESIGN.md section 12) ------------------
     cost_json["async"] = {}
@@ -333,10 +445,21 @@ def main(argv=None) -> dict:
                                                cost_json["streaming"]):
         emit(name, value, derived)
 
+    lines, sm, smb = streaming_model_rows(scale)
+    for line in lines:
+        emit(*line)
+    cost_json["streaming"].update({"model": sm, "model_batched": smb})
+
+    # ---- roofline aggregates ----------------------------------------------
+    for line in roofline_rows():
+        emit(*line)
+
     if args.json:
-        with open("BENCH_cost.json", "w") as f:
-            json.dump(cost_json, f, indent=2, default=float)
-        emit("json.BENCH_cost.json", "written")
+        for fname, payload in (("BENCH_cost.json", cost_json),
+                               ("BENCH_kernels.json", kernels_json)):
+            with open(fname, "w") as f:
+                json.dump(payload, f, indent=2, default=float)
+            emit(f"json.{fname}", "written")
     return cost_json
 
 

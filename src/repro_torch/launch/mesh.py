@@ -19,6 +19,15 @@ from __future__ import annotations
 import dataclasses
 import math
 
+# The card's constants for the roofline (``launch/dryrun.py``) and the
+# graph kernels' cost model (``benchmarks/kernelbench.py``): the NVIDIA
+# H100 SXM data sheet's figures at its 700 W limit.  A card set to a lower
+# power limit runs slower under load; ``nvidia-smi`` reports the limit.
+PEAK_FLOPS_BF16 = 989e12  # dense bf16 on the tensor cores, FLOP/s
+PEAK_FLOPS_F32 = 67e12    # float32 on the CUDA cores (TF32 off), FLOP/s
+HBM_BW = 3.35e12          # HBM3, bytes/s
+HBM_BYTES = 80e9          # device memory, bytes
+
 
 @dataclasses.dataclass(frozen=True)
 class MeshSpec:

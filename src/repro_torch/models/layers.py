@@ -150,18 +150,22 @@ def chunked_attention(q, k, v, q_pos, k_pos, *, causal=True, window=0,
 
     outs = []
     for qi, qpos in zip(qg, qp):  # [B,H,qc,hd], [qc]
-        start = 0
-        if nb < nk:  # banded: the needed kv-chunk window (one host read)
-            start = min(max((int(qpos[0]) - window + 1) // kv_chunk, 0),
-                        nk - nb)
+        kcb, vcb, kpb = kc, vc, kp
+        if nb < nk:  # banded: the needed kv-chunk window, picked on the
+            # device (no host read: the step traces on ``meta`` and the
+            # host does not wait on the card)
+            first = torch.clamp(torch.div(qpos[0] - window + 1, kv_chunk,
+                                          rounding_mode="floor"), 0, nk - nb)
+            band = first + torch.arange(nb, device=q.device)
+            kcb, vcb, kpb = (t.index_select(0, band) for t in (kc, vc, kp))
         m_run = torch.full((B, H, q_chunk), NEG_INF, dtype=torch.float32,
                            device=q.device)
         l_run = torch.zeros((B, H, q_chunk), dtype=torch.float32,
                             device=q.device)
         acc = torch.zeros((B, H, q_chunk, hd), dtype=torch.float32,
                           device=q.device)
-        for c in range(start, start + nb):
-            kc_i, vc_i, kpos = kc[c], vc[c], kp[c]  # [B,H,c,hd]
+        for c in range(nb):
+            kc_i, vc_i, kpos = kcb[c], vcb[c], kpb[c]  # [B,H,c,hd]
             s = torch.einsum("bhqd,bhcd->bhqc", qi.float(), kc_i.float())
             s = softcap(s * scale, logit_softcap)
             ok = _mask(qpos, kpos, causal, window) == 0.0  # [qc, c] bool

@@ -72,8 +72,16 @@ def _aux_loss(gates, top_idx, cfg):
     T = gates.shape[0]
     E, k = cfg.num_experts, cfg.top_k
     me = gates.mean(0)
-    ce = torch.bincount(top_idx.reshape(-1), minlength=E).to(F32) / (T * k)
+    ce = _counts(top_idx.reshape(-1), E).to(F32) / (T * k)
     return E * torch.sum(me * ce)
+
+
+def _counts(ids, n: int):
+    """Slots per id over ``[n]`` ids: ``torch.bincount``'s counts, which
+    sizes its output from the ids' maximum and so syncs the host (and has
+    no ``meta`` kernel); this adds into a fixed ``[n]`` instead."""
+    return torch.zeros(n, dtype=torch.int64, device=ids.device).scatter_add_(
+        0, ids.long(), torch.ones_like(ids, dtype=torch.int64))
 
 
 def _slot_positions(e_ids, num_buckets):
@@ -85,7 +93,7 @@ def _slot_positions(e_ids, num_buckets):
     n = e_ids.shape[0]
     order = torch.argsort(e_ids, stable=True)  # paper's edge sort
     sorted_e = e_ids[order]
-    counts = torch.bincount(sorted_e, minlength=num_buckets + 1)
+    counts = _counts(sorted_e, num_buckets + 1)
     starts = torch.cumsum(counts, 0) - counts
     pos_sorted = torch.arange(n, device=e_ids.device) - starts[sorted_e]
     pos = torch.empty(n, dtype=torch.int32, device=e_ids.device)

@@ -169,9 +169,12 @@ def init_mlstm(cfg, generator, device):
     }
 
 
-def _mlstm_chunk_scan(q, k, v, li, lf, C0, n0):
+def _mlstm_chunk_scan(q, k, v, li, lf, C0, n0, final_state=True):
     """q,k,v: [B,H,S,dh]; li,lf: [B,H,S] log input / log-sigmoid forget gates.
     Chunkwise linear attention: returns h [B,H,S,dh] f32, final (C, n).
+    ``final_state=False`` skips the last chunk's state update, which
+    nothing reads then (XLA drops it from the reference's compiled scan as
+    dead code), and returns ``(h, None)``.
 
     Chunks of ``MLSTM_CHUNK`` without padding: the reference reshapes S
     into ``S // c`` chunks, so it takes S <= 256 or a multiple of 256, and
@@ -206,6 +209,8 @@ def _mlstm_chunk_scan(q, k, v, li, lf, C0, n0):
         n_intra = ws.sum(dim=-1)
         denom = torch.clamp(torch.abs(n_q + n_intra), min=1.0)
         hs.append((h_intra + h_inter) / denom[..., None])
+        if not final_state and start + c == S:
+            return torch.cat(hs, dim=2), None
         # state update
         g = torch.exp(torch.clamp(btot - b + ii, _LOG_FLOOR, 20.0))
         decay = torch.exp(torch.clamp(btot, _LOG_FLOOR, 0.0))  # [B,H,1]
@@ -238,10 +243,12 @@ def mlstm_fwd(p, x, cfg, want_cache=False):
     lf = F.logsigmoid(gates[..., H:]).transpose(1, 2)
     C0 = torch.zeros((B, H, dh, dh), dtype=F32, device=x.device)
     n0 = torch.zeros((B, H, dh), dtype=F32, device=x.device)
-    h, (C, n) = _mlstm_chunk_scan(q, k, v, li, lf, C0, n0)
+    h, state = _mlstm_chunk_scan(q, k, v, li, lf, C0, n0,
+                                 final_state=want_cache)
     h = h.transpose(1, 2).reshape(B, S, di).to(x.dtype)
     out = torch.einsum("bse,ed->bsd", h, p["out_proj"])
     if want_cache:
+        C, n = state
         return out, {"C": C, "n": n}
     return out
 

@@ -173,6 +173,24 @@ def test_slot_positions_are_ranks():
                                   jnp.asarray(ids), nb)))
 
 
+def test_routing_counts_run_on_meta():
+    """``_slot_positions`` and ``_aux_loss`` count into fixed-size zeros
+    (``scatter_add_``), not ``torch.bincount``, whose output size is read
+    from the ids (a host sync on the card, no ``meta`` kernel): both run
+    on ``meta`` tensors, and the counts equal ``bincount``'s."""
+    e = torch.empty(4096, dtype=torch.int64, device="meta")
+    pos = TMOE._slot_positions(e, 384)
+    assert pos.device.type == "meta" and pos.shape == (4096,)
+    tcfg = make_cfg(TConfig, E=8, k=2)
+    aux = TMOE._aux_loss(torch.empty((64, 8), device="meta"),
+                         torch.empty((64, 2), dtype=torch.int64,
+                                     device="meta"), tcfg)
+    assert aux.device.type == "meta" and aux.shape == ()
+    ids = torch.from_numpy(np.random.default_rng(3).integers(0, 17, 999))
+    assert torch.equal(TMOE._counts(ids, 17),
+                       torch.bincount(ids, minlength=17))
+
+
 def test_capacity_drops_tokens():
     """cf tiny -> most slots dropped -> output far smaller in norm."""
     _, tp = _params(8, 2)

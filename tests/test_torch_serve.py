@@ -568,10 +568,11 @@ def test_benchmark_run_prints_the_ported_sections(monkeypatch, tmp_path,
                                                   capsys):
     """``repro_torch.benchmarks.run`` prints the imbalance, wire,
     wire_batch, throughput, serving, async and streaming rows by the
-    reference's names beside the table, cost, fig12 and grid rows
-    (``test_torch_tables.py`` holds those), nothing of the sections not
-    ported, passes the curve's, the async and the streaming assertions and
-    writes BENCH_cost.json's serving, async and streaming sections."""
+    reference's names beside the table, cost, fig12, grid, kernel,
+    dispatch and roofline rows (``test_torch_tables.py`` holds those),
+    every section of the reference's, passes the curve's, the async and
+    the streaming assertions and writes BENCH_cost.json's serving, async
+    and streaming sections."""
     monkeypatch.chdir(tmp_path)
     monkeypatch.setattr(serve, "time", FixedStepTime())
     out = brun.main(["--scale", "7", "--device", "cpu", "--json"])
@@ -580,7 +581,8 @@ def test_benchmark_run_prints_the_ported_sections(monkeypatch, tmp_path,
     assert heads == {"device", "imbalance", "wire", "wire_batch",
                      "throughput", "serving", "json", "table2", "table3",
                      "table4", "table5", "table6", "table7", "table8",
-                     "cost", "fig12", "grid", "async", "streaming"}
+                     "cost", "fig12", "grid", "async", "streaming",
+                     "kernel", "dispatch", "roofline"}
     names = {line.split(",")[0] for line in lines}
     for name in ("throughput.soc-lj1-mini.bfs.batched@B16",
                  "throughput.soc-lj1-mini.bfs.seq_loop@B16",

@@ -134,8 +134,10 @@ def test_benchmark_run_prints_the_tables_by_the_reference_names(
         monkeypatch, tmp_path, capsys):
     """``python -m repro_torch.benchmarks.run`` prints the reference's
     table2-table8, cost.*, fig12.* and grid.* rows (every result correct,
-    or the run fails), the grid values equal to the reference's, and
-    writes the algorithms and grid sections of BENCH_cost.json."""
+    or the run fails), the grid values equal to the reference's, the
+    kernel.*, dispatch.*, *.model.* and roofline.* rows by the reference's
+    names (its ``tpu_model_*`` as ``card_model_*``), and writes
+    BENCH_cost.json's sections and BENCH_kernels.json."""
     monkeypatch.chdir(tmp_path)
     monkeypatch.setattr(serve, "time", FixedStepTime())
     out = brun.main(["--scale", "6", "--device", "cpu", "--json"])
@@ -156,8 +158,27 @@ def test_benchmark_run_prints_the_tables_by_the_reference_names(
             f"{m['stats']['edge_imbalance']:.3f}"
     saved = __import__("json").loads((tmp_path / "BENCH_cost.json")
                                      .read_text())
-    assert set(saved) >= {"algorithms", "grid", "throughput", "serving"}
+    assert set(saved) >= {"algorithms", "grid", "throughput", "serving",
+                          "adaptive_dispatch"}
     assert set(saved["algorithms"]) == set(PROGRAMS)
+    models = ("kernel.", "dispatch.", "throughput.model", "serving.model",
+              "streaming.model", "roofline.")
+    assert {n for n in rows if n.startswith(models)} == {
+        "kernel.push.staged_maxerr", "kernel.push.fused_maxerr",
+        "kernel.push.ref_jnp", "kernel.push.tiles_staged",
+        "kernel.push.tiles_fused", "kernel.push.tile_ratio",
+        "kernel.push.card_model_staged", "kernel.push.card_model_fused",
+        "dispatch.rmat_standin", "dispatch.near_uniform",
+        "throughput.model.speedup@B16", "serving.model.ppr_speedup@B16",
+        "streaming.model.hiding", "streaming.model.crossover",
+        "streaming.model.batched_hiding", "roofline.cells_compiled"}
+    for path in ("staged", "fused"):
+        assert float(rows[f"kernel.push.{path}_maxerr"][0]) < 1e-4
+    assert rows["roofline.cells_compiled"][0] == "0"
+    kernels = __import__("json").loads((tmp_path / "BENCH_kernels.json")
+                                       .read_text())
+    assert set(kernels) >= {"validation", "cost_model", "launches"}
+    assert saved["throughput"]["model"]["speedup"] > 1
 
 
 def test_benchmark_run_fails_on_a_wrong_result(monkeypatch, capsys):
