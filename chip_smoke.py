@@ -183,6 +183,27 @@ Phases, each printing one JSON line with its seconds:
              and Engine(pg, "sortdest", push_fn=None): one gather and one
              scatter launch per superstep, no fused launch; counts zeroed
              before and read after; the serial references of main reused
+  mesh       the graph engine across processes (Engine(pg, mesh=m),
+             repro_torch.core.mesh) at one NCCL rank in this process (a
+             file:// store in a temporary directory, the group destroyed
+             at the end of the phase): the main graphs at C=1 under
+             sortdest (fused), reduction, pairs, basic (staged) and
+             grid(1,1) with both lowerings (stream's partitions), each
+             running pagerank, pagerank_weighted, sssp, bfs and labelprop
+             and run_batch at B=16 for bfs and personalized PageRank
+             beside the same engine with mesh=None: results bit for bit
+             (where the mesh=None engine's own two runs are; the atomic
+             float adds of reduction and basic are in no fixed order and
+             are held within rtol=1e-5) with equal supersteps, equal
+             launch counts (zeroed before each run, read after), and the
+             NCCL calls each superstep must issue (phase 2's collective,
+             the quiescence vote, one gather of the result) counted in
+             PeMesh; seconds with and without the mesh on the main path
+             in three turns.  With two or more cards, min(cards, 4) NCCL
+             ranks (spawn) on the chare-axis graph at C=W, each strategy
+             and the grid shapes of W against the one-device engine at
+             C=W; with one, the line {"phase": "mesh", "multi_card":
+             "not run", "devices": 1}
   profile    device time by kernel over one pagerank and one bfs run of
              the main path and of the staged path (torch.profiler) and the
              device's busy share
@@ -1472,7 +1493,8 @@ class Smoke:
         # pinned cache with a load's result blocks before its loads, where
         # a fresh 128 MiB cudaHostAlloc inside a dispatch once stalled it
         # for 0.08-0.28 s (scripts/torch_serve_first_curve.py); no
-        # dispatch of a load may allocate one
+        # dispatch of a load, and none of the warm drains whose dispatch
+        # time scales every load and SLO, may allocate one
         counted = self._PinnedCounted(eng)
         lt = tables.latency_table(
             engine=counted, B=B, loads=(0.25, 1.0, 4.0),
@@ -1484,13 +1506,16 @@ class Smoke:
             "fresh_s": sum(t for _, t in in_loads),
             "warm_drain_fresh_blocks": sum(
                 n for n, _ in counted.fresh[:-len(in_loads)])}
-        if pinned_fresh["fresh_blocks"]:
-            raise AssertionError(f"the loads allocated pinned blocks: "
-                                 f"{pinned_fresh}")
+        if pinned_fresh["fresh_blocks"] or \
+                pinned_fresh["warm_drain_fresh_blocks"]:
+            raise AssertionError(f"the loads or the warm drains allocated "
+                                 f"pinned blocks: {pinned_fresh}")
         checks = tables.curve_checks(lt["curve"])
         if not all(checks.values()):
-            raise AssertionError(f"latency curve checks {checks}: "
-                                 f"{lt['curve']}")
+            # the warm estimates last: the end of a long message survives
+            raise AssertionError(
+                f"latency curve checks {checks}: {lt['curve']}; warm "
+                f"{ {k: v for k, v in lt.items() if k != 'curve'} }")
         throughput = [tables.throughput_table(engine=eng, algo=algo, B=16,
                                               budget=8)
                       for algo in ("bfs", "personalized_pagerank")]
@@ -1970,6 +1995,289 @@ class Smoke:
                     engines["basic"][0].arrays["pb_valid"].shape[-1]),
                 "engine_setup_s": round(setup_s, 3),
                 "peak_device_bytes": torch.cuda.max_memory_allocated()}
+
+    # -- the graph engine across processes -----------------------------------
+
+    MESH_PROGRAMS = ("pagerank", "pagerank_weighted", "sssp", "bfs",
+                     "labelprop")
+
+    def _mesh_pairs(self, mesh):
+        """Phase mesh's engines: (name, mesh=None engines, mesh engines),
+        each pair (weighted graph, symmetrized graph)."""
+        from repro_torch.core import Engine
+
+        gw11, gu11 = self._grid11()
+        out = []
+        for name, (pgw, pgu), kw, plain in (
+                ("sortdest", (self.pgw, self.pgu), {},
+                 (self.engines["pagerank"], self.engines["labelprop"])),
+                ("reduction", (self.pgw, self.pgu),
+                 {"strategy": "reduction"}, None),
+                ("pairs", (self.pgw, self.pgu), {"strategy": "pairs"}, None),
+                ("basic", (self.pgw, self.pgu), {"strategy": "basic"},
+                 self.staged_engines["basic"]),
+                ("grid(1,1)/grouped", (gw11, gu11),
+                 {"collectives": "grouped"}, None),
+                ("grid(1,1)/full", (gw11, gu11), {"collectives": "full"},
+                 None)):
+            if plain is None:
+                plain = (Engine(pgw, **kw), Engine(pgu, **kw))
+            meshed = (Engine(pgw, mesh=mesh, **kw),
+                      Engine(pgu, mesh=mesh, **kw))
+            out.append((name, plain, meshed))
+        return out
+
+    def _grid11(self):
+        """The main graphs' grid(1,1) partitions: phase stream's (its
+        uploads cleared there), or built here when that phase did not
+        run."""
+        if not hasattr(self, "grid11"):
+            from repro_torch.core import graph as G
+
+            self.grid11 = tuple(G.partition(g, 1, "grid(1,1)", eager=False)
+                                for g in (self.gw, self.gu))
+        return self.grid11
+
+    @staticmethod
+    def _mesh_calls(eng, combine, steps, W=1, batched=False):
+        """The collectives a rank of ``eng``'s mesh issues over one run of
+        ``steps`` supersteps: phase 2's per superstep, one quiescence vote
+        per superstep of a convergence program (a plane's also one before
+        its first), one gather of the result."""
+        strategy = eng.strategy
+        if strategy == "reduction":
+            per = {"all_reduce": 1}
+        elif strategy == "sortdest":
+            per = {"reduce_scatter" if combine == "add" else "all_to_all": 1}
+        elif strategy == "basic":
+            per = {"all_to_all": 1}
+        elif strategy == "pairs":
+            per = {"ring_hop": W - 1}
+        else:
+            R, C, _ = eng._grid_meta
+            per = ({"all_reduce": 1} if eng._collectives == "full"
+                   or R == C == 1 else {"group_reduce": (R > 1) + (C > 1)})
+        want = {k: n * steps for k, n in per.items() if n}
+        if combine == "min":
+            want["vote"] = steps + batched
+        want["all_gather"] = 1
+        return want
+
+    def _mesh_case(self, mesh, plain, meshed, call, combine, batched,
+                   what):
+        """One run through the mesh=None engine (twice) and the mesh
+        engine: bits (or, where the mesh=None engine's two runs differ,
+        rtol=1e-5), supersteps, launches, the mesh's collectives."""
+        import numpy as np
+        import torch
+
+        from repro_torch.kernels import push_fused
+
+        def run(eng):
+            push_fused.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = call(eng)
+            return (out, time.perf_counter() - t0,
+                    {k: n for k, n in push_fused.launch_counts.items() if n})
+
+        (want, it0), t_plain, l_plain = run(plain)
+        (again, _), _, _ = run(plain)
+        mesh.reset_calls()
+        (got, it1), t_mesh, l_mesh = run(meshed)
+        calls = dict(mesh.calls)
+        got, want = np.asarray(got), np.asarray(want)
+        fixed = want.tobytes() == np.asarray(again).tobytes()
+        if fixed:
+            if got.dtype != want.dtype or got.tobytes() != want.tobytes():
+                raise AssertionError(f"mesh {what}: not bit-equal to "
+                                     "mesh=None")
+            err = 0.0
+        else:
+            err = self.compare(torch.from_numpy(got), torch.from_numpy(want),
+                               combine, f"mesh {what}")
+        if not np.array_equal(np.asarray(it0), np.asarray(it1)):
+            raise AssertionError(f"mesh {what}: supersteps {it1} != {it0}")
+        if l_mesh != l_plain:
+            raise AssertionError(f"mesh {what}: launches {l_mesh} != "
+                                 f"{l_plain}")
+        steps = int(np.max(it1))
+        expect = self._mesh_calls(meshed, combine, steps, batched=batched)
+        if calls != expect:
+            raise AssertionError(f"mesh {what}: NCCL calls {calls} != "
+                                 f"{expect}")
+        return {"supersteps": steps, "bit_equal": fixed,
+                "max_abs_err": err, "launches": l_mesh, "nccl_calls": calls,
+                "seconds": round(t_mesh, 4),
+                "seconds_mesh_none": round(t_plain, 4)}
+
+    def mesh(self):
+        """The graph engine across processes; see the module docstring."""
+        import tempfile
+
+        import numpy as np
+        import torch
+
+        from repro_torch.core import mesh as M
+        from repro_torch.core import programs as P
+
+        t0 = time.perf_counter()
+        rng = np.random.default_rng(13)
+        live = np.flatnonzero(self.gw.out_degrees > 0)
+        sources = [0] + [int(v) for v in rng.choice(live, 15, replace=False)]
+        rows, turns, built = [], {}, {}
+        held = {id(pg): set(pg._dev) for pg in (self.pgw, self.pgu,
+                                                *self._grid11())}
+        with tempfile.TemporaryDirectory(prefix="pe_mesh_") as store, \
+                M.pe_group(0, 1, store, "cuda"):
+            mesh = M.make_pe_mesh(1)
+            mesh.vote(torch.ones(1, device=mesh.device))  # NCCL's own init
+            mesh.reset_calls()
+            setup = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            pairs = self._mesh_pairs(mesh)
+            built["engines_s"] = round(time.perf_counter() - t1, 3)
+            t1 = time.perf_counter()
+            for name, plain, meshed in pairs:
+                if meshed[0].dispatch["choice"] != \
+                        plain[0].dispatch["choice"]:
+                    raise AssertionError(f"mesh {name}: dispatch "
+                                         f"{meshed[0].dispatch}")
+                for prog in self.MESH_PROGRAMS:
+                    k = int(prog == "labelprop")
+                    combine = P.make_program(prog).combiner.name
+                    row = self._mesh_case(mesh, plain[k], meshed[k],
+                                          lambda e, p=prog: e.run(p),
+                                          combine, False, f"{name}/{prog}")
+                    rows.append({"engine": name, "program": prog, **row})
+                for prog, srcs, combine in (
+                        ("bfs", sources, "min"),
+                        ("personalized_pagerank", [(v,) for v in sources],
+                         "add")):
+                    row = self._mesh_case(
+                        mesh, plain[0], meshed[0],
+                        lambda e, p=prog, q=srcs: e.run_batch(p, sources=q,
+                                                              batch=16),
+                        combine, combine == "min", f"{name}/{prog}/B=16")
+                    rows.append({"engine": name, "program": f"{prog}/B=16",
+                                 **row})
+            built["runs_s"] = round(time.perf_counter() - t1, 3)
+            collective_ms = self._mesh_collective_ms(mesh)
+            plain, meshed = pairs[0][1], pairs[0][2]
+            profiles = {f"{prog}/{how}": self._device_profile(
+                            lambda e=e, p=prog: e.run(p))
+                        for prog in ("pagerank", "sssp")
+                        for how, e in (("mesh_none", plain[0]),
+                                       ("mesh", meshed[0]))}
+            # the main path's seconds with and without the mesh, in turns
+            for prog in self.MESH_PROGRAMS:
+                k = int(prog == "labelprop")
+                t = {"mesh_none": [], "mesh": []}
+                for order in (("mesh_none", "mesh"), ("mesh", "mesh_none"),
+                              ("mesh_none", "mesh")):
+                    for which in order:
+                        eng = (plain if which == "mesh_none" else meshed)[k]
+                        t[which].append(round(self._timed(
+                            lambda: eng.run(prog)), 4))
+                turns[prog] = {**t, "ratio_of_medians": round(
+                    float(np.median(t["mesh"]))
+                    / float(np.median(t["mesh_none"])), 4)}
+            del pairs, plain, meshed
+        for pg in (self.pgw, self.pgu, *self._grid11()):
+            for key in set(pg._dev) - held[id(pg)]:
+                del pg._dev[key]  # the uploads of this phase's engines
+        torch.cuda.empty_cache()
+        multi = self._mesh_multi_card()
+        return {"ranks": 1, "backend": "nccl", "setup_s": round(setup, 3),
+                **built, "runs": rows, "collective_ms": collective_ms,
+                "profiles": profiles, "seconds_in_turns": turns,
+                "multi_card": multi}
+
+    def _mesh_collective_ms(self, mesh):
+        """CUDA-event ms of each collective of a one-rank mesh on the main
+        path's plane (f32 [C*K], C=1; the vote a [16] flag vector) beside
+        the axis-0 op it stands for on one device."""
+        import torch
+
+        from repro_torch.core import mesh as M
+
+        S = self.pgw.num_chunks * self.pgw.chunk_size
+        x = torch.rand((1, S), device=mesh.device)
+        blocks = x.reshape(1, 1, S)
+        flags = torch.ones(16, dtype=torch.bool, device=mesh.device)
+        cases = {
+            "preduce_add": lambda c: c.preduce(x, "add"),
+            "reduce_scatter_add": lambda c: c.reduce_scatter(blocks, "add"),
+            "reduce_scatter_min": lambda c: c.reduce_scatter(blocks, "min"),
+            "all_to_all": lambda c: c.all_to_all(blocks),
+            "vote": lambda c: c.vote(flags),
+            "gather_rows": lambda c: c.gather_rows(x),
+        }
+        out = {name: {"nccl_ms": round(self.cuda_ms(lambda: fn(mesh), 20),
+                                       4),
+                      "axis0_ms": round(self.cuda_ms(lambda: fn(M.AXIS0),
+                                                     20), 4)}
+               for name, fn in cases.items()}
+        mesh.reset_calls()
+        return {"plane_floats": S, **out}
+
+    def _mesh_multi_card(self):
+        """With two or more cards: W = min(cards, 4) NCCL ranks on the
+        chare-axis graph at C=W against the one-device engine at C=W, each
+        program's median seconds of three runs on both."""
+        import numpy as np
+        import torch
+
+        from repro_torch.core import Engine
+        from repro_torch.core import graph as G
+        from repro_torch.core import mesh as M
+        from repro_torch.core import programs as P
+
+        cards = torch.cuda.device_count()
+        if cards < 2:
+            emit({"phase": "mesh", "multi_card": "not run", "devices": cards})
+            return "not run"
+        W = min(cards, 4)
+        t0 = time.perf_counter()
+        got = M.spawn(_mesh_rank_cells, W, self.args.chare_scale,
+                      join_timeout=600.0)
+        spawn_s = time.perf_counter() - t0
+        _, gw, gu = _chare_graphs(self.args.chare_scale)
+        rows = []
+        for name, partitioner, kw in _mesh_engines(W):
+            ew = Engine(G.partition(gw, W, partitioner), **kw)
+            eu = Engine(G.partition(gu, W, partitioner), **kw)
+            for prog in self.MESH_PROGRAMS:
+                e = eu if prog == "labelprop" else ew
+                combine = P.make_program(prog).combiner.name
+                (want, it0), t_one = _median_run(e, prog,
+                                                 torch.cuda.synchronize)
+                res, it1, t_mesh, calls = got[(name, prog)]
+                res, want = np.asarray(res), np.asarray(want)
+                if (combine == "min" or name == "pairs") and \
+                        res.tobytes() != want.tobytes():
+                    raise AssertionError(f"mesh W={W} {name}/{prog}: not "
+                                         "bit-equal to one device")
+                err = self.compare(torch.from_numpy(res),
+                                   torch.from_numpy(want), combine,
+                                   f"mesh W={W} {name}/{prog}")
+                if it0 != it1:
+                    raise AssertionError(f"mesh W={W} {name}/{prog}: "
+                                         f"supersteps {it1} != {it0}")
+                expect = self._mesh_calls(e, combine, it1, W=W)
+                if calls != expect:
+                    raise AssertionError(f"mesh W={W} {name}/{prog}: calls "
+                                         f"{calls} != {expect}")
+                rows.append({"engine": name, "program": prog,
+                             "supersteps": it1, "max_abs_err": err,
+                             "seconds": round(t_mesh, 4),
+                             "seconds_one_device": round(t_one, 4),
+                             "ratio": round(t_mesh / t_one, 3),
+                             "nccl_calls": calls})
+        return {"ranks": W, "devices": cards, "spawn_s": round(spawn_s, 3),
+                "runs": rows, "rank0_profile": {
+                    prog: got[("profile", prog)]
+                    for prog in ("pagerank", "sssp")}}
 
     def profile(self):
         """Device time by kernel over one run each of pagerank and bfs on the
@@ -3629,10 +3937,7 @@ class Smoke:
 
         if not hasattr(self, "_chare"):
             a = self.args
-            g = G.load_dataset("soc-lj1-mini", scale_log2=a.chare_scale,
-                               seed=1)
-            gw = G.random_weights(g, seed=5)
-            gu = g.to_undirected()
+            g, gw, gu = _chare_graphs(a.chare_scale)
             self._chare = (g, gw, gu, G.partition(gw, a.chares),
                            G.partition(gu, a.chares))
         return self._chare
@@ -4959,6 +5264,9 @@ class Smoke:
         finally:
             shutil.rmtree(cache, ignore_errors=True)
         step("layout cache")
+        for pg in (pgw, pgu):
+            pg._dev.clear()
+        self.grid11 = (pgw, pgu)  # phase mesh's, when it runs (_grid11)
 
         def rates(d):
             keep = ("copy_s", "stall_s", "overlap_efficiency", "h2d_s",
@@ -5105,10 +5413,83 @@ class Smoke:
         return {"checks": checks}
 
 
+def _chare_graphs(scale):
+    """The chare-axis graph at 2^scale vertices, weighted and symmetrized
+    (``Smoke._chare_graphs``, and phase mesh's spawned ranks)."""
+    from repro_torch.core import graph as G
+
+    g = G.load_dataset("soc-lj1-mini", scale_log2=scale, seed=1)
+    return g, G.random_weights(g, seed=5), g.to_undirected()
+
+
+def _mesh_engines(W):
+    """Phase mesh's engines at W chares: (name, partitioner, Engine
+    keywords) for the four 1-D strategies and the grid shapes of W."""
+    out = [(s, "contiguous", {"strategy": s})
+           for s in ("sortdest", "reduction", "pairs", "basic")]
+    for R in range(1, W + 1):
+        if W % R == 0:
+            for lowering in ("grouped", "full"):
+                out.append((f"grid({R},{W // R})/{lowering}",
+                            f"grid({R},{W // R})",
+                            {"collectives": lowering}))
+    return out
+
+
+def _median_run(eng, prog, sync=lambda: None, runs=3):
+    """The last of ``runs`` timed runs of ``prog`` after a warm one, and
+    their median seconds; ``sync`` lines the device (and the ranks) up
+    before each."""
+    eng.run(prog)  # warm
+    secs = []
+    for _ in range(runs):
+        sync()
+        t0 = time.perf_counter()
+        out = eng.run(prog)
+        secs.append(time.perf_counter() - t0)
+    return out, sorted(secs)[runs // 2]
+
+
+def _mesh_rank_cells(mesh, scale):
+    """One rank of phase mesh's multi-card run: every engine of
+    ``_mesh_engines`` on the chare-axis graph, one chare per rank, each
+    program warm, then its collectives counted over one run and its
+    median seconds over three, every rank starting each run together:
+    -> {(engine, program): (result, supersteps, seconds, collectives)}."""
+    import torch
+
+    from repro_torch.core import Engine
+    from repro_torch.core import graph as G
+
+    def line_up():
+        if mesh.device.type == "cuda":
+            torch.cuda.synchronize()
+        mesh.vote(torch.ones(1, device=mesh.device))  # every rank here
+
+    _, gw, gu = _chare_graphs(scale)
+    out = {}
+    for name, partitioner, kw in _mesh_engines(mesh.size):
+        ew = Engine(G.partition(gw, mesh.size, partitioner), mesh=mesh, **kw)
+        eu = Engine(G.partition(gu, mesh.size, partitioner), mesh=mesh, **kw)
+        for prog in Smoke.MESH_PROGRAMS:
+            e = eu if prog == "labelprop" else ew
+            line_up()
+            mesh.reset_calls()
+            e.run(prog)
+            calls = dict(mesh.calls)
+            (got, it), secs = _median_run(e, prog, line_up)
+            out[(name, prog)] = (got, it, secs, calls)
+            if name == "sortdest" and prog in ("pagerank", "sssp"):
+                line_up()
+                out[("profile", prog)] = Smoke._device_profile(
+                    lambda: e.run(prog))
+    return out
+
+
 PHASES = ("device", "build", "kernels", "graph", "main", "reproducible",
           "batch", "serve", "grid", "replan", "async", "stream", "cost",
-          "staged_main", "profile", "kernel_time", "kernels_main", "chares",
-          "push_choice", "quickstart", "lm", "train", "dryrun")
+          "staged_main", "mesh", "profile", "kernel_time", "kernels_main",
+          "chares", "push_choice", "quickstart", "lm", "train", "dryrun")
 
 
 def main(argv=None) -> int:

@@ -13,14 +13,17 @@ warms bfs and personalized PageRank at B=8, and runs
 ppr_iters=8, slo_factor=1.5: phase ``serve``'s curve).  Each result is
 copied into a ``torch.empty(pin_memory=True)`` block (``Engine._to_host``;
 torch's caching host allocator).  ``parent`` skips ``latency_table``'s
-warm of that cache (``tables._warm_pinned_results``); ``warm`` runs it as
-it is.
+warm of that cache (``tables._warm_pinned_results``); ``late`` warms it
+after the two warm drains only, not before them as well; ``warm`` runs it
+as it is.
 
 Per dispatch it stamps ``run_batch`` (host clock), the result copy
 ``_to_host``, the pinned blocks torch created inside it and their
 seconds (``torch.cuda.host_memory_stats``), and the garbage collector's
 pauses inside it (``gc.callbacks``); per curve it prints the
-reference's two curve checks, each load's p99 and slowest dispatch, and
+reference's two curve checks, each load's p50 and p99 and slowest
+dispatch, the warm estimates that scale the loads (capacity, dispatch
+seconds, SLOs) with the pinned blocks created inside the warm drains, and
 every dispatch over 0.05 s with its stages.  One JSON line per process.
 Exits non-zero without CUDA.
 """
@@ -57,6 +60,14 @@ def one(mode, scale):
     stamps = {"gc": []}  # (start, end) host-clock pairs
     if mode == "parent":
         tables._warm_pinned_results = lambda engine, B, N: None
+    elif mode == "late":  # each latency_table's first warm (pre-drain) off
+        real, warms = tables._warm_pinned_results, []
+
+        def late(engine, B, N):
+            warms.append(N)
+            if len(warms) % 2 == 0:
+                real(engine, B, N)
+        tables._warm_pinned_results = late
     gc_start = []
     gc.callbacks.append(lambda phase, info: gc_start.append(
         time.perf_counter()) if phase == "start" else stamps["gc"].append(
@@ -110,9 +121,16 @@ def one(mode, scale):
                          "gc_s": inside(stamps["gc"], lo, hi),
                          "rest_s": (hi - lo) - (h1 - h0)})
         slow = [r for r in rows if r["s"] > 0.05]
+        drains = rows[:len(rows) - sum(c["dispatches"] for c in lt["curve"])]
         curves.append({
             "checks": tables.curve_checks(lt["curve"]),
+            "p50_s": [c["p50_s"] for c in lt["curve"]],
             "p99_s": [c["p99_s"] for c in lt["curve"]],
+            "capacity_qps": lt["capacity_qps"],
+            "warm_dispatch_s": lt["dispatch_s"], "slo_s": lt["slo_s"],
+            "warm_drain_dispatches": len(drains),
+            "fresh_inside_warm_drains": sum(r["fresh"] for r in drains),
+            "alloc_s_inside_warm_drains": sum(r["alloc_s"] for r in drains),
             "max_dispatch_s": [max(c["dispatch_seconds"])
                                for c in lt["curve"]],
             "dispatches": len(rows), "wall_s": wall,

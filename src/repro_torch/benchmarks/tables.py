@@ -240,7 +240,11 @@ def latency_table(scale_log2: int = 11, B: int = 8,
     # warm both planes (on the card the first dispatch builds the kernels
     # and learns the tile plan), then measure the dispatch-time EWMA the
     # policy's slack rule and the capacity run on over a second, fully
-    # warm drain: the first pass would mis-scale every offered load
+    # warm drain: the first pass would mis-scale every offered load.  The
+    # drains hold their 4B results, so the pinned cache is filled first: a
+    # fresh block inside the measured drain would inflate that EWMA, and
+    # with it the capacity and both SLOs, the light loads' latency most
+    _warm_pinned_results(engine, B, max(N, 4 * B))
     warm = GraphQueryServer(engine, batch=B, policy=DeadlinePolicy(),
                             clock=VirtualClock())
     for prog, src, kw in traffic(2 * B):
@@ -322,11 +326,12 @@ def latency_table(scale_log2: int = 11, B: int = 8,
 
 
 def _warm_pinned_results(engine, B, N):
-    """Fill torch's pinned host cache with the result blocks one load can
-    hold, before the loads run.  A load's server keeps every dispatch's
-    ``[b, V]`` 4-byte result (b <= B queries) until the load ends, and a
-    block the cache cannot serve is a fresh ``cudaHostAlloc`` inside that
-    dispatch: 15-129 ms for 128 MiB on an H100's host, the stalls of a
+    """Fill torch's pinned host cache with the result blocks N queries can
+    hold, before the warm drains and again before the loads run.  A
+    server keeps every dispatch's ``[b, V]`` 4-byte result (b <= B
+    queries) until it is freed, and a block the cache cannot serve is a
+    fresh ``cudaHostAlloc`` inside that dispatch: 15-129 ms for 128 MiB on
+    an H100's host, which inflates a warm drain's estimate and stalls a
     process's first curve (``scripts/torch_serve_first_curve.py``).  torch
     rounds a pinned block up to a power of two and serves a request from
     its own size class only, so each class that a result of 1..B rows

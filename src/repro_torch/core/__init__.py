@@ -8,6 +8,8 @@ Public API, for what is ported:
     row_plan_of                             repro_torch.core.partitioners
     Engine (strategy x vertex program) /
     ReplanPolicy / StreamConfig             repro_torch.core.engine
+    PeMesh / make_pe_mesh / spawn (one
+    chare per process: NCCL, gloo)          repro_torch.core.mesh
     ShardSource (out-of-core edge windows)  repro_torch.core.graph
     VertexProgram / registry / run_parallel repro_torch.core.programs
     pagerank_serial / pagerank_parallel     repro_torch.core.pagerank
@@ -30,6 +32,7 @@ from repro_torch.core.partitioners import (GridPlan, PartitionPlan,
                                            partitioner_names, policy_label,
                                            register_partitioner, row_plan_of)
 from repro_torch.core.engine import Engine, ReplanPolicy, StreamConfig
+from repro_torch.core.mesh import PeMesh, make_pe_mesh, spawn
 from repro_torch.core.programs import (VertexProgram, ProgramSpec,
                                        make_program, get_spec,
                                        registered_names, run_parallel,

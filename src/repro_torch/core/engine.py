@@ -1,4 +1,5 @@
-"""Actor-superstep engine: every chare of a partition on one device.
+"""Actor-superstep engine: the chares of a partition on one device, or one
+chare per process of a PE mesh.
 
 The twin of the resident ``Engine`` of ``repro/core/engine.py``.  Per
 superstep each chare (i) scans its local edges and aggregates outgoing data
@@ -7,6 +8,16 @@ over every chare's ``[Emax]`` row at once), (ii) exchanges messages (phase
 2: a reduction over the chare axis, or for ``basic`` a swap of the chare
 axes and one scatter launch), (iii) applies the received payloads to its
 vertex state, with quiescence detection between supersteps.
+
+``Engine(pg, mesh=m)`` (``m`` a ``core.mesh.PeMesh`` of ``pg.num_chunks``
+ranks) runs one chare per rank, as the reference's ``Engine(pg,
+mesh=...)`` runs one per device: each rank uploads and steps its own chare
+row ``[1, ...]`` through the same kernels, phase 2 is a real collective
+(NCCL on the card, gloo on the CPU), the quiescence test is a MAX vote
+across ranks, and the result is gathered and un-permuted on every rank, so
+each returns the same numpy result.  ``run`` and ``run_batch`` take every
+strategy and the grid; the adaptive modes and ``residency="stream"``
+refuse a mesh.
 
 Fixed-iteration programs (PageRank) run a plain loop; convergence programs
 (label propagation, SSSP, BFS) loop until no vertex changed, with frontier
@@ -89,6 +100,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.core import mesh as mesh_mod
 from repro_torch.core import partitioners as part_mod
 from repro_torch.core import strategies as strat
 from repro_torch.core.graph import PartitionedGraph
@@ -104,6 +116,12 @@ def resolve_device(device=None) -> torch.device:
                            "is available; pass device='cpu' to run on the "
                            "CPU")
     return device
+
+
+def _mesh_refusal(what) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} across the ranks of a PeMesh is not ported yet (ROADMAP.md "
+        "item 17, the adaptive modes across ranks); run it with mesh=None")
 
 
 def _relabel_gather(init_rows, old_rows, src, tgt):
@@ -343,6 +361,11 @@ class Engine:
     (``"grouped"``), ``"grouped"`` or ``"full"``.  ``residency="stream"``
     (a grid partition only) keeps the edge planes off the device and
     streams them in windows sized by ``stream`` (a ``StreamConfig``).
+
+    ``mesh`` (a ``core.mesh.PeMesh``; None: every chare on ``device``) runs
+    one chare per rank: ``pg.num_chunks`` must equal the mesh size, and the
+    engine's device is the rank's.  Every rank of the mesh builds the same
+    engine and makes the same calls.
     """
 
     pg: PartitionedGraph
@@ -353,6 +376,7 @@ class Engine:
     residency: str = "resident"
     collectives: str = "auto"
     stream: StreamConfig | None = None
+    mesh: object = None
 
     def __post_init__(self):
         if self.residency not in ("resident", "stream"):
@@ -382,13 +406,56 @@ class Engine:
             raise ValueError(f"segment_fn must be None or a callable hook "
                              f"(ops.make_segment_fn), got "
                              f"{self.segment_fn!r}")
-        self.device = resolve_device(self.device)
+        self._coll, self._rows = mesh_mod.AXIS0, None
+        if self.mesh is not None:
+            self._check_mesh()
+        else:
+            self.device = resolve_device(self.device)
         # the 1-D strategy a replan back to a 1-D placement rebinds to
         self._strategy_request = (self.strategy if self.strategy != "grid2d"
                                   else "sortdest")
         self._push_request = self.push_fn
         self._gate_slots, self._gate_skipped = 0, 0
         self._bind(self.pg)
+
+    def _check_mesh(self):
+        """Refuse a mesh the partition or the asked device does not fit,
+        before any upload; bind the engine to the rank's device, rows and
+        collectives."""
+        mesh = self.mesh
+        if self.pg.num_chunks != mesh.size:
+            raise ValueError(f"num_chunks must equal mesh size "
+                             f"({self.pg.num_chunks} != {mesh.size})")
+        if self.residency == "stream":
+            raise _mesh_refusal("residency='stream'")
+        if self.device is not None:
+            asked = torch.device(self.device)
+            if asked.type != mesh.device.type or (
+                    asked.index is not None and asked != mesh.device):
+                raise ValueError(f"device {asked} is not the mesh rank's "
+                                 f"{mesh.device}")
+        self.device = mesh.device
+        self._coll, self._rows = mesh, mesh.rows
+
+    def _refuse_on_mesh(self, replan, sync, gate):
+        """The modes a mesh engine does not run yet, refused before any
+        work (a mesh engine is bound resident, which refuses streaming)."""
+        if self.mesh is None:
+            return
+        for what, asked in (("replan=", replan is not None),
+                            ("sync='overlap'", sync == "overlap"),
+                            ("gate='frontier'", gate in (True, "frontier"))):
+            if asked:
+                raise _mesh_refusal(what)
+
+    def _own_rows(self, a):
+        """This process's chare rows of a ``[C, ...]`` plane (all of them
+        without a mesh); a device plane's rows are copied out, so the whole
+        plane is not kept for the run."""
+        if self._rows is None:
+            return a
+        rows = a[self._rows[0]:self._rows[1]]
+        return rows.clone() if isinstance(a, torch.Tensor) else rows
 
     def _bind(self, pg: PartitionedGraph):
         """Point the engine at a partition: alias its device-upload cache,
@@ -420,14 +487,18 @@ class Engine:
             # layouts are uploaded once per (partition, device) and shared:
             # engines of a strategy sweep alias the same tensors, and a new
             # partition's upload learns its tile plans there (device_arrays)
-            self.arrays = (pg.device_pairwise(self.device)
+            self.arrays = (pg.device_pairwise(self.device, self._rows)
                            if layout == "pairwise"
-                           else pg.device_arrays(layout, self.device))
-        self.aux = pg.device_aux(self.device)
+                           else pg.device_arrays(layout, self.device,
+                                                 self._rows))
+        self.aux = pg.device_aux(self.device, self._rows)
         self._C, self._K = pg.num_chunks, pg.chunk_size
+        # the chare rows this process steps: all C, or a mesh rank's one
+        self._held = self._C if self._rows is None else 1
         # frontier-gate geometry: the state's BLOCK_V source blocks per chare
         self._gate_nsb = max(-(-self._K // blocks.BLOCK_V), 1)
         p1, p2 = strat.PHASES[self.strategy]
+        p2 = functools.partial(p2, coll=self._coll)
         self._wire = None
         self._grid_meta = None
         if pg.is_grid:
@@ -479,7 +550,7 @@ class Engine:
         all ones on the pairwise layout, which then gates on any frontier at
         all)."""
         return self.pg.device_gate_blocks(
-            strat.STRATEGY_LAYOUT[self.strategy], self.device)
+            strat.STRATEGY_LAYOUT[self.strategy], self.device, self._rows)
 
     def _resolve_dispatch(self) -> dict:
         """Resolve ``push_fn='auto'`` against the bound layout's bands.
@@ -552,7 +623,7 @@ class Engine:
             row_active = self._row_active(frontier)
             self._gate_skipped = self._gate_skipped + (self._C
                                                        - row_active.sum())
-        self._gate_slots += self._C
+        self._gate_slots += self._held
         return self._phases[0](vals, self.arrays, program.combiner, self._C,
                                self._K, segment_fn=self.segment_fn,
                                edge_value=program.edge_value,
@@ -738,7 +809,7 @@ class Engine:
                 state, self._propagate(masked(state, frontier), program,
                                        frontier, gate), aux)
             frontier = new != state
-            changed = bool(frontier.any())
+            changed = self._coll.any_changed(frontier)
             state = new
             it += 1
         return state, frontier, it
@@ -770,6 +841,7 @@ class Engine:
         """
         from repro_torch.core import programs as prog_mod
 
+        self._refuse_on_mesh(replan, sync, gate)
         program = self._program(program, params)
         streamed = self._check_residency(residency, replan, sync)
         sync, gate = self._validate_async(program, sync, gate)
@@ -786,7 +858,8 @@ class Engine:
 
         if streamed:
             return self._run_streamed(program, gate)
-        state = torch.from_numpy(program.init(self.pg)).to(self.device)
+        state = torch.from_numpy(np.ascontiguousarray(
+            self._own_rows(program.init(self.pg)))).to(self.device)
         self._run_start(gate)
         if replan is not None:
             state, iters = self._run_replanned(program, replan, state, sync,
@@ -797,7 +870,8 @@ class Engine:
             state, _, iters = self._loop(program, state, frontier,
                                          self._limit(program), sync, gate)
         self._run_end(iters, sync, gate)
-        return self._to_host(self._unpermute(state)), iters
+        return (self._to_host(self._unpermute(self._coll.gather_rows(state))),
+                iters)
 
     # -- mid-run replanning --------------------------------------------------
 
@@ -1127,6 +1201,7 @@ class Engine:
         """
         from repro_torch.core import programs as prog_mod
 
+        self._refuse_on_mesh(replan, sync, gate)
         program = self._program(program, params)
         self._check_residency(residency, replan, sync)
         if program.init_batch is None:
@@ -1163,17 +1238,19 @@ class Engine:
         else:
             state, q_it = self._run_batch_replanned(program, padded, state,
                                                     qp, replan, sync, gate)
-        plane = self._unpermute(state)[:n]
+        plane = self._unpermute(self._coll.gather_rows(state))[:n]
         if program.finalize_batch is not None:
             plane = program.finalize_batch(self.pg.graph, sets, plane)
         return plane, q_it[:n].cpu().numpy().astype(np.int64)
 
     def _batch_init(self, program, sets):
         """The seed plane ``[C, K, B]`` and, for programs with one, the
-        read-only query plane, both built on the engine's device."""
-        state = program.init_batch(self.pg, sets, self.device)
+        read-only query plane, both built on the engine's device (a mesh
+        rank's own rows of each)."""
+        state = self._own_rows(program.init_batch(self.pg, sets, self.device))
         qp = (None if program.query_plane is None
-              else program.query_plane(self.pg, sets, self.device))
+              else self._own_rows(program.query_plane(self.pg, sets,
+                                                      self.device)))
         return state, qp
 
     def _batch_loop(self, program, state, qp=None, sync="barrier",
@@ -1226,7 +1303,8 @@ class Engine:
             return torch.where(frontier, program.update(state, aux), sent)
 
         def per_query(delta):
-            return delta.reshape(-1, B).any(dim=0)
+            # each query's changed flag, voted across a mesh's ranks
+            return self._coll.vote(delta.reshape(-1, B).any(dim=0))
 
         q_it = torch.zeros(B, dtype=torch.int64, device=self.device)
         it = 0

@@ -157,7 +157,11 @@ def _device_key(device) -> str:
     return str(torch.device(device))
 
 
-def _upload(a: np.ndarray, device) -> torch.Tensor:
+def _upload(a: np.ndarray, device, rows=None) -> torch.Tensor:
+    """``a`` on ``device``; ``rows`` (``(lo, hi)``, optional) uploads only
+    those chare rows of its leading axis."""
+    if rows is not None:
+        a = a[rows[0]:rows[1]]
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
@@ -406,10 +410,19 @@ class PartitionedGraph:
                 flat, minlength=P * K).astype(np.int64).reshape(P, K)
         return self._lazy["rect_degree"]
 
-    def device_arrays(self, layout: str = "both", device="cuda") -> dict:
+    def _rows(self, rows):
+        """A device cache's row key: None for every chare row, so a mesh of
+        one rank shares the whole upload."""
+        return None if rows is None or tuple(rows) == (0, self.num_chunks) \
+            else tuple(rows)
+
+    def device_arrays(self, layout: str = "both", device="cuda",
+                      rows=None) -> dict:
         """Device-resident layout tensors (edge planes + band table), uploaded
-        once per (partition, layout, device) and shared by every Engine built
-        on it.  int32 planes stay int32, weights float32.
+        once per (partition, layout, device, rows) and shared by every Engine
+        built on it.  int32 planes stay int32, weights float32.  ``rows``
+        (``(lo, hi)``; None: every chare) uploads those chare rows of each
+        plane: a mesh rank's own row.
 
         The edge planes are widened to whole BLOCK_E edge blocks (padding
         edges invalid, source/destination 0, weight 1) -- the shape the band
@@ -423,9 +436,9 @@ class PartitionedGraph:
         """
         if layout == "both":
             if self.is_grid:
-                return self.device_arrays("grid", device)
-            return {**self.device_arrays("basic", device),
-                    **self.device_arrays("sd", device)}
+                return self.device_arrays("grid", device, rows)
+            return {**self.device_arrays("basic", device, rows),
+                    **self.device_arrays("sd", device, rows)}
         edges, band = {
             "basic": (("src_local", "dst_global", "edge_valid",
                        "edge_weight"), "band"),
@@ -434,57 +447,64 @@ class PartitionedGraph:
             "grid": (("gr_src_local", "gr_dst_col", "gr_edge_valid",
                       "gr_edge_weight"), "gr_band"),
         }[layout]
-        key = (f"dense:{layout}", _device_key(device))
+        rows = self._rows(rows)
+        key = (f"dense:{layout}", _device_key(device), rows)
         if key not in self._dev:
             arrs = {k: _upload(_pad_edges(getattr(self, k),
                                           1 if k.endswith("weight") else 0),
-                               device)
+                               device, rows)
                     for k in edges}
-            arrs[band] = _upload(getattr(self, band), device)
+            arrs[band] = _upload(getattr(self, band), device, rows)
             if layout == "grid":
-                arrs["gr_row_to_col"] = _upload(self.gr_row_to_col, device)
+                arrs["gr_row_to_col"] = _upload(self.gr_row_to_col, device,
+                                                rows)
             if arrs[band].is_cuda:  # the kernel paths, learned before any run
                 push_fused.tile_plan(arrs[band])
             self._dev[key] = arrs
         return self._dev[key]
 
-    def device_pairwise(self, device="cuda") -> dict:
+    def device_pairwise(self, device="cuda", rows=None) -> dict:
         """Device-resident pairwise (edge-bucketed) layout for the basic
         variant: ``pb_*`` ``[C, C, Pmax]`` tensors, built and uploaded on
-        first use per device, then shared.  ``pb_recv_dst`` ``[C, C*Pmax]``
-        is ``pb_dst_local`` receiver-major (row k: every sender's pairs for
-        chare k), the segment ids of basic's receive side."""
-        key = ("pairwise", _device_key(device))
+        first use per (device, rows), then shared.  ``pb_recv_dst``
+        ``[C, C*Pmax]`` is ``pb_dst_local`` receiver-major (row k: every
+        sender's pairs for chare k), the segment ids of basic's receive
+        side.  ``rows`` as in ``device_arrays``: a sender's rows of the
+        ``pb_*`` planes, a receiver's of ``pb_recv_dst``."""
+        rows = self._rows(rows)
+        key = ("pairwise", _device_key(device), rows)
         if key not in self._dev:
             pw = build_pairwise(self)
-            arrs = {k: _upload(getattr(pw, k), device)
+            arrs = {k: _upload(getattr(pw, k), device, rows)
                     for k in ("pb_src_local", "pb_dst_local", "pb_valid",
                               "pb_weight")}
             arrs["pb_recv_dst"] = _upload(np.ascontiguousarray(
                 pw.pb_dst_local.transpose(1, 0, 2)).reshape(
-                    self.num_chunks, -1), device)
+                    self.num_chunks, -1), device, rows)
             self._dev[key] = arrs
         return self._dev[key]
 
-    def device_aux(self, device="cuda") -> dict:
-        """Device-resident per-vertex auxiliaries (degree/weight/validity)."""
-        key = ("aux", _device_key(device))
+    def device_aux(self, device="cuda", rows=None) -> dict:
+        """Device-resident per-vertex auxiliaries (degree/weight/validity),
+        of the chare ``rows`` when given."""
+        rows = self._rows(rows)
+        key = ("aux", _device_key(device), rows)
         if key not in self._dev:
             self._dev[key] = {
-                "out_degree": _upload(self.out_degree, device),
-                "out_weight": _upload(self.out_weight, device),
-                "vertex_valid": _upload(self.vertex_valid, device),
-            }
+                k: _upload(getattr(self, k), device, rows)
+                for k in ("out_degree", "out_weight", "vertex_valid")}
         return self._dev[key]
 
-    def device_gate_blocks(self, layout: str, device="cuda") -> torch.Tensor:
+    def device_gate_blocks(self, layout: str, device="cuda",
+                           rows=None) -> torch.Tensor:
         """``[C, nsb]`` bool on ``device``, ``nsb = ceil(K / BLOCK_V)``: the
         source blocks each chare's edges of ``layout`` (``"basic"``,
         ``"sd"``, ``"grid"`` or ``"pairwise"``) can gather from at all
         (``blocks.band_source_mask`` of its band table; all ones for the
         pairwise layout, which has none).  The frontier gate's geometry,
-        uploaded once per (partition, layout, device) and shared."""
-        key = (f"gate:{layout}", _device_key(device))
+        uploaded once per (partition, layout, device, rows) and shared."""
+        rows = self._rows(rows)
+        key = (f"gate:{layout}", _device_key(device), rows)
         if key not in self._dev:
             nsb = max(-(-self.chunk_size // blocks.BLOCK_V), 1)
             band = {"basic": "band", "sd": "sd_band",
@@ -492,16 +512,17 @@ class PartitionedGraph:
             mask = (blocks.band_source_mask(getattr(self, band), nsb) != 0
                     if band is not None
                     else np.ones((self.num_chunks, nsb), dtype=bool))
-            self._dev[key] = _upload(mask, device)
+            self._dev[key] = _upload(mask, device, rows)
         return self._dev[key]
 
-    def device_row_to_col(self, device="cuda") -> torch.Tensor:
-        """``gr_row_to_col`` on ``device`` alone, uploaded once per device:
-        the one grid array phase 2 reads, and so all that a streamed engine
-        keeps resident besides the vertex planes."""
-        key = ("row_to_col", _device_key(device))
+    def device_row_to_col(self, device="cuda", rows=None) -> torch.Tensor:
+        """``gr_row_to_col`` on ``device`` alone, uploaded once per (device,
+        rows): the one grid array phase 2 reads, and so all that a streamed
+        engine keeps resident besides the vertex planes."""
+        rows = self._rows(rows)
+        key = ("row_to_col", _device_key(device), rows)
         if key not in self._dev:
-            self._dev[key] = _upload(self.gr_row_to_col, device)
+            self._dev[key] = _upload(self.gr_row_to_col, device, rows)
         return self._dev[key]
 
     def repartition(self, partitioner: str, plan=None) -> "PartitionedGraph":

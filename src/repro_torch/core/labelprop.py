@@ -52,8 +52,8 @@ def components_oracle(graph: Graph) -> np.ndarray:
 def labelprop_parallel(graph: Graph, num_pes: int, strategy: str = "sortdest",
                        segment_fn=None,
                        partitioner: str = "contiguous",
-                       device=None) -> tuple[np.ndarray, int]:
+                       device=None, mesh=None) -> tuple[np.ndarray, int]:
     pg = partition(graph, num_pes, partitioner=partitioner)
     eng = Engine(pg, strategy=strategy, segment_fn=segment_fn,
-                 device=device)
+                 device=device, mesh=mesh)
     return eng.labelprop()

@@ -1,4 +1,4 @@
-"""Communication strategies -- the paper's Charm++ variants on one device.
+"""Communication strategies -- the paper's Charm++ variants.
 
 Every strategy computes, per chare, the combined incoming contribution for
 each locally-owned vertex:
@@ -6,9 +6,12 @@ each locally-owned vertex:
     incoming[c, j] = combine_{e : dst(e) == c*K + j} value(src(e))
 
 The twin of ``repro/core/strategies.py``.  The reference maps chares to
-mesh shards and its collectives to XLA's; here the chares are the leading
-axis of ``[C, ...]`` tensors on one device and each collective is a tensor
-op on that axis:
+mesh shards and its collectives to XLA's.  Phase 2 here takes its
+collectives from ``coll`` (``core/mesh.py``): by default ``AXIS0``, where
+the chares are the leading axis of ``[C, ...]`` tensors on one device and
+each collective is a tensor op on that axis, or a ``PeMesh``, where each
+rank of a process group holds its own chare row ``[1, ...]`` and each
+collective is a real one (NCCL, gloo).  On one device:
 
   reduction  dense |V| buffer per chare, ``psum``      -> sum / amin over
                                                           axis 0, own slice
@@ -45,11 +48,11 @@ engine's device, 0 for a gated chare row; ``None``: every row active), the
 engine's frontier gate: a gated row's partial is the combiner identity
 (``phase1_identity``'s row), and the kernels read nothing of it.
 
-No collective moves bytes on one device, so ``grid2d``'s phase 2 counts
-what its reduces would put on the wire of a mesh with one rectangle per
-device (ring all-reduce: ``2 * bytes * (g-1)/g`` per rectangle for a group
-of g), priced as ``cost.grid_collective_bytes`` prices them; the reference
-measures the same from its compiled HLO.
+``grid2d``'s phase 2 counts what its reduces put on the wire of a mesh with
+one rectangle per device (ring all-reduce: ``2 * bytes * (g-1)/g`` per
+rectangle for a group of g), priced as ``cost.grid_collective_bytes``
+prices them, on one device as on a mesh; the reference measures the same
+from its compiled HLO.
 """
 
 from __future__ import annotations
@@ -60,6 +63,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch.core.mesh import AXIS0
 from repro_torch.kernels import ops, push_staged, ref
 
 _INT_SENTINEL = ref.SENTINEL
@@ -210,12 +214,14 @@ def _dense_contrib(vals, src_local, dst_global, edge_valid, edge_weight,
 #
 #   phase1(vals, arrs, combiner, C, K, segment_fn=, edge_value=, push_fn=,
 #          edge_semiring=, row_active=)         -> partial
-#   phase2(partial, arrs, combiner, C, K, segment_fn=)
-#                                               -> incoming [C, K(, B)]
+#   phase2(partial, arrs, combiner, C, K, segment_fn=, coll=)
+#                                               -> incoming [rows, K(, B)]
 #
 # Phase 1 is every chare's local half (gather + transform + segment
 # combine, or for basic the gathered pair payloads); phase 2 is the combine
-# across chares.
+# across chares, through the collectives ``coll``.  ``rows`` is the chare
+# rows this process holds: every C on one device (``AXIS0``), one on a
+# ``PeMesh`` rank, whose arrays are its own row of each plane.
 # --------------------------------------------------------------------------
 
 
@@ -230,12 +236,12 @@ def reduction_phase1(vals, arrs, combiner, num_chunks, chunk_size,
 
 
 def reduction_phase2(dense, arrs, combiner, num_chunks, chunk_size,
-                     segment_fn=None):
+                     segment_fn=None, coll=AXIS0):
     """``psum``/``pmin`` of every chare's dense buffer, each chare then
     slicing out its own chunk."""
-    full = (dense.sum(dim=0, dtype=dense.dtype) if combiner.name == "add"
-            else dense.amin(dim=0))
-    return full.reshape((num_chunks, chunk_size) + tuple(full.shape[1:]))
+    full = coll.preduce(dense, combiner.name)
+    return coll.own(full.reshape((num_chunks, chunk_size)
+                                 + tuple(full.shape[1:])))
 
 
 def sortdest_phase1(vals, arrs, combiner, num_chunks, chunk_size,
@@ -249,15 +255,13 @@ def sortdest_phase1(vals, arrs, combiner, num_chunks, chunk_size,
 
 
 def sortdest_phase2(dense, arrs, combiner, num_chunks, chunk_size,
-                    segment_fn=None):
+                    segment_fn=None, coll=AXIS0):
     """``psum_scatter`` (add) or one block per destination chunk +
     ``all_to_all`` + merge (min): chare c receives block c of every chare's
     buffer and folds them."""
-    blocks = dense.reshape((num_chunks, num_chunks, chunk_size)
+    blocks = dense.reshape((dense.shape[0], num_chunks, chunk_size)
                            + tuple(dense.shape[2:]))
-    if combiner.name == "add":
-        return blocks.sum(dim=0, dtype=blocks.dtype)
-    return blocks.amin(dim=0)
+    return coll.reduce_scatter(blocks, combiner.name)
 
 
 def basic_phase1(vals, pw_arrays, combiner, num_chunks, chunk_size,
@@ -268,11 +272,11 @@ def basic_phase1(vals, pw_arrays, combiner, num_chunks, chunk_size,
     nothing is combined before sending, so the kernel route for this
     variant is the receive side's segment combine.  A gated sender's
     payloads are all the identity."""
-    C = num_chunks
-    src = pw_arrays["pb_src_local"].reshape(C, -1)
-    valid = pw_arrays["pb_valid"].reshape(C, -1)
+    rows = pw_arrays["pb_src_local"].shape[0]
+    src = pw_arrays["pb_src_local"].reshape(rows, -1)
+    valid = pw_arrays["pb_valid"].reshape(rows, -1)
     payload = _edge_transform(_gather(vals, src, valid, combiner, row_active),
-                              pw_arrays["pb_weight"].reshape(C, -1),
+                              pw_arrays["pb_weight"].reshape(rows, -1),
                               edge_value)
     if row_active is not None:
         valid = (valid != 0) & (row_active != 0)[:, None]
@@ -282,51 +286,39 @@ def basic_phase1(vals, pw_arrays, combiner, num_chunks, chunk_size,
 
 
 def basic_phase2(payload, pw_arrays, combiner, num_chunks, chunk_size,
-                 segment_fn=None):
-    """The ``all_to_all`` of the pair buffers is a swap of the two chare
-    axes: receiver k gets row ``[c, k]`` of every sender c.  Then one
-    segment combine over all C receiving rows applies the pairs (the
+                 segment_fn=None, coll=AXIS0):
+    """The ``all_to_all`` of the pair buffers (on one device a swap of the
+    two chare axes): receiver k gets row ``[c, k]`` of every sender c.  Then
+    one segment combine over the receiving rows applies the pairs (the
     payloads arrive masked, so no second mask); their segment ids are the
-    layout's receiver-major ``pb_recv_dst``, built once with the layout."""
-    C = num_chunks
+    layout's receiver-major ``pb_recv_dst``, built once with the layout.
+    So one collective moves the payload alone: the reference exchanges the
+    destination and valid planes beside it every superstep, which are
+    static, and here each receiver reads its own row of ``pb_recv_dst``."""
     tail = tuple(payload.shape[3:])
-    got = payload.transpose(0, 1).reshape((C, -1) + tail)
-    return _segment(combiner, segment_fn, got, pw_arrays["pb_recv_dst"],
-                    chunk_size)
+    got = coll.all_to_all(payload)
+    return _segment(combiner, segment_fn,
+                    got.reshape((got.shape[0], -1) + tail),
+                    pw_arrays["pb_recv_dst"], chunk_size)
 
 
 def pairs_phase2(dense, arrs, combiner, num_chunks, chunk_size,
-                 segment_fn=None):
+                 segment_fn=None, coll=AXIS0):
     """The ring reduce-scatter: chare m starts from its own block for chunk
-    m-1, and at hop s receives its predecessor's running block (``roll``)
-    and folds in its own block for chunk m-2-s -- the reference's
-    ``ppermute`` order, so float sums associate the same way."""
+    m-1, and at hop s receives its predecessor's running block
+    (``ppermute_ring``: a ``roll`` on one device) and folds in its own
+    block for chunk m-2-s -- the reference's ``ppermute`` order, so float
+    sums associate the same way."""
     C = num_chunks
-    blocks = dense.reshape((C, C, chunk_size) + tuple(dense.shape[2:]))
-    me = torch.arange(C, device=dense.device)
-    acc = blocks[me, (me - 1) % C]
+    rows = dense.shape[0]
+    blocks = dense.reshape((rows, C, chunk_size) + tuple(dense.shape[2:]))
+    me = coll.chare_ids(C, dense.device)
+    held = torch.arange(rows, device=dense.device)
+    acc = blocks[held, (me - 1) % C]
     for s in range(C - 1):
-        acc = torch.roll(acc, 1, dims=0)
-        acc = combiner.merge(acc, blocks[me, (me - 2 - s) % C])
+        acc = coll.ppermute_ring(acc)
+        acc = combiner.merge(acc, blocks[held, (me - 2 - s) % C])
     return acc
-
-
-def grid_groups(R, C):
-    """The reference's static ``axis_index_groups`` for an R x C rectangle
-    grid over chare ids ``r*C + c``: column group c = the R chares
-    {r*C+c}, row group r = the C contiguous chares r*C..r*C+C-1.  On one
-    device they are the two axes of the ``[R, C, ...]`` view that
-    ``grid2d_phase2`` reduces over."""
-    cols = [[r * C + c for r in range(R)] for c in range(C)]
-    rows = [[r * C + c for c in range(C)] for r in range(R)]
-    return cols, rows
-
-
-def _reduce(x, dim, combiner):
-    """One reduce of the combiner's monoid over ``dim``, in ``x``'s dtype."""
-    if combiner.name == "add":
-        return x.sum(dim=dim, dtype=x.dtype)
-    return x.amin(dim=dim)
 
 
 def _price(wire, payload_bytes, group):
@@ -378,9 +370,9 @@ def grid2d_phase1_window(vals, window_arrays, partial, combiner, num_chunks,
 
 def grid2d_phase2(dense, arrs, combiner, num_chunks, chunk_size,
                   segment_fn=None, grid_meta=None, collectives="grouped",
-                  wire=None):
+                  wire=None, coll=AXIS0):
     """The column combine and row redistribution of the rectangle partials
-    ``dense`` ``[R*C, C*Kc(, B)]`` -> the next incoming ``[R*C, Kr(, B)]``,
+    ``dense`` ``[rows, C*Kc(, B)]`` -> the next incoming ``[rows, Kr(, B)]``,
     every row replica equal.  ``wire`` (optional, ``{"bytes": float}``)
     counts each reduce's bytes per rectangle (``_price``).
 
@@ -395,32 +387,33 @@ def grid2d_phase2(dense, arrs, combiner, num_chunks, chunk_size,
     orders (R*C partials at once, or R), as the reference's do.
     """
     R, C, Kc = grid_meta
-    P, Kr = num_chunks, chunk_size
-    m = arrs["gr_row_to_col"]
+    P, held = num_chunks, dense.shape[0]
+    m = arrs["gr_row_to_col"]  # [rows, Kr]
     tail = tuple(dense.shape[2:])
     lane_bytes = math.prod(tail) * dense.element_size()  # one id's values
     ident = torch.full((), combiner.identity, dtype=dense.dtype,
                        device=dense.device)
     expand = (1,) * len(tail)  # masks broadcast over a trailing [B]
     if collectives == "full" or (R == 1 and C == 1):
-        full = _reduce(dense, 0, combiner)
+        full = coll.preduce(dense, combiner.name)
         _price(wire, C * Kc * lane_bytes, P)
         gathered = full.index_select(0, m.clamp(min=0).reshape(-1).long())
         live = (m >= 0).reshape(m.shape + expand)
-        return torch.where(live, gathered.reshape((P, Kr) + tail), ident)
-    col = torch.arange(C, device=dense.device)
-    parts = dense.reshape((R, C, C, Kc) + tail)
-    combined = _reduce(parts[:, col, col], 0, combiner)  # [C, Kc(, B)]
+        return torch.where(live, gathered.reshape(m.shape + tail), ident)
+    idx = torch.arange(held, device=dense.device)
+    col = coll.chare_ids(P, dense.device) % C  # each held rectangle's column
+    mine = dense.reshape((held, C, Kc) + tail)[idx, col]  # [rows, Kc(, B)]
+    combined, slot = coll.grid_reduce(mine, R, C, 0, combiner.name)
     _price(wire, Kc * lane_bytes, R)
-    local = m.reshape(R, C, Kr).long() - (col * Kc)[None, :, None]
-    own = (local >= 0) & (local < Kc) & (m.reshape(R, C, Kr) >= 0)
-    flat = (col * Kc)[None, :, None] + local.clamp(0, Kc - 1)
-    gathered = combined.reshape((C * Kc,) + tail).index_select(
-        0, flat.reshape(-1)).reshape((R, C, Kr) + tail)
+    local = m.long() - (col * Kc)[:, None]
+    own = (local >= 0) & (local < Kc) & (m >= 0)
+    flat = (slot * Kc)[:, None] + local.clamp(0, Kc - 1)
+    gathered = combined.reshape((-1,) + tail).index_select(
+        0, flat.reshape(-1)).reshape(m.shape + tail)
     rowvals = torch.where(own.reshape(own.shape + expand), gathered, ident)
-    rows = _reduce(rowvals, 1, combiner)  # [R, Kr(, B)]
-    _price(wire, Kr * lane_bytes, C)
-    return rows[:, None].expand((R, C, Kr) + tail).reshape((P, Kr) + tail)
+    _price(wire, m.shape[1] * lane_bytes, C)
+    rows, slot = coll.grid_reduce(rowvals, R, C, 1, combiner.name)
+    return rows.index_select(0, slot)
 
 
 # name -> (phase1, phase2).  ``pairs`` shares sortdest's phase 1 (same sd
@@ -444,12 +437,13 @@ def phase1_identity(strategy, vals, arrs, combiner, num_chunks, chunk_size,
     ``[C, C*K(, B)]``, ``basic``'s ``[C, C, Pmax(, B)]``, ``grid2d``'s
     ``[R*C, C*Kc(, B)]``.  Phase 2 over it contributes nothing."""
     tail = tuple(vals.shape[2:])  # the batched plane's trailing [B]
+    rows = vals.shape[0]
     if strategy == "basic":
         shape = tuple(arrs["pb_src_local"].shape) + tail
     elif strategy == "grid2d":
-        shape = (num_chunks, grid_meta[1] * grid_meta[2]) + tail
+        shape = (rows, grid_meta[1] * grid_meta[2]) + tail
     else:
-        shape = (num_chunks, num_chunks * chunk_size) + tail
+        shape = (rows, num_chunks * chunk_size) + tail
     return torch.full(shape, combiner.identity, dtype=vals.dtype,
                       device=vals.device)
 

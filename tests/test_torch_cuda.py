@@ -18,6 +18,8 @@ skip contributions that cannot lower out: every result bit-equal to the
 plain version, unreached sources over negative weights included.
 """
 
+import tempfile
+
 import numpy as np
 import pytest
 import torch
@@ -1090,6 +1092,38 @@ def test_warmed_pinned_cache_serves_a_load_of_results(cuda):
     assert torch.cuda.host_memory_stats()["num_host_alloc"] == fresh
 
 
+def test_latency_table_warm_drains_create_no_pinned_block(cuda):
+    """latency_table fills the pinned cache before its warm drains as well:
+    the drains, whose dispatch time scales every load and both SLOs, and
+    the loads create no pinned block (one per ``run_batch`` counted)."""
+    from repro_torch.benchmarks import tables
+
+    g = G.rmat(13, 64 << 10, seed=3)  # a size class no other test holds
+    eng = Engine(G.partition(g, 1))
+    eng.run_batch("bfs", sources=[0], batch=4)  # builds the kernels
+
+    class Counted:
+        def __init__(self):
+            self.fresh = []
+
+        def __getattr__(self, name):
+            return getattr(eng, name)
+
+        def run_batch(self, *args, **kw):
+            n0 = torch.cuda.host_memory_stats()["num_host_alloc"]
+            out = eng.run_batch(*args, **kw)
+            self.fresh.append(torch.cuda.host_memory_stats()["num_host_alloc"]
+                              - n0)
+            return out
+
+    counted = Counted()
+    lt = tables.latency_table(engine=counted, B=4, loads=(0.5, 2.0),
+                              queries_per_load=8, ppr_iters=4)
+    loads = sum(r["dispatches"] for r in lt["curve"])
+    assert len(counted.fresh) > loads  # the warm drains dispatched
+    assert counted.fresh == [0] * len(counted.fresh)
+
+
 # ---------------------------------------------------------------------------
 # The graph query server on the card
 # ---------------------------------------------------------------------------
@@ -1594,3 +1628,59 @@ def test_prefetcher_orders_copies_behind_slow_folds(cuda, prefetch):
     want, wit = res.run_batch("sssp", sources=[0, 3, 9, 40])
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(git, wit)
+
+
+# ---------------------------------------------------------------------------
+# The engine across processes: this process as one NCCL rank of a mesh
+# ---------------------------------------------------------------------------
+
+MESH_ENGINES = (("sortdest", "contiguous", {}),
+                ("reduction", "contiguous", {"strategy": "reduction"}),
+                ("pairs", "contiguous", {"strategy": "pairs"}),
+                ("basic", "contiguous", {"strategy": "basic"}),
+                ("grid-grouped", "grid(1,1)", {"collectives": "grouped"}),
+                ("grid-full", "grid(1,1)", {"collectives": "full"}))
+
+
+@pytest.fixture(scope="module")
+def nccl_rank():
+    """This process as the one NCCL rank of a mesh, for the module."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (NCCL runs on the card)")
+    from repro_torch.core import mesh as M
+
+    with tempfile.TemporaryDirectory() as store, \
+            M.pe_group(0, 1, store, "cuda"):
+        yield M.make_pe_mesh(1)
+
+
+@pytest.mark.parametrize("name", PROGRAMS)
+@pytest.mark.parametrize("engine", MESH_ENGINES,
+                         ids=[e[0] for e in MESH_ENGINES])
+def test_one_nccl_rank_matches_mesh_none(nccl_rank, engine, name):
+    """One NCCL rank launches what the engine with mesh=None launches and
+    gives its result: bit for bit where that engine's own two runs are
+    (the atomic float adds are in no fixed order: within the module's
+    float tolerance there), with equal supersteps."""
+    _, partitioner, kw = engine
+    spec = get_spec(name)
+    g = G.rmat(11, 14 << 11, seed=1)
+    if spec.weighted:
+        g = G.random_weights(g, seed=5)
+    pg = G.partition(spec.prepare_graph(g), 1, partitioner=partitioner)
+
+    def run(eng):
+        push_fused.reset_launch_counts()
+        out = eng.run(name)
+        return out, dict(push_fused.launch_counts)
+
+    (want, it0), launched = run(Engine(pg, **kw))
+    (again, _), _ = run(Engine(pg, **kw))
+    (got, it1), launched_mesh = run(Engine(pg, mesh=nccl_rank, **kw))
+    assert it1 == it0
+    assert launched_mesh == launched and sum(launched.values()) > 0
+    if np.array_equal(want, again):
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-5,
+                                   atol=1e-6 * float(np.abs(want).max()))

@@ -169,9 +169,10 @@ def test_engine_strategy_follows_partition():
 
 def test_grid_groups_equal_reference():
     from repro.core import strategies as RS
+    from repro_torch.core.mesh import grid_groups
 
     for R, C in SHAPES:
-        assert TS.grid_groups(R, C) == RS.grid_groups(R, C)
+        assert grid_groups(R, C) == RS.grid_groups(R, C)
 
 
 # ---------------------------------------------------------------------------
