@@ -199,11 +199,27 @@ Phases, each printing one JSON line with its seconds:
              NCCL calls each superstep must issue (phase 2's collective,
              the quiescence vote, one gather of the result) counted in
              PeMesh; seconds with and without the mesh on the main path
-             in three turns.  With two or more cards, min(cards, 4) NCCL
-             ranks (spawn) on the chare-axis graph at C=W, each strategy
-             and the grid shapes of W against the one-device engine at
-             C=W; with one, the line {"phase": "mesh", "multi_card":
-             "not run", "devices": 1}
+             in three turns.  Then the adaptive modes at the one rank,
+             each bit for bit against mesh=None with equal supersteps,
+             launches, gate and stream records and the NCCL calls the
+             mode issues (one sum_counts a gated or streamed run, three
+             gathers a replan): overlap plus the gate for sssp and bfs
+             on sortdest and grid(1,1) under both lowerings and for the
+             B=16 bfs plane, one sssp replan contiguous -> degree_sorted
+             (every=2, max_replans=1; the switch's plan, move and rebind
+             seconds), replans to and from grid(1,1) on the chare-axis
+             graph at C=1, and streamed sssp and bfs (gated and not) and
+             a B=8 sssp plane on the grid(1,1) partitions in 11 windows.
+             With two or more cards, min(cards, 4) NCCL ranks (spawn) on
+             the chare-axis graph at C=W, each strategy and the grid
+             shapes of W against the one-device engine at C=W, then the
+             modes (replans, overlap plus gate on every strategy and the
+             squarest grid, streamed on it and on grid(1,W) gated,
+             ungated and B=8), a served load of bfs and PPR at B=8
+             (greedy groups equal) and the main graph at C=W (pagerank,
+             sssp, overlap-plus-gate sssp), medians of three runs; with
+             one, the line {"phase": "mesh", "multi_card": "not run",
+             "devices": 1}
   profile    device time by kernel over one pagerank and one bfs run of
              the main path and of the staged path (torch.profiler) and the
              device's busy share
@@ -2162,6 +2178,9 @@ class Smoke:
                     rows.append({"engine": name, "program": f"{prog}/B=16",
                                  **row})
             built["runs_s"] = round(time.perf_counter() - t1, 3)
+            t1 = time.perf_counter()
+            modes = self._mesh_modes(mesh, pairs, sources)
+            built["modes_s"] = round(time.perf_counter() - t1, 3)
             collective_ms = self._mesh_collective_ms(mesh)
             plain, meshed = pairs[0][1], pairs[0][2]
             profiles = {f"{prog}/{how}": self._device_profile(
@@ -2189,9 +2208,142 @@ class Smoke:
         torch.cuda.empty_cache()
         multi = self._mesh_multi_card()
         return {"ranks": 1, "backend": "nccl", "setup_s": round(setup, 3),
-                **built, "runs": rows, "collective_ms": collective_ms,
+                **built, "runs": rows, "modes": modes,
+                "collective_ms": collective_ms,
                 "profiles": profiles, "seconds_in_turns": turns,
                 "multi_card": multi}
+
+    # the stream record's fields every rank holds alike (the times and
+    # rates are each rank's own)
+    STREAM_FIELDS = ("windows", "supersteps", "fetch_slots", "fetch_skipped",
+                     "fetched_bytes", "fetches", "batch")
+
+    def _mesh_modes(self, mesh, pairs, sources):
+        """Phase mesh's adaptive modes at one NCCL rank, each beside the
+        same engine with mesh=None: overlap plus the gate (sortdest and
+        grid(1,1) under both lowerings, and the B=16 bfs plane), a replan
+        of sssp on the main graph and replans to and from grid(1,1) on the
+        chare-axis graph at C=1, and streamed sssp and bfs (gated and not)
+        and a B=8 plane on the grid(1,1) partitions in 11 windows."""
+        from repro_torch.core import Engine, StreamConfig
+        from repro_torch.core import graph as G
+
+        og = {"sync": "overlap", "gate": "frontier"}
+        rows = []
+        by_name = {name: (plain[0], meshed[0]) for name, plain, meshed in pairs}
+        for name in ("sortdest", "grid(1,1)/grouped", "grid(1,1)/full"):
+            for prog in ("sssp", "bfs"):
+                rows.append(self._mesh_mode_case(
+                    mesh, *by_name[name], lambda e, p=prog: e.run(p, **og),
+                    f"{name}/{prog}/overlap+gate", "overlap"))
+        rows.append(self._mesh_mode_case(
+            mesh, *by_name["sortdest"],
+            lambda e: e.run_batch("bfs", sources=sources, batch=16, **og),
+            "sortdest/bfs/B=16/overlap+gate", "overlap_batch"))
+        timing, restore = self._replan_timers()
+        try:
+            rows.append(self._mesh_mode_case(
+                mesh, Engine(self.pgw), Engine(self.pgw, mesh=mesh),
+                lambda e: e.run("sssp", replan=self._policy(
+                    "degree_sorted", max_replans=1)),
+                "sortdest/sssp/replan->degree_sorted", "replan"))
+            # the switch's steps: mesh=None's run, then the mesh's
+            rows[-1]["switch_s"] = {k: v[:] for k, v in timing.items()}
+            _, cgw, _, _, _ = self._chare_graphs()
+            for start, target in (("contiguous", "grid(1,1)"),
+                                  ("grid(1,1)", "contiguous")):
+                pg = G.partition(cgw, 1, start)
+                rows.append(self._mesh_mode_case(
+                    mesh, Engine(pg), Engine(pg, mesh=mesh),
+                    lambda e, t=target: e.run("sssp",
+                                              replan=self._policy(t)),
+                    f"chare C=1 sssp/replan {start}->{target}", "replan"))
+        finally:
+            restore()
+        gw11, _ = self._grid11()
+        cfg = StreamConfig(windows=11)
+        plain = Engine(gw11, residency="stream", stream=cfg)
+        meshed = Engine(gw11, residency="stream", stream=cfg, mesh=mesh)
+        for prog in ("sssp", "bfs"):
+            for gate in (None, "frontier"):
+                rows.append(self._mesh_mode_case(
+                    mesh, plain, meshed,
+                    lambda e, p=prog, g=gate: e.run(p, gate=g),
+                    f"grid(1,1)/{prog}/stream" + ("+gate" if gate else ""),
+                    "stream"))
+        rows.append(self._mesh_mode_case(
+            mesh, plain, meshed,
+            lambda e: e.run_batch("sssp", sources=sources[:8], batch=8),
+            "grid(1,1)/sssp/stream/B=8", "stream"))
+        return rows
+
+    def _mesh_mode_calls(self, eng, steps, mode):
+        """The NCCL calls one run of an adaptive mode issues at one rank:
+        as a barrier run's (``_mesh_calls``), plus the one ``sum_counts``
+        of a gated or streamed run's record, plus the drain's phase 2 of a
+        plane under overlap.  A replan's run is counted by its gathers
+        alone (state and frontier at the switch, the result)."""
+        want = self._mesh_calls(eng, "min", steps)
+        if mode == "replan":
+            return {"all_gather": 3}
+        want["sum_counts"] = 1
+        if mode == "overlap_batch":
+            for k in want:
+                if k not in ("vote", "all_gather", "sum_counts"):
+                    want[k] += 1
+        return want
+
+    def _mesh_mode_case(self, mesh, plain, meshed, call, what, mode):
+        """One run of a min program's mode through the mesh=None engine and
+        the mesh engine: bit for bit, equal supersteps, launches and gate
+        and stream records, and the NCCL calls the mode issues."""
+        import numpy as np
+        import torch
+
+        from repro_torch.kernels import push_fused
+
+        def run(eng):
+            push_fused.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = call(eng)
+            secs = time.perf_counter() - t0
+            st = eng.dispatch.get("stream", {})
+            return (out, secs,
+                    {k: n for k, n in push_fused.launch_counts.items() if n},
+                    dict(eng.dispatch["gate"]),
+                    {k: st[k] for k in self.STREAM_FIELDS if k in st})
+
+        (want, it0), t_plain, l_plain, g_plain, s_plain = run(plain)
+        mesh.reset_calls()
+        (got, it1), t_mesh, l_mesh, g_mesh, s_mesh = run(meshed)
+        calls = dict(mesh.calls)
+        got, want = np.asarray(got), np.asarray(want)
+        if got.dtype != want.dtype or got.tobytes() != want.tobytes():
+            raise AssertionError(f"mesh {what}: not bit-equal to mesh=None")
+        if not np.array_equal(np.asarray(it0), np.asarray(it1)):
+            raise AssertionError(f"mesh {what}: supersteps {it1} != {it0}")
+        if l_mesh != l_plain or not l_mesh:
+            raise AssertionError(f"mesh {what}: launches {l_mesh} != "
+                                 f"{l_plain}")
+        if g_mesh != g_plain or s_mesh != s_plain:
+            raise AssertionError(f"mesh {what}: records {g_mesh} {s_mesh} "
+                                 f"!= {g_plain} {s_plain}")
+        steps = int(np.max(it1))
+        expect = self._mesh_mode_calls(meshed, steps, mode)
+        if (calls if mode != "replan" else
+                {"all_gather": calls.get("all_gather")}) != expect:
+            raise AssertionError(f"mesh {what}: NCCL calls {calls} != "
+                                 f"{expect}")
+        row = {"case": what, "supersteps": steps, "bit_equal": True,
+               "launches": l_mesh, "nccl_calls": calls,
+               "seconds": round(t_mesh, 4),
+               "seconds_mesh_none": round(t_plain, 4)}
+        if g_mesh["enabled"]:
+            row["gate"] = g_mesh
+        if s_mesh:
+            row["stream"] = s_mesh
+        return row
 
     def _mesh_collective_ms(self, mesh):
         """CUDA-event ms of each collective of a one-rank mesh on the main
@@ -2238,9 +2390,10 @@ class Smoke:
             emit({"phase": "mesh", "multi_card": "not run", "devices": cards})
             return "not run"
         W = min(cards, 4)
+        main_scale = getattr(self.args, "scale", 22)
         t0 = time.perf_counter()
-        got = M.spawn(_mesh_rank_cells, W, self.args.chare_scale,
-                      join_timeout=600.0)
+        got = M.spawn(_mesh_rank_cells, W, self.args.chare_scale, main_scale,
+                      join_timeout=1500.0)
         spawn_s = time.perf_counter() - t0
         _, gw, gu = _chare_graphs(self.args.chare_scale)
         rows = []
@@ -2277,7 +2430,118 @@ class Smoke:
         return {"ranks": W, "devices": cards, "spawn_s": round(spawn_s, 3),
                 "runs": rows, "rank0_profile": {
                     prog: got[("profile", prog)]
-                    for prog in ("pagerank", "sssp")}}
+                    for prog in ("pagerank", "sssp")},
+                "modes": self._mesh_multi_modes(W, got, gw),
+                "serve": self._mesh_multi_serve(W, got, gw),
+                "main_graph": self._mesh_multi_main(W, got, main_scale)}
+
+    def _mesh_multi_modes(self, W, got, gw):
+        """The multi-card run's adaptive modes on the chare-axis graph
+        against the one-device engine at C=W (``_mesh_mode_runs``): min
+        results bit for bit, supersteps and gate and stream records equal
+        (``fetches`` aside: each rank fetches on its own schedule),
+        medians of three runs on both."""
+        import numpy as np
+        import torch
+
+        from repro_torch.core import Engine
+
+        rows = []
+        for key, pg, kw, call in _mesh_mode_runs(W, gw):
+            (want, it0), t_one = _median_call(
+                lambda: call(Engine(pg, **kw)), torch.cuda.synchronize)
+            ref = Engine(pg, **kw)
+            call(ref)
+            res, it1, t_mesh, calls, gate, st = got[("mode", key)]
+            if np.asarray(res).tobytes() != np.asarray(want).tobytes():
+                raise AssertionError(f"mesh W={W} {key}: not bit-equal to "
+                                     "one device")
+            if not np.array_equal(np.asarray(it0), np.asarray(it1)):
+                raise AssertionError(f"mesh W={W} {key}: supersteps {it1} "
+                                     f"!= {it0}")
+            rst = ref.dispatch.get("stream", {})
+            want_st = {k: rst[k] for k in self.STREAM_FIELDS
+                       if k in rst and k != "fetches"}
+            if gate != ref.dispatch["gate"] or {
+                    k: v for k, v in st.items() if k != "fetches"} != want_st:
+                raise AssertionError(f"mesh W={W} {key}: records {gate} "
+                                     f"{st} != {ref.dispatch['gate']} "
+                                     f"{want_st}")
+            rows.append({"case": key, "supersteps": int(np.max(it1)),
+                         "seconds": round(t_mesh, 4),
+                         "seconds_one_device": round(t_one, 4),
+                         "ratio": round(t_mesh / t_one, 3),
+                         "nccl_calls": calls, "gate": gate, "stream": st})
+        return rows
+
+    def _mesh_multi_serve(self, W, got, gw):
+        """The served load over the mesh engine against the same load over
+        the one-device engine at C=W: equal dispatch groups (greedy
+        admission does not read the clock), bfs rows bit for bit, PPR rows
+        within the add tolerance; dispatch seconds of both."""
+        import numpy as np
+        import torch
+
+        from repro_torch.core import Engine
+        from repro_torch.core import graph as G
+
+        groups, rows, secs = got[("serve",)]
+        eng = Engine(G.partition(gw, W))
+        _serve_load(eng, _mesh_sources(gw, 32))  # warm
+        want_groups, want_rows, want_secs = _serve_load(
+            eng, _mesh_sources(gw, 32))
+        if groups != want_groups:
+            raise AssertionError(f"mesh W={W} serve: groups {groups} != "
+                                 f"{want_groups}")
+        err = 0.0
+        for i, ((row, it), (wrow, wit)) in enumerate(zip(rows, want_rows)):
+            if it != wit:
+                raise AssertionError(f"mesh W={W} serve: query {i} took "
+                                     f"{it} supersteps, not {wit}")
+            err = max(err, self.compare(
+                torch.from_numpy(np.asarray(row)),
+                torch.from_numpy(np.asarray(wrow)),
+                "min" if i % 2 == 0 else "add", f"mesh W={W} serve {i}"))
+        return {"queries": len(rows), "dispatches": len(groups),
+                "groups_equal": True, "ppr_max_abs_err": err,
+                "dispatch_s": [round(x, 4) for x in secs],
+                "dispatch_s_one_device": [round(x, 4) for x in want_secs]}
+
+    def _mesh_multi_main(self, W, got, scale):
+        """The main graph (2^scale vertices) at C=W on the mesh against the
+        one-device engine at C=W: sortdest pagerank and sssp, and
+        overlap-plus-gate sssp, medians of three runs."""
+        import numpy as np
+        import torch
+
+        from repro_torch.core import Engine
+        from repro_torch.core import graph as G
+
+        gw = self.gw if hasattr(self, "gw") and \
+            self.gw.num_vertices == 1 << scale else _main_graph(scale)
+        eng = Engine(G.partition(gw, W))
+        rows = []
+        for key, kw in _MAIN_RUNS:
+            prog = key.split("/")[0]
+            (want, it0), t_one = _median_call(
+                lambda: eng.run(prog, **kw), torch.cuda.synchronize)
+            res, it1, t_mesh, calls = got[("main", key)]
+            combine = "add" if prog == "pagerank" else "min"
+            err = self.compare(torch.from_numpy(np.asarray(res)),
+                               torch.from_numpy(np.asarray(want)), combine,
+                               f"mesh W={W} main {key}")
+            if it0 != it1:
+                raise AssertionError(f"mesh W={W} main {key}: supersteps "
+                                     f"{it1} != {it0}")
+            rows.append({"case": key, "supersteps": it1,
+                         "max_abs_err": err, "seconds": round(t_mesh, 4),
+                         "seconds_one_device": round(t_one, 4),
+                         "ratio": round(t_mesh / t_one, 3),
+                         "nccl_calls": calls})
+        del eng
+        torch.cuda.empty_cache()
+        return {"vertices": gw.num_vertices, "edges": gw.num_edges,
+                "runs": rows}
 
     def profile(self):
         """Device time by kernel over one run each of pagerank and bfs on the
@@ -5440,22 +5704,115 @@ def _median_run(eng, prog, sync=lambda: None, runs=3):
     """The last of ``runs`` timed runs of ``prog`` after a warm one, and
     their median seconds; ``sync`` lines the device (and the ranks) up
     before each."""
-    eng.run(prog)  # warm
+    return _median_call(lambda: eng.run(prog), sync, runs)
+
+
+def _median_call(fn, sync=lambda: None, runs=3):
+    """The last of ``runs`` timed calls of ``fn`` after a warm one, and
+    their median seconds; ``sync`` lines the device (and the ranks) up
+    before each."""
+    fn()  # warm
     secs = []
     for _ in range(runs):
         sync()
         t0 = time.perf_counter()
-        out = eng.run(prog)
+        out = fn()
         secs.append(time.perf_counter() - t0)
     return out, sorted(secs)[runs // 2]
 
 
-def _mesh_rank_cells(mesh, scale):
+def _main_graph(scale):
+    """The main path's weighted graph at 2^scale vertices (phase graph's)."""
+    from repro_torch.core import graph as G
+
+    g = G.load_dataset("soc-lj1-mini", scale_log2=scale, seed=1)
+    return G.random_weights(g, seed=5)
+
+
+def _square_grid(W):
+    """The squarest grid(R,C) of W rectangles, R <= C."""
+    R = max(r for r in range(1, W + 1) if W % r == 0 and r * r <= W)
+    return f"grid({R},{W // R})"
+
+
+def _mesh_sources(gw, n):
+    """``n`` seeded sources with out-edges."""
+    import numpy as np
+
+    live = np.flatnonzero(gw.out_degrees > 0)
+    return [int(v) for v in np.random.default_rng(29).choice(live, n,
+                                                             replace=False)]
+
+
+def _mesh_mode_runs(W, gw):
+    """The multi-card run's adaptive-mode cells on the chare-axis graph at
+    C=W: (key, partition, Engine keywords, run).  sssp replans from
+    contiguous to edge_balanced and to the squarest grid of W; overlap plus
+    the gate on every 1-D strategy and that grid; streamed on that grid and
+    on grid(1,W) (4 windows), gated, ungated and a B=8 plane."""
+    from repro_torch.core import ReplanPolicy, StreamConfig
+    from repro_torch.core import graph as G
+
+    og = {"sync": "overlap", "gate": "frontier"}
+    grid = _square_grid(W)
+    contiguous = G.partition(gw, W)
+    pgs = {grid: G.partition(gw, W, grid)}
+    pgs.setdefault(f"grid(1,{W})", G.partition(gw, W, f"grid(1,{W})"))
+    srcs = _mesh_sources(gw, 8)
+    out = [(f"sssp/replan->{t}", contiguous, {},
+            lambda e, t=t: e.run("sssp", replan=ReplanPolicy(
+                t, every=2, mode="always")))
+           for t in ("edge_balanced", grid)]
+    out += [(f"sssp/{s}/overlap+gate", contiguous, {"strategy": s},
+             lambda e: e.run("sssp", **og))
+            for s in ("sortdest", "reduction", "pairs", "basic")]
+    out.append((f"sssp/{grid}/overlap+gate", pgs[grid], {},
+                lambda e: e.run("sssp", **og)))
+    stream = {"residency": "stream", "stream": StreamConfig(windows=4)}
+    for shape, pg in pgs.items():
+        out += [(f"sssp/{shape}/stream", pg, stream,
+                 lambda e: e.run("sssp")),
+                (f"sssp/{shape}/stream+gate", pg, stream,
+                 lambda e: e.run("sssp", gate="frontier")),
+                (f"sssp/{shape}/stream/B=8", pg, stream,
+                 lambda e: e.run_batch("sssp", sources=srcs, batch=8))]
+    return out
+
+
+def _serve_load(eng, sources):
+    """A served load over ``eng`` at B=8, greedy: bfs and personalized
+    PageRank (10 supersteps) in turns from ``sources``, stepped until
+    drained.  -> (each dispatch's ids, each query's (row, supersteps),
+    each dispatch's seconds)."""
+    from repro_torch.launch.serve import GraphQueryServer, GreedyPolicy
+
+    server = GraphQueryServer(eng, batch=8, policy=GreedyPolicy())
+    ids = [server.submit("bfs", s) if i % 2 == 0 else
+           server.submit("personalized_pagerank", s, iters=10)
+           for i, s in enumerate(sources)]
+    groups, secs = [], []
+    while server.pending():
+        groups.append(tuple(server.step(force=True)))
+        secs.append(server.last_dispatch_s)
+    return groups, [server.result(i) for i in ids], secs
+
+
+# the main graph's runs at C=W across cards: (key, run keywords)
+_MAIN_RUNS = (("pagerank", {}), ("sssp", {}),
+              ("sssp/overlap+gate", {"sync": "overlap", "gate": "frontier"}))
+
+
+def _mesh_rank_cells(mesh, scale, main_scale):
     """One rank of phase mesh's multi-card run: every engine of
     ``_mesh_engines`` on the chare-axis graph, one chare per rank, each
     program warm, then its collectives counted over one run and its
-    median seconds over three, every rank starting each run together:
-    -> {(engine, program): (result, supersteps, seconds, collectives)}."""
+    median seconds over three, every rank starting each run together;
+    then the adaptive modes (``_mesh_mode_runs``), a served load and the
+    main graph's runs (``_MAIN_RUNS``) at C=W: -> {(engine, program):
+    (result, supersteps, seconds, collectives)}, {("mode", key): (result,
+    supersteps, seconds, collectives, gate record, stream record)},
+    {("serve",): _serve_load's}, {("main", key): (result, supersteps,
+    seconds, collectives)}."""
     import torch
 
     from repro_torch.core import Engine
@@ -5483,6 +5840,32 @@ def _mesh_rank_cells(mesh, scale):
                 line_up()
                 out[("profile", prog)] = Smoke._device_profile(
                     lambda: e.run(prog))
+    for key, pg, kw, call in _mesh_mode_runs(mesh.size, gw):
+        line_up()
+        mesh.reset_calls()
+        eng = Engine(pg, mesh=mesh, **kw)
+        call(eng)
+        calls = dict(mesh.calls)
+        st = eng.dispatch.get("stream", {})
+        record = (dict(eng.dispatch["gate"]),
+                  {k: st[k] for k in Smoke.STREAM_FIELDS if k in st})
+        (got, it), secs = _median_call(
+            lambda: call(Engine(pg, mesh=mesh, **kw)), line_up)
+        out[("mode", key)] = (got, it, secs, calls) + record
+    eng = Engine(G.partition(gw, mesh.size), mesh=mesh)
+    _serve_load(eng, _mesh_sources(gw, 32))  # warm
+    line_up()
+    out[("serve",)] = _serve_load(eng, _mesh_sources(gw, 32))
+    del eng
+    eng = Engine(G.partition(_main_graph(main_scale), mesh.size), mesh=mesh)
+    for key, kw in _MAIN_RUNS:
+        prog = key.split("/")[0]
+        line_up()
+        mesh.reset_calls()
+        eng.run(prog, **kw)
+        calls = dict(mesh.calls)
+        (got, it), secs = _median_call(lambda: eng.run(prog, **kw), line_up)
+        out[("main", key)] = (got, it, secs, calls)
     return out
 
 

@@ -2,7 +2,7 @@
 """The graph engine across the cards of one machine: ``chip_smoke.py``'s
 phase ``mesh``, its part for two or more cards, alone.
 
-    python3 scripts/torch_mesh_cards.py [--chare-scale 18]
+    python3 scripts/torch_mesh_cards.py [--chare-scale 18] [--scale 22]
 
 Builds the kernels, then spawns W = min(cards, 4) NCCL ranks, one per card
 (``repro_torch.core.mesh.spawn``), on the chare-axis graph (2^chare-scale
@@ -12,9 +12,14 @@ labelprop, each held to the one-device engine at C=W (min programs and
 pairs bit for bit, the other adds within rtol=1e-5, equal supersteps) with
 the collectives each superstep must issue; the median seconds of three
 runs on the mesh and on one device, and rank 0's device time by kernel
-over one sortdest pagerank and sssp run.  Prints one JSON line per phase,
-then the card's name and power limit.  Exits non-zero with fewer than two
-cards.
+over one sortdest pagerank and sssp run.  Then the adaptive modes on the
+same graph (sssp replans, overlap plus the gate, streamed grids gated,
+ungated and at B=8: bit for bit, equal gate and stream records), a served
+load of bfs and personalized PageRank at B=8 (equal dispatch groups), and
+the main graph (2^scale vertices) at C=W: pagerank, sssp and
+overlap-plus-gate sssp, each against the one-device engine at C=W with
+medians of three runs.  Prints one JSON line per phase, then the card's
+name and power limit.  Exits non-zero with fewer than two cards.
 """
 
 from __future__ import annotations
@@ -33,6 +38,8 @@ import chip_smoke  # noqa: E402
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--chare-scale", type=int, default=18)
+    ap.add_argument("--scale", type=int, default=22,
+                    help="log2 vertices of the main graph")
     args = ap.parse_args(argv)
     import torch
 

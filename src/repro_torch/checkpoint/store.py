@@ -308,7 +308,13 @@ def save_layout_cache(directory: str, fingerprint: str,
                       arrays: dict[str, np.ndarray]) -> str:
     """Atomically persist one layout build; returns the entry path.  One
     plain ``.npy`` per array (zip members cannot be memory-mapped), staged
-    in a tmp directory and ``os.replace``d into place."""
+    in a tmp directory and ``os.replace``d into place.
+
+    Writers may race on one entry: a writer that finds the entry already
+    published with its fingerprint keeps it (the same inputs built the same
+    planes) and drops its own staging, so no reader ever sees the entry
+    removed.  An entry of another fingerprint is moved aside in one rename
+    before the new one goes in."""
     os.makedirs(directory, exist_ok=True)
     final = _layout_entry(directory, fingerprint)
     tmp = tempfile.mkdtemp(prefix=os.path.basename(final) + ".tmp_",
@@ -320,13 +326,30 @@ def save_layout_cache(directory: str, fingerprint: str,
         with open(os.path.join(tmp, "meta.json"), "w") as f:
             json.dump({"fingerprint": fingerprint,
                        "keys": sorted(arrays)}, f)
-        if os.path.exists(final):
-            shutil.rmtree(final)
-        os.replace(tmp, final)
+        try:
+            os.replace(tmp, final)
+        except OSError:  # published meanwhile: a directory is not replaced
+            if _entry_fingerprint(final) == fingerprint:
+                shutil.rmtree(tmp, ignore_errors=True)
+                return final
+            stale = tempfile.mkdtemp(prefix=os.path.basename(final)
+                                     + ".stale_", dir=directory)
+            os.replace(final, os.path.join(stale, "entry"))
+            shutil.rmtree(stale, ignore_errors=True)
+            os.replace(tmp, final)
     except BaseException:
         shutil.rmtree(tmp, ignore_errors=True)
         raise
     return final
+
+
+def _entry_fingerprint(path: str):
+    """The fingerprint an entry's ``meta.json`` stores, or None."""
+    try:
+        with open(os.path.join(path, "meta.json")) as f:
+            return json.load(f).get("fingerprint")
+    except (OSError, ValueError):
+        return None
 
 
 def open_layout_cache(directory: str, fingerprint: str):

@@ -16,8 +16,12 @@ row ``[1, ...]`` through the same kernels, phase 2 is a real collective
 (NCCL on the card, gloo on the CPU), the quiescence test is a MAX vote
 across ranks, and the result is gathered and un-permuted on every rank, so
 each returns the same numpy result.  ``run`` and ``run_batch`` take every
-strategy and the grid; the adaptive modes and ``residency="stream"``
-refuse a mesh.
+strategy and the grid, and every mode below: each rank gates its own row,
+a replan decides from the gathered frontier and moves the gathered state
+on every rank alike, and a streamed rank walks the windows of its own
+rectangle.  Every host decision that steers the loop (quiescence, a
+query's liveness, a replan) is taken from voted or gathered numbers, so
+every rank issues the same collectives in the same order.
 
 Fixed-iteration programs (PageRank) run a plain loop; convergence programs
 (label propagation, SSSP, BFS) loop until no vertex changed, with frontier
@@ -116,12 +120,6 @@ def resolve_device(device=None) -> torch.device:
                            "is available; pass device='cpu' to run on the "
                            "CPU")
     return device
-
-
-def _mesh_refusal(what) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} across the ranks of a PeMesh is not ported yet (ROADMAP.md "
-        "item 17, the adaptive modes across ranks); run it with mesh=None")
 
 
 def _relabel_gather(init_rows, old_rows, src, tgt):
@@ -426,8 +424,6 @@ class Engine:
         if self.pg.num_chunks != mesh.size:
             raise ValueError(f"num_chunks must equal mesh size "
                              f"({self.pg.num_chunks} != {mesh.size})")
-        if self.residency == "stream":
-            raise _mesh_refusal("residency='stream'")
         if self.device is not None:
             asked = torch.device(self.device)
             if asked.type != mesh.device.type or (
@@ -437,17 +433,6 @@ class Engine:
         self.device = mesh.device
         self._coll, self._rows = mesh, mesh.rows
 
-    def _refuse_on_mesh(self, replan, sync, gate):
-        """The modes a mesh engine does not run yet, refused before any
-        work (a mesh engine is bound resident, which refuses streaming)."""
-        if self.mesh is None:
-            return
-        for what, asked in (("replan=", replan is not None),
-                            ("sync='overlap'", sync == "overlap"),
-                            ("gate='frontier'", gate in (True, "frontier"))):
-            if asked:
-                raise _mesh_refusal(what)
-
     def _own_rows(self, a):
         """This process's chare rows of a ``[C, ...]`` plane (all of them
         without a mesh); a device plane's rows are copied out, so the whole
@@ -456,6 +441,13 @@ class Engine:
             return a
         rows = a[self._rows[0]:self._rows[1]]
         return rows.clone() if isinstance(a, torch.Tensor) else rows
+
+    def _gather(self, x):
+        """Every chare's rows of a plane this process holds rows of (a bool
+        plane travels as bytes)."""
+        if x.dtype == torch.bool:
+            return self._coll.gather_rows(x.to(torch.uint8)) != 0
+        return self._coll.gather_rows(x)
 
     def _bind(self, pg: PartitionedGraph):
         """Point the engine at a partition: alias its device-upload cache,
@@ -471,12 +463,15 @@ class Engine:
             # is built first, so a layout cache hit feeds the band table the
             # dispatch prices.  Each window's band table is uploaded and
             # learns its own tile plan here, once: a recycled staging slot
-            # never carries a plan of another window
+            # never carries a plan of another window.  A mesh rank's source
+            # holds its own rectangle
             cfg = self.stream or StreamConfig()
             self._source = pg.shard_source(windows=cfg.windows,
                                            budget_bytes=cfg.budget_bytes,
-                                           cache_dir=cfg.cache_dir)
-            self.arrays = {"gr_row_to_col": pg.device_row_to_col(self.device)}
+                                           cache_dir=cfg.cache_dir,
+                                           rows=self._rows, coll=self._coll)
+            self.arrays = {"gr_row_to_col": pg.device_row_to_col(
+                self.device, self._rows)}
             self._win_bands = self._source.window_bands(self.device)
             if self.device.type == "cuda":
                 from repro_torch.kernels import push_fused
@@ -600,28 +595,28 @@ class Engine:
     # -- one superstep's halves ----------------------------------------------
 
     def _row_active(self, frontier):
-        """The frontier gate on the device: ``[C]`` int32, 1 where a chare
-        row's live frontier (any query column of a plane) reaches a source
-        block its edges can gather from.  The frontier is padded to
-        ``nsb * BLOCK_V``, reduced per block, intersected with
-        ``gate_blocks`` and reduced per row."""
+        """The frontier gate on the device: ``[rows]`` int32 over the chare
+        rows this process holds, 1 where a row's live frontier (any query
+        column of a plane) reaches a source block its edges can gather
+        from.  The frontier is padded to ``nsb * BLOCK_V``, reduced per
+        block, intersected with ``gate_blocks`` and reduced per row."""
         f = frontier.any(dim=-1) if frontier.dim() == 3 else frontier
         nsb = self._gate_nsb
         width = nsb * blocks.BLOCK_V
         if width != self._K:
-            f = torch.cat([f, f.new_zeros((self._C, width - self._K))], 1)
-        fb = f.reshape(self._C, nsb, blocks.BLOCK_V).any(dim=2)
+            f = torch.cat([f, f.new_zeros((self._held, width - self._K))], 1)
+        fb = f.reshape(self._held, nsb, blocks.BLOCK_V).any(dim=2)
         return (fb & self.gate_blocks).any(dim=1).to(torch.int32)
 
     def _push(self, program, vals, frontier=None, gate=False):
-        """Phase 1 of every chare row, gated on ``frontier`` when ``gate``:
-        a gated row's partial is the identity and its kernels read nothing.
-        Counts the run's launch slots (one per chare row) and, on the
-        device, the gated rows."""
+        """Phase 1 of every chare row this process holds, gated on
+        ``frontier`` when ``gate``: a gated row's partial is the identity
+        and its kernels read nothing.  Counts the run's launch slots (one
+        per held row) and, on the device, the gated rows."""
         row_active = None
         if gate:
             row_active = self._row_active(frontier)
-            self._gate_skipped = self._gate_skipped + (self._C
+            self._gate_skipped = self._gate_skipped + (self._held
                                                        - row_active.sum())
         self._gate_slots += self._held
         return self._phases[0](vals, self.arrays, program.combiner, self._C,
@@ -714,16 +709,27 @@ class Engine:
         self._gate_skipped = (torch.zeros((), dtype=torch.int64,
                                           device=self.device) if gate else 0)
 
-    def _run_end(self, supersteps, sync, gate):
+    def _run_end(self, supersteps, sync, gate, counts=None):
         """Publish the run's superstep count, wire bytes (grids) and launch
         accounting: ``dispatch["gate"]`` holds the phase-1 launch slots (one
         per chare row per push, the overlap's seed push of each segment
         included), how many the gate skipped (one read of the device count)
-        and the fraction (0.0 when gating is off)."""
+        and the fraction (0.0 when gating is off).  On a mesh the record is
+        the whole mesh's on every rank: gated, the ranks' counts are summed
+        (one ``sum_counts``); ungated, every rank pushed as often as the
+        others and skipped nothing, so no collective is needed.
+        ``counts`` (``(slots, skipped)``, already the mesh's) replaces the
+        loop's own."""
         self.dispatch["supersteps"] = supersteps
         if self._wire is not None:
             self._record_wire(supersteps)
-        slots, skipped = self._gate_slots, int(self._gate_skipped)
+        if counts is not None:
+            slots, skipped = counts
+        elif gate:
+            slots, skipped = self._coll.sum_counts(
+                [self._gate_slots, int(self._gate_skipped)])
+        else:
+            slots, skipped = self._gate_slots * self._C // self._held, 0
         self.dispatch["gate"] = {
             "sync": sync, "enabled": gate, "launch_slots": slots,
             "skipped_launches": skipped, "launched": slots - skipped,
@@ -794,7 +800,7 @@ class Engine:
                                      frontier, gate)
                 new = program.apply(state, incoming, aux)
                 frontier = new != state
-                quiet = 0 if bool(frontier.any()) else quiet + 1
+                quiet = 0 if self._coll.any_changed(frontier) else quiet + 1
                 state = new
                 it += 1
             if drain:
@@ -841,7 +847,6 @@ class Engine:
         """
         from repro_torch.core import programs as prog_mod
 
-        self._refuse_on_mesh(replan, sync, gate)
         program = self._program(program, params)
         streamed = self._check_residency(residency, replan, sync)
         sync, gate = self._validate_async(program, sync, gate)
@@ -891,10 +896,12 @@ class Engine:
 
     def _should_replan(self, policy, frontier) -> bool:
         """The segment boundary's trigger; the skew mode reads the frontier
-        (collapsed over query columns on a plane) back to the host."""
+        (collapsed over query columns on a plane) back to the host, every
+        chare's rows of it on a mesh, so every rank decides alike."""
         if policy.mode == "always":
             return True
         f = frontier.any(dim=-1) if frontier.dim() == 3 else frontier
+        f = self._gather(f)
         stats = part_mod.partition_stats(self.pg, frontier=f.cpu().numpy())
         return stats["frontier_edge_imbalance"] > policy.threshold
 
@@ -920,7 +927,13 @@ class Engine:
         column, so the move reads the old column-0 replica, scatters through
         the composed row relabel and replicates into the new shape (for
         1-D <-> 1-D the replica count is 1 on both sides).
+
+        On a mesh every rank gathers the old state and frontier, builds the
+        new partition's whole planes (``init_state`` is whole) and keeps
+        its own rows.
         """
+        if self._rows is not None:
+            state, frontier = self._gather(state), self._gather(frontier)
         move = part_mod.row_plan_of(new_pg.plan).padded_map_from(
             part_mod.row_plan_of(self.pg.plan))
         live = move >= 0
@@ -952,7 +965,8 @@ class Engine:
         new_f = _relabel_gather(
             f_rows.new_zeros((new_rows * k_new,) + tuple(f_rows.shape[1:])),
             f_rows, src, tgt)
-        return replicate(new_state), replicate(new_f)
+        return (self._own_rows(replicate(new_state)),
+                self._own_rows(replicate(new_f)))
 
     def _run_replanned(self, program, policy, state, sync, gate):
         """The segmented superstep loop of ``run``: segments of
@@ -970,7 +984,7 @@ class Engine:
                 program, state, frontier, min(policy.every, limit - done),
                 sync, gate, drain=True)
             done += it
-            if not fixed and not bool(frontier.any()):
+            if not fixed and not self._coll.any_changed(frontier):
                 break  # quiesced: the last superstep changed nothing
             if done >= limit or replans >= policy.max_replans:
                 continue
@@ -1023,20 +1037,20 @@ class Engine:
 
     def _stream_summary(self, delta):
         """What the host loop steers by, in ONE small device->host copy:
-        the convergence flags (``[1]``, or per query ``[B]``) and the
-        frontier collapsed to BLOCK_V source blocks (``[C, nsb(, B)]``
-        bool), which the host gate intersects with each window's band
-        source blocks."""
+        the convergence flags (``[1]``, or per query ``[B]``; voted across
+        a mesh's ranks) and the frontier of the held rows collapsed to
+        BLOCK_V source blocks (``[rows, nsb(, B)]`` bool), which the host
+        gate intersects with each window's band source blocks."""
         nsb = self._gate_nsb
         tail = tuple(delta.shape[2:])
         width = nsb * blocks.BLOCK_V
         f = delta
         if width != self._K:
-            f = torch.cat([f, f.new_zeros((self._C, width - self._K) + tail)],
-                          1)
-        fb = f.reshape((self._C, nsb, blocks.BLOCK_V) + tail).any(dim=2)
-        changed = (delta.reshape((-1,) + tail).any(dim=0) if tail
-                   else delta.any()).reshape(-1)
+            f = torch.cat([f, f.new_zeros((self._held, width - self._K)
+                                          + tail)], 1)
+        fb = f.reshape((self._held, nsb, blocks.BLOCK_V) + tail).any(dim=2)
+        changed = self._coll.vote((delta.reshape((-1,) + tail).any(dim=0)
+                                   if tail else delta.any()).reshape(-1))
         host = self._to_host(torch.cat([changed.to(torch.int32),
                                         fb.reshape(-1).to(torch.int32)]))
         nq = changed.numel()
@@ -1047,12 +1061,26 @@ class Engine:
         """Publish one streamed run's prefetcher accounting into
         ``dispatch['stream']`` (the reference's fields, and the copies' own
         device time and bytes on the card) and its window-slot counts as
-        the gate record."""
+        the gate record.
+
+        On a mesh the slot counts and ``fetched_bytes`` are summed over the
+        ranks and ``fetches`` is the largest rank's (one ``sum_counts``,
+        each rank's fetch count in its own lane); the times, rates and the
+        H2D copies are this rank's own."""
+        n, me = ((1, 0) if self.mesh is None
+                 else (self.mesh.size, self.mesh.rank))
+        lanes = [0] * n
+        lanes[me] = pf.fetches
+        total = self._coll.sum_counts(
+            [slots_total, slots_skipped, pf.bytes_read] + lanes)
+        slots_total, slots_skipped, fetched = total[:3]
+        if "batch" in extra:
+            extra["fetched_bytes_per_query"] = fetched / extra["batch"]
         overlap = (1.0 - pf.stall_s / pf.copy_s) if pf.copy_s > 0 else 1.0
         self.dispatch["stream"].update({
             "supersteps": it,
-            "fetches": pf.fetches,
-            "fetched_bytes": pf.bytes_read,
+            "fetches": max(total[3:]),
+            "fetched_bytes": fetched,
             "copy_s": pf.copy_s,
             "stall_s": pf.stall_s,
             "overlap_efficiency": max(0.0, min(1.0, overlap)),
@@ -1068,26 +1096,29 @@ class Engine:
             **extra,
         })
         # window-granular slot accounting doubles as the gate record
-        self._gate_slots, self._gate_skipped = slots_total, slots_skipped
-        self._run_end(it, "barrier", gate)
+        self._run_end(it, "barrier", gate, (slots_total, slots_skipped))
 
     def _stream_schedule(self, gate_masks, fb_host):
-        """-> (the [C, nw] active slots, the windows to fetch in order, the
-        skipped slot count)."""
+        """-> (the [rows, nw] active slots of the held rectangles, the
+        windows to fetch in order, the skipped slot count).  A mesh rank
+        fetches on its own schedule; phase 2 meets the others after."""
         nw = self._source.num_windows
         if gate_masks is None:
-            active = np.ones((self._C, nw), dtype=bool)
+            active = np.ones((self._held, nw), dtype=bool)
         else:
             active = self._source.active_windows(gate_masks, fb_host)
         sched = np.flatnonzero(active.any(axis=0))
-        return active, sched, self._C * nw - int(active.sum())
+        return active, sched, self._held * nw - int(active.sum())
 
     def _run_streamed(self, program, gate):
         """``run`` out of core: the streamed loop from the program's initial
-        state; -> (state in original vertex order, supersteps)."""
-        state = torch.from_numpy(program.init(self.pg)).to(self.device)
+        state (the held rows of it); -> (state in original vertex order,
+        supersteps)."""
+        state = torch.from_numpy(np.ascontiguousarray(
+            self._own_rows(program.init(self.pg)))).to(self.device)
         state, it, _ = self._stream_loop(program, state, self.aux, gate)
-        return self._to_host(self._unpermute(state)), it
+        return (self._to_host(self._unpermute(self._coll.gather_rows(state))),
+                it)
 
     def _run_streamed_batch(self, program, state, qp, gate):
         """``run_batch`` out of core: the streamed loop over a ``[C, K, B]``
@@ -1123,7 +1154,7 @@ class Engine:
         fixed = program.fixed_iters is not None
         limit = self._limit(program)
         gate_masks = self._source.gate_masks(nsb) if gate else None
-        fb_host = np.ones((self._C, nsb) + tail, dtype=bool)
+        fb_host = np.ones((self._held, nsb) + tail, dtype=bool)
         live = np.ones(tail[0] if tail else 1, dtype=bool)
         q_it = np.zeros(live.shape, dtype=np.int64)
         self._run_start(False)
@@ -1140,7 +1171,7 @@ class Engine:
                     gate_masks, fb_host & live if tail else fb_host)
                 slots_total += active.size
                 slots_skipped += skipped
-                partial = torch.full((self._C, cols * kc) + tail,
+                partial = torch.full((self._held, cols * kc) + tail,
                                      program.combiner.identity,
                                      dtype=vals.dtype, device=self.device)
                 partial = self._stream_sweep(pf, program, sched, active,
@@ -1156,10 +1187,7 @@ class Engine:
                 state = new
         finally:
             pf.close()
-        extra = {}
-        if tail:
-            extra = {"batch": tail[0],
-                     "fetched_bytes_per_query": pf.bytes_read / tail[0]}
+        extra = {"batch": tail[0]} if tail else {}
         self._stream_record(pf, it, slots_total, slots_skipped, gate,
                             **extra)
         return state, it, q_it
@@ -1201,7 +1229,6 @@ class Engine:
         """
         from repro_torch.core import programs as prog_mod
 
-        self._refuse_on_mesh(replan, sync, gate)
         program = self._program(program, params)
         self._check_residency(residency, replan, sync)
         if program.init_batch is None:
@@ -1363,7 +1390,7 @@ class Engine:
             # the longest-still-active query is active for every executed
             # superstep, so its count is the segment's global step count
             done += int(q_it.max())
-            if not fixed and not bool(frontier.any()):
+            if not fixed and not self._coll.any_changed(frontier):
                 break  # all queries quiesced
             if done >= limit or replans >= policy.max_replans:
                 continue
@@ -1377,7 +1404,8 @@ class Engine:
             self._rebind(new_pg)
             if program.query_plane is not None:
                 # a pure function of the placement: rebuilt, not relabeled
-                qp = program.query_plane(new_pg, padded_sets, self.device)
+                qp = self._own_rows(program.query_plane(new_pg, padded_sets,
+                                                        self.device))
             replans += 1
         self._run_end(done, sync, gate)
         return state, q_iters

@@ -556,13 +556,35 @@ class PartitionedGraph:
 
     # -- out-of-core streaming -----------------------------------------------
 
-    def cached_layout(self, which: str, cache_dir: str) -> tuple:
+    def cached_layout(self, which: str, cache_dir: str,
+                      coll=None) -> tuple:
         """Disk-backed ``_layout``: a warm cache entry memory-maps the packed
         planes straight off disk (no sort, no pack, no host copy); a cold
         one builds once through ``_layout`` and persists atomically.  The
         entry is keyed by ``checkpoint.layout_fingerprint`` (graph bytes,
         partitioner spec, chare count, layout name), so a changed graph or
-        policy misses and rebuilds."""
+        policy misses and rebuilds.
+
+        ``coll`` (a ``core.mesh.PeMesh`` whose ranks all ask for the same
+        entry): rank 0 opens or builds and persists it, the others wait at
+        a vote and then open it warm, so W ranks cold-starting on one
+        ``cache_dir`` build it once and never race on the directory."""
+        if coll is None or getattr(coll, "size", 1) == 1:
+            return self._cached_layout(which, cache_dir)
+        first = coll.rank == 0
+        out = None
+        if first:
+            try:
+                out = self._cached_layout(which, cache_dir)
+            except BaseException:
+                coll.vote(torch.ones(1, device=coll.device))
+                raise
+        if bool(coll.vote(torch.zeros(1, device=coll.device))[0]):
+            raise RuntimeError(f"rank 0 failed to build the {which!r} "
+                               f"layout cache entry in {cache_dir}")
+        return out if first else self._cached_layout(which, cache_dir)
+
+    def _cached_layout(self, which: str, cache_dir: str) -> tuple:
         from repro_torch.checkpoint import store
 
         fp = store.layout_fingerprint(self.graph, self.partitioner,
@@ -584,7 +606,8 @@ class PartitionedGraph:
 
     def shard_source(self, windows: int | None = None,
                      budget_bytes: int | None = None,
-                     cache_dir: str | None = None) -> "ShardSource":
+                     cache_dir: str | None = None, rows=None,
+                     coll=None) -> "ShardSource":
         """The windowed edge-shard provider for ``residency="stream"``.
 
         The window width comes from ``windows`` (a count) or is the widest
@@ -592,6 +615,10 @@ class PartitionedGraph:
         ``budget_bytes``; by default 8 windows.  With ``cache_dir`` the
         planes come from the disk layout cache (memory-mapped on a warm
         hit), so the host never holds a second copy of the edge layout.
+        ``rows`` (``(lo, hi)``; None: every rectangle) serves those
+        rectangles only, as views of the packs (memory-mapped ones
+        included), and the budget sizes their windows; ``coll`` orders a
+        mesh's ranks around a cold cache entry (``cached_layout``).
         """
         if not self.is_grid:
             raise ValueError(
@@ -599,11 +626,14 @@ class PartitionedGraph:
                 "are the independently bounded shard unit (use grid(1,1) "
                 "for a single PE)")
         if cache_dir is not None:
-            s, d, w, band = self.cached_layout("grid", cache_dir)
+            s, d, w, band = self.cached_layout("grid", cache_dir, coll)
         else:
             s, d, w, band = self._layout("grid")
+        valid = self.gr_edge_valid
+        lo, hi = (0, self.num_chunks) if rows is None else rows
+        s, d, w, band, valid = (a[lo:hi] for a in (s, d, w, band, valid))
         nb = blocks.num_edge_blocks(s.shape[1])
-        per_block = _window_block_bytes(self.num_chunks)
+        per_block = _window_block_bytes(hi - lo)
         if windows is not None:
             if windows < 1:
                 raise ValueError(f"windows must be >= 1, got {windows}")
@@ -618,8 +648,8 @@ class PartitionedGraph:
             nbw = min(nbw, nb)
         else:
             nbw = max(-(-nb // 8), 1)
-        return ShardSource(src=s, dst=d, valid=self.gr_edge_valid, weight=w,
-                           band=band, blocks_per_window=nbw)
+        return ShardSource(src=s, dst=d, valid=valid, weight=w, band=band,
+                           blocks_per_window=nbw)
 
 
 def _stable_argsort_bounded(keys: np.ndarray, bound: int) -> np.ndarray:

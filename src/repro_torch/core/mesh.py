@@ -34,6 +34,9 @@ rows this process holds (all C, or one):
   ``vote``           MAX of a per-chare flag vector over every chare
   ``any_changed``    the quiescence vote as one host bool
   ``gather_rows``    every chare's ``[1, ...]`` rows into ``[C, ...]``
+  ``broadcast``      rank 0's picklable host object, on every rank
+  ``sum_counts``     the SUM over every rank of a small host int vector
+                     (a run's accounting)
 
 A mesh engine's phase-2 input is consumed: ``PeMesh`` reduces it in place.
 
@@ -128,6 +131,14 @@ class AxisZero:
     def gather_rows(x):
         return x
 
+    @staticmethod
+    def broadcast(obj):
+        return obj
+
+    @staticmethod
+    def sum_counts(vec):
+        return [int(v) for v in vec]
+
 
 AXIS0 = AxisZero()
 
@@ -140,9 +151,17 @@ class PeMesh:
 
     ``size`` ranks, this one ``rank``, its ``device`` (``cuda:<rank's
     card>`` under NCCL, ``cpu`` under gloo), the grid subgroups by member
-    tuple (``make_pe_mesh`` creates them, on every rank in one order), and
+    tuple (``make_pe_mesh`` creates them, on every rank in one order),
     ``calls``: the collectives this rank issued, by kind (one a
-    ``batch_isend_irecv`` hop), for the caller to zero and read."""
+    ``batch_isend_irecv`` hop), and ``bytes``: the bytes each kind put on
+    the wire from this rank, for the caller to zero and read.
+
+    A call's bytes follow the ring model the reference's HLO count uses
+    (``repro/launch/hloanalysis.py``): of an ``n``-byte payload over a
+    group of ``g`` ranks, an all-reduce moves ``2 n (g-1)/g``, a
+    reduce-scatter (of its ``n``-byte input), an all-gather (of its
+    ``n``-byte output) and an all-to-all ``n (g-1)/g``, a ring hop and a
+    broadcast ``n``."""
 
     size: int
     rank: int
@@ -150,6 +169,8 @@ class PeMesh:
     backend: str
     groups: dict
     calls: collections.Counter = dataclasses.field(
+        default_factory=collections.Counter)
+    bytes: collections.Counter = dataclasses.field(
         default_factory=collections.Counter)
 
     @property
@@ -159,9 +180,19 @@ class PeMesh:
 
     def reset_calls(self):
         self.calls.clear()
+        self.bytes.clear()
 
-    def _count(self, kind):
+    def _count(self, kind, nbytes, wire=1.0):
+        """One call of ``kind`` whose ``nbytes`` payload moves ``wire`` of
+        itself through this rank (``_ring``)."""
         self.calls[kind] += 1
+        self.bytes[kind] += nbytes * wire
+
+    def _ring(self, group=None, reduce=False):
+        """The ring model's share of a payload one rank sends: ``(g-1)/g``,
+        twice that for an all-reduce."""
+        g = self.size if group is None else group
+        return (2.0 if reduce else 1.0) * (g - 1) / g
 
     def chare_ids(self, num_chunks, device):
         return torch.tensor([self.rank], device=device)
@@ -171,7 +202,7 @@ class PeMesh:
 
     def preduce(self, x, combine):
         out = x[0].contiguous()
-        self._count("all_reduce")
+        self._count("all_reduce", _nbytes(out), self._ring(reduce=True))
         dist.all_reduce(out, op=_OPS[combine])
         return out
 
@@ -179,19 +210,19 @@ class PeMesh:
         mine = blocks[0].contiguous()  # [C, K(, B)]: block k for chare k
         if combine == "add":
             out = mine.new_empty(mine.shape[1:])
-            self._count("reduce_scatter")
+            self._count("reduce_scatter", _nbytes(mine), self._ring())
             dist.reduce_scatter_tensor(out.view(-1), mine.view(-1),
                                        op=dist.ReduceOp.SUM)
             return out[None]
         got = torch.empty_like(mine)
-        self._count("all_to_all")
+        self._count("all_to_all", _nbytes(mine), self._ring())
         dist.all_to_all_single(got, mine)
         return got.amin(dim=0)[None]
 
     def all_to_all(self, x):
         mine = x[0].contiguous()
         got = torch.empty_like(mine)
-        self._count("all_to_all")
+        self._count("all_to_all", _nbytes(mine), self._ring())
         dist.all_to_all_single(got, mine)
         return got[None]
 
@@ -200,7 +231,7 @@ class PeMesh:
         recv = torch.empty_like(send)
         ops = [dist.P2POp(dist.isend, send, (self.rank + 1) % self.size),
                dist.P2POp(dist.irecv, recv, (self.rank - 1) % self.size)]
-        self._count("ring_hop")
+        self._count("ring_hop", _nbytes(send))
         for work in dist.batch_isend_irecv(ops):
             work.wait()
         return recv
@@ -212,14 +243,15 @@ class PeMesh:
         if len(members) == 1:
             return x, slot
         out = x[0].contiguous()
-        self._count("group_reduce")
+        self._count("group_reduce", _nbytes(out),
+                    self._ring(len(members), reduce=True))
         dist.all_reduce(out, op=_OPS[combine],
                         group=self.groups.get(tuple(members)))
         return out[None], slot
 
     def vote(self, flags):
         out = flags.to(torch.int32, copy=True)
-        self._count("vote")
+        self._count("vote", _nbytes(out), self._ring(reduce=True))
         dist.all_reduce(out, op=dist.ReduceOp.MAX)
         return out != 0
 
@@ -229,9 +261,26 @@ class PeMesh:
     def gather_rows(self, x):
         mine = x.contiguous()
         parts = [torch.empty_like(mine) for _ in range(self.size)]
-        self._count("all_gather")
+        self._count("all_gather", _nbytes(mine) * self.size, self._ring())
         dist.all_gather(parts, mine)
         return torch.cat(parts, dim=0)
+
+    def broadcast(self, obj):
+        box = [obj if self.rank == 0 else None]
+        dist.broadcast_object_list(box, src=0, device=self.device)
+        self._count("broadcast", len(pickle.dumps(box[0])))
+        return box[0]
+
+    def sum_counts(self, vec):
+        t = torch.tensor([int(v) for v in vec], dtype=torch.int64,
+                         device=self.device)
+        self._count("sum_counts", _nbytes(t), self._ring(reduce=True))
+        dist.all_reduce(t, op=dist.ReduceOp.SUM)
+        return [int(v) for v in t.tolist()]
+
+
+def _nbytes(t):
+    return t.numel() * t.element_size()
 
 
 def _backend(device: torch.device) -> str:

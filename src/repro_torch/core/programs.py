@@ -147,16 +147,18 @@ def run_parallel(graph: Graph, algorithm: str, num_pes: int = 1,
                  strategy: str = "sortdest", segment_fn=None, push_fn="auto",
                  partitioner: str = "contiguous", replan=None,
                  sync: str = "barrier", gate=None, device=None, mesh=None,
-                 **params):
+                 residency: str = "resident", stream=None, **params):
     """Partition + engine + run, in one call (tests and examples); on a
     ``mesh`` (``core.mesh.PeMesh`` of ``num_pes`` ranks) one chare per
-    rank."""
+    rank.  ``residency``/``stream`` bind the engine (``"stream"`` needs a
+    ``grid(R,C)`` partitioner)."""
     from repro_torch.core.engine import Engine
     from repro_torch.core.graph import partition
 
     eng = Engine(partition(graph, num_pes, partitioner=partitioner),
                  strategy=strategy, push_fn=push_fn, segment_fn=segment_fn,
-                 device=device, mesh=mesh)
+                 device=device, mesh=mesh, residency=residency,
+                 stream=stream)
     return eng.run(algorithm, replan=replan, sync=sync, gate=gate, **params)
 
 

@@ -263,6 +263,14 @@ class GraphQueryServer:
     into its dispatch's ``[n, V]`` host block (pinned on CUDA), which lives
     until every row of that dispatch has been read.  Scalar ``QueryStats``
     (latency, deadline hit/miss) stay in ``stats``.
+
+    Over a mesh engine (``Engine(pg, mesh=...)``) every rank builds the
+    same server and submits the same requests in the same order, as an
+    SPMD program does.  Only rank 0 asks the policy, with its clock and
+    budgets, and broadcasts the admitted ids (or a hold); every rank then
+    dispatches the same group, so the ranks meet in the same collectives.
+    Rank 0's measured dispatch times are the budgets and its ``stats`` the
+    record; every rank holds the same result rows.
     """
 
     def __init__(self, engine, batch: int = 8, policy=None, clock=None):
@@ -338,8 +346,15 @@ class GraphQueryServer:
         if not self._queue:
             return []
         now = self.clock()
-        admitted = self.policy.select(tuple(self._queue), self.batch, now,
-                                      self.est_dispatch, force)
+        mesh = getattr(self.engine, "mesh", None)
+        if mesh is None or mesh.rank == 0:
+            admitted = self.policy.select(tuple(self._queue), self.batch,
+                                          now, self.est_dispatch, force)
+        if mesh is not None:  # rank 0's admission, on every rank
+            ids = mesh.broadcast(tuple(r.id for r in admitted)
+                                 if mesh.rank == 0 else None)
+            by_id = {r.id: r for r in self._queue}
+            admitted = [by_id[i] for i in ids]
         if not admitted:
             return []
         chosen = {r.id for r in admitted}

@@ -1684,3 +1684,72 @@ def test_one_nccl_rank_matches_mesh_none(nccl_rank, engine, name):
     else:
         np.testing.assert_allclose(got, want, rtol=1e-5,
                                    atol=1e-6 * float(np.abs(want).max()))
+
+
+STREAM_5 = {"residency": "stream", "stream": StreamConfig(windows=5)}
+OVERLAP_GATE = {"sync": "overlap", "gate": "frontier"}
+MESH_MODES = (
+    ("overlap+gate", "sssp", "contiguous", {}, OVERLAP_GATE),
+    ("overlap+gate", "bfs", "contiguous", {}, OVERLAP_GATE),
+    ("overlap+gate/basic", "bfs", "contiguous", {"strategy": "basic"},
+     OVERLAP_GATE),
+    ("overlap+gate/grid", "sssp", "grid(1,1)", {}, OVERLAP_GATE),
+    ("replan", "sssp", "contiguous", {}, {"replan": "degree_sorted"}),
+    ("replan", "pagerank", "contiguous", {}, {"replan": "degree_sorted"}),
+    ("replan/to-grid", "sssp", "contiguous", {}, {"replan": "grid(1,1)"}),
+    ("replan+overlap+gate", "bfs", "contiguous", {},
+     {"replan": "edge_balanced", **OVERLAP_GATE}),
+    ("stream", "sssp", "grid(1,1)", STREAM_5, {}),
+    ("stream", "pagerank", "grid(1,1)", STREAM_5, {}),
+    ("stream+gate", "bfs", "grid(1,1)", STREAM_5, {"gate": "frontier"}),
+    ("stream/B=8", "sssp", "grid(1,1)", STREAM_5, {"batch": 8}),
+    ("overlap+gate/B=8", "bfs", "contiguous", {},
+     {"batch": 8, **OVERLAP_GATE}),
+)
+# the records' fields every rank holds alike (times and rates are not)
+STREAM_FIELDS = ("windows", "supersteps", "fetch_slots", "fetch_skipped",
+                 "fetched_bytes", "fetches")
+
+
+@pytest.mark.parametrize("case", MESH_MODES,
+                         ids=[f"{c[0]}-{c[1]}" for c in MESH_MODES])
+def test_one_nccl_rank_modes_match_mesh_none(nccl_rank, case):
+    """Overlap plus the gate, a replan and a streamed run on one NCCL rank
+    launch what the engine with mesh=None launches and give its result:
+    bit for bit where that engine's own two runs are (else within the
+    module's float tolerance), with equal supersteps and equal gate and
+    stream records."""
+    from repro_torch.core import ReplanPolicy
+
+    _, name, partitioner, ekw, rkw = case
+    rkw = dict(rkw)
+    if "replan" in rkw:
+        rkw["replan"] = ReplanPolicy(rkw["replan"], every=2, mode="always")
+    batch = rkw.pop("batch", None)
+    spec = get_spec(name)
+    g = G.rmat(11, 14 << 11, seed=1)
+    if spec.weighted:
+        g = G.random_weights(g, seed=5)
+    g = spec.prepare_graph(g)
+
+    def run(mesh):
+        eng = Engine(G.partition(g, 1, partitioner=partitioner, eager=False),
+                     mesh=mesh, **ekw)
+        push_fused.reset_launch_counts()
+        out = (eng.run_batch(name, sources=[0, 5, 9, 77, 200], batch=batch,
+                             **rkw) if batch else eng.run(name, **rkw))
+        st = eng.dispatch.get("stream", {})
+        return (out, dict(push_fused.launch_counts), eng.dispatch["gate"],
+                {k: st[k] for k in STREAM_FIELDS if k in st})
+
+    (want, it0), launched, gate, st = run(None)
+    (again, _), _, _, _ = run(None)
+    (got, it1), launched_mesh, gate_mesh, st_mesh = run(nccl_rank)
+    np.testing.assert_array_equal(np.asarray(it1), np.asarray(it0))
+    assert launched_mesh == launched and sum(launched.values()) > 0
+    assert gate_mesh == gate and st_mesh == st
+    if np.array_equal(want, again):
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-5,
+                                   atol=1e-6 * float(np.abs(want).max()))

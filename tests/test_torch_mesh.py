@@ -3,11 +3,11 @@
 Each process-group collective runs at W = 2 and 4 gloo ranks (one spawn
 per world size, ``torch_mesh_cases.collective_cases``) on seeded numpy
 planes, against the axis-0 op it replaces on one device (``AXIS0``):
-min, int sums, ``all_to_all``, the ring, the ids and the votes bit for
-bit; float sums within f32 rounding, ``(W-1) * eps * sum |x|``.  Then the
-refusals of ``make_pe_mesh`` and ``spawn``, which never fall back to gloo
-or to the CPU, and ``spawn``'s error and timeout paths.  Nothing of the
-JAX reference runs here.
+min, int sums, ``all_to_all``, the ring, the ids, the votes, the count
+sums and the broadcast bit for bit; float sums within f32 rounding,
+``(W-1) * eps * sum |x|``.  Then the refusals of ``make_pe_mesh`` and
+``spawn``, which never fall back to gloo or to the CPU, and ``spawn``'s
+error and timeout paths.  Nothing of the JAX reference runs here.
 """
 
 import functools
@@ -23,7 +23,7 @@ from repro_torch.core import mesh as M
 
 WORLDS = (2, 4)
 KINDS = ("preduce", "reduce_scatter", "grid", "all_to_all", "ring", "ids",
-         "vote", "any_changed")
+         "vote", "any_changed", "sum_counts", "broadcast")
 
 
 @functools.lru_cache(maxsize=None)

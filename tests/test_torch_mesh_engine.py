@@ -20,8 +20,10 @@ rank: one spawn per world size runs all of that size's cells
     1e-6;
 
 and the collectives each rank issued are counted against what each phase 2
-and the quiescence vote must issue per superstep.  The refusals (C != W,
-the adaptive modes, streaming) raise before any upload or collective.  A
+and the quiescence vote must issue per superstep.  The refusals (C != W, a
+streamed run on a resident engine) raise before any upload or collective;
+the adaptive modes and streaming run on a mesh in
+``tests/test_torch_mesh_modes.py``.  A
 one-rank gloo mesh in this process must equal ``mesh=None`` bit for bit in
 every program, adds included, as one NCCL rank must on the card.
 """
@@ -286,8 +288,7 @@ def test_collectives_per_superstep(W, cell):
     assert calls == want
 
 
-REFUSALS = ("chares_not_world", "stream_engine", "replan", "overlap", "gate",
-            "stream_run", "batch_replan", "batch_overlap", "batch_gate")
+REFUSALS = ("chares_not_world", "stream_run")
 
 
 @pytest.mark.parametrize("name", REFUSALS)
@@ -295,11 +296,8 @@ def test_refusal_before_any_work(name):
     kind, message, uploads, calls = _world(2)["refusals"][name]
     if name == "chares_not_world":
         assert kind == "ValueError" and "mesh size" in message
-    elif name == "stream_run":  # a mesh engine is bound resident
+    else:  # a resident engine refuses a streamed run
         assert kind == "ValueError" and "bound resident" in message
-    else:
-        assert kind == "NotImplementedError"
-        assert "ROADMAP.md item 17" in message
     assert uploads == 0 and calls == 0
 
 

@@ -204,7 +204,7 @@ def refusals(mesh):
         mesh.reset_calls()
         try:
             make()
-        except (ValueError, NotImplementedError) as exc:
+        except ValueError as exc:
             out[name] = (type(exc).__name__, str(exc),
                          len(set(pg._dev) - before), sum(mesh.calls.values()))
         else:
@@ -213,23 +213,9 @@ def refusals(mesh):
 
     wrong = partition(g, mesh.size + 1)
     attempt("chares_not_world", lambda: Engine(wrong, mesh=mesh), wrong)
-    grid = partition(g, mesh.size, partitioner=f"grid(1,{mesh.size})")
-    attempt("stream_engine", lambda: Engine(grid, residency="stream",
-                                            mesh=mesh), grid)
     pg = partition(g, mesh.size)
     eng = Engine(pg, mesh=mesh)
-    for name, call in (
-            ("replan", lambda: eng.run("sssp", replan="edge_balanced")),
-            ("overlap", lambda: eng.run("sssp", sync="overlap")),
-            ("gate", lambda: eng.run("bfs", gate="frontier")),
-            ("stream_run", lambda: eng.run("bfs", residency="stream")),
-            ("batch_replan", lambda: eng.run_batch("bfs", sources=[0, 7],
-                                                   replan="striped")),
-            ("batch_overlap", lambda: eng.run_batch("bfs", sources=[0, 7],
-                                                    sync="overlap")),
-            ("batch_gate", lambda: eng.run_batch("bfs", sources=[0, 7],
-                                                 gate="frontier"))):
-        attempt(name, call, pg)
+    attempt("stream_run", lambda: eng.run("bfs", residency="stream"), pg)
     return out
 
 
@@ -290,6 +276,11 @@ def collective_results(W, x, coll):
     out["vote"] = coll.vote(flags.any(dim=0))
     out["any_changed"] = torch.tensor(
         [coll.any_changed(flags[:, c]) for c in range(flags.shape[1])])
+    # this process's chares' counts, summed over every chare
+    out["sum_counts"] = torch.tensor(coll.sum_counts(
+        flags.sum(dim=0).tolist()))
+    first = int(coll.chare_ids(W, "cpu")[0])  # chare 0 where rank 0 is
+    out["broadcast"] = torch.tensor(coll.broadcast([first, W]))
     return out
 
 
