@@ -275,16 +275,16 @@ Phases, each printing one JSON line with its seconds:
              vocab 262,144, window 512; 999,811,584 parameters, 2.0 GB in
              bf16) with parameters from init_params on the card (seed 0).
              BatchedServer with 8 requests, prompts of 64 tokens
-             (np.random.default_rng(0)) and 512 generated, so positions pass
+             (np.random.default_rng(0)) and 456 generated, so positions pass
              512; the greedy tokens in range.  Prefill seconds, decode ms
-             a step and tokens/s (host clock; the 496 steps after the
+             a step and tokens/s (host clock; the 440 steps after the
              first 16),
              the device profile of 4 decode steps (busy share, kernel
              launches), the peak memory, and the bound of a decode step:
              the parameter bytes read once at 3.35 TB/s.  Then a seeded
-             random stream of 64 + 512 tokens, teacher-forced through
+             random stream of 64 + 456 tokens, teacher-forced through
              decode_step, so the 21 local layers' ring buffers wrap holding
-             distinct tokens: its logits at positions 63, 300 and 575
+             distinct tokens: its logits at positions 63, 300 and 519
              against the forward over the stream on the card, and its next
              16 steps after position 63 against the same parameters on the
              CPU (from the card's cache), each within 1e-2 of max |logit|
@@ -295,7 +295,7 @@ Phases, each printing one JSON line with its seconds:
              lines.  Then xlstm-350m at full width and depth (24 layers,
              d_model 1024, 4 heads, expand 2; 259,350,528 parameters in
              the leaves, beside the config's analytic count): the same
-             serving at 8 requests, 64 + 448 tokens; a seeded stream of
+             serving at 8 requests, 64 + 192 tokens; a seeded stream of
              512 tokens (two MLSTM_CHUNKs) teacher-forced through
              decode_step, its logits at 63, 300 and 511 against the
              forward; the card's forward against the CPU's on two rows of
@@ -326,12 +326,12 @@ Phases, each printing one JSON line with its seconds:
              gemma3-1b at full width and depth (26 layers, d_model 1152,
              vocab 262,144), random weights from seed 0, B=8, S=1024 (two
              cross-entropy chunks of 512), AdamW with f32 moments under
-             WSD (peak 1e-3, warmup 2), 16 steps on SyntheticLM's batches
+             WSD (peak 1e-3, warmup 2), 8 steps on SyntheticLM's batches
              drawn on the card (timed on their own; batch_at must be a
              function of the step); the loss must fall (the last 4 steps'
              mean below the first 4's); an AsyncCheckpointer save at step
-             8, restored into a fresh state on the card bit for bit, then
-             steps 9-12 again within 1e-3 of the straight run; one step at
+             4, restored into a fresh state on the card bit for bit, then
+             steps 5-8 again within 1e-3 of the straight run; one step at
              microbatches=2 against 1 from the restored state (params
              within rtol 1e-2, atol 2e-3, tests/test_train.py:41; loss
              within 1e-4); two steps under torch.profiler (kernels a step,
@@ -347,6 +347,24 @@ Phases, each printing one JSON line with its seconds:
              loss within 1e-3, the gradient norm within 2e-2, every
              gradient leaf within max(3e-2, the CPU gradient's own change
              under a rounding-level perturbation) of its max
+  lm_mesh    the LM across processes (repro_torch.launch.mesh.LmMesh)
+             at one NCCL rank, in phase mesh's process group (NCCL is not
+             started twice; this phase closes it): gemma3-1b at full width
+             and depth, B=8, S=1024, two train steps from seed 0 on a
+             (1, 1) data x model mesh (the state from init_state(mesh=),
+             the step from make_train_step(mesh=)) against the same two
+             steps on the one device: every loss, gradient norm and
+             parameter bit for bit (one rank issues no collective and runs
+             the one-device arithmetic), each step's host-clock ms beside
+             the one-device step's; train_loop(mesh=) for two steps,
+             its losses bit for bit phase train's train_loop; the
+             expert-parallel MoE body at one rank on jamba's smoke config (every expert local) against
+             moe_fwd_dense, bit for bit; ring_attention_block at n=1 on
+             gemma3's global-attention block in f32 against attention_fwd,
+             forward and every gradient within 1e-5 of its max;
+             compressed_psum over the rank's group against the stacked
+             form, bit for bit, its error within the reference's ratio
+             bar (1.5).  The mesh must count no collective
   dryrun     the dry run's model of the card (repro_torch.launch.dryrun,
              opanalysis; repro_torch.benchmarks.kernelbench): gemma3-1b's
              train step at train's shape (B=8, S=1024) and a decode step at
@@ -420,6 +438,8 @@ class Smoke:
         # phase train's gemma3-1b result, phase kernel_time's rows
         self.lm_serving, self.train_result = {}, None
         self.kernel_time_calls = self.staged_time_calls = None
+        # phase mesh's one-rank NCCL group, kept open for phase lm_mesh
+        self.nccl = None
 
     # -- helpers -------------------------------------------------------------
 
@@ -2129,8 +2149,6 @@ class Smoke:
 
     def mesh(self):
         """The graph engine across processes; see the module docstring."""
-        import tempfile
-
         import numpy as np
         import torch
 
@@ -2144,8 +2162,7 @@ class Smoke:
         rows, turns, built = [], {}, {}
         held = {id(pg): set(pg._dev) for pg in (self.pgw, self.pgu,
                                                 *self._grid11())}
-        with tempfile.TemporaryDirectory(prefix="pe_mesh_") as store, \
-                M.pe_group(0, 1, store, "cuda"):
+        with self._nccl_group():
             mesh = M.make_pe_mesh(1)
             mesh.vote(torch.ones(1, device=mesh.device))  # NCCL's own init
             mesh.reset_calls()
@@ -2212,6 +2229,27 @@ class Smoke:
                 "collective_ms": collective_ms,
                 "profiles": profiles, "seconds_in_turns": turns,
                 "multi_card": multi}
+
+    def _nccl_group(self):
+        """Phase mesh's one-rank NCCL process group: started on the first
+        call (NCCL's set-up costs about 20 s) and left open for phase
+        lm_mesh, which closes it (``close_nccl``)."""
+        import contextlib
+        import tempfile
+
+        from repro_torch.core import mesh as M
+
+        if self.nccl is None:
+            self.nccl = contextlib.ExitStack()
+            store = self.nccl.enter_context(
+                tempfile.TemporaryDirectory(prefix="pe_mesh_"))
+            self.nccl.enter_context(M.pe_group(0, 1, store, "cuda"))
+        return contextlib.nullcontext()
+
+    def close_nccl(self):
+        if self.nccl is not None:
+            self.nccl.close()
+            self.nccl = None
 
     # the stream record's fields every rank holds alike (the times and
     # rates are each rank's own)
@@ -2563,7 +2601,7 @@ class Smoke:
 
     # -- phase lm -----------------------------------------------------------
 
-    def lm(self, smoke=False, R=8, P=64, G=512, mid=300):
+    def lm(self, smoke=False, R=8, P=64, G=456, mid=300):
         """The LM serving path at full width; see the module docstring.
         gemma3-1b serves ``R`` requests, prompts of ``P`` tokens, ``G``
         generated, logits also read at position ``mid``; then xlstm-350m,
@@ -2837,7 +2875,7 @@ class Smoke:
                                  f"outside the final norm, the config "
                                  f"counts {cfg.param_count()}")
         first_steps = 16
-        marks = (P - 1, mid, P + G - 1)  # 63, 300, 575
+        marks = (P - 1, mid, P + G - 1)  # 63, 300, 519
         serving, _, server = self._lm_serve(cfg, params, R, P, G,
                                             param_bytes, first_steps)
         ring = tuple(server.cache["slot00"]["k"].shape)
@@ -2911,7 +2949,7 @@ class Smoke:
             "cli": {k: v for k, v in cli.items() if k != "tokens"},
             "nvidia_smi": self.smi}
 
-    def _lm_xlstm(self, smoke, R=8, P=64, G=448, rows_on_cpu=2):
+    def _lm_xlstm(self, smoke, R=8, P=64, G=192, T=512, rows_on_cpu=2):
         """xlstm-350m at full width and depth: serving, a 512-token stream
         teacher-forced against the forward, the forward on the card
         against the CPU's (the module docstring's second item)."""
@@ -2936,7 +2974,7 @@ class Smoke:
 
         # 512 = two MLSTM_CHUNKs: the mLSTM forward takes S <= 256 or a
         # multiple of 256
-        T, marks = P + G, (P - 1, 300, P + G - 1)  # 63, 300, 511
+        marks = (P - 1, 300, T - 1)  # 63, 300, 511
         stream = torch.as_tensor(np.random.default_rng(1).integers(
             0, cfg.vocab_size, (R, T), dtype=np.int32), device=dev)
         t0 = time.perf_counter()
@@ -3270,7 +3308,7 @@ class Smoke:
 
     # -- phase train ---------------------------------------------------------
 
-    def train(self, smoke=False, B=8, S=1024, steps=16):
+    def train(self, smoke=False, B=8, S=1024, steps=8):
         """The training path; see the module docstring.  gemma3-1b at full
         width and depth trains ``steps`` steps at ``B`` x ``S``, then every
         architecture's smoke config takes one step on the card against the
@@ -3657,6 +3695,206 @@ class Smoke:
                       "fused/pagerank_weighted": 974_503_392,
                       "fused/labelprop": 1_407_251_232,
                       "gather": 719_742_976, "scatter": 485_421_056}
+
+    # -- phase lm_mesh -------------------------------------------------------
+
+    def lm_mesh(self, smoke=False, B=8, S=1024, steps=2):
+        """The LM across processes at one NCCL rank (phase mesh's group);
+        see the module docstring.  A rehearsal passes ``smoke=True``
+        (gemma3's smoke config) and smaller sizes."""
+        import dataclasses
+
+        import torch
+
+        from repro_torch import configs
+        from repro_torch.launch import mesh as LM
+        from repro_torch.models import train as T
+
+        with self._nccl_group():
+            mesh = LM.make_lm_mesh((1, 1), device="cuda")
+            cfg = (configs.smoke_config if smoke else configs.get_config)(
+                "gemma3-1b")
+            out = {"mesh": dict(mesh.shape), "backend": mesh.backend,
+                   "gemma3-1b": self._lm_mesh_steps(cfg, mesh, B, S, steps),
+                   "train_loop": self._lm_mesh_loop(cfg, mesh, B, S)}
+            moe_cfg = dataclasses.replace(
+                configs.smoke_config("jamba-1.5-large-398b"),
+                capacity_factor=1.25)
+            out["moe_expert_parallel"] = self._lm_mesh_moe(moe_cfg, mesh)
+            out["ring_attention"] = self._lm_mesh_ring(cfg, mesh, B,
+                                                       min(S, 1024))
+            out["compressed_psum"] = self._lm_mesh_compress(mesh)
+            calls = dict(mesh.calls)
+        self.close_nccl()
+        if calls:  # one rank: every axis has size 1, so nothing is issued
+            raise AssertionError(f"a one-rank mesh issued {calls}")
+        return out
+
+    def _lm_mesh_steps(self, cfg, mesh, B, S, steps):
+        """``steps`` train steps from seed 0 on the one device and on
+        ``mesh`` (the state from ``init_state(mesh=)``): every loss, grad
+        norm and parameter bit equal (one rank runs the one-device
+        arithmetic); the last step's host-clock ms of each."""
+        import torch
+
+        from repro_torch.checkpoint.store import _leaves
+        from repro_torch.data import SyntheticLM
+        from repro_torch.models import train as T
+
+        dev = mesh.device
+        opt = T.make_optimizer(peak_lr=1e-3, warmup=2, total=steps)
+        pipe = SyntheticLM(cfg.vocab_size, B, S, seed=0, device=dev)
+        batches = [pipe.batch_at(s) for s in range(steps)]
+
+        def run(step_fn, state):
+            metrics, ms = [], []
+            for b in batches:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = step_fn(state, b)
+                loss = m["loss"].item()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                metrics.append({"loss": loss,
+                                "grad_norm": float(m["grad_norm"])})
+            return state, metrics, ms
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        gen = lambda: torch.Generator(device=dev).manual_seed(0)
+        one, m_one, ms_one = run(T.make_train_step(cfg, opt),
+                                 T.init_state(gen(), cfg, opt, dev))
+        want = [t for _, t in _leaves(one.params)]
+        del one
+        state = T.init_state(gen(), cfg, opt, dev, mesh=mesh)
+        got, m_mesh, ms_mesh = run(T.make_train_step(cfg, opt, mesh=mesh),
+                                   state)
+        if m_mesh != m_one:
+            raise AssertionError(f"lm_mesh: metrics {m_mesh} != {m_one}")
+        for (path, a), b in zip(_leaves(got.params), want, strict=True):
+            if not torch.equal(a, b):
+                raise AssertionError(f"lm_mesh: parameter {path} differs")
+        del got, want, state
+        torch.cuda.empty_cache()
+        return {"arch": cfg.name, "B": B, "S": S, "steps": steps,
+                "metrics": m_mesh, "bit_equal": True,
+                "step_ms": ms_mesh, "step_ms_one_device": ms_one,
+                "last_step_ratio": ms_mesh[-1] / ms_one[-1],
+                "tokens_per_s": B * S / (ms_mesh[-1] / 1e3),
+                "peak_bytes": torch.cuda.max_memory_allocated()}
+
+    def _lm_mesh_loop(self, cfg, mesh, B, S, steps=2):
+        """The user's entry point on the mesh: ``train_loop(mesh=)``, two
+        steps, each loss bit for bit phase train's ``train_loop`` at the
+        same size (run here where phase train did not)."""
+        from repro_torch.launch import train as LT
+
+        kw = dict(steps=steps, batch=B, seq=S, log_every=1, peak_lr=1e-3)
+        t0 = time.perf_counter()
+        got = LT.train_loop(cfg, mesh=mesh, **kw)["history"]
+        seconds = time.perf_counter() - t0
+        tr = self.train_result
+        if tr and tr["arch"] == cfg.name and (tr["B"], tr["S"]) == (B, S):
+            want = tr["train_loop"]["history"]
+        else:
+            want = LT.train_loop(cfg, **kw)["history"]
+        if got != want:
+            raise AssertionError(f"lm_mesh: train_loop {got} != {want}")
+        return {"history": got, "seconds": seconds, "bit_equal": True}
+
+    def _lm_mesh_moe(self, cfg, mesh):
+        """The expert-parallel body at one rank (all E experts local, the
+        capacity over every token) against ``moe_fwd_dense``: output and
+        aux bit for bit; ``moe_fwd(mesh=)`` too (one rank: the dense
+        path)."""
+        import torch
+
+        from repro_torch.models import moe as MOE
+
+        dev = mesh.device
+        gen = torch.Generator(device=dev).manual_seed(3)
+        p = MOE.init_moe(cfg, gen, dev)
+        x = torch.randn((8, 256, cfg.d_model), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        want, want_aux = MOE.moe_fwd_dense(p, x, cfg)
+        got, aux = MOE._moe_expert_parallel(p, x, cfg, mesh, 1)
+        via, via_aux = MOE.moe_fwd(p, x, cfg, mesh)
+        for g, a in ((got, aux), (via, via_aux)):
+            if not (torch.equal(g, want) and torch.equal(a, want_aux)):
+                raise AssertionError("lm_mesh: EP moe_fwd != dense")
+        ms = self.cuda_ms(lambda: MOE._moe_expert_parallel(p, x, cfg, mesh,
+                                                           1), 5)
+        ms_dense = self.cuda_ms(lambda: MOE.moe_fwd_dense(p, x, cfg), 5)
+        return {"arch": cfg.name, "experts": cfg.num_experts,
+                "tokens": x.shape[0] * x.shape[1], "bit_equal": True,
+                "ms": ms, "dense_ms": ms_dense}
+
+    def _lm_mesh_ring(self, cfg, mesh, B, S):
+        """``ring_attention_block`` at n=1 (one K/V block, the whole
+        sequence) on the model's first global-attention block in f32
+        against ``attention_fwd``'s chunked attention: output and every
+        gradient within 1e-5 of its max (one online-softmax block against
+        1024-key chunks: the same sums, in another order)."""
+        import torch
+
+        from repro_torch.models import layers as L
+
+        dev = mesh.device
+        gen = torch.Generator(device=dev).manual_seed(4)
+        mixer = next(m for m, _ in cfg.layer_pattern if m == "attn")
+        p = {k: v.float().requires_grad_()
+             for k, v in L.init_attention(cfg, gen, dev).items()}
+        x = torch.randn((B // 4, S, cfg.d_model), generator=gen,
+                        device=dev).requires_grad_()
+        cot = torch.randn((B // 4, S, cfg.d_model), generator=gen,
+                          device=dev)
+        pos = torch.arange(S, dtype=torch.int32, device=dev)
+        res = {}
+        for name, fn in (("ring", lambda: L.ring_attention_block(
+                p, x, cfg, mixer, mesh, 1)),
+                         ("chunked", lambda: L.attention_fwd(
+                p, x, pos, cfg, mixer)[0])):
+            out = fn()
+            grads = torch.autograd.grad(out, [x, *p.values()], cot)
+            res[name] = (out.detach(), grads)
+        errs = {"out": self._rel(res["ring"][0], res["chunked"][0])}
+        for key, a, b in zip(("x", *p), res["ring"][1], res["chunked"][1]):
+            errs[key] = self._rel(a, b)
+        worst = max(errs.values())
+        if worst > 1e-5:
+            raise AssertionError(f"lm_mesh: ring attention {errs}")
+        with torch.no_grad():
+            ms = self.cuda_ms(lambda: L.ring_attention_block(
+                p, x, cfg, mixer, mesh, 1), 5)
+            ms_chunked = self.cuda_ms(lambda: L.attention_fwd(
+                p, x, pos, cfg, mixer), 5)
+        return {"B": B // 4, "S": S, "max_rel_err": errs, "ms": ms,
+                "chunked_ms": ms_chunked}
+
+    @staticmethod
+    def _rel(a, b):
+        return float((a - b).abs().max()) / float(b.abs().max())
+
+    def _lm_mesh_compress(self, mesh):
+        """``compressed_psum`` over the rank's group against the stacked
+        form on the same tensor: bit for bit; the error against the exact
+        sum within the reference's ratio bar (1.5)."""
+        import torch
+
+        from repro_torch.optim import compressed_psum
+
+        dev = mesh.device
+        x = torch.randn(1 << 20, generator=torch.Generator(
+            device=dev).manual_seed(5), device=dev)
+        got = compressed_psum(x, group=mesh.group(mesh.axis_names))
+        want = compressed_psum(x[None])
+        if not torch.equal(got, want):
+            raise AssertionError("lm_mesh: compressed_psum over the group "
+                                 "!= the stacked form")
+        ratio = float((got - x).abs().max()) / (float(x.abs().max()) / 127)
+        if ratio >= 1.5:
+            raise AssertionError(f"lm_mesh: compressed_psum ratio {ratio}")
+        return {"n": x.numel(), "bit_equal_stacked": True,
+                "err_ratio": ratio}
 
     def dryrun(self, smoke=False, B=8, S=1024):
         """The dry run's model held to the card (the module docstring).  A
@@ -5872,7 +6110,8 @@ def _mesh_rank_cells(mesh, scale, main_scale):
 PHASES = ("device", "build", "kernels", "graph", "main", "reproducible",
           "batch", "serve", "grid", "replan", "async", "stream", "cost",
           "staged_main", "mesh", "profile", "kernel_time", "kernels_main",
-          "chares", "push_choice", "quickstart", "lm", "train", "dryrun")
+          "chares", "push_choice", "quickstart", "lm", "train", "lm_mesh",
+          "dryrun")
 
 
 def main(argv=None) -> int:
@@ -5898,6 +6137,8 @@ def main(argv=None) -> int:
     except Exception:  # report the failing phase, print no ok line
         traceback.print_exc()
         return 1
+    finally:
+        smoke.close_nccl()
     emit({"kernels": list(smoke.kernel_rows.values())})
     print(smoke.smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": smoke.kind,

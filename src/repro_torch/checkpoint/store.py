@@ -16,8 +16,11 @@ npz cannot hold bfloat16 or the fp8 types: such a leaf is stored as its
 same-width unsigned view, with its dtype's name under ``__dtype__/<key>``;
 the port decodes it through ``torch.bfloat16`` / ``torch.float8_*`` and
 needs no ``ml_dtypes``.  Leaves are saved whole (device -> host);
-``restore_checkpoint`` places them on one device (``device=``, the
-reference's ``shardings=`` on one device).  Writers stage into a tmp
+``restore_checkpoint`` places them on one device (``device=``).  A tree
+sharded over an ``LmMesh`` (``mesh=``, ``specs=``: its spec tree) saves
+unsharded-logical too: each leaf is all-gathered, rank 0 writes and the
+other ranks wait at a barrier; a restore with ``mesh=`` keeps each rank's
+shard of every leaf (the reference's ``shardings=``), on any mesh.  Writers stage into a tmp
 directory and ``os.replace`` it into place, so readers only ever see
 complete checkpoints; a crashed writer's staging is ignored and removed by
 the next save's GC, which keeps the ``keep`` most recent steps.
@@ -127,17 +130,26 @@ def _rebuild(tree, new, path=()):
     return new[path]
 
 
-def _flatten(tree):
+def _flatten(tree, mesh=None, specs=None):
     """``{key: numpy array}`` for every leaf (device -> host), plus a
-    ``__dtype__/<key>`` entry per bf16/fp8 leaf."""
+    ``__dtype__/<key>`` entry per bf16/fp8 leaf.  On a mesh each leaf is
+    gathered whole from its shards first (one leaf at a time), and only
+    rank 0 keeps the copy: other ranks get None."""
+    if mesh is not None:
+        from repro_torch.models.sharding import _spec_at, gather_leaf
+
     out = {}
     for path, leaf in _leaves(tree):
+        if mesh is not None:
+            leaf = gather_leaf(leaf, _spec_at(specs, path), mesh)
+            if mesh.rank != 0:
+                continue
         key = _key(path)
         arr, dtype_name = _encode(leaf)
         out[key] = arr
         if dtype_name is not None:
             out["__dtype__/" + key] = np.asarray(dtype_name)
-    return out
+    return out if mesh is None or mesh.rank == 0 else None
 
 
 def _write(directory: str, step: int, flat: dict) -> str:
@@ -158,10 +170,18 @@ def _write(directory: str, step: int, flat: dict) -> str:
     return final
 
 
-def save_checkpoint(directory: str, step: int, tree, keep: int = 3) -> str:
-    """Blocking save. Returns the final checkpoint path."""
-    final = _write(directory, step, _flatten(tree))
-    _gc(directory, keep)
+def save_checkpoint(directory: str, step: int, tree, keep: int = 3,
+                    mesh=None, specs=None) -> str:
+    """Blocking save. Returns the final checkpoint path.  A tree sharded
+    over ``mesh`` by ``specs`` is gathered; rank 0 writes, and every rank
+    leaves after the write (a barrier)."""
+    flat = _flatten(tree, mesh, specs)
+    final = os.path.join(directory, f"step_{step:08d}")
+    if flat is not None:
+        final = _write(directory, step, flat)
+        _gc(directory, keep)
+    if mesh is not None:
+        mesh.barrier()
     return final
 
 
@@ -192,48 +212,63 @@ def latest_step(directory: str) -> int | None:
 
 
 def restore_checkpoint(directory: str, tree_like, step: int | None = None,
-                       device=None):
+                       device=None, mesh=None, specs=None):
     """Restore into the structure of ``tree_like``, whose tensor leaves
-    (``meta`` tensors included) give shapes and dtypes.  Returns ``(tree,
-    step)``.  Each leaf lands on ``device``; with ``device=None``, on its
-    ``tree_like`` leaf's device, and a ``meta`` leaf on CUDA
-    (``repro_torch.core.engine.resolve_device``).
+    (``meta`` tensors included) give the whole shapes and dtypes.  Returns
+    ``(tree, step)``.  Each leaf lands on ``device``; with
+    ``device=None``, on its ``tree_like`` leaf's device, and a ``meta``
+    leaf on CUDA (``repro_torch.core.engine.resolve_device``).  With
+    ``mesh=`` each rank keeps its shard of every leaf under ``specs``
+    (cut on the host, then moved).
     """
+    if mesh is not None:
+        from repro_torch.models.sharding import _spec_at, shard_leaf
     step = latest_step(directory) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no checkpoints under {directory}")
     path = os.path.join(directory, f"step_{step:08d}")
-    with np.load(os.path.join(path, "arrays.npz")) as z:
-        flat = {k: z[k] for k in z.files}
-
     keyed = [(p, _key(p), leaf) for p, leaf in _leaves(tree_like)]
     # validate the requested structure against meta.json's key list before
     # touching any leaf: one error naming everything that's absent
+    z = np.load(os.path.join(path, "arrays.npz"))
     with open(os.path.join(path, "meta.json")) as f:
-        stored = set(json.load(f).get("keys", flat))
+        stored = set(json.load(f).get("keys", z.files))
     missing = sorted(k for _, k, _ in keyed if k not in stored)
     if missing:
+        z.close()
         raise KeyError(f"checkpoint {path} missing {len(missing)} leaves: "
                        f"{missing}")
 
     out = {}
-    for p, key, leaf in keyed:
-        if key not in flat:
-            raise KeyError(f"checkpoint {path} missing leaf {key!r}")
-        dt_key = "__dtype__/" + key
-        t = _decode(flat[key], str(flat[dt_key]) if dt_key in flat else None)
-        if tuple(t.shape) != tuple(leaf.shape):
-            raise ValueError(f"{key}: checkpoint shape {tuple(t.shape)} != "
-                             f"expected {tuple(leaf.shape)}")
-        where = device
-        if where is None:
-            # imported here: repro_torch.core imports this module
-            from repro_torch.core.engine import resolve_device
-
-            where = resolve_device(None) if leaf.device.type == "meta" \
-                else leaf.device
-        out[p] = t.to(leaf.dtype).to(where)
+    with z:
+        for p, key, leaf in keyed:
+            out[p] = _restore_leaf(z, path, key, leaf, device,
+                                   None if mesh is None else
+                                   (lambda t, p=p: shard_leaf(
+                                       t, _spec_at(specs, p), mesh)))
     return _rebuild(tree_like, out), step
+
+
+def _restore_leaf(z, path, key, leaf, device, cut):
+    """One leaf of the open npz ``z`` as ``leaf``'s dtype on its device
+    (``restore_checkpoint``), cut to this rank's shard by ``cut``."""
+    if key not in z.files:
+        raise KeyError(f"checkpoint {path} missing leaf {key!r}")
+    dt_key = "__dtype__/" + key
+    t = _decode(z[key], str(z[dt_key]) if dt_key in z.files else None)
+    if tuple(t.shape) != tuple(leaf.shape):
+        raise ValueError(f"{key}: checkpoint shape {tuple(t.shape)} != "
+                         f"expected {tuple(leaf.shape)}")
+    if cut is not None:
+        t = cut(t)
+    where = device
+    if where is None:
+        # imported here: repro_torch.core imports this module
+        from repro_torch.core.engine import resolve_device
+
+        where = resolve_device(None) if leaf.device.type == "meta" \
+            else leaf.device
+    return t.to(leaf.dtype).to(where)
 
 
 class AsyncCheckpointer:
@@ -250,10 +285,16 @@ class AsyncCheckpointer:
         self.keep = keep
         self._thread: threading.Thread | None = None
         self._error: BaseException | None = None
+        self._mesh = None
 
-    def save(self, step: int, tree):
+    def save(self, step: int, tree, mesh=None, specs=None):
+        """Snapshot ``tree`` (gathered whole where it is sharded over
+        ``mesh`` by ``specs``: every rank calls, rank 0 writes)."""
         self.wait()
-        flat = _flatten(tree)  # synchronous device->host snapshot
+        self._mesh = mesh
+        flat = _flatten(tree, mesh, specs)  # synchronous device->host
+        if flat is None:
+            return
 
         def _write_and_gc():
             try:
@@ -266,9 +307,14 @@ class AsyncCheckpointer:
         self._thread.start()
 
     def wait(self):
+        """Join the writer; on a mesh every rank waits for rank 0's
+        write (a barrier)."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._mesh is not None:
+            self._mesh.barrier()
+            self._mesh = None
         if self._error is not None:
             err, self._error = self._error, None
             raise err

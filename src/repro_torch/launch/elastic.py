@@ -10,29 +10,35 @@ elasticity work (DESIGN.md section 5):
      ``train_state_specs(mesh)`` recomputes the placement for whatever mesh
      survives.
 
-The port runs on one device, so a mesh is a descriptor
-(``repro_torch.launch.mesh.MeshSpec``): ``remesh_restore`` derives the new
-mesh's specs and restores the state onto the device.
+``remesh_restore`` restores onto an ``LmMesh`` (``repro_torch.launch.mesh``,
+the ranks of the surviving process group) for real: each rank keeps its
+shards under the new mesh's ``train_state_specs``.  A ``MeshSpec``
+descriptor places nothing: the state lands whole on one device.
 """
 
 from __future__ import annotations
 
+from repro_torch.launch.mesh import LmMesh
 from repro_torch.launch.train import restore_state
 from repro_torch.models import train as T
 
 
 def remesh_restore(ckpt_dir: str, cfg, new_mesh, optimizer=None,
                    device=None):
-    """Restore the latest checkpoint for ``new_mesh`` (any shape/size), on
-    CUDA unless ``device`` names another.  The mesh's placement of the
-    state is ``train_state_specs(abstract_state(cfg), new_mesh)``; one
-    device applies none, so the state lands whole on ``device``.
+    """Restore the latest checkpoint onto ``new_mesh`` (any shape/size).
+    On an ``LmMesh`` every rank calls it and keeps its shards under
+    ``train_state_specs(abstract_state(cfg), new_mesh, zero=cfg.zero)``,
+    on the mesh's device; a ``MeshSpec`` places nothing, and the state
+    lands whole on ``device`` (CUDA unless it names another).
 
     Returns (state, step). Batch size must stay divisible by the new data
     axes; callers adjust microbatching to keep the global batch constant
     (gradient-equivalent elasticity).
     """
     optimizer = optimizer or T.make_optimizer()
+    if isinstance(new_mesh, LmMesh):
+        return restore_state(ckpt_dir, cfg, optimizer, new_mesh.device,
+                             mesh=new_mesh)
     return restore_state(ckpt_dir, cfg, optimizer, device)
 
 

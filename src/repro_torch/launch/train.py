@@ -12,6 +12,12 @@ A checkpoint is the reference's train checkpoint (``step``,
 ``params/...``, ``opt_state/1/mu/...``), so either package resumes the
 other's.  The data pipeline is step-indexed, so a resumed run replays the
 exact token stream.
+
+``train_loop(..., mesh=)`` trains on an ``LmMesh``
+(``repro_torch.launch.mesh``): every rank of the process group calls it
+with its mesh; each holds its shards of the state, draws the same global
+batch and takes its rows; rank 0 alone logs and writes checkpoints (the
+state gathered unsharded, the others waiting at a barrier).
 """
 
 from __future__ import annotations
@@ -57,35 +63,45 @@ class StepWatchdog:
 
 
 def restore_state(ckpt_dir: str, cfg: ModelConfig, optimizer, device,
-                  step: int | None = None):
+                  step: int | None = None, mesh=None):
     """The latest (or ``step``'s) train checkpoint under ``ckpt_dir`` as a
-    TrainState on ``device``: ``(state, step)``."""
+    TrainState on ``device``: ``(state, step)``; this rank's shards of it
+    on an ``LmMesh`` (``mesh=``)."""
+    specs = None if mesh is None else T.state_specs(cfg, mesh, optimizer)
     return restore_checkpoint(ckpt_dir, T.abstract_state(cfg, optimizer),
-                              step=step, device=resolve_device(device))
+                              step=step, device=resolve_device(device),
+                              mesh=mesh, specs=specs)
 
 
 def train_loop(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
                ckpt_dir: str | None = None, resume: bool = False,
                ckpt_every: int = 50, log_every: int = 10,
                peak_lr: float = 3e-4, microbatches: int = 1,
-               seed: int = 0, device=None) -> dict:
-    """Train ``steps`` steps on CUDA unless ``device`` names another (the
-    reference's ``mesh=``: the port trains on one device).  Each step's
-    loss is read back to the host (its end on the host clock)."""
-    device = resolve_device(device)
+               seed: int = 0, device=None, mesh=None) -> dict:
+    """Train ``steps`` steps on CUDA unless ``device`` names another; on
+    ``mesh`` (an ``LmMesh``, the reference's ``mesh=``) sharded across
+    its ranks, on the mesh's device.  Each step's loss is read back to
+    the host (its end on the host clock)."""
+    device = resolve_device(device) if mesh is None else mesh.device
+    lead = mesh is None or mesh.rank == 0
     optimizer = T.make_optimizer(peak_lr=peak_lr, warmup=min(100, steps // 10),
                                  total=steps)
-    step_fn = T.make_train_step(cfg, optimizer, microbatches=microbatches)
+    step_fn = T.make_train_step(cfg, optimizer, microbatches=microbatches,
+                                mesh=mesh)
     start = 0
     if resume and ckpt_dir and latest_step(ckpt_dir) is not None:
-        state, start = restore_state(ckpt_dir, cfg, optimizer, device)
-        print(f"[train] resumed from step {start}")
+        state, start = restore_state(ckpt_dir, cfg, optimizer, device,
+                                     mesh=mesh)
+        if lead:
+            print(f"[train] resumed from step {start}")
     else:
         gen = torch.Generator(device=device).manual_seed(seed)
-        state = T.init_state(gen, cfg, optimizer, device)
+        state = T.init_state(gen, cfg, optimizer, device, mesh=mesh)
 
     pipe = make_pipeline(cfg, batch, seq, seed=seed, device=device)
     ckpt = AsyncCheckpointer(ckpt_dir) if ckpt_dir else None
+    save = {} if mesh is None else {
+        "mesh": mesh, "specs": T.state_specs(cfg, mesh, optimizer)}
     watchdog = StepWatchdog()
     history = []
     t_train0 = time.time()
@@ -97,14 +113,14 @@ def train_loop(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
         dt = time.time() - t0
         watchdog.observe(dt)
         history.append(metrics["loss"])
-        if log_every and (s + 1) % log_every == 0:
+        if lead and log_every and (s + 1) % log_every == 0:
             print(f"[train] step {s + 1:5d} loss={metrics['loss']:.4f} "
                   f"ce={metrics['ce']:.4f} gnorm={metrics['grad_norm']:.3f} "
                   f"{dt * 1e3:.0f}ms")
         if ckpt and (s + 1) % ckpt_every == 0:
-            ckpt.save(s + 1, state)
+            ckpt.save(s + 1, state, **save)
     if ckpt:
-        ckpt.save(steps, state)
+        ckpt.save(steps, state, **save)
         ckpt.wait()
     wall = time.time() - t_train0
     return {"final_loss": history[-1] if history else None,

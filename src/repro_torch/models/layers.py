@@ -12,11 +12,26 @@ over KV chunks): scores never materialize beyond [B, heads, q_chunk,
 kv_chunk].  The reference computes it in plain JAX, not in a Pallas kernel,
 so the port computes it in plain torch ops (not
 ``scaled_dot_product_attention``, whose arithmetic differs).
+
+On an ``LmMesh`` with a model axis wider than 1 (``mesh=``), the blocks
+run tensor-parallel over it, each rank on the parameter shards the spec
+tables give it: head-parallel attention (column-split ``wq``, and
+``wk``/``wv`` where the KV heads divide, a row-split ``wo`` and one
+all-reduce), ff-parallel ``mlp_fwd``, a vocab-split embedding (a masked
+local lookup and an all-reduce) and LM head; where the heads do not
+divide the axis, ``attention_fwd`` takes ``ring_attention_block``
+(sequence-split, K/V rotated around the model ring) as the reference
+does.  Inputs enter replicated over the model axis; each collective is
+an autograd pair (``repro_torch.launch.mesh.copy_to`` / ``reduce_from``
+and the rest), so the backward issues the conjugate collective.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.launch import mesh as LM
 
 PDT = torch.bfloat16  # parameter/activation dtype
 
@@ -187,14 +202,19 @@ def chunked_attention(q, k, v, q_pos, k_pos, *, causal=True, window=0,
     return out.permute(1, 0, 3, 2, 4).reshape(B, Sq, H, hd)
 
 
-def attention_fwd(p, x, positions, cfg, mixer):
+def attention_fwd(p, x, positions, cfg, mixer, mesh=None):
     """Training / prefill self-attention over the full sequence.
 
-    The reference switches to ``ring_attention_block`` (sequence-sharded
-    ring attention) when the mesh has a ``model`` axis wider than 1 that the
-    head count does not divide.  The port runs on one device, where that
-    branch is never taken, so it has no twin (as ``make_pe_mesh`` has
-    none)."""
+    On a mesh whose model axis (n > 1) the head count does not divide,
+    with ``S % n == 0`` and ``S // n >= 128``, the block switches to
+    ``ring_attention_block`` (the reference's rule); where the heads
+    divide, it runs head-parallel on this rank's heads
+    (``_head_parallel``); otherwise every rank computes it whole."""
+    S, n = x.shape[1], LM.model_size(mesh)
+    if n > 1 and cfg.num_heads % n != 0 and S % n == 0 and S // n >= 128:
+        return ring_attention_block(p, x, cfg, mixer, mesh, n), None
+    if n > 1 and p["wq"].shape[1] != cfg.num_heads:
+        return _head_parallel(p, x, positions, cfg, mixer, mesh), None
     q, k, v = _qkv(p, x, positions, cfg)
     out = chunked_attention(
         q, k, v, positions, positions,
@@ -202,6 +222,101 @@ def attention_fwd(p, x, positions, cfg, mixer):
         window=cfg.window if mixer == "local" else 0,
         logit_softcap=cfg.attn_logit_softcap)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"]), (k, v)
+
+
+def _local_kv(p, cfg, mesh):
+    """The K/V projections (and biases) this rank's query heads read: its
+    own KV-head shard where ``wk``/``wv`` are split over the model axis,
+    else the heads its query heads map to (``h // G``) picked from the
+    whole ones, one K/V head per query head; those enter through
+    ``copy_to`` (each rank's gradient covers its heads only)."""
+    Hl = p["wq"].shape[1]
+    if p["wk"].shape[1] != cfg.num_kv_heads:  # split with the query heads
+        return p
+    G = cfg.num_heads // cfg.num_kv_heads
+    first = mesh.axis_index("model") * Hl
+    kv = torch.arange(first, first + Hl, device=p["wk"].device) // G
+    out = dict(p)
+    for key, dim in (("wk", 1), ("wv", 1), ("bk", 0), ("bv", 0)):
+        if key in p:
+            out[key] = LM.copy_to(p[key], mesh).index_select(dim, kv)
+    return out
+
+
+def _head_parallel(p, x, positions, cfg, mixer, mesh):
+    """Attention on this rank's query heads (``wq``/``bq`` column-split,
+    the GQA groups kept: kv head ``h // G`` serves head ``h``), then the
+    row-split ``wo``'s partial summed over the model axis."""
+    x = LM.copy_to(x, mesh)
+    q, k, v = _qkv(_local_kv(p, cfg, mesh), x, positions, cfg)
+    out = chunked_attention(
+        q, k, v, positions, positions, causal=not cfg.encoder_only,
+        window=cfg.window if mixer == "local" else 0,
+        logit_softcap=cfg.attn_logit_softcap)
+    return LM.reduce_from(torch.einsum("bshk,hkd->bsd", out, p["wo"]), mesh)
+
+
+def _hop_update(qf, k_blk, v_blk, qpos, kpos, m, l, acc, G, scale, causal,
+                window, cap):
+    """One ring hop's online-softmax update of ``(m, l, acc)`` (f32) with
+    one K/V block: the reference's ``hop_update``."""
+    kh = torch.repeat_interleave(k_blk, G, dim=2).transpose(1, 2)
+    vh = torch.repeat_interleave(v_blk, G, dim=2).transpose(1, 2)
+    s = torch.einsum("bhqd,bhcd->bhqc", qf.float(), kh.float())
+    s = softcap(s * scale, cap)
+    ok = _mask(qpos, kpos, causal, window) == 0.0
+    s = torch.where(ok, s, NEG_INF)
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    m_safe = torch.where(m_new <= NEG_INF, 0.0, m_new)
+    pmat = torch.where(ok, torch.exp(s - m_safe[..., None]), 0.0)
+    corr = torch.where(m <= NEG_INF, 0.0, torch.exp(m - m_safe))
+    l_new = l * corr + pmat.sum(dim=-1)
+    acc = acc * corr[..., None] + torch.einsum(
+        "bhqc,bhcd->bhqd", pmat.to(vh.dtype).float(), vh.float())
+    return m_new, l_new, acc
+
+
+def ring_attention_block(p, x, cfg, mixer, mesh, n_model):
+    """The whole attention block under sequence sharding over the model
+    axis (the reference's ``ring_attention_block``): this rank's S/n rows
+    of ``x`` (replicated over the axis) get their Q/K/V projections; the
+    K/V blocks and their positions travel the ring one hop at a time
+    (``batch_isend_irecv``; the gradient goes back the other way) while
+    an online softmax in f32 folds each block in with the global
+    ``qpos``/``kpos`` masks (causal, window, softcap); the output
+    projection runs on the local rows and the rows are gathered back.
+    The weights enter through ``copy_to`` (each rank's gradient covers
+    its rows only, and the backward sums them).  Wire bytes per rank:
+    (n-1) x |K+V block| per layer, the paper's pairs/ring analysis.
+    Each hop's update is checkpointed (the backward recomputes its score
+    tile)."""
+    causal = not cfg.encoder_only
+    window = cfg.window if mixer == "local" else 0
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    G = H // KV
+    pp = {k: LM.copy_to(v, mesh) for k, v in p.items()}
+    x_loc = LM.scatter_to(x, mesh, "model", 1)
+    B, c, _ = x_loc.shape
+    me = mesh.axis_index("model") if n_model > 1 else 0
+    qpos = me * c + torch.arange(c, dtype=torch.int32, device=x.device)
+    q, k, v = _qkv(pp, x_loc, qpos, cfg)  # [B,c,H,hd], [B,c,KV,hd]
+    qf = q.transpose(1, 2)  # [B,H,c,hd]
+    m = torch.full((B, H, c), NEG_INF, dtype=torch.float32, device=x.device)
+    l = torch.zeros((B, H, c), dtype=torch.float32, device=x.device)
+    acc = torch.zeros((B, H, c, hd), dtype=torch.float32, device=x.device)
+    kpos = qpos
+    remat = torch.is_grad_enabled() and q.requires_grad
+    for hop in range(n_model):
+        args = (qf, k, v, qpos, kpos, m, l, acc, G, hd ** -0.5, causal,
+                window, cfg.attn_logit_softcap)
+        m, l, acc = (checkpoint(_hop_update, *args, use_reentrant=False)
+                     if remat else _hop_update(*args))
+        if hop + 1 < n_model:  # rotate the K/V block (the pairs variant)
+            k, v = LM.ring_shift(k, mesh), LM.ring_shift(v, mesh)
+            kpos = LM.ring_shift(kpos, mesh)
+    out = (acc / torch.clamp(l, min=1e-30)[..., None]).to(x.dtype)
+    out = torch.einsum("bshk,hkd->bsd", out.transpose(1, 2), pp["wo"])
+    return LM.gather_from(out, mesh, "model", 1)
 
 
 def attention_decode(p, x, pos, cache_k, cache_v, cfg, mixer):
@@ -259,10 +374,18 @@ def silu(x):
     return x * torch.reciprocal(1 + torch.exp(-x))
 
 
-def mlp_fwd(p, x):
+def mlp_fwd(p, x, mesh=None, d_ff=None):
+    """SwiGLU.  On a mesh whose model axis splits ``w_gate``/``w_in`` by
+    columns and ``w_out`` by rows (their ff dim narrower than ``d_ff``),
+    each rank computes its ff slice and the partials are summed over the
+    axis."""
+    tp = d_ff is not None and p["w_gate"].shape[1] != d_ff
+    if tp:
+        x = LM.copy_to(x, mesh)
     h = silu(torch.einsum("bsd,df->bsf", x, p["w_gate"]))
     h = h * torch.einsum("bsd,df->bsf", x, p["w_in"])
-    return torch.einsum("bsf,fd->bsd", h, p["w_out"])
+    out = torch.einsum("bsf,fd->bsd", h, p["w_out"])
+    return LM.reduce_from(out, mesh) if tp else out
 
 
 def init_embedding(vocab, d, generator, device):
@@ -275,8 +398,19 @@ def embed_scale(d) -> float:
     return float(torch.tensor(d ** 0.5, dtype=PDT))
 
 
-def embed(p, tokens, d):
-    return p["table"][tokens] * embed_scale(d)
+def embed(p, tokens, d, mesh=None, vocab=None):
+    """``table[tokens] * sqrt(d)``.  A table split by vocab rows over the
+    model axis (fewer rows than ``vocab``) is read by a masked local
+    lookup (zeros for another rank's ids) and the rows summed over the
+    axis: one nonzero each, so the sum is exact."""
+    table = p["table"]
+    if vocab is None or table.shape[0] == vocab:
+        return table[tokens] * embed_scale(d)
+    Vl = table.shape[0]
+    local = tokens - mesh.axis_index("model") * Vl
+    mine = (local >= 0) & (local < Vl)
+    rows = table[torch.where(mine, local, 0)] * mine[..., None].to(table.dtype)
+    return LM.reduce_from(rows, mesh) * embed_scale(d)
 
 
 def logits_fwd(p, x, final_cap=0.0):

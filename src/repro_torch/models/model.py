@@ -25,7 +25,14 @@ Input contract (see ``configs.input_specs``):
     audio:  {"frames": bf16[B,S,d]}             (stub conv frontend)
 
 Placement constraints (the reference's ``sharding.constrain``) are dropped:
-on one device they are no-ops.
+the port places tensors explicitly.  ``backbone`` / ``forward`` take
+``mesh=`` (an ``LmMesh``, ``repro_torch.launch.mesh``): the parameters are
+then this rank's model-axis shards (the spec tables' ``"model"`` dims; the
+batch-axis ZeRO dims gathered by the caller) and the batch this rank's
+rows; every block runs tensor-, expert- or sequence-parallel over the
+model axis (``layers``, ``moe``), and the batch axes serve every family.
+The SSM mixers have no model-axis split: on a model axis wider than 1
+they raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.core.engine import resolve_device
+from repro_torch.launch import mesh as LM
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
@@ -178,7 +186,7 @@ _MIXER_FWD = {"mamba": SSM.mamba_fwd, "mlstm": SSM.mlstm_fwd,
               "slstm": SSM.slstm_fwd}
 
 
-def _apply_block(block, p, x, positions, cfg, xf=None):
+def _apply_block(block, p, x, positions, cfg, xf=None, mesh=None):
     """One block over the full sequence -> ``(x, xf, aux)``: the residual
     stream, the f32 sum it was rounded from, and the MoE aux loss (None
     without MoE).  norm1 reads ``xf`` where the caller passes it (see
@@ -187,13 +195,13 @@ def _apply_block(block, p, x, positions, cfg, xf=None):
     h = L.rmsnorm(p["norm1"], x if xf is None else xf,
                   cfg.norm_eps).to(x.dtype)
     if mixer in ("attn", "local"):
-        out, _ = L.attention_fwd(p["attn"], h, positions, cfg, mixer)
+        out, _ = L.attention_fwd(p["attn"], h, positions, cfg, mixer, mesh)
     else:
         out = _MIXER_FWD[mixer](p[mixer], h, cfg)
-    return _residual_mlp(mlp, p, x, out, cfg)
+    return _residual_mlp(mlp, p, x, out, cfg, mesh)
 
 
-def _residual_mlp(mlp, p, x, out, cfg):
+def _residual_mlp(mlp, p, x, out, cfg, mesh=None):
     """``x + out``, then the dense or MoE MLP's residual -> ``(x, xf,
     aux)``.  The reference's compiled block feeds norm2 the f32 sum ``x +
     out`` (XLA keeps the excess precision of an add fused into the norm's
@@ -206,9 +214,9 @@ def _residual_mlp(mlp, p, x, out, cfg):
         return x, xf, None
     h = L.rmsnorm(p["norm2"], xf, cfg.norm_eps).to(x.dtype)
     if mlp == "dense":
-        out, aux = L.mlp_fwd(p["mlp"], h), None
+        out, aux = L.mlp_fwd(p["mlp"], h, mesh, cfg.d_ff), None
     else:
-        out, aux = MOE.moe_fwd(p["moe"], h, cfg)
+        out, aux = MOE.moe_fwd(p["moe"], h, cfg, mesh)
     xf = x.float() + out
     return xf.to(x.dtype), xf, aux
 
@@ -249,7 +257,7 @@ def _remat_block(remat, *args):
     return checkpoint(_apply_block, *args, use_reentrant=False, **context)
 
 
-def _stack_fwd(params, x, positions, cfg):
+def _stack_fwd(params, x, positions, cfg, mesh=None):
     """Run every layer in order. Returns (x, aux_loss): the stream the
     final norm reads (``_final_input``), and the MoE blocks' aux losses
     summed in f32 in layer order (an f32 zero without MoE), as the
@@ -269,28 +277,41 @@ def _stack_fwd(params, x, positions, cfg):
     xf = None
     for (key, _, block), p in zip(layer_blocks(cfg), params["layers"]):
         x, xf, a = apply(block, p, x, positions, cfg,
-                         xf if _carries_f32(key) else None)
+                         xf if _carries_f32(key) else None, mesh)
         if a is not None:
             aux = aux + a
     return _final_input(x, xf, cfg), aux
 
 
-def _embed_inputs(params, batch, cfg):
+def _embed_inputs(params, batch, cfg, mesh=None):
     """Token/frontend embedding; returns x [B,S,d]."""
     if cfg.frontend == "audio":
         return batch["frames"].to(L.PDT)
-    x = L.embed(params["embed"], batch["tokens"], cfg.d_model)
+    x = L.embed(params["embed"], batch["tokens"], cfg.d_model, mesh,
+                cfg.vocab_size)
     if cfg.frontend == "vision":
         x = torch.cat([batch["patches"].to(L.PDT), x], dim=1)
     return x
 
 
-def backbone(params, batch, cfg: ModelConfig):
+def check_mesh(cfg: ModelConfig, mesh):
+    """Raise where ``cfg`` cannot run on ``mesh``: an SSM mixer on a model
+    axis wider than 1."""
+    ssm = sorted({m for _, _, (m, _) in layer_blocks(cfg)} & set(_MIXER_FWD))
+    if ssm and LM.model_size(mesh) > 1:
+        raise NotImplementedError(
+            f"{cfg.name}: the {'/'.join(ssm)} mixers have no model-axis "
+            "split (ROADMAP.md item 22); run them on a mesh whose model "
+            "axis is 1")
+
+
+def backbone(params, batch, cfg: ModelConfig, mesh=None):
     """Embed + stack + final norm -> (hidden [B,S,d], aux).  The LM head is
     applied separately (``forward`` / ``forward_last``)."""
-    x = _embed_inputs(params, batch, cfg)
+    check_mesh(cfg, mesh)
+    x = _embed_inputs(params, batch, cfg, mesh)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
-    x, aux = _stack_fwd(params, x, positions, cfg)
+    x, aux = _stack_fwd(params, x, positions, cfg, mesh)
     return L.rmsnorm(params["final_norm"], x, cfg.norm_eps).to(L.PDT), aux
 
 
@@ -298,11 +319,16 @@ def head_params(params, cfg: ModelConfig):
     return params["embed"] if cfg.tie_embeddings else params["lm_head"]
 
 
-def forward(params, batch, cfg: ModelConfig):
-    """Full-sequence forward -> (logits [B,S,V] f32, aux)."""
-    x, aux = backbone(params, batch, cfg)
-    return L.logits_fwd(head_params(params, cfg), x,
-                        cfg.final_logit_softcap), aux
+def forward(params, batch, cfg: ModelConfig, mesh=None):
+    """Full-sequence forward -> (logits [B,S,V] f32, aux); a vocab-split
+    head's logits are gathered over the model axis."""
+    x, aux = backbone(params, batch, cfg, mesh)
+    head = head_params(params, cfg)
+    split = head["table"].shape[0] != cfg.vocab_size
+    logits = L.logits_fwd(head, LM.copy_to(x, mesh) if split else x,
+                          cfg.final_logit_softcap)
+    return (LM.gather_from(logits, mesh, "model", 2) if split else logits,
+            aux)
 
 
 def forward_last(params, batch, cfg: ModelConfig):

@@ -10,17 +10,24 @@ locally into the token buffer.  Slots past an expert's capacity are
 dropped (routed to the table's dummy last row), as in the reference: the
 drops are part of the semantics.
 
-The reference's ``moe_fwd`` takes an expert-parallel ``shard_map`` path
-when the mesh has a ``model`` axis wider than 1, and ``moe_fwd_dense`` on
-one device.  The port runs on one device, where that branch is never
-taken, so ``moe_fwd`` is ``moe_fwd_dense`` and the shard_map path has no
-twin (as ``ring_attention_block`` has none in ``layers``).
+``moe_fwd(p, x, cfg, mesh=None)`` runs ``moe_fwd_dense`` without a mesh.
+On an ``LmMesh`` (``repro_torch.launch.mesh``) whose model axis divides
+the experts it takes the reference's expert-parallel path
+(``_moe_expert_parallel``): the router is replicated, each rank holds its
+E/n experts (the ``"expert"`` shard of the spec tables), routes every
+local token, builds capacity buffers only for its own experts at a
+capacity over the local tokens, and the bf16 partials are summed over the
+model axis (combine locally, then send); no token all-to-all.  Where the
+experts do not divide, every rank computes the dense path -- over the
+whole batch, gathered over the batch axes, so the capacity is the
+reference's global one.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.launch import mesh as LM
 from repro_torch.models.layers import PDT, _normal, silu
 
 F32 = torch.float32
@@ -162,4 +169,69 @@ def moe_fwd_dense(p, x, cfg):
     return out.reshape(B, S, d).to(x.dtype), _aux_loss(gates, top_idx, cfg)
 
 
-moe_fwd = moe_fwd_dense
+class _ScaleGrad(torch.autograd.Function):
+    """Identity forward; the gradient times ``factor`` backward."""
+
+    @staticmethod
+    def forward(ctx, x, factor):
+        ctx.factor = factor
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.factor, None
+
+
+def moe_fwd(p, x, cfg, mesh=None):
+    """x: [B, S, d] -> ([B, S, d], aux): ``x`` holds this rank's batch
+    rows on a mesh (the whole batch where it does not split over the
+    batch axes).  Expert-parallel where the mesh's model axis is wider
+    than 1 and divides the experts, else the dense path."""
+    if mesh is None:
+        return moe_fwd_dense(p, x, cfg)
+    n_model = LM.model_size(mesh)
+    if n_model > 1 and cfg.num_experts % n_model == 0:
+        return _moe_expert_parallel(p, x, cfg, mesh, n_model)
+    axes = mesh.batch_axes()
+    n_data = mesh.axis_size(axes)
+    if n_data == 1:  # a replicated batch: every rank holds it whole
+        return moe_fwd_dense(p, x, cfg)
+    # the reference's global capacity: route the whole batch, keep ours;
+    # each rank's gradient of the whole batch is its rows' and its share
+    # of aux's, summed back over the ranks
+    B = x.shape[0]
+    out, aux = moe_fwd_dense(p, LM.gather_from(x, mesh, axes, 0,
+                                               summed=True), cfg)
+    me = mesh.axis_index(axes)
+    # every batch rank computes this aux whole; their gradients are summed
+    return out[me * B:(me + 1) * B], _ScaleGrad.apply(aux, 1.0 / n_data)
+
+
+def _moe_expert_parallel(p, x, cfg, mesh, n_model):
+    """The reference's ``shard_map`` body on this rank: ``p``'s expert
+    leaves hold experts ``[m * n_local, (m + 1) * n_local)``; a slot
+    routed elsewhere is remapped to ``n_local`` (a foreign slot, never
+    kept); ``C = capacity(T_local)`` over this rank's tokens (the global
+    budget over the batch axes; the whole batch's where it does not
+    split); the locally combined bf16 partial is summed over the model
+    axis, and aux is averaged over the batch axes.  The expert inputs and
+    gate weights enter through ``copy_to`` (each rank's gradient covers
+    its experts only); the routing runs replicated."""
+    B, S, d = x.shape
+    T = B * S
+    n_local = cfg.num_experts // n_model
+    xt = x.reshape(T, d)
+    C = capacity(T, cfg)
+    top_vals, top_idx, gates = _route(xt, p["router"], cfg)
+    e_local = top_idx.reshape(-1) - mesh.axis_index("model") * n_local
+    e_local = torch.where((e_local >= 0) & (e_local < n_local), e_local,
+                          n_local)
+    partial = _moe_local(LM.copy_to(xt, mesh), p, cfg, e_local, n_local, C,
+                         LM.copy_to(top_vals, mesh))
+    out = LM.reduce_from(partial, mesh).to(x.dtype)
+    aux = _aux_loss(gates, top_idx, cfg)
+    axes = mesh.batch_axes()
+    n_data = mesh.axis_size(axes)
+    if n_data > 1:  # routing differs per batch shard -> average
+        aux = LM.reduce_from(aux, mesh, axes) / n_data
+    return out.reshape(B, S, d), aux

@@ -1,14 +1,21 @@
 """Sharding rules: logical axis names -> mesh partition specs.
 
-The port of ``repro/models/sharding.py``.  On one card nothing is placed,
-so the rules are kept as data: the spec tables say where each tensor
-would live on a mesh (the dry run, the elastic planner and the tests read
-them), and ``constrain`` / ``named_shardings`` are identities.
+The port of ``repro/models/sharding.py``.  The spec tables say where
+each tensor lives on a mesh; on an ``LmMesh`` (``repro_torch.launch.mesh``:
+named axes over the ranks of a process group) ``shard_leaf`` places a
+whole tensor by its spec -- each rank keeps its block -- and
+``gather_leaf`` puts the blocks back together with all-gathers over the
+named dims (``shard_tree`` / ``gather_tree`` over a whole tree, a train
+state's included).  The dry run and the elastic planner read the same
+tables for a ``MeshSpec``, which places nothing.  The port's sharding is
+explicit (the model's mesh paths take the mesh), so ``constrain`` and
+``named_shardings`` are identities.
 
 A spec is a plain tuple with one entry per dim: ``None`` (replicated), a
 mesh axis name, or a tuple of names (the reference's ``PartitionSpec``
-entries).  A mesh is any object with ``.shape`` (axis name -> size) and
-``.axis_names`` (``repro_torch.launch.mesh.MeshSpec``).
+entries); a stacked leaf's spec has a leading ``None`` for its repeat
+dim.  A mesh is any object with ``.shape`` (axis name -> size) and
+``.axis_names``.
 
 Logical axes used by the model code:
     "batch"   -> ("pod", "data")   activations' batch dim
@@ -66,8 +73,8 @@ def resolve(logical_axes, dims, mesh) -> tuple:
 
 
 def constrain(x, *logical_axes):
-    """The reference's ``with_sharding_constraint`` by logical names: on one
-    device there is nothing to constrain."""
+    """The reference's ``with_sharding_constraint`` by logical names: the
+    port places tensors explicitly, so there is nothing to constrain."""
     return x
 
 
@@ -169,6 +176,73 @@ def map_leaves(fn, tree):
 
 
 def named_shardings(spec_tree, mesh):
-    """The reference's ``NamedSharding`` tree: on one device every leaf
-    stays where it is, so the spec tree is returned as it is."""
+    """The reference's ``NamedSharding`` tree: the port places leaves
+    with ``shard_tree``, so the spec tree is returned as it is."""
     return spec_tree
+
+
+# ---------------------------------------------------------------------------
+# Placement on an LmMesh
+# ---------------------------------------------------------------------------
+
+
+def _axes_of(entry) -> tuple:
+    """A spec entry's mesh axis names (``()`` for a replicated dim)."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def sharded_axes(spec) -> tuple:
+    """Every mesh axis a spec splits a dim over, in dim order."""
+    return tuple(n for entry in spec for n in _axes_of(entry))
+
+
+def shard_leaf(whole, spec, mesh):
+    """This rank's block of ``whole`` under ``spec``: each dim split over
+    its axes, the block at this rank's row-major index over them."""
+    out = whole
+    for dim, entry in enumerate(spec):
+        names = _axes_of(entry)
+        if names:
+            n = out.shape[dim] // mesh.axis_size(names)
+            out = out.narrow(dim, mesh.axis_index(names) * n, n)
+    return out.clone() if out is not whole else out
+
+
+def gather_leaf(shard, spec, mesh):
+    """The whole tensor from each rank's block under ``spec``: one
+    all-gather over the axes of each split dim."""
+    out = shard
+    for dim, entry in enumerate(spec):
+        names = _axes_of(entry)
+        if names:
+            out = mesh.all_gather(out, names, dim)
+    return out
+
+
+def map_specs(fn, tree, specs):
+    """``tree``'s structure (dicts, lists, tuples, dataclasses) with each
+    leaf replaced by ``fn(leaf, spec)``, ``spec`` the object at the same
+    place in ``specs`` (a spec tree's own tuples are its leaves, so it is
+    walked along ``tree``)."""
+    return _rebuild(tree, {path: fn(leaf, _spec_at(specs, path))
+                           for path, leaf in _leaves(tree)})
+
+
+def _spec_at(specs, path):
+    node = specs
+    for step in path:
+        node = node[step] if isinstance(node, (dict, list, tuple)) \
+            else getattr(node, step)
+    return node
+
+
+def shard_tree(tree, specs, mesh):
+    """``shard_leaf`` over every leaf of ``tree``."""
+    return map_specs(lambda t, s: shard_leaf(t, s, mesh), tree, specs)
+
+
+def gather_tree(tree, specs, mesh):
+    """``gather_leaf`` over every leaf of ``tree``."""
+    return map_specs(lambda t, s: gather_leaf(t, s, mesh), tree, specs)

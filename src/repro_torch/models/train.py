@@ -17,8 +17,20 @@ The forward reads per-layer views of the stacked leaves
 leaf's gradient whole.
 
 ``make_train_step`` returns a ``(state, batch) -> (state, metrics)``
-function; ``train_state_specs`` gives the spec tree a mesh would place
-the state by (``repro_torch.models.sharding``).
+function; ``train_state_specs`` gives the spec tree a mesh places the
+state by (``repro_torch.models.sharding``).
+
+With ``mesh=`` (an ``LmMesh``, ``repro_torch.launch.mesh``) the step is
+the reference's sharded step, made explicit.  Each rank holds its shards
+of the state (``init_state(..., mesh=)``, ``shard_state``): ZeRO over the
+batch axes (``"pod"``, ``"data"``), heads, ff, vocab and experts over
+``"model"``.  A step takes this rank's rows of the global batch (all of
+them where the batch does not split: the reference's replicated batch),
+all-gathers the batch-axis dims of the parameters, runs the model
+tensor-parallel over ``"model"`` (``model.backbone(mesh=)``; a
+vocab-split head in ``chunked_xent``), reduce-scatters each ZeRO leaf's
+gradient over the batch axes and all-reduces the rest, and runs the
+optimizer on each rank's shards with the global gradient norm.
 """
 
 from __future__ import annotations
@@ -30,8 +42,10 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.checkpoint.store import _leaves, _rebuild
+from repro_torch.launch import mesh as LM
 from repro_torch.models import layers as L
 from repro_torch.models import model as M
+from repro_torch.models import sharding as SH
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.sharding import param_specs
 from repro_torch.optim import (adamw, apply_updates, chain,
@@ -62,13 +76,18 @@ def optimizer_for(cfg: ModelConfig, **kw):
 
 
 def init_state(generator, cfg: ModelConfig, optimizer=None,
-               device=None) -> TrainState:
+               device=None, mesh=None) -> TrainState:
     """Parameters from ``model.init_params`` (drawn from ``generator``, a
     ``torch.Generator`` on ``device``; seed 0 if None) in the reference's
     layout, and the optimizer's initial state; on CUDA unless ``device``
-    names another (``"meta"``: shapes only)."""
+    names another (``"meta"``: shapes only).  With ``mesh=``, each rank
+    draws the whole parameters from the seed and keeps its shards, so the
+    state is the one-device state, placed."""
     optimizer = optimizer or optimizer_for(cfg)
     params = M.params_to_reference(M.init_params(cfg, generator, device), cfg)
+    if mesh is not None:
+        params = SH.shard_tree(params, param_specs(params, mesh,
+                                                   zero=cfg.zero), mesh)
     step_device = tree_leaves(params)[0].device
     return TrainState(step=torch.zeros((), dtype=torch.int32,
                                        device=step_device),
@@ -79,6 +98,27 @@ def abstract_state(cfg: ModelConfig, optimizer=None) -> TrainState:
     """The TrainState on the ``meta`` device: shapes and dtypes, no storage
     (the reference's ``jax.eval_shape`` twin; the restore template)."""
     return init_state(None, cfg, optimizer, device="meta")
+
+
+def state_specs(cfg: ModelConfig, mesh, optimizer=None) -> TrainState:
+    """The spec tree a ``mesh`` places a TrainState of ``cfg`` by
+    (``train_state_specs`` of the whole state's shapes, ZeRO as
+    ``cfg.zero`` says)."""
+    return train_state_specs(abstract_state(cfg, optimizer), mesh,
+                             zero=cfg.zero)
+
+
+def shard_state(state: TrainState, cfg: ModelConfig, mesh,
+                optimizer=None) -> TrainState:
+    """This rank's shards of a whole ``state``."""
+    return SH.shard_tree(state, state_specs(cfg, mesh, optimizer), mesh)
+
+
+def gather_state(state: TrainState, cfg: ModelConfig, mesh,
+                 optimizer=None) -> TrainState:
+    """The whole state from every rank's shards (all-gathers; every rank
+    gets it)."""
+    return SH.gather_tree(state, state_specs(cfg, mesh, optimizer), mesh)
 
 
 def model_params(params, cfg: ModelConfig):
@@ -120,12 +160,31 @@ def _chunk_ce(xs, table, ls, cap):
     return torch.sum((logz - gold) * valid)
 
 
-def chunked_xent(x, head, labels, cfg, chunk: int = CE_CHUNK):
+def _chunk_ce_split(xs, table, ls, cap, mesh):
+    """``_chunk_ce`` over a head split by vocab rows over the model axis:
+    this rank's logits, the max and the sum of exps all-reduced over the
+    axis (the max as a constant), and the gold logit by mask-reduce on
+    the rank that holds its row plus an all-reduce."""
+    logits = L.logits_fwd({"table": table}, LM.copy_to(xs, mesh), cap)
+    m = mesh.all_reduce(logits.detach().amax(dim=-1), "model", "max")
+    z = LM.reduce_from(torch.exp(logits - m[..., None]).sum(dim=-1), mesh)
+    logz = m + torch.log(z)
+    Vl = logits.shape[-1]
+    vids = torch.arange(Vl, device=logits.device) + \
+        mesh.axis_index("model") * Vl
+    gold = LM.reduce_from(
+        torch.where(vids == ls[..., None], logits, 0.0).sum(dim=-1), mesh)
+    valid = (ls >= 0).to(F32)
+    return torch.sum((logz - gold) * valid)
+
+
+def chunked_xent(x, head, labels, cfg, chunk: int = CE_CHUNK, mesh=None):
     """CE over seq-chunks: x [B,S,d] hidden, head {'table': [V,d]}.
 
     Returns summed (logz - gold) and the token count, so the caller controls
     the normalization (mean over tokens).  Chunks add in order into an f32
-    total, as the reference's scan carries it.
+    total, as the reference's scan carries it.  A head split by vocab
+    over ``mesh``'s model axis runs ``_chunk_ce_split``.
     """
     B, S, d = x.shape
     chunk = min(chunk, S)
@@ -134,29 +193,46 @@ def chunked_xent(x, head, labels, cfg, chunk: int = CE_CHUNK):
         x = torch.cat([x, x.new_zeros((B, pad, d))], dim=1)
         labels = torch.cat([labels, labels.new_full((B, pad), -1)], dim=1)
     table = head["table"]
+    fn, extra = _chunk_ce, ()
+    if table.shape[0] != cfg.vocab_size:
+        fn, extra = _chunk_ce_split, (mesh,)
     remat = torch.is_grad_enabled() and (x.requires_grad
                                          or table.requires_grad)
     total = torch.zeros((), dtype=F32, device=x.device)
     for start in range(0, S + pad, chunk):
         args = (x[:, start:start + chunk], table,
-                labels[:, start:start + chunk], cfg.final_logit_softcap)
+                labels[:, start:start + chunk], cfg.final_logit_softcap,
+                *extra)
         if remat:
-            part = checkpoint(_chunk_ce, *args, use_reentrant=False)
+            part = checkpoint(fn, *args, use_reentrant=False)
         else:
-            part = _chunk_ce(*args)
+            part = fn(*args)
         total = total + part
     return total, B * S  # S = original (pre-pad) length; padded slots masked
 
 
-def loss_fn(params, batch, cfg: ModelConfig, aux_weight: float = 0.01):
-    """(loss, metrics) for reference-layout ``params`` on one batch."""
-    x, aux = M.backbone(model_params(params, cfg), batch, cfg)
+def loss_fn(params, batch, cfg: ModelConfig, aux_weight: float = 0.01,
+            mesh=None):
+    """(loss, metrics) for reference-layout ``params`` on one batch.
+
+    On a mesh, ``params`` are this rank's model-axis shards and ``batch``
+    its rows: the mean is over the global token count, and the batch
+    ranks' parts are summed (an all-reduce whose backward is the
+    identity, so each rank's gradient is its own rows' part and the
+    step's sum over the batch axes is the whole)."""
+    x, aux = M.backbone(model_params(params, cfg), batch, cfg, mesh)
     labels = batch["labels"]
     if not cfg.encoder_only:
         # next-token prediction: hidden[t] predicts labels[t+1]
         x, labels = x[:, :-1], labels[:, 1:]
-    total, count = chunked_xent(x, M.head_params(params, cfg), labels, cfg)
-    ce = total / count
+    total, count = chunked_xent(x, M.head_params(params, cfg), labels, cfg,
+                                mesh=mesh)
+    if mesh is None:
+        ce = total / count
+    else:
+        axes = mesh.batch_axes()
+        ce = LM.reduce_from(total / (count * mesh.axis_size(axes)), mesh,
+                            axes)
     loss = ce + aux_weight * aux
     return loss, {"loss": loss, "ce": ce, "aux": aux}
 
@@ -166,16 +242,19 @@ def loss_fn(params, batch, cfg: ModelConfig, aux_weight: float = 0.01):
 # ---------------------------------------------------------------------------
 
 
-def value_and_grad(params, batch, cfg: ModelConfig, aux_weight=0.01):
+def value_and_grad(params, batch, cfg: ModelConfig, aux_weight=0.01,
+                   mesh=None):
     """(metrics, grads): the loss's gradient for every leaf of ``params``
     (a tree of the same structure), by autograd.  A leaf the loss does
     not reach (hubert's embedding table, which its audio frontend
     bypasses) gets zeros, as ``jax.grad`` gives it, so the optimizer
-    still decays it and moves its moments."""
+    still decays it and moves its moments.  On a mesh (``loss_fn``'s
+    ``mesh=``) each gradient is this rank's part, before the batch-axis
+    sum."""
     live = tree_map(lambda t: t.detach().requires_grad_(), params)
     pairs = list(_leaves(live))
     with torch.enable_grad():
-        loss, metrics = loss_fn(live, batch, cfg, aux_weight)
+        loss, metrics = loss_fn(live, batch, cfg, aux_weight, mesh)
         grads = torch.autograd.grad(loss, [t for _, t in pairs],
                                     allow_unused=True)
     grads = {path: torch.zeros_like(t) if g is None else g
@@ -184,19 +263,24 @@ def value_and_grad(params, batch, cfg: ModelConfig, aux_weight=0.01):
             _rebuild(live, grads))
 
 
-def make_train_step(cfg: ModelConfig, optimizer=None, microbatches: int = 1):
+def make_train_step(cfg: ModelConfig, optimizer=None, microbatches: int = 1,
+                    mesh=None):
     """(state, batch) -> (state, metrics).
 
     ``microbatches > 1`` accumulates grads over batch slices in f32 and
     casts their mean to each param's dtype (the reference's scan over
     microbatches): a smaller activation high-water mark for the same
-    step.
+    step.  With ``mesh=`` the state holds this rank's shards and
+    ``batch`` is the global batch (see the module docstring); the
+    microbatches slice this rank's rows.
     """
     optimizer = optimizer or optimizer_for(cfg)
+    specs = None if mesh is None else param_specs(
+        abstract_state(cfg, optimizer).params, mesh, zero=cfg.zero)
 
-    def accumulate(params, batch):
+    def accumulate(params, batch, run):
         if microbatches == 1:
-            metrics, grads = value_and_grad(params, batch, cfg)
+            metrics, grads = value_and_grad(params, batch, cfg, mesh=run)
             return grads, metrics
         n = next(iter(batch.values())).shape[0] // microbatches
         acc = None
@@ -205,7 +289,7 @@ def make_train_step(cfg: ModelConfig, optimizer=None, microbatches: int = 1):
                        for k in ("loss", "ce", "aux")}
         for i in range(microbatches):
             mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
-            metrics, grads = value_and_grad(params, mb, cfg)
+            metrics, grads = value_and_grad(params, mb, cfg, mesh=run)
             if acc is None:  # 0 + g, as the reference's zeros start
                 acc = tree_map(lambda g: g.float(), grads)
             else:
@@ -218,15 +302,67 @@ def make_train_step(cfg: ModelConfig, optimizer=None, microbatches: int = 1):
         return grads, metrics_acc
 
     def train_step(state: TrainState, batch) -> tuple[TrainState, dict]:
-        grads, metrics = accumulate(state.params, batch)
+        if mesh is None:
+            grads, metrics = accumulate(state.params, batch, None)
+            kw = {}
+        else:
+            grads, metrics = _sharded_grads(state.params, batch, specs,
+                                            mesh, accumulate)
+            kw = {"mesh": mesh, "specs": specs}
         updates, opt_state = optimizer.update(grads, state.opt_state,
-                                              state.params)
+                                              state.params, **kw)
         params = apply_updates(state.params, updates)
-        metrics = dict(metrics, grad_norm=global_norm(grads))
+        metrics = dict(metrics, grad_norm=global_norm(grads, **kw))
         return TrainState(step=state.step + 1, params=params,
                           opt_state=opt_state), metrics
 
     return train_step
+
+
+def _batch_spec(spec, mesh):
+    """``spec`` with only its dims split over batch axes (the ZeRO dims)
+    kept, the others ``None``."""
+    batch = set(LM.BATCH_AXES)
+    return tuple(e if (names := SH._axes_of(e)) and set(names) <= batch
+                 and mesh.axis_size(names) > 1 else None for e in spec)
+
+
+def batch_rows(batch, mesh):
+    """This rank's rows of a global ``batch`` (all of them on a mesh that
+    keeps the batch replicated)."""
+    axes = mesh.batch_axes()
+    n = mesh.axis_size(axes)
+    if n == 1:
+        return batch
+    i = mesh.axis_index(axes)
+    return {k: v.narrow(0, i * (v.shape[0] // n), v.shape[0] // n)
+            for k, v in batch.items()}
+
+
+def _sharded_grads(params, batch, specs, mesh, accumulate):
+    """One rank's gradient shards and the global metrics: the batch-axis
+    (ZeRO) dims of ``params`` all-gathered, this rank's rows through the
+    model on the mesh, then each ZeRO leaf's gradient reduce-scattered
+    over its batch axes and every other leaf's all-reduced over the batch
+    axes (on a replicated batch every rank's gradient is already whole:
+    a ZeRO leaf keeps its block)."""
+    run = mesh.for_batch(next(iter(batch.values())).shape[0])
+    whole = SH.map_specs(
+        lambda t, s: SH.gather_leaf(t, _batch_spec(s, mesh), mesh),
+        params, specs)
+    grads, metrics = accumulate(whole, batch_rows(batch, run), run)
+    axes = run.batch_axes()
+
+    def sync(g, spec):
+        zero = _batch_spec(spec, mesh)
+        if not axes:
+            return SH.shard_leaf(g, zero, mesh)
+        for d, e in enumerate(zero):
+            if e is not None:
+                g = mesh.reduce_scatter(g, e, d)
+        return g if any(zero) else mesh.all_reduce(g, axes)
+
+    return SH.map_specs(sync, grads, specs), metrics
 
 
 # ---------------------------------------------------------------------------

@@ -12,11 +12,16 @@ Because the sum happens *after* dequantization, the result is exact w.r.t.
 the quantized values; quantization error itself is carried into the next
 step by *error feedback* (Seide et al., Karimireddy et al.).
 
-The port keeps data-parallel replicas on one device as it keeps chares: a
-leading ``[P, ...]`` axis stands for the mesh axis.  ``compressed_psum``
-takes every replica's tensor stacked on that axis; the all-gather is the
-stacked payload, and the sum runs over axis 0.  Every replica receives the
-same sum, so it is returned once.
+``compressed_psum`` runs in two forms.  With ``group=`` (a
+``torch.distributed`` process group: an ``LmMesh`` axis's
+``mesh.group(name)``) each rank passes its own tensor; the int8 payloads
+and f16 scales are all-gathered over the group, then dequantized and
+summed in f32 in rank order, as the reference's ``all_gather`` over a
+mesh axis does.  Without it, data-parallel replicas are stacked on one
+device as chares are: a leading ``[P, ...]`` axis stands for the mesh
+axis, the stacked payload is the all-gather, and the sum runs over axis
+0.  Both forms sum the same stacked ``[P, Nb, block]`` tensor, so they
+agree bit for bit.  Every replica receives the same sum.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.optim.transforms import _unzip, tree_map
 
@@ -55,40 +61,55 @@ def dequantize_int8(q, scale, shape, block=BLOCK):
     return flat[:math.prod(shape)].reshape(shape)
 
 
-def compressed_psum(x, block=BLOCK):
-    """Sum ``x [P, ...]`` over its leading replica axis, moving int8 (+f16
+def compressed_psum(x, block=BLOCK, group=None):
+    """Sum ``x`` over ``group``'s ranks (each passes its own), or ``x [P,
+    ...]`` over its leading replica axis without one, moving int8 (+f16
     scales) per replica.  Exact given the quantized values (dequantize,
     then sum in f32)."""
-    qs, ss = zip(*(quantize_int8(xi, block) for xi in x))
-    q_all, s_all = torch.stack(qs), torch.stack(ss)  # [P, Nb, block], [P, Nb]
-    deq = q_all.to(F32) * s_all.to(F32)[..., None]
+    if group is None:
+        qs, ss = zip(*(quantize_int8(xi, block) for xi in x))
+        q_all, s_all = torch.stack(qs), torch.stack(ss)
+        shape = tuple(x.shape[1:])
+    else:
+        q, s = quantize_int8(x, block)
+        P = dist.get_world_size(group)
+        q_all = q.new_empty((P,) + tuple(q.shape))
+        s_all = s.new_empty((P,) + tuple(s.shape))
+        dist.all_gather(list(q_all.unbind()), q, group=group)
+        dist.all_gather(list(s_all.unbind()), s, group=group)
+        shape = tuple(x.shape)
+    deq = q_all.to(F32) * s_all.to(F32)[..., None]  # [P, Nb, block]
     flat = deq.sum(dim=0).reshape(-1)
-    shape = tuple(x.shape[1:])
     return flat[:math.prod(shape)].reshape(shape).to(x.dtype)
 
 
 def make_error_feedback():
     """Error-feedback wrapper: carries the quantization residual.
 
-    usage (trees of ``[P, ...]`` replica-stacked gradients):
+    usage (trees of ``[P, ...]`` replica-stacked gradients, or with
+    ``group=`` each rank's own gradients):
         ef_init, ef_apply = make_error_feedback()
         residual = ef_init(grads)
-        (synced, residual) = ef_apply(grads, residual)
+        (synced, residual) = ef_apply(grads, residual[, group=group])
     ``synced`` holds each leaf's sum over replicas; ``residual`` keeps one
-    residual per replica.
+    residual per replica (this rank's, with a group).
     """
 
     def init(tree):
         return tree_map(lambda g: torch.zeros(g.shape, dtype=F32,
                                               device=g.device), tree)
 
-    def apply(tree, residual, block=BLOCK):
+    def apply(tree, residual, block=BLOCK, group=None):
         def one(g, r):
             corrected = g.to(F32) + r
-            local = [dequantize_int8(*quantize_int8(c, block), c.shape, block)
-                     for c in corrected]
-            new_r = corrected - torch.stack(local)  # what failed to send
-            synced = compressed_psum(corrected, block)
+            mine = [corrected] if group is not None else corrected
+            local = torch.stack([dequantize_int8(*quantize_int8(c, block),
+                                                 c.shape, block)
+                                 for c in mine])
+            if group is not None:
+                local = local[0]
+            new_r = corrected - local  # what failed to send
+            synced = compressed_psum(corrected, block, group)
             return synced.to(g.dtype), new_r
 
         return _unzip(tree_map(one, tree, residual), 2)

@@ -9,6 +9,12 @@ multiply.  States mirror the parameter tree, so the sharding rules place
 optimizer moments exactly like their parameters
 (``repro_torch.models.train.train_state_specs``).  Updates run without
 autograd.
+
+On an ``LmMesh`` each rank updates its own shards: the elementwise
+transforms need nothing more, and ``global_norm`` /
+``clip_by_global_norm`` take ``mesh=`` and the tree's ``specs=`` to read
+the norm of the whole tree (each block counted once, one all-reduce).
+``chain`` passes such keywords on to every transform.
 """
 
 from __future__ import annotations
@@ -62,11 +68,43 @@ def _unzip(tree, n):
     return tuple(pick(tree, i) for i in range(n))
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in f32, leaf by leaf."""
+def _leaves_with(tree, specs):
+    """``(leaf, spec)`` pairs in ``tree_leaves`` order, ``spec`` the object
+    at the leaf's place in ``specs`` (a spec's own tuple is a leaf)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in _leaves_with(tree[k], specs[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v, s in zip(tree, specs) for x in _leaves_with(v, s)]
+    return [(tree, specs)]
+
+
+def global_norm(tree, mesh=None, specs=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in f32, leaf by leaf.
+
+    On a mesh, ``tree`` holds this rank's shards under ``specs``: each
+    leaf's partial sum counts only on the ranks at coordinate 0 of every
+    axis its spec does not split (one copy of each block), one all-reduce
+    over the mesh sums the partials, and the leaves add in order."""
+    if mesh is None:
+        parts = [torch.sum(torch.square(x.float()))
+                 for x in tree_leaves(tree)]
+    else:
+        parts = []
+        for x, spec in _leaves_with(tree, specs):
+            split = {n for e in spec if e is not None
+                     for n in ((e,) if isinstance(e, str) else e)}
+            part = torch.sum(torch.square(x.float()))
+            if any(mesh.coords[n] for n in mesh.axis_names
+                   if n not in split):
+                part = torch.zeros_like(part)  # another rank's copy
+            parts.append(part)
+        if parts:
+            parts = list(mesh.all_reduce(torch.stack(parts),
+                                         mesh.axis_names).unbind())
     total = 0
-    for x in tree_leaves(tree):
-        total = total + torch.sum(torch.square(x.float()))
+    for part in parts:
+        total = total + part
     return torch.sqrt(total)
 
 
@@ -75,8 +113,8 @@ def clip_by_global_norm(max_norm: float) -> Optimizer:
         return ()
 
     @torch.no_grad()
-    def update(grads, state, params=None):
-        norm = global_norm(grads)
+    def update(grads, state, params=None, mesh=None, specs=None):
+        norm = global_norm(grads, mesh, specs)
         scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
         return tree_map(lambda g: g * scale.to(g.dtype), grads), state
 
@@ -95,7 +133,7 @@ def scale_by_schedule(schedule: Callable) -> Optimizer:
         return {"count": _count(params)}
 
     @torch.no_grad()
-    def update(grads, state, params=None):
+    def update(grads, state, params=None, **_):
         lr = schedule(state["count"])
         out = tree_map(lambda g: (-lr * g.float()).to(g.dtype), grads)
         return out, {"count": state["count"] + 1}
@@ -123,7 +161,7 @@ def adamw(schedule: Callable, b1=0.9, b2=0.95, eps=1e-8,
                                                      device=p.device), params)}
 
     @torch.no_grad()
-    def update(grads, state, params):
+    def update(grads, state, params, **_):
         count = state["count"] + 1
         c1 = 1.0 - torch.pow(b1, count.float())
         c2 = 1.0 - torch.pow(b2, count.float())
@@ -153,7 +191,7 @@ def sgd(schedule: Callable, momentum=0.9) -> Optimizer:
                                                      device=p.device), params)}
 
     @torch.no_grad()
-    def update(grads, state, params):
+    def update(grads, state, params, **_):
         lr = schedule(state["count"])
 
         def upd(g, mu, p):
@@ -170,10 +208,10 @@ def chain(*transforms: Optimizer) -> Optimizer:
     def init(params):
         return tuple(t.init(params) for t in transforms)
 
-    def update(grads, state, params):
+    def update(grads, state, params, **kw):
         new_states = []
         for t, s in zip(transforms, state):
-            grads, s = t.update(grads, s, params)
+            grads, s = t.update(grads, s, params, **kw)
             new_states.append(s)
         return grads, tuple(new_states)
 

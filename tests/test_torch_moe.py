@@ -229,10 +229,12 @@ def test_capacity_formula():
 
 def test_moe_fwd_is_the_dense_path():
     """One device: the reference's expert-parallel branch needs a model
-    mesh axis, so the port's moe_fwd is the dense path."""
-    assert TMOE.moe_fwd is TMOE.moe_fwd_dense
+    mesh axis, so without a mesh the port's moe_fwd is the dense path,
+    bit for bit (the mesh paths: ``tests/test_torch_lm_mesh.py``)."""
     cfg = dataclasses.replace(make_cfg(TConfig), capacity_factor=1.25)
     _, tp = _params(8, 2)
     x = torch.randn((2, 4, 32), generator=torch.Generator().manual_seed(0))
     out, aux = TMOE.moe_fwd(tp, x.to(torch.bfloat16), cfg)
+    want, want_aux = TMOE.moe_fwd_dense(tp, x.to(torch.bfloat16), cfg)
     assert out.shape == (2, 4, 32) and aux.dtype == torch.float32
+    assert torch.equal(out, want) and torch.equal(aux, want_aux)
