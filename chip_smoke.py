@@ -145,8 +145,10 @@ Phases, each printing one JSON line with its seconds:
              recounts; gating_model at the chare scale
   stream     out-of-core streaming on the main graphs under grid(1,1):
              the partitions built on the card (REPRO_DEVICE_BUILD=device,
-             asserted) against the host build of the same grid layout and
-             of the sd layout, array by array, both builds' seconds; the
+             asserted); the chare-axis graph's grid(1,1) and sd layouts
+             built on the card and the main graph's sd layout (phase
+             graph's) against the host's builds of them, array by array,
+             every build's seconds; the
              resident grid(1,1) engine's sssp, bfs, pagerank,
              pagerank_weighted, betweenness (4 pivots), B=16 planes (bfs,
              sssp, PPR), a server at B=8 (4 bfs, 2 sssp, 2 PPR) and its
@@ -168,15 +170,16 @@ Phases, each printing one JSON line with its seconds:
              reference's block chain (>= 0.4 of the slots skipped);
              fetched edge bytes per query at B=16 <= 1/8 of B=1's and
              queries/s; labelprop on the symmetrized graph; the layout
-             cache cold then warm at scale (origin "disk", bit-exact); and
+             cache cold then warm on the chare-axis graph (origin "disk",
+             its streamed sssp bit-exact to the resident one); and
              both fused kernels on one window of the table, init-seeded,
              the rectangle gated on and off, against the plain version
   cost       the paper's COST tables: run_table for every registered
              program on the three paper stand-ins (2^cost-scale vertices,
              cut from 2^20 so the whole run stays within 1,000 s; 14, 24 and 35
              edges per vertex) with the contiguous and
-             edge-balanced placements and 3 repeats (the reference's full
-             run), then the cost.*, fig12.* and grid.* rows by the
+             edge-balanced placements and 2 repeats (the reference's full
+             run takes 3), then the cost.*, fig12.* and grid.* rows by the
              reference's names, and each graph's elapsed seconds; a wrong
              result fails the phase
   staged_main  the same graphs and programs through Engine(pg, "basic")
@@ -286,7 +289,7 @@ Phases, each printing one JSON line with its seconds:
              decode_step, so the 21 local layers' ring buffers wrap holding
              distinct tokens: its logits at positions 63, 300 and 519
              against the forward over the stream on the card, and its next
-             16 steps after position 63 against the same parameters on the
+             2 steps after position 63 against the same parameters on the
              CPU (from the card's cache), each within 1e-2 of max |logit|
              and each row's RMS error within 1e-2 of its logits' RMS.
              Then the CLI,
@@ -295,7 +298,7 @@ Phases, each printing one JSON line with its seconds:
              lines.  Then xlstm-350m at full width and depth (24 layers,
              d_model 1024, 4 heads, expand 2; 259,350,528 parameters in
              the leaves, beside the config's analytic count): the same
-             serving at 8 requests, 64 + 192 tokens; a seeded stream of
+             serving at 8 requests, 64 + 128 tokens; a seeded stream of
              512 tokens (two MLSTM_CHUNKs) teacher-forced through
              decode_step, its logits at 63, 300 and 511 against the
              forward; the card's forward against the CPU's on two rows of
@@ -364,7 +367,16 @@ Phases, each printing one JSON line with its seconds:
              forward and every gradient within 1e-5 of its max;
              compressed_psum over the rank's group against the stacked
              form, bit for bit, its error within the reference's ratio
-             bar (1.5).  The mesh must count no collective
+             bar (1.5); the partitioned serving steps
+             (make_prefill_step(mesh=), make_decode_step(mesh=), the
+             parameters by shard_params, the cache by shard_cache) at B=8:
+             a 64-token prefill and 8 decode steps after it, every logit
+             and the cache bit for bit the one-device steps', each decode
+             step's ms beside the one-device step's.  The mesh must count
+             no collective.  Then gemma3-1b's decode step (a cache of
+             1024) and train step (B=8, S=1024) traced on meta as rank 0
+             of a (2, 2) trace mesh: their calls and wire bytes by kind,
+             the links and the partitioned roofline
   dryrun     the dry run's model of the card (repro_torch.launch.dryrun,
              opanalysis; repro_torch.benchmarks.kernelbench): gemma3-1b's
              train step at train's shape (B=8, S=1024) and a decode step at
@@ -1969,7 +1981,7 @@ class Smoke:
             rows = []
             for gname in GRAPHS:
                 t0 = time.perf_counter()
-                rows += tables.run_table(algo, scale_log2=scale, repeats=3,
+                rows += tables.run_table(algo, scale_log2=scale, repeats=2,
                                          partitioners=partitioners,
                                          graphs=(gname,))
                 elapsed[f"{algo}/{gname}"] = time.perf_counter() - t0
@@ -2874,7 +2886,7 @@ class Smoke:
             raise AssertionError(f"{n_params - cfg.d_model} parameters "
                                  f"outside the final norm, the config "
                                  f"counts {cfg.param_count()}")
-        first_steps = 16
+        first_steps, cpu_steps = 16, 2
         marks = (P - 1, mid, P + G - 1)  # 63, 300, 519
         serving, _, server = self._lm_serve(cfg, params, R, P, G,
                                             param_bytes, first_steps)
@@ -2895,7 +2907,7 @@ class Smoke:
             0, cfg.vocab_size, (R, P + G), dtype=np.int32), device=dev)
         logits, prefilled, step_logits = self._teacher_forced(
             cfg, params, stream, marks, P + G + 1, keep_at=P - 1,
-            next_steps=first_steps)
+            next_steps=cpu_steps)
 
         # teacher-forced forward over the same stream
         torch.cuda.synchronize()
@@ -2910,12 +2922,12 @@ class Smoke:
         del fwd
 
         # the same parameters on the CPU, from the stream's cache at
-        # position 63, for the next 16 decode steps
+        # position 63, for the next 2 decode steps
         t0 = time.perf_counter()
         cpu, cache, cpu_stream, vs_cpu = self._on_cpu(params), prefilled, \
             stream.cpu(), []
         with torch.no_grad():
-            for t in range(P, P + first_steps):
+            for t in range(P, P + cpu_steps):
                 lg, cache = M.decode_step(cpu, cpu_stream[:, t:t + 1], t,
                                           cache, cfg)
                 vs_cpu.append(self._agree(step_logits[t - P], lg[:, 0],
@@ -2949,7 +2961,7 @@ class Smoke:
             "cli": {k: v for k, v in cli.items() if k != "tokens"},
             "nvidia_smi": self.smi}
 
-    def _lm_xlstm(self, smoke, R=8, P=64, G=192, T=512, rows_on_cpu=2):
+    def _lm_xlstm(self, smoke, R=8, P=64, G=128, T=512, rows_on_cpu=2):
         """xlstm-350m at full width and depth: serving, a 512-token stream
         teacher-forced against the forward, the forward on the card
         against the CPU's (the module docstring's second item)."""
@@ -3724,6 +3736,7 @@ class Smoke:
             out["ring_attention"] = self._lm_mesh_ring(cfg, mesh, B,
                                                        min(S, 1024))
             out["compressed_psum"] = self._lm_mesh_compress(mesh)
+            out["serving"] = self._lm_mesh_serving(cfg, mesh, B)
             calls = dict(mesh.calls)
         self.close_nccl()
         if calls:  # one rank: every axis has size 1, so nothing is issued
@@ -3869,6 +3882,92 @@ class Smoke:
                 p, x, pos, cfg, mixer), 5)
         return {"B": B // 4, "S": S, "max_rel_err": errs, "ms": ms,
                 "chunked_ms": ms_chunked}
+
+    def _lm_mesh_serving(self, cfg, mesh, B, P=64, steps=8, S=1024):
+        """The partitioned serving steps at one rank: the prefill step of a
+        ``P``-token prompt and ``steps`` decode steps after it (the cache
+        built by decode steps over the prompt, then copied for each side)
+        through ``make_prefill_step(mesh=)`` / ``make_decode_step(mesh=)``
+        on parameters placed by ``shard_params`` against the one-device
+        steps: every logit and the cache bit for bit; each decode step's
+        host-clock ms beside the one-device step's.  Then the decode step
+        (a cache of ``S``) and the train step (B x ``S``) traced on meta
+        as rank 0 of a (2, 2) trace mesh: their collectives' calls and
+        wire bytes by kind, the link and the partitioned roofline."""
+        import numpy as np
+        import torch
+
+        from repro_torch.launch import dryrun as D
+        from repro_torch.launch import mesh as LM
+        from repro_torch.launch import opanalysis as OA
+        from repro_torch.models import model as M
+        from repro_torch.models import serve as SV
+        from repro_torch.models.config import ShapeConfig
+
+        dev = mesh.device
+        torch.cuda.empty_cache()
+        params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(
+            0), dev)
+        shards = SV.shard_params(params, cfg, mesh)
+        toks = torch.as_tensor(np.random.default_rng(1).integers(
+            0, cfg.vocab_size, (B, P + steps), dtype=np.int32), device=dev)
+        prompt = {"tokens": toks[:, :P]}
+        max_len = P + steps + 1
+        out = {"arch": cfg.name, "B": B, "prompt": P, "steps": steps}
+        with torch.no_grad():
+            want = SV.make_prefill_step(cfg)(params, prompt)
+            got = SV.make_prefill_step(cfg, mesh)(shards, prompt)
+            if not torch.equal(got, want):
+                raise AssertionError("lm_mesh: the mesh prefill step's "
+                                     "logits differ")
+            _, cache = SV.prefill_with_cache(params, prompt, cfg, max_len)
+            copy = lambda c: {k: {n: t.clone() for n, t in v.items()}
+                              for k, v in c.items()}
+            sides = {"one_device": (SV.make_decode_step(cfg), params,
+                                    copy(cache)),
+                     "mesh": (SV.make_decode_step(cfg, mesh, max_len),
+                              shards, SV.shard_cache(copy(cache), cfg,
+                                                     mesh))}
+            del cache
+            logits = {k: [] for k in sides}
+            ms = {k: [] for k in sides}
+            for t in range(P, P + steps):
+                for name, (step, p, c) in sides.items():
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    lg, c = step(p, toks[:, t:t + 1], t, c)
+                    torch.cuda.synchronize()
+                    ms[name].append((time.perf_counter() - t0) * 1e3)
+                    logits[name].append(lg)
+        for a, b in zip(logits["mesh"], logits["one_device"], strict=True):
+            if not torch.equal(a, b):
+                raise AssertionError("lm_mesh: a mesh decode step's logits "
+                                     "differ")
+        for key, leaves in sides["mesh"][2].items():
+            for n, t in leaves.items():
+                if not torch.equal(t, sides["one_device"][2][key][n]):
+                    raise AssertionError(f"lm_mesh: cache {key}/{n} "
+                                         "differs")
+        out.update(bit_equal=True, decode_ms=ms["mesh"],
+                   decode_ms_one_device=ms["one_device"])
+        del sides, logits, params, shards
+        torch.cuda.empty_cache()
+
+        trace = LM.make_trace_mesh((2, 2))
+        for kind in ("decode", "train"):
+            t0 = time.perf_counter()
+            fn, args = D.build_cell(cfg, ShapeConfig(kind, S, B, kind),
+                                    trace)
+            _, ana = OA.analyze(fn, *args, mesh=trace)
+            out[f"trace_{kind}_2x2"] = {
+                "S": S, "calls": ana.collective_calls,
+                "wire_bytes": ana.per_collective,
+                "per_link": ana.per_link,
+                "roofline": D.roofline(ana, trace),
+                "trace_s": time.perf_counter() - t0}
+            del fn, args
+        emit({"lm_mesh": "serving", **out})
+        return out
 
     @staticmethod
     def _rel(a, b):
@@ -5437,10 +5536,11 @@ class Smoke:
 
     def _stream_builds(self):
         """The grid(1,1) partitions of the main graphs, their layouts built
-        on the card (asserted), compared array by array with the host build
-        of the same grid layout, and phase graph's sd layout (built on the
-        card there, asserted) with the host build of the sd layout; the
-        seconds of each partition's relabel and of each layout build.
+        on the card (asserted, as phase graph's sd layout is); the
+        chare-axis graph's grid(1,1) and sd layouts built on the card and
+        on the host, and the main graph's sd layout built on the host,
+        each compared array by array with the card's; the seconds of each
+        partition's relabel and of each layout build.
         -> (pgw, pgu, record)."""
         import contextlib
         import os
@@ -5482,23 +5582,34 @@ class Smoke:
         with builds_on("device"):
             pgw, dev_w = build(self.gw, "grid")
             pgu, dev_u = build(self.gu, "grid")
-        # the two host builds at once, one thread each (numpy, mostly
-        # outside the GIL): their seconds overlap
-        with builds_on("host"), concurrent.futures.ThreadPoolExecutor(2) as \
+            # the chare-axis graph's two layouts on the card, held to the
+            # host's builds of them
+            cgw = self._chare_graphs()[1]
+            card_grid, dev_cg = build(cgw, "grid")
+            card_sd, dev_cs = build(cgw, "sd", "contiguous")
+        # the three host builds at once, one thread each (numpy, mostly
+        # outside the GIL): their seconds overlap; the main graph's sd
+        # layout (phase graph's, built on the card) among them
+        with builds_on("host"), concurrent.futures.ThreadPoolExecutor(3) as \
                 pool:
-            (host_grid, host_w), (host_sd, host_s) = pool.map(
-                lambda args: build(*args),
-                ((self.gw, "grid"), (self.gw, "sd", "contiguous")))
+            (host_grid, host_w), (host_sd, host_s), (main_sd, main_s) = \
+                pool.map(lambda args: build(*args),
+                         ((cgw, "grid"), (cgw, "sd", "contiguous"),
+                          (self.gw, "sd", "contiguous")))
         builds = {"grid": dev_w, "grid_undirected": dev_u,
-                  "grid_host": host_w, "sd_host": host_s,
-                  "sd": self.pgw.layout_builds["sd"]}
-        for key in ("grid", "grid_undirected", "sd"):
+                  "chare_grid": dev_cg, "chare_sd": dev_cs,
+                  "chare_grid_host": host_w, "chare_sd_host": host_s,
+                  "sd_host": main_s, "sd": self.pgw.layout_builds["sd"]}
+        for key in ("grid", "grid_undirected", "chare_grid", "chare_sd",
+                    "sd"):
             got = builds[key] if key == "sd" else builds[key]["build"]
             if got != "cuda":
                 raise AssertionError(f"the {key} layout was built by {got}")
-        same(pgw, host_grid, "grid")
-        same(self.pgw, host_sd, "sd")
-        del host_grid, host_sd
+        same(card_grid, host_grid, "grid")
+        same(card_sd, host_sd, "sd")
+        same(self.pgw, main_sd, "sd")
+        del card_grid, card_sd
+        del host_grid, host_sd, main_sd
         torch.cuda.empty_cache()
         return pgw, pgu, builds
 
@@ -5742,25 +5853,29 @@ class Smoke:
             raise AssertionError(f"gated chain bfs: skip {chain_skip}")
         step("labelprop, chain")
 
-        # the layout cache at scale: cold (build + persist), warm (mmap)
+        # the layout cache on the chare-axis graph: cold (build on the
+        # card + persist), warm (mmap)
         cache = ROOT / "build" / "stream_cache"
         shutil.rmtree(cache, ignore_errors=True)
+        cgw = self._chare_graphs()[1]
+        want_c = Engine(G.partition(cgw, 1, "grid(1,1)")).run("sssp")
+        budget_c = int(0.20 * G.partition(cgw, 1, "grid(1,1)", eager=False)
+                       .shard_source(windows=1).total_edge_bytes)
         try:
             prep = lambda: G.partition(
-                self.gw, 1, "grid(1,1)", eager=False).shard_source(
-                    budget_bytes=budget, cache_dir=str(cache))
+                cgw, 1, "grid(1,1)", eager=False).shard_source(
+                    budget_bytes=budget_c, cache_dir=str(cache))
             _, t_cold = timed(prep)  # relabel, build on the card, persist
             sb, t_warm = timed(prep)  # relabel, memory-map
             if sb.origin != "disk":
                 raise AssertionError("the warm layout cache missed")
-            warm = Engine(G.partition(self.gw, 1, "grid(1,1)", eager=False),
+            warm = Engine(G.partition(cgw, 1, "grid(1,1)", eager=False),
                           residency="stream", stream=StreamConfig(
-                              budget_bytes=budget, cache_dir=str(cache)))
+                              budget_bytes=budget_c, cache_dir=str(cache)))
             if warm.dispatch["stream"]["origin"] != "disk":
                 raise AssertionError("the warm layout cache missed")
             g, it = warm.run("sssp")
-            if not (np.array_equal(g, want["sssp"][0])
-                    and it == want["sssp"][1]):
+            if not (np.array_equal(g, want_c[0]) and it == want_c[1]):
                 raise AssertionError("warm-cache streamed sssp differs")
             del warm
         finally:

@@ -1,10 +1,15 @@
 #!/usr/bin/env python3
 """The LM across the cards of one machine: the sharded train step, the
-expert-parallel MoE block, ring attention and ``compressed_psum`` on
-W = min(cards, 4) NCCL ranks, each against one card.
+expert-parallel MoE block, ring attention, ``compressed_psum`` and the
+partitioned decode on W = min(cards, 4) NCCL ranks, each against one
+card, and the collectives each step issues against its meta trace.
 
-    python3 scripts/torch_lm_mesh_cards.py [--steps 4]
+    python3 scripts/torch_lm_mesh_cards.py [--steps 4] [--parts train,decode]
     python3 scripts/torch_lm_mesh_cards.py --smoke   # CPU, 4 gloo ranks
+
+``--parts train`` runs what follows up to the decode part; ``--parts
+decode`` runs the decode part alone (both by default); ``--parts
+witness`` runs the witness alone.
 
 First, on card 0 alone: gemma3-1b at full width and depth, B=8, S=1024,
 ``steps`` + 2 train steps from seed 0 (the one-card step), and the same
@@ -35,6 +40,34 @@ global attention block with f32 weights at S=8192 through
     error against the exact sum over the reference's ratio scale (max |x|
     / 127 * W), its wire bytes and ms against an f32 ``all_reduce``.
 
+The decode part: on card 0, gemma3-1b and gemma2-9b at full width
+(random weights, seed 0), B=8, the one-card decode of a seeded stream:
+64 prompt tokens through decode steps (the cache build), then 16 steps,
+each step's host-clock ms.  Then on the W ranks, ``make_decode_step(mesh=)``
+on parameters placed by ``serve.shard_params`` and a cache of 1024 by
+``serve.shard_cache``, over the same stream: gemma3-1b (one KV head: the
+sequence splits) on (1, W) and (2, W/2), gemma2-9b (8 KV heads: the
+heads split) on (1, W).  Each step's logits (gathered over the batch
+axes) against the one card's at the LM bars (1e-2 of max |ref|, each
+row's RMS error within 1e-2 of its RMS); each rank's ``LmMesh.calls`` /
+``.bytes`` of a step against the meta trace of the same step as that
+rank of a trace mesh of the same shape (``launch.mesh.make_trace_mesh``),
+equal; the 16 steps' ms beside the partitioned roofline's three terms;
+the step's largest collective re-issued alone (CUDA events, 5 calls) and
+its achieved wire rate against ``NVLINK_BW``.  Then gemma3-1b's train
+step (B=8, S=1024, state by ``init_state(mesh=)``) on (2, W/2) and
+(W, 1): the calls and bytes of its second step against its meta trace,
+equal, its ms and partitioned roofline.
+
+The witness: gemma2-9b's decode of the same stream on card 0 in bf16 and
+in f32 (f32 copies of the same bf16 parameters, activations and cache in
+f32, the embedding scale at its bf16 rounding), and on (1, W) three
+ways: as shipped, with its bf16 sum all-reduces (the row-split ``wo``
+and MLP down partials) taken in f32, and in f32.  Each against the one
+card's bf16 and f32 decodes; the f32 pair is held at 1e-4 of max |ref|
+and of each row's RMS (the head-parallel path's arithmetic without
+bf16's roundings), the rest are reported.
+
 Prints one JSON line per part, then the card's name and power limit.
 Exits non-zero with fewer than two cards (without ``--smoke``).
 """
@@ -42,6 +75,7 @@ Exits non-zero with fewer than two cards (without ``--smoke``).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -295,8 +329,8 @@ class _recording:
 # ---------------------------------------------------------------------------
 
 
-def _rank(pe_mesh, smoke, steps, store):
-    """One rank: every mesh part; rank 0 returns the results."""
+def _rank(pe_mesh, smoke, steps, store, parts):
+    """One rank: every mesh part asked for; rank 0 returns the results."""
     from repro_torch.launch import mesh as LM
 
     dev = pe_mesh.device
@@ -309,12 +343,21 @@ def _rank(pe_mesh, smoke, steps, store):
             meshes[shape] = LM.make_lm_mesh(shape, device=dev.type)
         return meshes[shape]
 
-    out = {"gemma": _rank_gemma(mesh_of, W, smoke, steps, store, dev,
-                                line_up)}
-    out["moe"] = _rank_moe(mesh_of, W, smoke, dev, line_up)
-    out["ring"] = _rank_ring(mesh_of((1, W)), smoke, dev)
-    out["compress"] = _rank_compress(LM.make_lm_mesh((W,), ("dp",),
-                                                     dev.type), smoke, dev)
+    out = {}
+    if "train" in parts:
+        out["gemma"] = _rank_gemma(mesh_of, W, smoke, steps, store, dev,
+                                   line_up)
+        out["moe"] = _rank_moe(mesh_of, W, smoke, dev, line_up)
+        out["ring"] = _rank_ring(mesh_of((1, W)), smoke, dev)
+        out["compress"] = _rank_compress(LM.make_lm_mesh((W,), ("dp",),
+                                                         dev.type), smoke,
+                                         dev)
+    if "decode" in parts:
+        out["decode"] = _rank_decode(mesh_of, W, smoke, dev, line_up)
+        out["train_trace"] = _rank_train_trace(mesh_of, W, smoke, dev,
+                                               line_up)
+    if "witness" in parts:
+        out["witness"] = _rank_witness(mesh_of, W, smoke, dev)
     return out
 
 
@@ -465,6 +508,423 @@ def _rank_compress(mesh, smoke, dev):
 
 
 # ---------------------------------------------------------------------------
+# The partitioned decode and the counts against the meta trace
+# ---------------------------------------------------------------------------
+
+
+def _decode_sizes(smoke, W):
+    """(cases [(arch, mesh shape)], B, prompt, steps, cache length)."""
+    cases = (("gemma3-1b", (1, W)), ("gemma3-1b", (2, W // 2)),
+             ("gemma2-9b", (1, W)))
+    if smoke:
+        return cases, 4, 8, 4, 32
+    return cases, 8, 64, 16, 1024
+
+
+def _decode_cfg(arch, smoke):
+    from repro_torch import configs
+
+    return (configs.smoke_config if smoke else configs.get_config)(arch)
+
+
+def _decode_stream(cfg, B, T, dev):
+    import numpy as np
+
+    return torch.as_tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (B, T), dtype=np.int32), device=dev)
+
+
+def one_card_decode(args, dev, W):
+    """Each decode arch's one-card decode of the stream: the logits from
+    the prompt's last step on (on the host) and the timed steps' ms."""
+    from repro_torch.models import model as M
+    from repro_torch.models import serve as SV
+
+    cases, B, P, steps, L = _decode_sizes(args.smoke, W)
+    out = {}
+    for arch in dict(cases):
+        t0 = time.perf_counter()
+        cfg = _decode_cfg(arch, args.smoke)
+        params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(
+            0), dev)
+        toks = _decode_stream(cfg, B, P + steps, dev)
+        cache = M.init_cache(cfg, B, L, dev)
+        step = SV.make_decode_step(cfg)
+        logits, ms = [], []
+        with torch.no_grad():
+            for t in range(P + steps):
+                _sync(dev)
+                t0s = time.perf_counter()
+                lg, cache = step(params, toks[:, t:t + 1], t, cache)
+                lg = lg.cpu()
+                if t >= P:
+                    ms.append((time.perf_counter() - t0s) * 1e3)
+                if t >= P - 1:
+                    logits.append(lg)
+        out[arch] = {"logits": torch.stack(logits), "step_ms": ms}
+        emit({"one_card": f"decode {arch}", "step_ms": ms,
+              "seconds": time.perf_counter() - t0})
+        del params, cache
+        _empty(dev)
+    return out
+
+
+class _Largest:
+    """Record every collective a mesh issues (method, its arguments'
+    shape and dtype, the wire bytes it counts) while active."""
+
+    def __init__(self, mesh):
+        self.mesh, self.seen = mesh, []
+
+    def __enter__(self):
+        m = self.mesh
+        self.saved = {k: getattr(m, k) for k in
+                      ("all_reduce", "all_gather", "reduce_scatter")}
+        for name, fn in self.saved.items():
+            def wrap(t, names, *a, _fn=fn, _name=name, **kw):
+                before = sum(m.bytes.values())
+                out = _fn(t, names, *a, **kw)
+                self.seen.append((sum(m.bytes.values()) - before, _name,
+                                  tuple(t.shape), t.dtype, names, a, kw))
+                return out
+            setattr(m, name, wrap)
+        return self
+
+    def __exit__(self, *exc):
+        for name in self.saved:
+            delattr(self.mesh, name)
+
+    def rate(self, dev, reps=5):
+        """The largest call re-issued ``reps`` times alone: its wire bytes,
+        ms a call (CUDA events) and bytes/s."""
+        from repro_torch.launch.mesh import NVLINK_BW
+
+        wire, name, shape, dtype, names, a, kw = max(
+            self.seen, key=lambda r: r[0])
+        t = torch.zeros(shape, dtype=dtype, device=dev)
+        fn = getattr(self.mesh, name)
+        fn(t.clone(), names, *a, **kw)
+        _sync(dev)
+        if dev.type == "cuda":
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            for _ in range(reps):
+                fn(t.clone() if name == "all_reduce" else t, names, *a, **kw)
+            end.record()
+            _sync(dev)
+            ms = start.elapsed_time(end) / reps
+        else:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn(t.clone() if name == "all_reduce" else t, names, *a, **kw)
+            ms = (time.perf_counter() - t0) * 1e3 / reps
+        return {"kind": name, "shape": list(shape), "dtype": str(dtype),
+                "axes": names, "wire_bytes": wire, "ms": ms,
+                "bytes_per_s": wire / (ms / 1e3),
+                "of_nvlink_bw": wire / (ms / 1e3) / NVLINK_BW}
+
+
+def _trace_counts(cfg, kind, S, B, shape, rank, mesh_rank_axes):
+    """The meta trace of the step of ``kind`` as rank ``rank`` of a trace
+    mesh of ``shape``: its calls and wire bytes by kind and its
+    partitioned roofline."""
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import mesh as LM
+    from repro_torch.launch import opanalysis as OA
+    from repro_torch.models.config import ShapeConfig
+
+    tm = LM.make_trace_mesh(shape, mesh_rank_axes, rank=rank)
+    fn, args = D.build_cell(cfg, ShapeConfig(kind, S, B, kind), tm)
+    _, ana = OA.analyze(fn, *args, mesh=tm)
+    return {"calls": dict(ana.collective_calls),
+            "bytes": dict(ana.per_collective),
+            "roofline": D.roofline(ana, tm)}
+
+
+def _counts_equal(mesh, real, traced, dev):
+    """Whether every rank's real calls and bytes equal its trace's."""
+    ok = real["calls"] == traced["calls"] and real["bytes"] == traced["bytes"]
+    flag = torch.tensor([0.0 if ok else 1.0], device=dev)
+    mesh.all_reduce(flag, mesh.axis_names)
+    mesh.reset_calls()
+    return float(flag) == 0.0
+
+
+def _rank_decode(mesh_of, W, smoke, dev, line_up):
+    from repro_torch.models import model as M
+    from repro_torch.models import serve as SV
+
+    cases, B, P, steps, L = _decode_sizes(smoke, W)
+    out = {}
+    for arch, shape in cases:
+        mesh = mesh_of(shape)
+        cfg = _decode_cfg(arch, smoke)
+        params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(
+            0), dev)
+        shards = SV.shard_params(params, cfg, mesh)
+        del params
+        cache = SV.shard_cache(M.init_cache(cfg, B, L, dev), cfg, mesh)
+        _empty(dev)
+        toks = _decode_stream(cfg, B, P + steps, dev)
+        step = SV.make_decode_step(cfg, mesh, L)
+        axes = mesh.for_batch(B).batch_axes()
+        logits, ms, calls = [], [], None
+        with torch.no_grad():
+            for t in range(P + steps):
+                if t >= P:
+                    line_up()
+                mesh.reset_calls()
+                t0 = time.perf_counter()
+                lg, cache = step(shards, toks[:, t:t + 1], t, cache)
+                lg = lg.cpu()
+                if t >= P:
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                calls = {"calls": dict(mesh.calls),
+                         "bytes": dict(mesh.bytes)}
+                if t >= P - 1:
+                    logits.append(mesh.all_gather(lg.to(dev), axes, 0).cpu())
+            with _Largest(mesh) as largest:
+                step(shards, toks[:, P:P + 1], P, cache)
+            mesh.reset_calls()
+            rate = largest.rate(dev)
+        mesh.reset_calls()
+        traced = _trace_counts(cfg, "decode", L, B, shape, mesh.rank,
+                               mesh.axis_names)
+        equal = _counts_equal(mesh, calls, traced, dev)
+        res = {"step_ms": ms, "step_calls": calls, "trace": traced,
+               "counts_equal_every_rank": equal, "largest": rate}
+        if mesh.rank == 0:
+            res["logits"] = torch.stack(logits)
+        out[(arch, shape)] = res
+        del shards, cache
+        _empty(dev)
+    return out
+
+
+def _rank_train_trace(mesh_of, W, smoke, dev, line_up):
+    """gemma3-1b's train step on (2, W/2) and (W, 1): the calls and bytes
+    of its second step against its meta trace; its ms."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import train as T
+
+    cfg, B, S = _sizes(smoke)[:3]
+    out = {}
+    for shape in ((2, W // 2), (W, 1)):
+        mesh = mesh_of(shape)
+        _empty(dev)
+        state = T.init_state(torch.Generator(device=dev).manual_seed(0), cfg,
+                             device=dev, mesh=mesh)
+        step = T.make_train_step(cfg, mesh=mesh)
+        pipe = SyntheticLM(cfg.vocab_size, B, S, seed=0, device=dev)
+        ms = []
+        for s in range(2):
+            batch = pipe.batch_at(s)
+            line_up()
+            mesh.reset_calls()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            m["loss"].item()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            calls = {"calls": dict(mesh.calls), "bytes": dict(mesh.bytes)}
+        with _Largest(mesh) as largest:
+            step(state, pipe.batch_at(2))
+        mesh.reset_calls()
+        rate = largest.rate(dev)
+        del state
+        _empty(dev)
+        traced = _trace_counts(cfg, "train", S, B, shape, mesh.rank,
+                               mesh.axis_names)
+        out[shape] = {"step_ms": ms, "step_calls": calls, "trace": traced,
+                      "counts_equal_every_rank": _counts_equal(
+                          mesh, calls, traced, dev),
+                      "largest": rate}
+    return out
+
+
+def compare_decode(one, got, W, smoke):
+    """The mesh decode against the one card's, and the counts; one row a
+    case."""
+    cases = _decode_sizes(smoke, W)[0]
+    report = {}
+    for arch, shape in cases:
+        r = got["decode"][(arch, shape)]
+        want = one[arch]["logits"]
+        err, rms = _rel(r["logits"], want), _row_rms(r["logits"], want)
+        rl = r["trace"]["roofline"]
+        report[f"decode {arch} {shape}"] = {
+            "max_rel_err": err, "row_rms": rms, "step_ms": r["step_ms"],
+            "one_card_step_ms": one[arch]["step_ms"],
+            "roofline_ms": {k: v * 1e3 for k, v in rl.items()
+                            if k.endswith("_s")},
+            "bottleneck": rl["bottleneck"], "step_calls": r["step_calls"],
+            "trace": {k: v for k, v in r["trace"].items()
+                      if k != "roofline"},
+            "counts_equal_every_rank": r["counts_equal_every_rank"],
+            "largest": r["largest"],
+            "ok": err <= 1e-2 and rms <= 1e-2
+            and r["counts_equal_every_rank"]}
+    for shape, r in got["train_trace"].items():
+        rl = r["trace"]["roofline"]
+        report[f"train trace {shape}"] = {
+            "step_ms": r["step_ms"], "step_calls": r["step_calls"],
+            "trace": {k: v for k, v in r["trace"].items() if k != "roofline"},
+            "roofline_ms": {k: v * 1e3 for k, v in rl.items()
+                            if k.endswith("_s")},
+            "bottleneck": rl["bottleneck"], "largest": r["largest"],
+            "counts_equal_every_rank": r["counts_equal_every_rank"],
+            "ok": r["counts_equal_every_rank"]}
+    return report
+
+
+# ---------------------------------------------------------------------------
+# The witness: gemma2-9b's head-parallel decode free of bf16 rounding
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def _in_f32():
+    """The model in f32 while active: activations, caches and the final
+    norm's cast (``layers.PDT``), the embedding scale kept at its bf16
+    rounding, so that on f32 copies of bf16 parameters the step computes
+    the bf16 model's function without its roundings."""
+    from repro_torch.models import layers as L
+
+    pdt, scale = L.PDT, L.embed_scale
+    L.embed_scale = lambda d: float(torch.tensor(d ** 0.5, dtype=pdt))
+    L.PDT = torch.float32
+    try:
+        yield
+    finally:
+        L.PDT, L.embed_scale = pdt, scale
+
+
+@contextlib.contextmanager
+def _f32_sums(mesh):
+    """Every bf16 sum all-reduce of ``mesh`` taken in f32 while active:
+    each rank's partial (the row-split ``wo`` and MLP down products)
+    rounded to bf16 once, the sum once, as one card's product rounds its
+    f32 accumulator once."""
+    issue = mesh.all_reduce
+
+    def all_reduce(t, names, op="sum"):
+        if t.dtype != torch.bfloat16 or op != "sum":
+            return issue(t, names, op)
+        return t.copy_(issue(t.float(), names, op))
+
+    mesh.all_reduce = all_reduce
+    try:
+        yield
+    finally:
+        del mesh.all_reduce
+
+
+def _decode_logits(step, params, toks, cache, P, steps, gather=None):
+    """The logits of ``P + steps`` decode steps over ``toks`` from position
+    ``P - 1`` on, on the host."""
+    logits = []
+    with torch.no_grad():
+        for t in range(P + steps):
+            lg, cache = step(params, toks[:, t:t + 1], t, cache)
+            if t >= P - 1:
+                logits.append((lg if gather is None else gather(lg)).cpu())
+    return torch.stack(logits)
+
+
+def _f32_leaves(tree):
+    from repro_torch.models.sharding import map_leaves
+
+    return map_leaves(lambda _, t: t.float(), tree)
+
+
+def one_card_witness(args, dev, W):
+    """gemma2-9b's one-card decode of the decode part's stream in bf16 and
+    in f32 (the same bf16 parameters, ``_in_f32``)."""
+    from repro_torch.models import model as M
+    from repro_torch.models import serve as SV
+
+    _, B, P, steps, L = _decode_sizes(args.smoke, W)
+    t0 = time.perf_counter()
+    cfg = _decode_cfg("gemma2-9b", args.smoke)
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           dev)
+    toks = _decode_stream(cfg, B, P + steps, dev)
+    step = SV.make_decode_step(cfg)
+    out = {"bf16": _decode_logits(step, params, toks,
+                                  M.init_cache(cfg, B, L, dev), P, steps)}
+    params = _f32_leaves(params)
+    _empty(dev)
+    with _in_f32():
+        out["f32"] = _decode_logits(step, params, toks,
+                                    M.init_cache(cfg, B, L, dev), P, steps)
+    del params
+    _empty(dev)
+    emit({"one_card": "witness gemma2-9b", "seconds":
+          time.perf_counter() - t0})
+    return out
+
+
+def _rank_witness(mesh_of, W, smoke, dev):
+    """gemma2-9b's partitioned decode on (1, W) three ways: as shipped,
+    with its bf16 partial sums taken in f32 (``_f32_sums``), and in f32
+    (``_in_f32``); rank 0 returns the logits."""
+    from repro_torch.models import model as M
+    from repro_torch.models import serve as SV
+
+    _, B, P, steps, L = _decode_sizes(smoke, W)
+    mesh = mesh_of((1, W))
+    cfg = _decode_cfg("gemma2-9b", smoke)
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           dev)
+    shards = SV.shard_params(params, cfg, mesh)
+    del params
+    _empty(dev)
+    toks = _decode_stream(cfg, B, P + steps, dev)
+    step = SV.make_decode_step(cfg, mesh, L)
+    axes = mesh.for_batch(B).batch_axes()
+    gather = lambda lg: mesh.all_gather(lg, axes, 0)
+    cache = lambda: SV.shard_cache(M.init_cache(cfg, B, L, dev), cfg, mesh)
+    out = {"bf16": _decode_logits(step, shards, toks, cache(), P, steps,
+                                  gather)}
+    with _f32_sums(mesh):
+        out["bf16_f32_sums"] = _decode_logits(step, shards, toks, cache(),
+                                              P, steps, gather)
+    shards = _f32_leaves(shards)
+    _empty(dev)
+    with _in_f32():
+        out["f32"] = _decode_logits(step, shards, toks, cache(), P, steps,
+                                    gather)
+    mesh.reset_calls()
+    del shards
+    _empty(dev)
+    return out if mesh.rank == 0 else None
+
+
+def compare_witness(one, got, W):
+    """Each of the witness's decodes against one card's in bf16 and in f32;
+    only the f32 pair is held, at 1e-4 (the path's arithmetic without
+    bf16's roundings)."""
+    rows = {}
+    for name, logits in got["witness"].items():
+        row = {}
+        for ref in ("bf16", "f32"):
+            want = one["witness"][ref]
+            row[f"vs_one_card_{ref}"] = {
+                "max_rel_err": _rel(logits, want),
+                "row_rms": _row_rms(logits, want)}
+        rows[f"witness gemma2-9b (1, {W}) {name}"] = row
+    rows["witness gemma2-9b one card bf16"] = {"vs_one_card_f32": {
+        "max_rel_err": _rel(one["witness"]["bf16"], one["witness"]["f32"]),
+        "row_rms": _row_rms(one["witness"]["bf16"],
+                            one["witness"]["f32"])}}
+    for key, row in rows.items():
+        f32 = row["vs_one_card_f32"]
+        row["ok"] = not key.endswith(" f32") or (
+            f32["max_rel_err"] <= 1e-4 and f32["row_rms"] <= 1e-4)
+    return rows
+
+
+# ---------------------------------------------------------------------------
 
 
 def compare(one, got, W):
@@ -524,9 +984,14 @@ def compare(one, got, W):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=4)
+    ap.add_argument("--parts", default="train,decode",
+                    help="train, decode, witness (comma-separated)")
     ap.add_argument("--smoke", action="store_true",
                     help="a CPU rehearsal: 4 gloo ranks, smoke configs")
     args = ap.parse_args(argv)
+    parts = tuple(args.parts.split(","))
+    if not set(parts) <= {"train", "decode", "witness"}:
+        ap.error(f"--parts {args.parts}: train, decode, witness")
     from repro_torch.core import mesh as CM
 
     if args.smoke:
@@ -542,17 +1007,25 @@ def main(argv=None) -> int:
              "--format=csv,noheader"], capture_output=True,
             text=True).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
-    one = one_card(args, dev)
+    one = one_card(args, dev) if "train" in parts else {}
+    if "decode" in parts:
+        one["decode"] = one_card_decode(args, dev, W)
+    if "witness" in parts:
+        one["witness"] = one_card_witness(args, dev, W)
     store = ROOT / "build" / "lm_mesh_cards_ckpt"  # git ignores build/
     shutil.rmtree(store, ignore_errors=True)
     t1 = time.perf_counter()
     try:
-        got = CM.spawn(_rank, W, args.smoke, args.steps, str(store),
+        got = CM.spawn(_rank, W, args.smoke, args.steps, str(store), parts,
                        device=dev.type, join_timeout=2400.0)
     finally:
         shutil.rmtree(store, ignore_errors=True)
     emit({"spawn_s": time.perf_counter() - t1})
-    report = compare(one, got, W)
+    report = compare(one, got, W) if "train" in parts else {}
+    if "decode" in parts:
+        report.update(compare_decode(one["decode"], got, W, args.smoke))
+    if "witness" in parts:
+        report.update(compare_witness(one, got, W))
     for key, row in report.items():
         emit({"part": key, **row})
     emit({"ranks": W, "seconds": time.perf_counter() - t0,

@@ -2,14 +2,24 @@
 (``experiments/dryrun_torch/``, written by ``repro_torch.launch.dryrun``)
 and emits the roofline table.
 
-The port of ``benchmarks/roofline.py``.  A card record carries the trace's
+    PYTHONPATH=src python -m repro_torch.benchmarks.roofline [--dir DIR]
+
+prints the table, ``summarize``'s aggregates and, per mesh, the cells by
+bottleneck and the ones whose per-device bytes pass the card's 80 GB.
+
+The port of ``benchmarks/roofline.py``.  A record carries the trace's
 seconds (``trace_s``) where the reference's carries ``compile_s``; a
-production-mesh record has per-device bytes and ``roofline: null``, and
-gives "-" in every column the roofline would fill.
+production-mesh record is rank 0's partitioned step, with the
+collectives' seconds on NVLink and InfiniBand in ``collective_s``.  An
+SSM cell on a model axis (no model-axis split yet, ROADMAP.md item 22)
+has per-device bytes and ``roofline: null``, and gives "-" in every
+column the roofline would fill.
 """
 
 from __future__ import annotations
 
+import argparse
+import collections
 import glob
 import json
 import os
@@ -58,8 +68,9 @@ def as_markdown(recs):
 
 def summarize(recs):
     """Aggregate stats for run.py's CSV output, over the records with a
-    roofline (the card's).  ``most_collective_bound`` is "-" while no cell
-    has collective time (the port runs no collective on one card)."""
+    roofline.  ``most_collective_bound``: the cell whose collective share
+    of its three terms is the largest ("-" where no cell has collective
+    time: one card runs none)."""
     run = [r for r in recs if r.get("status") == "run" and r.get("roofline")]
     if not run:
         return {}
@@ -75,3 +86,43 @@ def summarize(recs):
                                   if coll["roofline"]["collective_s"]
                                   else "-"),
     }
+
+
+def by_mesh(recs):
+    """Per mesh: the traced cells by bottleneck, the ones that do not fit
+    (per-device bytes above the card's 80 GB), and the cells with no
+    roofline (an SSM family on a model axis)."""
+    from repro_torch.launch.mesh import HBM_BYTES
+
+    out = {}
+    for rec in recs:
+        if rec.get("status", "run") != "run":
+            continue
+        m = out.setdefault(rec["mesh"], {"bottleneck": collections.defaultdict(
+            list), "over_80gb": [], "no_roofline": []})
+        cell = f"{rec['arch']}x{rec['shape']}"
+        mem = rec["memory"]
+        per_dev = (mem["argument_bytes"] + (mem["temp_bytes"] or 0)
+                   + mem["output_bytes"] - mem["alias_bytes"])
+        if rec["roofline"] is None:
+            m["no_roofline"].append(cell)
+            continue
+        m["bottleneck"][rec["roofline"]["bottleneck"]].append(cell)
+        if per_dev > HBM_BYTES:
+            m["over_80gb"].append(f"{cell} ({per_dev / 1e9:.1f} GB)")
+    return {k: dict(v, bottleneck=dict(v["bottleneck"]))
+            for k, v in out.items()}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--dir", default="experiments/dryrun_torch")
+    args = ap.parse_args(argv)
+    recs = load_records(args.dir)
+    print(as_markdown(recs))
+    print(json.dumps(summarize(recs)))
+    print(json.dumps(by_mesh(recs), indent=1))
+
+
+if __name__ == "__main__":
+    main()

@@ -1267,15 +1267,24 @@ def rmat(n_log2: int, num_edges: int, seed: int = 0,
     """RMAT power-law generator (Graph500-style), vectorized."""
     rng = np.random.default_rng(seed)
     n = 1 << n_log2
-    src = np.zeros(num_edges, dtype=np.int64)
-    dst = np.zeros(num_edges, dtype=np.int64)
+    # the reference's draws and comparisons, each bit shifted in place
+    # into int32 words (ids stay below 2^n_log2) without temporaries
+    src = np.zeros(num_edges, dtype=INT)
+    dst = np.zeros(num_edges, dtype=INT)
+    # quadrant probabilities conditioned on the row bit
+    p_low, p_high = b / (a + b), c / (c + (1 - a - b - c))
+    bit, right, high = (np.empty(num_edges, dtype=bool) for _ in range(3))
     for _ in range(n_log2):
         r = rng.random(num_edges)
-        src = src * 2 + (r >= a + b)
-        r2 = rng.random(num_edges)
-        # quadrant probabilities conditioned on the row bit
-        p_right = np.where(r >= a + b, c / (c + (1 - a - b - c)), b / (a + b))
-        dst = dst * 2 + (r2 < p_right)
+        np.greater_equal(r, a + b, out=bit)
+        src <<= 1
+        src += bit
+        r2 = rng.random(num_edges, out=r)
+        np.less(r2, p_low, out=right)
+        np.less(r2, p_high, out=high)
+        np.copyto(right, high, where=bit)
+        dst <<= 1
+        dst += right
     keep = src != dst
     g = from_edges(n, src[keep].astype(INT), dst[keep].astype(INT))
     return random_weights(g, seed=seed) if weighted else g

@@ -1,36 +1,51 @@
 """Dry run: trace every (architecture x input shape) cell of the port and
-extract its roofline on the card.
+extract its roofline on the card, alone or as one rank of a mesh.
 
 The port of ``repro/launch/dryrun.py``.  The reference lowers and compiles
 each cell for 256 or 512 fake CPU devices and reads XLA's memory and HLO
 analyses; the port traces each cell's step on the ``meta`` device (shapes
 and dtypes, no storage: a kimi-k2 train step allocates nothing) under the
-op-level analyzer (``launch/opanalysis.py``).
+op-level analyzer (``launch/opanalysis.py``).  On a mesh it traces rank
+0's partitioned step (``models.train.make_train_step(mesh=)``,
+``models.serve.make_prefill_step(mesh=)`` / ``make_decode_step(mesh=)``)
+on a trace mesh (``launch.mesh.make_trace_mesh``: the collectives counted,
+none issued): every rank of the SPMD step issues the same calls, so rank
+0's trace is the per-device program.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma3-1b --shape train_4k
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all
-    PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh card --out DIR
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh pod16x16 --out DIR
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma3-1b --mesh data=2,model=2
 
-``--mesh`` picks where a cell is placed: ``card`` (one H100, the port's
-program) or the reference's production meshes ``pod16x16`` and
-``pod2x16x16``; ``--all`` without ``--mesh`` writes all three.  Several
-cells trace in up to four processes.
+``--mesh`` picks where a cell is placed: ``card`` (one H100), the
+reference's production meshes ``pod16x16`` and ``pod2x16x16``, or an
+explicit shape (``data=2,model=2``: axis names from pod, data and model);
+``--all`` without ``--mesh`` writes card and both production meshes.
+Several cells trace in up to four processes.
 
-Per cell on ``card`` this records:
+Per cell this records:
     memory      argument / output / alias bytes of the step (decode's cache
                 is updated in place: it is aliased) and temp bytes: the
                 trace's peak live bytes less the arguments and the fresh
-                outputs, so argument + temp + output - alias is the peak
-    analysis    the analyzer's FLOPs (by dtype), bytes, launches and peak
+                outputs, so argument + temp + output - alias is the peak.
+                On a mesh the arguments are this rank's shards and the
+                whole batch, which every rank of the port's step holds;
+                ``batch_bytes`` / ``batch_shard_bytes`` are that batch's
+                bytes and the reference's input of it (this rank's rows
+                under ``batch_specs``, decode's ``pos`` as an int32).  The
+                arguments less the one plus the other must equal
+                ``production_memory``'s
+    analysis    the analyzer's FLOPs (by dtype), bytes, launches, peak and
+                the collectives' calls and wire bytes (by kind, axes, link)
     roofline    compute / memory / collective seconds + bottleneck
-    model_flops_* and useful_flop_ratio, trace_s (in place of compile_s),
-                and ``fits``: the peak within the card's 80 GB
+    model_flops_* and useful_flop_ratio (per chip), trace_s (in place of
+                compile_s), and ``fits``: the peak within the card's 80 GB
 
-On a production mesh the port has no partitioned program (it runs on one
-card), so a record holds only the per-device argument, output and alias
-bytes of the spec tables -- each dim divided by the sizes of its mesh axes,
-as the reference's ``NamedSharding`` divides it -- with ``roofline: null``.
+The SSM families (jamba, xlstm) have no model-axis split yet (ROADMAP.md
+item 22): on a model axis wider than 1 their record holds the spec
+tables' per-device bytes (``production_memory``) and ``roofline: null``
+with a note that names the item.
 """
 
 from __future__ import annotations
@@ -49,8 +64,8 @@ import torch
 from repro_torch import configs
 from repro_torch.launch import opanalysis
 from repro_torch.launch.mesh import (HBM_BW, HBM_BYTES, PEAK_FLOPS_BF16,
-                                     PEAK_FLOPS_F32, make_production_mesh,
-                                     mesh_chips)
+                                     PEAK_FLOPS_F32, link_bw,
+                                     make_trace_mesh, mesh_chips)
 from repro_torch.models import model as M
 from repro_torch.models import serve as SV
 from repro_torch.models import train as T
@@ -59,27 +74,52 @@ from repro_torch.models.sharding import param_specs
 
 MESHES = ("card", "pod16x16", "pod2x16x16")
 
-PRODUCTION_NOTE = ("no partitioned program in the port: per-device bytes of "
-                   "the spec tables only; flops, bytes and collective wire "
-                   "bytes need a partitioned step")
+SSM_NOTE = ("the SSM mixers have no model-axis split (ROADMAP.md item 22): "
+            "per-device bytes of the spec tables only")
+
+
+def make_mesh(name):
+    """A trace mesh (rank 0) for ``pod16x16``, ``pod2x16x16`` or an
+    explicit ``axis=size,...`` shape."""
+    if name in ("pod16x16", "pod2x16x16"):
+        multi = name == "pod2x16x16"
+        return make_trace_mesh((2, 16, 16) if multi else (16, 16),
+                               ("pod", "data", "model") if multi
+                               else ("data", "model"))
+    axes = [part.split("=") for part in name.split(",")]
+    if not axes or any(len(a) != 2 or a[0] not in ("pod", "data", "model")
+                       for a in axes):
+        raise ValueError(f"--mesh {name!r}: card, pod16x16, pod2x16x16 or "
+                         "axis=size,... over pod, data, model")
+    return make_trace_mesh([int(n) for _, n in axes], [a for a, _ in axes])
 
 
 def build_cell(cfg, shape, mesh=None):
     """-> ``(fn, args)``: the cell's step and its arguments on the ``meta``
     device.  A decode cell's ``pos`` is the Python int ``seq_len - 1`` (the
-    step reads it on the host).  ``mesh`` is unused: the port's step is one
-    program on one card, whatever the mesh."""
+    step reads it on the host).  With ``mesh`` (an ``LmMesh``: a trace
+    mesh) the step is that rank's partitioned step and the arguments its
+    shards: the train state by ``train.shard_state``, parameters by
+    ``serve.shard_params``, the cache by ``serve.shard_cache``, and the
+    batch whole, as the mesh steps take it."""
+    S = shape.seq_len
+    specs = configs.input_specs(cfg, shape)
     if shape.kind == "train":
-        return T.make_train_step(cfg), (T.abstract_state(cfg),
-                                        configs.input_specs(cfg, shape))
+        state = T.abstract_state(cfg)
+        if mesh is None:
+            return T.make_train_step(cfg), (state, specs)
+        return T.make_train_step(cfg, mesh=mesh), (
+            T.shard_state(state, cfg, mesh), specs)
     params = M.abstract_params(cfg)
+    if mesh is not None:
+        params = SV.shard_params(params, cfg, mesh)
     if shape.kind == "prefill":
-        return SV.make_prefill_step(cfg), (params,
-                                           configs.input_specs(cfg, shape))
-    B, S = shape.global_batch, shape.seq_len
-    tokens = configs.input_specs(cfg, shape)["tokens"]
-    return SV.make_decode_step(cfg), (params, tokens, S - 1,
-                                      M.abstract_cache(cfg, B, S))
+        return SV.make_prefill_step(cfg, mesh), (params, specs)
+    tokens, cache = specs["tokens"], specs["cache"]
+    if mesh is None:
+        return SV.make_decode_step(cfg), (params, tokens, S - 1, cache)
+    return SV.make_decode_step(cfg, mesh, S), (
+        params, tokens, S - 1, SV.shard_cache(cache, cfg, mesh))
 
 
 def model_flops(cfg, shape) -> float:
@@ -93,8 +133,9 @@ def model_flops(cfg, shape) -> float:
     return 2.0 * n * shape.global_batch  # decode: one token per sequence
 
 
-def roofline(analysis: opanalysis.Analysis, chips: int = 1):
-    """Three terms in seconds on one card, and the bottleneck.
+def roofline(analysis: opanalysis.Analysis, mesh=None):
+    """Three terms in seconds on one card (of ``mesh``), and the
+    bottleneck.
 
     Compute is where the card's model departs from the reference's single
     bf16 peak: ``flops_by_dtype["bf16"] / PEAK_FLOPS_BF16 +
@@ -102,20 +143,24 @@ def roofline(analysis: opanalysis.Analysis, chips: int = 1):
     the attention's scores and values, the SSM mixers' scans, the MoE
     router -- run on the CUDA cores with TF32 off (``cutlass_80_simt_sgemm``
     in the training profile), not on the tensor cores; a product of any
-    other dtype is priced at the f32 rate.  The reference's
-    ``collective_tpu_s`` (its f32 collectives re-priced as bf16 on a TPU's
-    links) has no counterpart: the port runs no collective on one card
-    and its model has no link bandwidth, so ``collective_s`` is 0 and a
-    non-zero ``collective_bytes`` is refused."""
-    if chips != 1 or analysis.collective_bytes:
-        raise ValueError("the card's roofline covers one card and no "
-                         "collective")
+    other dtype is priced at the f32 rate.  ``collective_s`` sums each
+    call's wire bytes over the link its axes span (``launch.mesh.link_bw``:
+    NVLink inside a node of 8 cards, InfiniBand across nodes), from the
+    analysis's ``per_axes``; without a mesh a collective cannot be priced
+    and is refused.  The reference's ``collective_tpu_s`` (its f32
+    collectives re-priced as bf16 on a TPU's links) has no counterpart:
+    the port's collectives move the dtypes the step computes in."""
+    if mesh is None and analysis.collective_bytes:
+        raise ValueError("collectives are priced on a mesh's links: pass "
+                         "the mesh")
     by = analysis.flops_by_dtype
     compute_s = by.get("bf16", 0) / PEAK_FLOPS_BF16 + sum(
         f for dt, f in by.items() if dt != "bf16") / PEAK_FLOPS_F32
+    collective_s = sum(b / link_bw(mesh, names.split("+"))
+                       for names, b in analysis.per_axes.items())
     terms = {"compute_s": compute_s,
              "memory_s": analysis.bytes_accessed / HBM_BW,
-             "collective_s": 0.0}
+             "collective_s": collective_s}
     terms["bottleneck"] = max(terms, key=lambda k: terms[k]).replace("_s", "")
     return terms
 
@@ -197,10 +242,18 @@ def card_memory(args, result, analysis) -> dict:
     argument = sum(arg_keys.values())
     output = sum(out_keys.values())
     alias = sum(n for k, n in out_keys.items() if k in arg_keys)
-    return {"argument_bytes": argument, "output_bytes": output,
-            "alias_bytes": alias,
-            "temp_bytes": analysis.peak_live_bytes - argument
-            - (output - alias)}
+    memory = {"argument_bytes": argument, "output_bytes": output,
+              "alias_bytes": alias,
+              "temp_bytes": analysis.peak_live_bytes - argument
+              - (output - alias)}
+    return memory
+
+
+def reference_argument_bytes(memory) -> int:
+    """A mesh record's argument bytes with the whole batch replaced by the
+    reference's input of it (``batch_bytes``)."""
+    return (memory["argument_bytes"] - memory["batch_bytes"]
+            + memory["batch_shard_bytes"])
 
 
 def per_device_bytes(memory) -> int:
@@ -208,22 +261,39 @@ def per_device_bytes(memory) -> int:
             + memory["output_bytes"] - memory["alias_bytes"])
 
 
-def trace_cell(cfg, shape):
-    """Trace one cell on ``meta`` -> (record fields, Analysis)."""
-    fn, args = build_cell(cfg, shape)
+def batch_bytes(shape, args, mesh) -> dict:
+    """The bytes of a mesh step's whole batch, which every rank holds
+    (decode's ``pos`` is a Python int), and of the reference's input of
+    it: this rank's rows under ``batch_specs``, plus decode's ``pos`` as a
+    replicated int32 scalar."""
+    batch, pos = ({"tokens": args[1]}, 4) if shape.kind == "decode" \
+        else (args[1], 0)
+    return {"batch_bytes": sum(opanalysis.storages(batch).values()),
+            "batch_shard_bytes": shard_bytes(
+                batch, T.batch_specs(batch, mesh), mesh) + pos}
+
+
+def trace_cell(cfg, shape, mesh=None):
+    """Trace one cell on ``meta`` (rank 0's step on ``mesh``) -> (record
+    fields, Analysis)."""
+    fn, args = build_cell(cfg, shape, mesh)
     t0 = time.perf_counter()
-    result, ana = opanalysis.analyze(fn, *args)
+    result, ana = opanalysis.analyze(fn, *args, mesh=mesh)
     trace_s = time.perf_counter() - t0
+    chips = 1 if mesh is None else mesh_chips(mesh)
     mf = model_flops(cfg, shape)
+    memory = card_memory(args, result, ana)
+    if mesh is not None:
+        memory.update(batch_bytes(shape, args, mesh))
     return {
-        "chips": 1,
+        "chips": chips,
         "trace_s": round(trace_s, 2),
-        "memory": card_memory(args, result, ana),
+        "memory": memory,
         "analysis": ana.to_dict(),
-        "roofline": roofline(ana, 1),
+        "roofline": roofline(ana, mesh),
         "model_flops_global": mf,
-        "model_flops_per_chip": mf,
-        "useful_flop_ratio": mf / ana.flops if ana.flops else None,
+        "model_flops_per_chip": mf / chips,
+        "useful_flop_ratio": mf / chips / ana.flops if ana.flops else None,
     }, ana
 
 
@@ -238,14 +308,24 @@ def run_cell(arch: str, shape_name: str, mesh_name: str = "card",
         if verbose:
             print(f"[{mesh_name}] {arch} x {shape_name}: SKIP ({status})")
         return rec
-    if mesh_name == "card":
-        rec.update(trace_cell(cfg, shape)[0])
-        rec["fits"] = per_device_bytes(rec["memory"]) <= HBM_BYTES
-    else:
-        mesh = make_production_mesh(multi_pod=mesh_name == "pod2x16x16")
+    mesh = None if mesh_name == "card" else make_mesh(mesh_name)
+    try:
+        M.check_mesh(cfg, mesh)
+    except NotImplementedError:
         rec.update({"chips": mesh_chips(mesh),
                     "memory": production_memory(cfg, shape, mesh),
-                    "roofline": None, "note": PRODUCTION_NOTE})
+                    "roofline": None, "note": SSM_NOTE})
+    else:
+        rec.update(trace_cell(cfg, shape, mesh)[0])
+        rec["fits"] = per_device_bytes(rec["memory"]) <= HBM_BYTES
+        if mesh is not None:
+            want = production_memory(cfg, shape, mesh)["argument_bytes"]
+            if reference_argument_bytes(rec["memory"]) != want:
+                raise AssertionError(
+                    f"{arch} x {shape_name} on {mesh_name}: the traced "
+                    "step's argument bytes with the batch as the "
+                    f"reference's {reference_argument_bytes(rec['memory'])}"
+                    f" != the spec tables' {want}")
     if verbose:
         gb = per_device_bytes(rec["memory"]) / 1e9
         rl = rec["roofline"]
@@ -254,8 +334,9 @@ def run_cell(arch: str, shape_name: str, mesh_name: str = "card",
             u = rec["useful_flop_ratio"]
             line += (f" trace={rec['trace_s']:.1f}s "
                      f"compute={rl['compute_s']:.4f}s "
-                     f"memory={rl['memory_s']:.4f}s -> {rl['bottleneck']} "
-                     f"useful={u and round(u, 3)}")
+                     f"memory={rl['memory_s']:.4f}s "
+                     f"collective={rl['collective_s']:.4f}s "
+                     f"-> {rl['bottleneck']} useful={u and round(u, 3)}")
         print(line, flush=True)
     if outdir:
         os.makedirs(outdir, exist_ok=True)
@@ -280,9 +361,10 @@ def main(argv=None):
     ap.add_argument("--shape", default=None,
                     help="shape cell (default: all four)")
     ap.add_argument("--all", action="store_true", help="every arch x shape")
-    ap.add_argument("--mesh", choices=MESHES + ("all",), default=None,
-                    help="card (default for one arch), a production mesh, "
-                         "or all (default with --all)")
+    ap.add_argument("--mesh", default=None,
+                    help="card (default for one arch), pod16x16, "
+                         "pod2x16x16, axis=size,... (data=2,model=2), or "
+                         "all (default with --all: card and both pods)")
     ap.add_argument("--out", default="experiments/dryrun_torch")
     ap.add_argument("--continue-on-error", action="store_true")
     args = ap.parse_args(argv)
@@ -292,6 +374,9 @@ def main(argv=None):
     shapes = list(SHAPES) if (args.all or not args.shape) else [args.shape]
     mesh = args.mesh or ("all" if args.all else "card")
     meshes = MESHES if mesh == "all" else (mesh,)
+    for name in meshes:
+        if name != "card":
+            make_mesh(name)  # a bad name fails before any cell
     cells = [(arch, shape, mesh_name, args.out) for mesh_name in meshes
              for arch in archs for shape in shapes]
 

@@ -27,6 +27,15 @@ Start ranks with ``repro_torch.core.mesh.spawn`` (or join one group with
 serves several meshes in turn (each call creates its subgroups, on every
 rank in one order).
 
+``make_trace_mesh`` gives one rank of an ``LmMesh`` of any size (the
+production meshes' 256 and 512 ranks) with no process group: its
+collectives return outputs of the right shape on the ``meta`` device and
+count them as a real mesh does, so the dry run traces rank 0's
+partitioned step (every rank of an SPMD step issues the same calls).
+Each call is counted by kind (``calls``, ``bytes``) and by the axes it
+spans (``axis_calls``, ``axis_bytes``), which ``link_bw`` prices: NVLink
+inside a node of ``CARDS_PER_NODE`` cards, InfiniBand across nodes.
+
 Axis roles (DESIGN.md section 5):
     pod    pure data parallelism across pods (gradient sync crosses the
            inter-pod links exactly once per step)
@@ -44,6 +53,7 @@ import math
 
 import torch
 import torch.distributed as dist
+from torch.utils._python_dispatch import _disable_current_modes
 
 # The card's constants for the roofline (``launch/dryrun.py``) and the
 # graph kernels' cost model (``benchmarks/kernelbench.py``): the NVIDIA
@@ -53,6 +63,12 @@ PEAK_FLOPS_BF16 = 989e12  # dense bf16 on the tensor cores, FLOP/s
 PEAK_FLOPS_F32 = 67e12    # float32 on the CUDA cores (TF32 off), FLOP/s
 HBM_BW = 3.35e12          # HBM3, bytes/s
 HBM_BYTES = 80e9          # device memory, bytes
+# The links of an HGX H100 node: NVLink 4 between its cards (900 GB/s
+# bidirectional, 450 GB/s each way, the H100 SXM data sheet) and one
+# ConnectX-7 NDR InfiniBand adapter (400 Gb/s) a card between nodes.
+NVLINK_BW = 450e9         # bytes/s per direction, a card
+IB_BW = 50e9              # bytes/s, a card
+CARDS_PER_NODE = 8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,8 +132,13 @@ class LmMesh:
     that differ from it only there), for every single axis and for the
     batch axes together; ``calls`` and ``bytes`` count this rank's
     collectives by kind and the bytes each put on the wire by the ring
-    model (``repro_torch.core.mesh.PeMesh``'s), for the caller to zero
-    and read."""
+    model (``repro_torch.core.mesh.PeMesh``'s, the reference
+    ``hloanalysis``'s wire formula), ``axis_calls`` and ``axis_bytes``
+    the same by ``(kind, axes)`` (the axes in mesh order), for the
+    caller to zero and read.  The process group's calls run outside any
+    ``TorchDispatchMode`` (``launch/opanalysis.py`` reads the counters,
+    not the c10d ops), so an analyzed step records the same aten ops on
+    a process group as on a trace mesh."""
 
     axes: tuple
     rank: int
@@ -129,6 +150,10 @@ class LmMesh:
     calls: collections.Counter = dataclasses.field(
         default_factory=collections.Counter)
     bytes: collections.Counter = dataclasses.field(
+        default_factory=collections.Counter)
+    axis_calls: collections.Counter = dataclasses.field(
+        default_factory=collections.Counter)
+    axis_bytes: collections.Counter = dataclasses.field(
         default_factory=collections.Counter)
 
     @property
@@ -171,7 +196,9 @@ class LmMesh:
         if n == 1 or batch % n == 0:
             return self
         return dataclasses.replace(self, split_batch=False, calls=self.calls,
-                                   bytes=self.bytes)
+                                   bytes=self.bytes,
+                                   axis_calls=self.axis_calls,
+                                   axis_bytes=self.axis_bytes)
 
     def group(self, names):
         """This rank's process group along the named axes (the default
@@ -197,13 +224,29 @@ class LmMesh:
         return r
 
     def reset_calls(self):
-        self.calls.clear()
-        self.bytes.clear()
+        for counter in (self.calls, self.bytes, self.axis_calls,
+                        self.axis_bytes):
+            counter.clear()
 
-    def _count(self, kind, nbytes, g, share):
+    def span(self, names) -> tuple:
+        """The named axes of this mesh, in mesh order (a call's key in
+        ``axis_calls`` / ``axis_bytes``)."""
+        names = set(_names(names))
+        return tuple(n for n in self.axis_names if n in names)
+
+    def _count(self, kind, nbytes, g, share, names):
+        wire = nbytes * share * (g - 1) / g if g > 1 else nbytes * share
+        key = (kind, self.span(names))
         self.calls[kind] += 1
-        self.bytes[kind] += nbytes * share * (g - 1) / g if g > 1 \
-            else nbytes * share
+        self.bytes[kind] += wire
+        self.axis_calls[key] += 1
+        self.axis_bytes[key] += wire
+
+    def _issue(self, call, *tensors):
+        """Run one call of the process group on ``tensors``, unseen by any
+        dispatch mode."""
+        with _disable_current_modes():
+            call()
 
     # -- plain collectives (no autograd); no op over size-1 axes ----------
 
@@ -212,10 +255,10 @@ class LmMesh:
         g = self.axis_size(names)
         if g == 1:
             return t
-        self._count("all_reduce", _nbytes(t), g, 2.0)
-        dist.all_reduce(t, op={"sum": dist.ReduceOp.SUM,
-                               "max": dist.ReduceOp.MAX}[op],
-                        group=self.group(names))
+        self._issue(lambda: dist.all_reduce(
+            t, op={"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op],
+            group=self.group(names)), t)
+        self._count("all_reduce", _nbytes(t), g, 2.0, names)
         return t
 
     def all_gather(self, t, names, dim=0):
@@ -226,8 +269,9 @@ class LmMesh:
             return t
         t = t.contiguous()
         parts = [torch.empty_like(t) for _ in range(g)]
-        self._count("all_gather", _nbytes(t) * g, g, 1.0)
-        dist.all_gather(parts, t, group=self.group(names))
+        self._issue(lambda: dist.all_gather(parts, t,
+                                            group=self.group(names)), t)
+        self._count("all_gather", _nbytes(t) * g, g, 1.0, names)
         return torch.cat(parts, dim=dim)
 
     def reduce_scatter(self, t, names, dim=0):
@@ -238,8 +282,9 @@ class LmMesh:
             return t
         blocks = t.movedim(dim, 0).contiguous()
         out = blocks.new_empty((blocks.shape[0] // g,) + blocks.shape[1:])
-        self._count("reduce_scatter", _nbytes(blocks), g, 1.0)
-        dist.reduce_scatter_tensor(out, blocks, group=self.group(names))
+        self._issue(lambda: dist.reduce_scatter_tensor(
+            out, blocks, group=self.group(names)), blocks)
+        self._count("reduce_scatter", _nbytes(blocks), g, 1.0, names)
         return out.movedim(0, dim)
 
     def shift(self, t, name, step=1):
@@ -250,12 +295,15 @@ class LmMesh:
         to, frm = (nxt, prv) if step == 1 else (prv, nxt)
         send = t.contiguous()
         recv = torch.empty_like(send)
-        grp = self.group(name)
-        self._count("ring_hop", _nbytes(send), 1, 1.0)
-        ops = [dist.P2POp(dist.isend, send, to, grp),
-               dist.P2POp(dist.irecv, recv, frm, grp)]
-        for work in dist.batch_isend_irecv(ops):
-            work.wait()
+        def hop():
+            grp = self.group(name)
+            ops = [dist.P2POp(dist.isend, send, to, grp),
+                   dist.P2POp(dist.irecv, recv, frm, grp)]
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
+
+        self._issue(hop, send)
+        self._count("ring_hop", _nbytes(send), 1, 1.0, name)
         return recv
 
     def barrier(self):
@@ -324,6 +372,70 @@ def _unravel(r, sizes):
         out.append(r % s)
         r //= s
     return tuple(reversed(out))
+
+
+@dataclasses.dataclass(eq=False)
+class TraceMesh(LmMesh):
+    """One rank of an ``LmMesh`` with no process group, for tracing on
+    ``meta``: every collective takes the real mesh's path up to the
+    process group's call (the same aten ops, the same outputs' shapes,
+    the same counts) and skips that call.  A tensor on any other device
+    is refused: a trace never fakes values."""
+
+    def group(self, names):
+        return self.span(names)
+
+    def _issue(self, call, *tensors):
+        for t in tensors:
+            if t.device.type != "meta":
+                raise ValueError(f"a trace mesh takes meta tensors only, "
+                                 f"not {t.device.type} ones")
+
+    def barrier(self):
+        pass
+
+
+def make_trace_mesh(shape, axis_names=("data", "model"),
+                    rank: int = 0) -> TraceMesh:
+    """Rank ``rank`` of a mesh of ``shape`` over ``axis_names`` (any
+    size: the production meshes' 256 or 512 ranks), at the row-major
+    coordinates of ``rank``, on the ``meta`` device, with no process
+    group."""
+    axes = tuple(zip(tuple(axis_names), (int(s) for s in shape)))
+    sizes = [s for _, s in axes]
+    if not 0 <= rank < math.prod(sizes):
+        raise ValueError(f"rank {rank} is not in a mesh of {dict(axes)}")
+    return TraceMesh(axes=axes, rank=rank, device=torch.device("meta"),
+                     backend="trace",
+                     coords=dict(zip((n for n, _ in axes),
+                                     _unravel(rank, sizes))),
+                     groups={})
+
+
+def group_ranks(mesh, names) -> list:
+    """The global ranks of ``mesh.rank``'s group along the named axes
+    (rank 0's on a ``MeshSpec``, which places no rank)."""
+    names = set(_names(names))
+    sizes = [s for _, s in mesh.axes]
+    rank = getattr(mesh, "rank", 0)
+    mine = _unravel(rank, sizes)
+    keep = [i for i, n in enumerate(mesh.axis_names) if n not in names]
+    return [r for r in range(math.prod(sizes))
+            if all(_unravel(r, sizes)[i] == mine[i] for i in keep)]
+
+
+def link_bw(mesh, names) -> float:
+    """The per-card bandwidth of a collective over the named axes:
+    ``NVLINK_BW`` where every rank of the group sits in one node of
+    ``CARDS_PER_NODE`` cards (rank // CARDS_PER_NODE, the row-major
+    device order), else ``IB_BW``.  On ``pod16x16`` both axes cross
+    nodes; on a machine of four cards every group is NVLink."""
+    nodes = {r // CARDS_PER_NODE for r in group_ranks(mesh, names)}
+    return NVLINK_BW if len(nodes) == 1 else IB_BW
+
+
+def link_name(mesh, names) -> str:
+    return "nvlink" if link_bw(mesh, names) == NVLINK_BW else "ib"
 
 
 # ---------------------------------------------------------------------------

@@ -33,9 +33,17 @@ What is counted, per op that launches work:
             the arguments' included (each storage is counted from the op
             that creates it until it is freed).
 
-Collectives: the port runs on one card and makes none, so
-``collective_bytes``, ``per_collective`` and ``collective_count`` are 0,
-as the reference's are on one device.
+Collectives: ``analyze(fn, *args, mesh=m)`` reads the ``LmMesh``'s
+counters (``repro_torch.launch.mesh``) around the call -- on a trace
+mesh the calls rank 0 would issue, on a process group the ones it did
+(their c10d ops run outside the dispatch mode, so the aten ops are the
+same either way).  ``collective_bytes`` is the wire bytes of the
+reference ``hloanalysis``'s ring formula, ``per_collective`` and
+``collective_calls`` split them by kind, ``collective_count`` counts the
+calls, ``per_axes`` splits the bytes by the axes a call spans (``"data"``,
+``"pod+data"``) and ``per_link`` by the link ``launch.mesh.link_bw``
+prices them on (``"nvlink"``, ``"ib"``).  Without a mesh they are 0, as
+the reference's are on one device.
 """
 
 from __future__ import annotations
@@ -51,6 +59,7 @@ from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import flop_registry
 
 from repro_torch.checkpoint.store import _leaves
+from repro_torch.launch.mesh import link_name
 
 aten = torch.ops.aten
 
@@ -87,6 +96,9 @@ class Analysis:
     flops_by_dtype: dict = dataclasses.field(default_factory=Counter)
     ops: dict = dataclasses.field(default_factory=Counter)
     peak_live_bytes: int = 0
+    collective_calls: dict = dataclasses.field(default_factory=dict)
+    per_axes: dict = dataclasses.field(default_factory=dict)
+    per_link: dict = dataclasses.field(default_factory=dict)
 
     @property
     def launches(self) -> int:
@@ -99,6 +111,9 @@ class Analysis:
             "collective_bytes": self.collective_bytes,
             "per_collective": dict(self.per_collective),
             "collective_count": self.collective_count,
+            "collective_calls": dict(self.collective_calls),
+            "per_axes": dict(self.per_axes),
+            "per_link": dict(self.per_link),
             "flops_by_dtype": dict(self.flops_by_dtype),
             "launches": self.launches,
             "ops": dict(self.ops),
@@ -192,17 +207,37 @@ def storages(tree) -> dict:
     return out
 
 
-def analyze(fn, *args, **kwargs):
+def _collectives(res, mesh, before):
+    """The mesh's counts since ``before`` into ``res``."""
+    calls, nbytes, axis_bytes = (c - b for c, b in zip(
+        (mesh.calls, mesh.bytes, mesh.axis_bytes), before))
+    res.collective_calls = dict(calls)
+    res.per_collective = dict(nbytes)
+    res.collective_count = sum(calls.values())
+    res.collective_bytes = float(sum(nbytes.values()))
+    per_axes, per_link = Counter(), Counter()
+    for (_, names), b in axis_bytes.items():
+        per_axes["+".join(names)] += b
+        per_link[link_name(mesh, names)] += b
+    res.per_axes, res.per_link = dict(per_axes), dict(per_link)
+
+
+def analyze(fn, *args, mesh=None, **kwargs):
     """Run ``fn(*args, **kwargs)`` under the analyzer -> ``(result,
-    Analysis)``.  The arguments' storages count as live from the start."""
+    Analysis)``.  The arguments' storages count as live from the start;
+    ``mesh``: the ``LmMesh`` whose collectives the call issues."""
     res, live = Analysis(), _Live()
     for _, t in tree_leaves((args, kwargs)):
         live.add(t)
+    before = None if mesh is None else tuple(
+        Counter(c) for c in (mesh.calls, mesh.bytes, mesh.axis_bytes))
     try:
         with _Mode(res, live):
             result = fn(*args, **kwargs)
         res.peak_live_bytes = live.peak
     finally:
         live.close()
+    if mesh is not None:
+        _collectives(res, mesh, before)
     return result, res
 

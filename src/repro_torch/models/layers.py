@@ -228,14 +228,21 @@ def _local_kv(p, cfg, mesh):
     """The K/V projections (and biases) this rank's query heads read: its
     own KV-head shard where ``wk``/``wv`` are split over the model axis,
     else the heads its query heads map to (``h // G``) picked from the
-    whole ones, one K/V head per query head; those enter through
+    whole ones -- each once where the rank's heads split evenly among
+    them (the GQA groups kept, as the reference's partitioner projects
+    them), else one K/V head per query head; those enter through
     ``copy_to`` (each rank's gradient covers its heads only)."""
     Hl = p["wq"].shape[1]
     if p["wk"].shape[1] != cfg.num_kv_heads:  # split with the query heads
         return p
     G = cfg.num_heads // cfg.num_kv_heads
     first = mesh.axis_index("model") * Hl
-    kv = torch.arange(first, first + Hl, device=p["wk"].device) // G
+    ids = [(first + h) // G for h in range(Hl)]
+    u = ids[-1] - ids[0] + 1
+    if Hl % u == 0 and ids == [ids[0] + h // (Hl // u) for h in range(Hl)]:
+        kv = torch.arange(ids[0], ids[0] + u, device=p["wk"].device)
+    else:
+        kv = torch.arange(first, first + Hl, device=p["wk"].device) // G
     out = dict(p)
     for key, dim in (("wk", 1), ("wv", 1), ("bk", 0), ("bv", 0)):
         if key in p:
@@ -319,7 +326,8 @@ def ring_attention_block(p, x, cfg, mixer, mesh, n_model):
     return LM.gather_from(out, mesh, "model", 1)
 
 
-def attention_decode(p, x, pos, cache_k, cache_v, cfg, mixer):
+def attention_decode(p, x, pos, cache_k, cache_v, cfg, mixer, mesh=None,
+                     W=None):
     """One-token decode against a [B, W, KV, hd] cache; returns out, cache.
 
     The cache is a *ring buffer*: the new K/V land in slot ``pos % W``
@@ -328,7 +336,54 @@ def attention_decode(p, x, pos, cache_k, cache_v, cfg, mixer):
     pos, reconstructed position == slot), so one code path serves both
     full-cache decode and sliding-window decode with W == cfg.window.
     ``pos`` is a Python int (the host knows it; no device read).
+
+    On a mesh with a model axis wider than 1 the cache is this rank's
+    block as ``serve.cache_specs`` places it, and ``W`` the whole ring's
+    length.  KV heads split over the model axis (the cache holds the
+    rank's heads) run head-parallel: the rank's query heads against its
+    KV heads, the GQA map ``h // G`` holding inside the rank.  A split
+    sequence (``W`` longer than the cache's slots; the kv=1 archs) runs
+    ``_decode_seq``; a replicated cache (neither divides) is read whole
+    by every query head.  Where ``wo`` splits by heads, the rank's heads'
+    partial is summed over the axis (``reduce_from``).
     """
+    heads = p["wo"].shape[0]  # this rank's query heads
+    if LM.model_size(mesh) > 1 and cache_k.shape[2] == cfg.num_kv_heads:
+        # every KV head on every rank: a split sequence, or a replicated
+        # cache that every query head reads whole
+        if W is not None and W != cache_k.shape[1]:
+            out = _decode_seq(p, x, pos, cache_k, cache_v, cfg, mixer, mesh,
+                              W)
+        else:
+            out = _decode_attend(_whole_q(p, cfg, mesh), x, pos, cache_k,
+                                 cache_v, cfg, mixer)
+        if heads != cfg.num_heads:  # wo split by heads: the rank's heads
+            out = out.narrow(2, mesh.axis_index("model") * heads, heads)
+    else:
+        out = _decode_attend(p, x, pos, cache_k, cache_v, cfg, mixer)
+    out = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    if heads != cfg.num_heads:
+        out = LM.reduce_from(out, mesh)
+    return out, (cache_k, cache_v)
+
+
+def _whole_q(p, cfg, mesh):
+    """``p`` for a rank that attends with every query head over a
+    replicated cache: ``wq``/``bq`` gathered over the model axis where
+    they split (an unsplit sequence over unsplit KV heads)."""
+    if p["wq"].shape[1] == cfg.num_heads:
+        return p
+    out = dict(p)
+    out["wq"] = LM.gather_from(p["wq"], mesh, "model", 1)
+    if "bq" in p:
+        out["bq"] = LM.gather_from(p["bq"], mesh, "model", 0)
+    return out
+
+
+def _decode_attend(p, x, pos, cache_k, cache_v, cfg, mixer):
+    """The new K/V written into their slot, then the heads of ``p``'s
+    ``wq`` against the whole ring -> [B, 1, H, hd] (the reference's
+    arithmetic: an f32 softmax rounded to the cache's dtype)."""
     B = x.shape[0]
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     q, k1, v1 = _qkv(p, x, positions, cfg)  # [B,1,H,hd], [B,1,KV,hd]
@@ -349,8 +404,54 @@ def attention_decode(p, x, pos, cache_k, cache_v, cfg, mixer):
         valid &= kpos > pos - cfg.window
     s = torch.where(valid[None, None, None, :], s, NEG_INF)
     w = torch.softmax(s, dim=-1).to(cache_v.dtype)
-    out = torch.einsum("bkgs,bskh->bkgh", w, cache_v).reshape(B, 1, H, hd)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"]), (cache_k, cache_v)
+    return torch.einsum("bkgs,bskh->bkgh", w, cache_v).reshape(B, 1, H, hd)
+
+
+def _decode_seq(p, x, pos, cache_k, cache_v, cfg, mixer, mesh, W):
+    """Decode over a sequence split by the model axis: this rank holds
+    slots ``[m * Wl, (m + 1) * Wl)`` of the ring of ``W`` for every KV
+    head.  Every head's query (gathered over the axis where ``wq``
+    splits) scores the rank's slots; the blocks combine in f32
+    flash-decode style: an all-reduce max of the scores' maximum, the
+    exponentials against it, and one all-reduce sum of the weights' sum
+    and the weighted values.  The new K/V's slot ``pos % W`` belongs to
+    one rank, which writes it; every other rank writes its slot back in
+    place, so all ranks issue the same ops.  A rank with no valid slot
+    adds zeros: its scores sit at ``NEG_INF`` below the global maximum,
+    which the current slot keeps finite."""
+    B = x.shape[0]
+    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    q, k1, v1 = _qkv(p, x, positions, cfg)  # [B,1,Hl,hd], [B,1,KV,hd]
+    q = LM.gather_from(q, mesh, "model", 2) if q.shape[2] != cfg.num_heads \
+        else q
+    Wl = cache_k.shape[1]
+    first = mesh.axis_index("model") * Wl
+    slot = pos % W - first
+    mine = 0 <= slot < Wl
+    slot = min(max(slot, 0), Wl - 1)
+    cache_k[:, slot] = k1[:, 0].to(cache_k.dtype) if mine else \
+        cache_k[:, slot]
+    cache_v[:, slot] = v1[:, 0].to(cache_v.dtype) if mine else \
+        cache_v[:, slot]
+    KV, H, hd = cache_k.shape[2], q.shape[2], q.shape[3]
+    G = H // KV
+    qg = q.reshape(B, KV, G, hd)
+    s = torch.einsum("bkgh,bskh->bkgs", qg, cache_k).float()
+    s = softcap(s * hd ** -0.5, cfg.attn_logit_softcap)
+    j = first + torch.arange(Wl, device=x.device)
+    kpos = pos - torch.remainder(pos - j, W)
+    valid = kpos >= 0
+    if mixer == "local" and cfg.window:
+        valid &= kpos > pos - cfg.window
+    s = torch.where(valid[None, None, None, :], s, NEG_INF)
+    m = mesh.all_reduce(s.amax(dim=-1), "model", "max")  # [B,KV,G]
+    e = torch.where(valid[None, None, None, :],
+                    torch.exp(s - m[..., None]), 0.0)
+    acc = torch.einsum("bkgs,bskh->bkgh", e, cache_v.float())
+    both = mesh.all_reduce(torch.cat([acc, e.sum(dim=-1)[..., None]], -1),
+                           "model")
+    out = both[..., :hd] / both[..., hd:]
+    return out.to(cache_v.dtype).reshape(B, 1, H, hd)
 
 
 # ---------------------------------------------------------------------------

@@ -323,12 +323,7 @@ def forward(params, batch, cfg: ModelConfig, mesh=None):
     """Full-sequence forward -> (logits [B,S,V] f32, aux); a vocab-split
     head's logits are gathered over the model axis."""
     x, aux = backbone(params, batch, cfg, mesh)
-    head = head_params(params, cfg)
-    split = head["table"].shape[0] != cfg.vocab_size
-    logits = L.logits_fwd(head, LM.copy_to(x, mesh) if split else x,
-                          cfg.final_logit_softcap)
-    return (LM.gather_from(logits, mesh, "model", 2) if split else logits,
-            aux)
+    return head_logits(params, x, cfg, mesh), aux
 
 
 def forward_last(params, batch, cfg: ModelConfig):
@@ -336,6 +331,20 @@ def forward_last(params, batch, cfg: ModelConfig):
     x, aux = backbone(params, batch, cfg)
     return L.logits_fwd(head_params(params, cfg), x[:, -1:],
                         cfg.final_logit_softcap), aux
+
+
+def head_logits(params, x, cfg, mesh=None, last=False):
+    """The LM head's f32 logits of ``x`` (``last``: of its last position
+    only, the product taken over every position as the reference's
+    prefill step takes it), gathered over the model axis where the head
+    splits by vocab."""
+    head = head_params(params, cfg)
+    split = head["table"].shape[0] != cfg.vocab_size
+    logits = L.logits_fwd(head, LM.copy_to(x, mesh) if split else x,
+                          cfg.final_logit_softcap)
+    if last:
+        logits = logits[:, -1:]
+    return LM.gather_from(logits, mesh, "model", 2) if split else logits
 
 
 # ---------------------------------------------------------------------------
@@ -389,10 +398,12 @@ _MIXER_DECODE = {"mamba": SSM.mamba_decode, "mlstm": SSM.mlstm_decode,
                  "slstm": SSM.slstm_decode}
 
 
-def _decode_block(block, p, x, pos, cache, cfg, xf=None):
+def _decode_block(block, p, x, pos, cache, cfg, xf=None, mesh=None,
+                  max_len=None):
     """One block at one position -> ``(x, xf)`` (see ``_apply_block``);
     ``cache`` holds this layer's views of the decode cache, which are
-    updated in place."""
+    updated in place.  On a mesh the blocks run as ``_apply_block``'s
+    do; an attention cache's ring is ``_cache_len(max_len)`` long."""
     mixer, mlp = block
     h = L.rmsnorm(p["norm1"], x if xf is None else xf,
                   cfg.norm_eps).to(x.dtype)
@@ -400,33 +411,44 @@ def _decode_block(block, p, x, pos, cache, cfg, xf=None):
         # ring-buffer semantics live inside attention_decode: when the
         # cache is window-sized the slot wraps, otherwise it degenerates to
         # a full cache
+        W = None if max_len is None else _cache_len(cfg, mixer, max_len)
         out, _ = L.attention_decode(p["attn"], h, pos, cache["k"],
-                                    cache["v"], cfg, mixer)
+                                    cache["v"], cfg, mixer, mesh, W)
     else:
         out, new = _MIXER_DECODE[mixer](p[mixer], h, cache, cfg)
         for k, v in new.items():
             cache[k].copy_(v)
     # the decode step drops the MoE aux loss, as the reference's does
-    return _residual_mlp(mlp, p, x, out, cfg)[:2]
+    return _residual_mlp(mlp, p, x, out, cfg, mesh)[:2]
 
 
-def decode_step(params, tokens, pos, cache, cfg: ModelConfig):
+def decode_step(params, tokens, pos, cache, cfg: ModelConfig, mesh=None,
+                max_len=None):
     """One decode step: tokens i32[B,1] at position ``pos`` -> (logits
-    [B,1,V] f32, cache).  The cache is updated in place and returned."""
+    [B,1,V] f32, cache).  The cache is updated in place and returned.
+
+    On a mesh (``serve.make_decode_step(cfg, mesh)``): ``params`` are this
+    rank's model-axis shards, ``tokens`` its rows, ``cache`` its block as
+    ``serve.cache_specs`` places it, and ``max_len`` the whole cache's
+    length (an attention cache whose sequence splits over the model axis
+    holds a part of it); the logits are the rows' whole vocab."""
+    check_mesh(cfg, mesh)
+    if LM.model_size(mesh) > 1 and max_len is None:
+        raise ValueError("decode_step on a model axis needs max_len, the "
+                         "whole cache's length")
     pos = int(pos)
-    x = L.embed(params["embed"], tokens, cfg.d_model)
+    x = L.embed(params["embed"], tokens, cfg.d_model, mesh, cfg.vocab_size)
     xf = None
     for (key, r, block), p in zip(layer_blocks(cfg), params["layers"]):
         c = cache[key]
         if r is not None:
             c = {k: v[r] for k, v in c.items()}
         x, xf = _decode_block(block, p, x, pos, c, cfg,
-                              xf if _carries_f32(key) else None)
+                              xf if _carries_f32(key) else None, mesh,
+                              max_len)
     x = L.rmsnorm(params["final_norm"], _final_input(x, xf, cfg),
                   cfg.norm_eps).to(L.PDT)
-    logits = L.logits_fwd(head_params(params, cfg), x,
-                          cfg.final_logit_softcap)
-    return logits, cache
+    return head_logits(params, x, cfg, mesh), cache
 
 
 def prefill(params, batch, cfg: ModelConfig, max_len: int):

@@ -3,8 +3,18 @@
 The port of ``repro/models/serve.py``.  ``make_prefill_step`` is a full
 forward pass that keeps the last position's logits; ``make_decode_step``
 is ONE new token against a KV cache, the memory-bound regime.
-``cache_specs`` says where the cache would live on a mesh (spec tuples,
-as ``repro_torch.models.sharding``); on one device nothing is placed.
+``cache_specs`` says where the cache lives on a mesh (spec tuples, as
+``repro_torch.models.sharding``).
+
+With ``mesh=`` (an ``LmMesh``, ``repro_torch.launch.mesh``) both steps
+are the reference's partitioned steps made explicit, as its dry run
+places them: the parameters are this rank's shards of the reference's
+layout under ``param_specs(zero=cfg.serve_zero)`` (``shard_params``;
+each ZeRO leaf all-gathered over the batch axes inside the step), the
+decode cache this rank's block under ``cache_specs`` (``shard_cache``),
+and the batch the global one, of which the step takes this rank's rows
+(all of them where it does not split over the batch axes).  The logits
+are the rows' whole vocab.
 """
 
 from __future__ import annotations
@@ -14,27 +24,64 @@ import math
 import torch
 
 from repro_torch.models import model as M
+from repro_torch.models import sharding as SH
+from repro_torch.models import train as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.sharding import map_leaves
 
 
-def make_decode_step(cfg: ModelConfig):
-    """(params, tokens [B,1], pos, cache) -> (logits, cache)."""
+def make_decode_step(cfg: ModelConfig, mesh=None, max_len=None):
+    """(params, tokens [B,1], pos, cache) -> (logits, cache).  On a mesh,
+    ``max_len`` is the whole cache's length (see ``model.decode_step``)."""
+    specs = None if mesh is None else param_specs_of(cfg, mesh)
 
     def decode_step(params, tokens, pos, cache):
-        return M.decode_step(params, tokens, pos, cache, cfg)
+        run = None
+        if mesh is not None:
+            run = mesh.for_batch(tokens.shape[0])
+            params = _whole_params(params, specs, cfg, mesh)
+            tokens = T.batch_rows({"tokens": tokens}, run)["tokens"]
+        return M.decode_step(params, tokens, pos, cache, cfg, run, max_len)
 
     return decode_step
 
 
-def make_prefill_step(cfg: ModelConfig):
+def make_prefill_step(cfg: ModelConfig, mesh=None):
     """(params, batch) -> last-position logits [B,1,V]."""
+    specs = None if mesh is None else param_specs_of(cfg, mesh)
 
     def prefill_step(params, batch):
-        logits, _ = M.forward(params, batch, cfg)
-        return logits[:, -1:]
+        run = None
+        if mesh is not None:
+            run = mesh.for_batch(next(iter(batch.values())).shape[0])
+            params = _whole_params(params, specs, cfg, mesh)
+            batch = T.batch_rows(batch, run)
+        x, _ = M.backbone(params, batch, cfg, run)
+        return M.head_logits(params, x, cfg, run, last=True)
 
     return prefill_step
+
+
+def param_specs_of(cfg: ModelConfig, mesh):
+    """The spec tree a mesh places the serving parameters by: the
+    reference layout's ``param_specs`` with ``zero=cfg.serve_zero``."""
+    return SH.param_specs(M.params_to_reference(M.abstract_params(cfg), cfg),
+                          mesh, zero=cfg.serve_zero)
+
+
+def shard_params(params, cfg: ModelConfig, mesh):
+    """This rank's shards of whole parameters (the model's per-layer
+    layout or the reference's) in the reference's layout, as the mesh
+    steps take them."""
+    if "layers" in params:
+        params = M.params_to_reference(params, cfg)
+    return SH.shard_tree(params, param_specs_of(cfg, mesh), mesh)
+
+
+def _whole_params(params, specs, cfg, mesh):
+    """The model's per-layer parameters from this rank's reference-layout
+    shards, the ZeRO dims gathered (``train.gather_zero``)."""
+    return T.model_params(T.gather_zero(params, specs, mesh), cfg)
 
 
 def sample_greedy(logits):
@@ -90,6 +137,13 @@ def generate(params, batch, cfg: ModelConfig, steps: int, max_len: int,
 # ---------------------------------------------------------------------------
 # Cache sharding specs
 # ---------------------------------------------------------------------------
+
+
+def shard_cache(cache, cfg: ModelConfig, mesh):
+    """This rank's block of a whole decode cache under ``cache_specs``;
+    ``sharding.gather_tree(block, cache_specs(whole, cfg, mesh), mesh)``
+    brings it back."""
+    return SH.shard_tree(cache, cache_specs(cache, cfg, mesh), mesh)
 
 
 def cache_specs(cache_shape, cfg: ModelConfig, mesh):

@@ -339,6 +339,14 @@ def batch_rows(batch, mesh):
             for k, v in batch.items()}
 
 
+def gather_zero(params, specs, mesh):
+    """``params`` with each leaf's batch-axis (ZeRO) dims all-gathered
+    and its model-axis splits kept."""
+    return SH.map_specs(
+        lambda t, s: SH.gather_leaf(t, _batch_spec(s, mesh), mesh),
+        params, specs)
+
+
 def _sharded_grads(params, batch, specs, mesh, accumulate):
     """One rank's gradient shards and the global metrics: the batch-axis
     (ZeRO) dims of ``params`` all-gathered, this rank's rows through the
@@ -347,10 +355,8 @@ def _sharded_grads(params, batch, specs, mesh, accumulate):
     axes (on a replicated batch every rank's gradient is already whole:
     a ZeRO leaf keeps its block)."""
     run = mesh.for_batch(next(iter(batch.values())).shape[0])
-    whole = SH.map_specs(
-        lambda t, s: SH.gather_leaf(t, _batch_spec(s, mesh), mesh),
-        params, specs)
-    grads, metrics = accumulate(whole, batch_rows(batch, run), run)
+    grads, metrics = accumulate(gather_zero(params, specs, mesh),
+                                batch_rows(batch, run), run)
     axes = run.batch_axes()
 
     def sync(g, spec):

@@ -56,8 +56,10 @@ from repro_torch.benchmarks import roofline as TR
 from repro_torch.benchmarks import run as brun
 from repro_torch.launch import dryrun as D
 from repro_torch.launch import opanalysis as OA
-from repro_torch.launch.mesh import (HBM_BW, PEAK_FLOPS_BF16, PEAK_FLOPS_F32,
-                                     make_production_mesh)
+from repro_torch.launch import mesh as LM
+from repro_torch.launch.mesh import (HBM_BW, IB_BW, NVLINK_BW,
+                                     PEAK_FLOPS_BF16, PEAK_FLOPS_F32,
+                                     make_production_mesh, make_trace_mesh)
 from repro_torch.models import train as TT
 from repro_torch.models.config import SHAPES, ShapeConfig
 
@@ -353,9 +355,69 @@ def test_roofline_prices_bf16_and_f32_apart():
     assert rl["memory_s"] == 6.7e9 / HBM_BW
     assert rl["collective_s"] == 0.0 and rl["bottleneck"] == "compute"
     assert "collective_tpu_s" not in rl
-    ana.collective_bytes = 1.0
-    with pytest.raises(ValueError):
+    # collectives are priced on the links their axes span
+    ana.collective_bytes, ana.per_axes = 3e9, {"model": 1e9, "data": 2e9}
+    with pytest.raises(ValueError):  # no mesh, no links to price them on
         D.roofline(ana)
+    pod = D.roofline(ana, make_trace_mesh((16, 16)))
+    assert pod["collective_s"] == 1e9 / IB_BW + 2e9 / IB_BW
+    assert pod["bottleneck"] == "collective"
+    cards = D.roofline(ana, make_trace_mesh((2, 2)))
+    assert cards["collective_s"] == 1e9 / NVLINK_BW + 2e9 / NVLINK_BW
+    node = D.roofline(ana, make_trace_mesh((2, 8)))
+    assert node["collective_s"] == 1e9 / NVLINK_BW + 2e9 / IB_BW
+
+
+def test_link_bw_by_node():
+    """A group inside one node of 8 cards (rank // 8, row-major) rides
+    NVLink, one across nodes InfiniBand: both axes of pod16x16 cross
+    nodes, every group of four cards does not."""
+    pod = make_trace_mesh((16, 16))
+    assert LM.link_bw(pod, "model") == LM.link_bw(pod, "data") == IB_BW
+    multi = make_trace_mesh((2, 16, 16), ("pod", "data", "model"))
+    assert LM.link_bw(multi, "pod") == LM.link_bw(multi, ("pod", "data")) \
+        == IB_BW
+    for shape in ((2, 2), (4, 1), (1, 4)):
+        for names in ("data", "model", ("data", "model")):
+            assert LM.link_bw(make_trace_mesh(shape), names) == NVLINK_BW
+    wide = make_trace_mesh((2, 8), rank=9)
+    assert LM.group_ranks(wide, "model") == list(range(8, 16))
+    assert LM.link_bw(wide, "model") == NVLINK_BW
+    assert LM.link_bw(wide, "data") == IB_BW
+    assert LM.link_bw(make_production_mesh(), "model") == IB_BW
+
+
+def test_trace_mesh_counts_and_refuses():
+    """A trace mesh's collectives give the outputs' shapes on meta and
+    count the reference's wire bytes by kind and by axes; a tensor off
+    meta is refused and not counted; one analyze reads the counts."""
+    mesh = make_trace_mesh((2, 4), rank=5)
+    assert mesh.coords == {"data": 1, "model": 1}
+    x = torch.empty((4, 6), dtype=torch.bfloat16, device="meta")
+
+    def step(x):
+        y = mesh.all_gather(x, "model", 1)          # [4, 24]
+        z = mesh.reduce_scatter(y, "data", 0)       # [2, 24]
+        w = mesh.all_reduce(z.float(), ("data", "model"), "max")
+        return mesh.shift(w, "model")
+
+    out, ana = OA.analyze(step, x, mesh=mesh)
+    assert out.shape == (2, 24) and out.device.type == "meta"
+    n = 4 * 6 * 2
+    assert ana.collective_calls == {"all_gather": 1, "reduce_scatter": 1,
+                                    "all_reduce": 1, "ring_hop": 1}
+    assert ana.per_collective == {
+        "all_gather": 4 * n * 3 / 4, "reduce_scatter": 4 * n / 2,
+        "all_reduce": 2 * (2 * 24 * 4) * 7 / 8, "ring_hop": 2 * 24 * 4}
+    assert ana.per_axes == {"model": 4 * n * 3 / 4 + 2 * 24 * 4,
+                            "data": 4 * n / 2,
+                            "data+model": 2 * (2 * 24 * 4) * 7 / 8}
+    assert ana.per_link == {"nvlink": ana.collective_bytes}
+    assert ana.collective_count == 4
+    calls = dict(mesh.calls)
+    with pytest.raises(ValueError):
+        mesh.all_reduce(torch.ones(3), "model")
+    assert dict(mesh.calls) == calls
 
 
 # ---------------------------------------------------------------------------
@@ -368,35 +430,77 @@ def test_records_and_the_roofline_table(tmp_path, capsys):
     D.main(["--arch", "xlstm-350m", "--shape", "decode_32k", "--out", out])
     D.main(["--arch", "xlstm-350m", "--shape", "decode_32k", "--mesh",
             "pod16x16", "--out", out])
+    D.main(["--arch", "gemma3-1b", "--shape", "decode_32k", "--mesh",
+            "pod16x16", "--out", out])
     hub = D.run_cell("hubert-xlarge", "decode_32k", "card", outdir=out,
                      verbose=False)
     assert hub["status"].startswith("skip")
     recs = TR.load_records(out)
-    assert [(r["mesh"], r["shape"]) for r in recs] == \
-        [("card", "decode_32k"), ("pod16x16", "decode_32k")]
-    card, pod = recs
-    assert set(card) >= {"chips", "trace_s", "memory", "analysis",
-                         "roofline", "model_flops_global",
-                         "model_flops_per_chip", "useful_flop_ratio"}
-    m = card["memory"]
-    assert m["alias_bytes"] > 0  # the cache, updated in place
-    assert D.per_device_bytes(m) == card["analysis"]["peak_live_bytes"]
-    assert card["fits"] == (D.per_device_bytes(m) <= 80e9)
-    assert card["useful_flop_ratio"] == \
-        card["model_flops_global"] / card["analysis"]["flops"]
-    assert pod["roofline"] is None and pod["chips"] == 256 and pod["note"]
-    rows = {r[0]: r for r in map(TR.row, recs)}
-    assert rows["pod16x16"][3:8] == ("-",) * 5
-    assert rows["card"][6] == card["roofline"]["bottleneck"]
+    assert [(r["mesh"], r["arch"]) for r in recs] == \
+        [("card", "xlstm-350m"), ("pod16x16", "gemma3-1b"),
+         ("pod16x16", "xlstm-350m")]
+    card, pod, ssm = recs
+    for rec in (card, pod):
+        assert set(rec) >= {"chips", "trace_s", "memory", "analysis",
+                            "roofline", "model_flops_global",
+                            "model_flops_per_chip", "useful_flop_ratio",
+                            "fits"}
+        m = rec["memory"]
+        assert m["alias_bytes"] > 0  # the cache, updated in place
+        assert rec["fits"] == (D.per_device_bytes(m) <= 80e9)
+        assert rec["useful_flop_ratio"] == rec["model_flops_per_chip"] \
+            / rec["analysis"]["flops"]
+    assert D.per_device_bytes(card["memory"]) == \
+        card["analysis"]["peak_live_bytes"]
+    # rank 0's partitioned decode on pod16x16: its shards are the spec
+    # tables' bytes, its collectives priced on InfiniBand
+    mesh = make_production_mesh()
+    assert pod["chips"] == 256
+    assert pod["model_flops_per_chip"] == pod["model_flops_global"] / 256
+    assert D.reference_argument_bytes(pod["memory"]) == D.production_memory(
+        TC.get_config("gemma3-1b"), SHAPES["decode_32k"],
+        mesh)["argument_bytes"]
+    assert pod["memory"]["batch_bytes"] == 128 * 4  # every row, on each rank
+    assert D.per_device_bytes(pod["memory"]) == \
+        pod["analysis"]["peak_live_bytes"]
+    assert pod["roofline"]["collective_s"] > 0
+    assert pod["analysis"]["collective_count"] > 0
+    assert set(pod["analysis"]["per_link"]) == {"ib"}
+    # an SSM cell on a model axis waits on ROADMAP item 22
+    assert ssm["roofline"] is None and ssm["chips"] == 256
+    assert "item 22" in ssm["note"]
+    rows = {r[:2]: r for r in map(TR.row, recs)}
+    assert rows[("pod16x16", "xlstm-350m")][3:8] == ("-",) * 5
+    assert rows[("pod16x16", "gemma3-1b")][5] == \
+        f"{pod['roofline']['collective_s']:.4f}"
+    assert rows[("card", "xlstm-350m")][6] == card["roofline"]["bottleneck"]
     table = TR.as_markdown(recs)
     assert table.splitlines()[2].startswith("| card | xlstm-350m")
     s = TR.summarize(recs)
-    assert s["cells_compiled"] == 1 and s["most_collective_bound"] == "-"
-    assert s["worst_useful_cell"] == "xlstm-350mxdecode_32k"
+    assert s["cells_compiled"] == 2
+    assert s["most_collective_bound"] == "gemma3-1bxdecode_32k"
+    worst = min((card, pod), key=lambda r: r["useful_flop_ratio"])
+    assert s["worst_useful_cell"] == f"{worst['arch']}x{worst['shape']}"
     assert {n: v for n, v, _ in brun.roofline_rows(out)} == \
         {f"roofline.{k}": v for k, v in s.items()}
     assert brun.roofline_rows(str(tmp_path / "none"))[0][:2] == \
         ("roofline.cells_compiled", 0)
     printed = capsys.readouterr().out
     assert "[card] xlstm-350m x decode_32k" in printed
+    assert "[pod16x16] gemma3-1b x decode_32k" in printed
     assert json.loads(json.dumps(card)) == card
+    assert json.loads(json.dumps(pod)) == pod
+
+
+def test_explicit_mesh_and_bad_names():
+    """``--mesh data=2,model=2`` traces rank 0 of the four-card mesh: its
+    collectives ride NVLink; a bad mesh name fails before any cell."""
+    rec = D.run_cell("gemma3-1b", "decode_32k", "data=2,model=2",
+                     verbose=False)
+    assert rec["chips"] == 4
+    assert set(rec["analysis"]["per_link"]) == {"nvlink"}
+    assert rec["roofline"]["collective_s"] == sum(
+        b / NVLINK_BW for b in rec["analysis"]["per_axes"].values())
+    for bad in ("pod4x4", "data=2,rows=2", "data"):
+        with pytest.raises(ValueError):
+            D.make_mesh(bad)

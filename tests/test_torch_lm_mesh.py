@@ -11,10 +11,22 @@ port's own (2, 4) (heads split, KV heads not) and (1, 8) cells, a batch
 that does not split over data, ``compressed_psum`` over the 8 ranks'
 group, a sharded checkpoint saved on (4, 2) and restored by
 ``remesh_restore`` onto (2, 4) and (8, 1), ``train_loop(mesh=)`` with a
-resume onto another mesh, and the SSM refusal.  The JAX reference runs sections 2-4 (and the ZeRO cells) in one
-subprocess with 8 forced host devices, started beside the spawn, on the
-same inputs (its own draws, carried across bit for bit).  Each result is
-held
+resume onto another mesh, and the SSM refusal.  Then the partitioned
+steps of the dry run: the train, prefill and decode steps of gemma2,
+gemma3, kimi-k2 and hubert (prefill and train) at smoke size on (2, 4)
+and (4, 2), each analyzed on rank 0 (``opanalysis.analyze(mesh=)``),
+whose counts the meta trace on a trace mesh must equal exactly; and the
+partitioned decode (``serve.make_decode_step(mesh=)``) of gemma2 (its 2
+KV heads split the sequence over model=4, the heads over model=2) and
+gemma3 (one KV head: the sequence) for 8 steps after a 16-token prefill,
+past the local ring's wrap, and gemma2 on (2, 4) in a cache of 30,
+whose global layers' cache stays whole on every rank (30 does not
+divide over 4) beside split local rings.  The JAX reference runs sections 2-4 (and the
+ZeRO cells), the decode cases (one device, and jitted with its dry run's
+``cache_specs`` shardings) and the HLO analysis of its 8-device serving
+compiles on (2, 4) in one subprocess with 8 forced host devices, started
+beside the spawn, on the same inputs (its own draws, carried across bit
+for bit).  Each result is held
 
   * to the reference at its bars: MoE ``== 0.0``, ring attention
     ``< 2e-6``, the train step's loss ``< 1e-3`` and parameters
@@ -36,7 +48,21 @@ held
     a near-zero gradient moves a parameter by ``2 * lr``, and a gradient
     off by a factor moves none, hence the gradient check);
     ``compressed_psum`` bit for bit to the stacked form; a restored state
-    bit for bit to the saved one.
+    bit for bit to the saved one; the partitioned decode's logits within
+    ``DECODE_PORT_REL`` of the port's one-device decode's (the sequence
+    split's f32 combine against the one-device softmax rounded to bf16
+    before its value product, and the bf16 partials summed over the model
+    axis) and its gathered cache within ``CACHE_REL`` of the one-device
+    cache.
+
+The decode is held to the reference at the LM bars: 1e-2 of max |ref|
+and each row's RMS error within 1e-2 of its RMS
+(``tests/torch_lm_witness.py``), against both its one-device and its
+sharded decode.  The per-device dot FLOPs of the serving cells on (2, 4)
+equal the reference's HLO count (its partitioner and the port place
+every product alike: each rank projects the one KV head its query heads
+share, ``layers._local_kv``); the collective bytes are recorded beside
+the reference's, not held to them (GSPMD picks its own collectives).
 
 Cheap tests with no spawn hold ``shard_leaf`` / ``gather_leaf`` round
 trips on every leaf of every config's ``train_state_specs`` on (4, 2),
@@ -66,6 +92,14 @@ from repro_torch.models import sharding as SH
 from repro_torch.models import train as T
 
 LOSS_BAR, PARAMS_BAR = 1e-3, 2e-2  # tests/test_multidevice.py's
+LM_BAR = 1e-2  # tests/test_serve.py:33, and the per-row RMS check
+DECODE_PORT_REL = 1e-2  # mesh decode against the port's one-device one
+# a cache leaf of gathered bf16 K/V against another decode's: 2e-2 of max
+# |leaf|, about 4 bf16 ulps of its largest element (the K/V of a deep
+# layer carry the bf16 partials summed over the model axis in the layers
+# before it: 3 ulps against the port's one-device cache at gemma3's last
+# layer, 1.5 against the reference's between its own two decodes)
+CACHE_REL = 2e-2
 ZERO_LOSS_REL = 5e-5  # of |loss| (see the module docstring)
 LOSS_REL = 2e-4  # against the port's one-device step, of |loss|
 PARAMS_TOL = 3 * cases.LR["peak_lr"]
@@ -484,3 +518,155 @@ def test_ssm_on_model_axis_raises():
     raises naming the ROADMAP item; on (8, 1) it passes the check."""
     for arch, msg in _world()["refusals"].items():
         assert msg is not None and "ROADMAP.md item 22" in msg, arch
+
+
+# ---------------------------------------------------------------------------
+# The partitioned steps: the meta trace against rank 0's run
+# ---------------------------------------------------------------------------
+
+TRACE_KEYS = [("trace", arch, kind, shape) for shape in cases.TRACE_MESHES
+              for arch in cases.TRACE_ARCHS
+              for kind in cases.trace_kinds(arch)]
+COUNTS = ("flops_by_dtype", "bytes_accessed", "ops", "collective_calls",
+          "per_collective", "per_axes")
+
+
+@functools.lru_cache(maxsize=None)
+def _meta_trace(arch, kind, shape):
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import opanalysis as OA
+    from repro_torch.models.config import ShapeConfig
+
+    mesh = LM.make_trace_mesh(shape)
+    fn, args = D.build_cell(configs.smoke_config(arch), ShapeConfig(
+        kind, cases.TRACE_S, cases.TRACE_B, kind), mesh)
+    for _, t in OA.tree_leaves(args):
+        assert t.device.type == "meta"
+    return OA.analyze(fn, *args, mesh=mesh)[1].to_dict()
+
+
+@pytest.mark.parametrize("key", TRACE_KEYS, ids=str)
+def test_meta_trace_equals_rank0_run(key):
+    """FLOPs by dtype, bytes, launches by op, and the collectives' calls
+    and wire bytes by kind and by axes: equal, exactly."""
+    got = _world()[key]
+    want = _meta_trace(*key[1:])
+    for field in COUNTS:
+        assert got[field] == want[field], (field, got[field], want[field])
+    assert want["collective_count"] > 0
+
+
+@pytest.mark.parametrize("arch,kind", cases.HLO_CELLS)
+def test_serving_dot_flops_vs_reference_hlo(arch, kind, record_property):
+    """Per-device dot FLOPs of the serving cells on (2, 4) against the
+    reference's HLO analysis of its 8-device compile: equal.  The
+    collective bytes go beside the reference's, unheld."""
+    got = _meta_trace(arch, kind, (2, 4))
+    ref = _reference()[("hlo", arch, kind)]
+    assert ref["unresolved_loops"] == 0
+    assert sum(got["flops_by_dtype"].values()) == ref["flops"]
+    record_property("collective_bytes", {
+        "port": got["collective_bytes"], "port_calls":
+            got["collective_calls"], "reference": ref["collective_bytes"],
+        "reference_calls": ref["per_collective"]})
+    assert got["collective_bytes"] > 0 and ref["collective_bytes"] > 0
+
+
+# ---------------------------------------------------------------------------
+# The partitioned decode
+# ---------------------------------------------------------------------------
+
+
+def _row_rms(got, want):
+    """The worst row's RMS error over its RMS (rows: every dim but the
+    last)."""
+    g = torch.as_tensor(got).float().reshape(-1, got.shape[-1])
+    w = torch.as_tensor(want).float().reshape(-1, want.shape[-1])
+    err = (g - w).pow(2).mean(-1).sqrt()
+    return float((err / w.pow(2).mean(-1).sqrt()).max())
+
+
+@functools.lru_cache(maxsize=None)
+def _one_device_decode(arch, max_len):
+    """The port's one-device decode of the case's stream: the logits from
+    the prompt's last step on, and the cache after the last step."""
+    from repro_torch.models import model as TM
+
+    cfg = configs.smoke_config(arch)
+    params = TM.params_from_reference(_inputs()[f"lm_{arch}"], cfg,
+                                      device="cpu")
+    toks = torch.from_numpy(cases.decode_tokens(arch))
+    cache = TM.init_cache(cfg, cases.DECODE_B, max_len, "cpu")
+    logits = []
+    for t in range(toks.shape[1]):
+        lg, cache = TM.decode_step(params, toks[:, t:t + 1], t, cache, cfg)
+        if t >= cases.DECODE_PROMPT - 1:
+            logits.append(lg)
+    return torch.stack(logits), {_key(p): v for p, v in _leaves(cache)}
+
+
+DECODE_KEYS = [("decode",) + case for case in cases.DECODE_CASES]
+
+
+@pytest.mark.parametrize("key", DECODE_KEYS, ids=str)
+def test_decode_on_mesh_vs_reference(key):
+    """Every step's logits against the reference's one-device decode and
+    its decode jitted with the dry run's shardings on the same mesh, at
+    the LM bars; the gathered cache against the reference's sharded one
+    within ``CACHE_REL``."""
+    _, arch, shape, max_len = key
+    got = _world()[key]
+    ref = _reference()
+    for want in (ref[("decode", arch, None, max_len)], ref[key]):
+        assert got["logits"].shape == want["logits"].shape
+        assert _rel(got["logits"], want["logits"]) <= LM_BAR
+        assert _row_rms(got["logits"], want["logits"]) <= LM_BAR
+    flat = {"/".join(str(getattr(q, "key", q)) for q in path): leaf
+            for path, leaf in __import__("jax").tree_util
+            .tree_flatten_with_path(ref[key]["cache"])[0]}
+    assert set(flat) == set(got["cache"])
+    for k, v in got["cache"].items():
+        assert _rel(v, flat[k]) <= CACHE_REL, k
+
+
+def _decode_calls(arch, n, max_len):
+    """The calls one partitioned decode step issues over model=n: per
+    attention layer by its cache's placement (heads split: the
+    attention's reduce; a split sequence: the query's gather where
+    ``wq`` splits, the combine's max and sum and the attention's reduce
+    where ``wo`` splits; a replicated cache: ``wq``'s gather and the
+    reduce where they split), the MLP's reduce, and the vocab-split
+    embedding's reduce and the logits' gather."""
+    from repro_torch.models import model as TM
+
+    cfg = configs.smoke_config(arch)
+    heads = cfg.num_heads % n == 0
+    calls = {"all_reduce": 1, "all_gather": 1}
+    for _, _, (mixer, _) in TM.layer_blocks(cfg):
+        if cfg.num_kv_heads % n == 0:
+            calls["all_reduce"] += 2
+            continue
+        if TM._cache_len(cfg, mixer, max_len) % n == 0:  # a split sequence
+            calls["all_gather"] += heads
+            calls["all_reduce"] += 1 + heads + 2
+        else:  # a replicated cache: wq (and bq) gathered
+            calls["all_gather"] += heads * (1 + cfg.qkv_bias)
+            calls["all_reduce"] += 1 + heads
+    return calls
+
+
+@pytest.mark.parametrize("key", DECODE_KEYS, ids=str)
+def test_decode_on_mesh_vs_one_device(key):
+    """Against the port's one-device decode: the logits within
+    ``DECODE_PORT_REL`` and the gathered cache within ``CACHE_REL`` of
+    their max; the calls of one step as the placement dictates
+    (``_decode_calls``)."""
+    _, arch, shape, max_len = key
+    got = _world()[key]
+    want, cache = _one_device_decode(arch, max_len)
+    assert _rel(got["logits"], want) <= DECODE_PORT_REL
+    assert set(got["cache"]) == set(cache)
+    for k, v in cache.items():
+        assert got["cache"][k].shape == v.shape
+        assert _rel(got["cache"][k], v) <= CACHE_REL, k
+    assert got["calls"]["calls"] == _decode_calls(arch, shape[1], max_len)

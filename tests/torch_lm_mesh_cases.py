@@ -40,6 +40,41 @@ PORT_CELLS = (("d64", TRAIN_CFG, (2, 4)), ("d64", TRAIN_CFG, (1, 8)))
 CKPT_FROM, CKPT_TO = (4, 2), ((2, 4), (8, 1))
 LR = dict(peak_lr=1e-3, warmup=1, total=10)  # section 3's optimizer
 WORLD = 8
+# the partitioned steps: every kind of each arch's smoke config traced on
+# meta against rank 0's real run (tests/test_dryrun_unit.py's cells, B=8,
+# S=64); the decode cases (arch, mesh, cache length) run 8 steps after a
+# 16-token prefill (decode steps over the prompt), past the local ring's
+# wrap at 16: gemma2's 2 KV heads split the sequence over model=4 and the
+# heads over model=2, gemma3's one KV head the sequence; in a cache of
+# 30 on model=4 gemma2's global layers keep theirs whole (30 does not
+# divide: ``cache_specs`` replicates it) while its local rings split
+TRACE_ARCHS = ("gemma2-9b", "gemma3-1b", "kimi-k2-1t-a32b", "hubert-xlarge")
+TRACE_MESHES = ((2, 4), (4, 2))
+TRACE_B, TRACE_S = 8, 64
+DECODE_CASES = (("gemma2-9b", (2, 4), 32), ("gemma2-9b", (4, 2), 32),
+                ("gemma3-1b", (2, 4), 32), ("gemma2-9b", (2, 4), 30))
+DECODE_B, DECODE_PROMPT, DECODE_STEPS = 8, 16, 8
+# the reference's 8-device compiles of tests/test_dryrun_unit.py's serving
+# cells on (2, 4) (xlstm has no model-axis split in the port)
+HLO_CELLS = (("gemma2-9b", "prefill"), ("kimi-k2-1t-a32b", "prefill"),
+             ("hubert-xlarge", "prefill"), ("gemma2-9b", "decode"),
+             ("kimi-k2-1t-a32b", "decode"))
+
+
+def trace_kinds(arch):
+    from repro_torch import configs
+
+    return ("prefill", "train") if configs.smoke_config(arch).encoder_only \
+        else ("prefill", "decode", "train")
+
+
+def decode_tokens(arch):
+    """The decode cases' token stream [B, prompt + steps] (numpy)."""
+    from repro_torch import configs
+
+    vocab = configs.smoke_config(arch).vocab_size
+    return np.random.default_rng(11).integers(
+        0, vocab, (DECODE_B, DECODE_PROMPT + DECODE_STEPS), dtype=np.int32)
 
 
 def port_cfg(fields):
@@ -89,6 +124,12 @@ def inputs():
         pipe.batch_at(1))
     out["compress_x"] = to_t(jax.random.normal(jax.random.key(5), (8, 1024),
                                                jnp.float32))
+    from repro.models import model as RM
+    from repro.configs import smoke_config
+
+    for arch in sorted({a for a, _, _ in DECODE_CASES}):
+        out[f"lm_{arch}"] = to_t(jax.jit(RM.init_params, static_argnums=1)(
+            jax.random.key(0), smoke_config(arch)))
     rng = np.random.default_rng(3)
     out["moe_cot"] = torch.from_numpy(
         rng.standard_normal((4, 16, 64)).astype(np.float32))
@@ -205,8 +246,104 @@ def reference_main(path):
 
     res["compress"] = f32(comp(xs))
     res["compress_exact"] = f32(xs.sum(axis=0))
+    res.update(_reference_serving())
     with open(path, "wb") as f:
         pickle.dump(res, f)
+
+
+def _reference_serving():
+    """The reference's decode cases, one device and jitted with its dry
+    run's shardings (``cache_specs``, ``param_specs(zero=serve_zero)``,
+    the tokens' ``batch_specs``), and its HLO analysis of the serving
+    cells' 8-device compiles on (2, 4)."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from repro import compat
+    from repro.configs import input_specs, smoke_config
+    from repro.launch import hloanalysis
+    from repro.models import model as RM
+    from repro.models import serve as SV
+    from repro.models import train as T
+    from repro.models.config import ShapeConfig
+    from repro.models.sharding import param_specs
+
+    named = lambda tree, mesh: jax.tree.map(
+        lambda s: NamedSharding(mesh, s), tree,
+        is_leaf=lambda s: isinstance(s, P))
+    f32 = lambda a: np.asarray(a, np.float32)
+    res = {}
+
+    def meshed(shape):
+        return compat.make_mesh(shape, ("data", "model"),
+                                axis_types=compat.auto_axes(2))
+
+    def shardings(cfg, params, cache, tokens, mesh):
+        return (named(param_specs(params, mesh, zero=cfg.serve_zero), mesh),
+                named(T.batch_specs({"tokens": tokens}, mesh),
+                      mesh)["tokens"],
+                NamedSharding(mesh, P()),
+                named(SV.cache_specs(cache, cfg, mesh), mesh))
+
+    for arch in sorted({a for a, _, _ in DECODE_CASES}):
+        cfg = smoke_config(arch)
+        params = jax.jit(RM.init_params, static_argnums=1)(
+            jax.random.key(0), cfg)
+        toks = decode_tokens(arch)
+        one = jax.jit(SV.make_decode_step(cfg))
+        runs = [(None, L, one) for L in sorted(
+            {L for a, _, L in DECODE_CASES if a == arch})]
+        runs += [(shape, L, None) for a, shape, L in DECODE_CASES
+                 if a == arch]
+        for shape, L, step in runs:
+            cache, p = RM.init_cache(cfg, DECODE_B, L), params
+            if shape is not None:
+                mesh = meshed(shape)
+                sh = shardings(cfg, params, cache, toks[:, :1], mesh)
+                step = jax.jit(SV.make_decode_step(cfg), in_shardings=sh,
+                               out_shardings=(None, sh[3]),
+                               donate_argnums=(3,))
+                p, cache = jax.device_put(params, sh[0]), \
+                    jax.device_put(cache, sh[3])
+            logits = []
+            for t in range(toks.shape[1]):
+                lg, cache = step(p, jnp.asarray(toks[:, t:t + 1]),
+                                 jnp.int32(t), cache)
+                if t >= DECODE_PROMPT - 1:
+                    logits.append(f32(lg))
+            res[("decode", arch, shape, L)] = {
+                "logits": np.stack(logits),
+                "cache": jax.tree.map(f32, cache)}
+
+    mesh = meshed((2, 4))
+    for arch, kind in HLO_CELLS:
+        cfg = smoke_config(arch)
+        shape = ShapeConfig(kind, TRACE_S, TRACE_B, kind)
+        specs = input_specs(cfg, shape)
+        params = RM.abstract_params(cfg)
+        with compat.set_mesh(mesh):
+            if kind == "prefill":
+                fn = jax.jit(SV.make_prefill_step(cfg), in_shardings=(
+                    named(param_specs(params, mesh, zero=cfg.serve_zero),
+                          mesh), named(T.batch_specs(specs, mesh), mesh)))
+                args = (params, specs)
+            else:
+                sh = shardings(cfg, params, specs["cache"], specs["tokens"],
+                               mesh)
+                fn = jax.jit(SV.make_decode_step(cfg), in_shardings=sh,
+                             out_shardings=(None, sh[3]),
+                             donate_argnums=(3,))
+                args = (params, specs["tokens"], specs["pos"],
+                        specs["cache"])
+            text = fn.lower(*args).compile().as_text()
+        ana = hloanalysis.analyze(text, WORLD)
+        res[("hlo", arch, kind)] = {
+            "flops": ana.flops, "collective_bytes": ana.collective_bytes,
+            "per_collective": dict(ana.per_collective),
+            "collective_count": ana.collective_count,
+            "unresolved_loops": ana.unresolved_loops}
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -431,6 +568,78 @@ def _refusals(mesh_of):
     return out
 
 
+def _real(leaf, cfg, gen):
+    """A tensor of ``leaf``'s shape and dtype with values: token ids in
+    the vocab, normal draws for the rest."""
+    if leaf.dtype == torch.int32:
+        return torch.randint(0, cfg.vocab_size, leaf.shape, generator=gen,
+                             dtype=torch.int32)
+    return torch.randn(leaf.shape, generator=gen).to(leaf.dtype)
+
+
+def _trace_cell(mesh, arch, kind):
+    """Rank 0's analysis of the partitioned step of ``kind`` (the dry
+    run's ``build_cell`` on this mesh) on real shards of seeded values:
+    what its meta trace must count."""
+    from repro_torch import configs
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import opanalysis as OA
+    from repro_torch.models import model as M
+    from repro_torch.models import serve as SV
+    from repro_torch.models import train as T
+    from repro_torch.models.config import ShapeConfig
+
+    cfg = configs.smoke_config(arch)
+    shape = ShapeConfig(kind, TRACE_S, TRACE_B, kind)
+    fn, _ = D.build_cell(cfg, shape, mesh)
+    gen = torch.Generator().manual_seed(0)
+    batch = {k: _real(v, cfg, gen)
+             for k, v in configs.input_specs(cfg, shape).items()
+             if k not in ("pos", "cache")}
+    if kind == "train":
+        args = (T.shard_state(T.init_state(gen, cfg, device="cpu"), cfg,
+                              mesh), batch)
+    else:
+        params = SV.shard_params(M.init_params(cfg, gen, "cpu"), cfg, mesh)
+        args = (params, batch) if kind == "prefill" else (
+            params, batch["tokens"], TRACE_S - 1, SV.shard_cache(
+                M.init_cache(cfg, TRACE_B, TRACE_S, "cpu"), cfg, mesh))
+    _, ana = OA.analyze(fn, *args, mesh=mesh)
+    return ana.to_dict()
+
+
+def _decode_cell(mesh, inp, arch, max_len):
+    """The partitioned decode of ``arch``'s smoke config from the
+    reference's parameters: the prompt's decode steps, then
+    ``DECODE_STEPS`` more on the stream; the logits of the prompt's last
+    step and of each one after (gathered over the batch axes), the cache
+    after the last (gathered), and one step's calls and wire bytes."""
+    from repro_torch import configs
+    from repro_torch.checkpoint.store import _key, _leaves
+    from repro_torch.models import model as M
+    from repro_torch.models import serve as SV
+    from repro_torch.models import sharding as SH
+
+    cfg = configs.smoke_config(arch)
+    toks = torch.from_numpy(decode_tokens(arch))
+    params = SV.shard_params(inp[f"lm_{arch}"], cfg, mesh)
+    whole = M.init_cache(cfg, DECODE_B, max_len, "cpu")
+    specs = SV.cache_specs(whole, cfg, mesh)
+    cache = SV.shard_cache(whole, cfg, mesh)
+    step = SV.make_decode_step(cfg, mesh, max_len)
+    axes = mesh.for_batch(DECODE_B).batch_axes()
+    logits = []
+    for t in range(toks.shape[1]):
+        mesh.reset_calls()
+        lg, cache = step(params, toks[:, t:t + 1], t, cache)
+        calls = {"calls": dict(mesh.calls), "bytes": dict(mesh.bytes)}
+        if t >= DECODE_PROMPT - 1:
+            logits.append(mesh.all_gather(lg, axes, 0))
+    cache = SH.gather_tree(cache, specs, mesh)
+    return {"logits": torch.stack(logits), "calls": calls,
+            "cache": {_key(p): v.clone() for p, v in _leaves(cache)}}
+
+
 def world(pe_mesh, inp, store):
     """The rank body: every cell on the meshes it names, over the spawn's
     WORLD ranks; rank 0 returns the results."""
@@ -465,4 +674,12 @@ def world(pe_mesh, inp, store):
     out["ckpt"] = _ckpt_cell(mesh_of, inp, store)
     out["train_loop"] = _loop_cell(mesh_of, store)
     out["refusals"] = _refusals(mesh_of)
+    for shape in TRACE_MESHES:
+        for arch in TRACE_ARCHS:
+            for kind in trace_kinds(arch):
+                out[("trace", arch, kind, shape)] = _trace_cell(
+                    mesh_of(shape), arch, kind)
+    for arch, shape, max_len in DECODE_CASES:
+        out[("decode", arch, shape, max_len)] = _decode_cell(
+            mesh_of(shape), inp, arch, max_len)
     return out
