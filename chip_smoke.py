@@ -372,11 +372,14 @@ Phases, each printing one JSON line with its seconds:
              parameters by shard_params, the cache by shard_cache) at B=8:
              a 64-token prefill and 8 decode steps after it, every logit
              and the cache bit for bit the one-device steps', each decode
-             step's ms beside the one-device step's.  The mesh must count
-             no collective.  Then gemma3-1b's decode step (a cache of
-             1024) and train step (B=8, S=1024) traced on meta as rank 0
-             of a (2, 2) trace mesh: their calls and wire bytes by kind,
-             the links and the partitioned roofline
+             step's ms beside the one-device step's; the same serving
+             steps of xlstm-350m at full width and of jamba-1.5-large at
+             full width cut to the first 4 layers of its period (the SSM
+             mixers' mesh paths, mamba, mLSTM and sLSTM, at one rank).
+             The mesh must count no collective.  Then gemma3-1b's decode
+             step (a cache of 1024) and train step (B=8, S=1024) traced
+             on meta as rank 0 of a (2, 2) trace mesh: their calls and
+             wire bytes by kind, the links and the partitioned roofline
   dryrun     the dry run's model of the card (repro_torch.launch.dryrun,
              opanalysis; repro_torch.benchmarks.kernelbench): gemma3-1b's
              train step at train's shape (B=8, S=1024) and a decode step at
@@ -3737,6 +3740,15 @@ class Smoke:
                                                        min(S, 1024))
             out["compressed_psum"] = self._lm_mesh_compress(mesh)
             out["serving"] = self._lm_mesh_serving(cfg, mesh, B)
+            # the SSM mixers' mesh paths at one rank: xlstm-350m whole,
+            # jamba cut to the first 4 layers of its period (3 mamba)
+            pick = configs.smoke_config if smoke else configs.get_config
+            jamba = pick("jamba-1.5-large-398b")
+            jamba = dataclasses.replace(jamba, num_layers=4,
+                                        layer_pattern=jamba.layer_pattern[:4])
+            for scfg in (pick("xlstm-350m"), jamba):
+                out[f"serving {scfg.name}"] = self._lm_mesh_serving(
+                    scfg, mesh, B, trace=False)
             calls = dict(mesh.calls)
         self.close_nccl()
         if calls:  # one rank: every axis has size 1, so nothing is issued
@@ -3883,17 +3895,19 @@ class Smoke:
         return {"B": B // 4, "S": S, "max_rel_err": errs, "ms": ms,
                 "chunked_ms": ms_chunked}
 
-    def _lm_mesh_serving(self, cfg, mesh, B, P=64, steps=8, S=1024):
+    def _lm_mesh_serving(self, cfg, mesh, B, P=64, steps=8, S=1024,
+                         trace=True):
         """The partitioned serving steps at one rank: the prefill step of a
         ``P``-token prompt and ``steps`` decode steps after it (the cache
         built by decode steps over the prompt, then copied for each side)
         through ``make_prefill_step(mesh=)`` / ``make_decode_step(mesh=)``
         on parameters placed by ``shard_params`` against the one-device
         steps: every logit and the cache bit for bit; each decode step's
-        host-clock ms beside the one-device step's.  Then the decode step
-        (a cache of ``S``) and the train step (B x ``S``) traced on meta
-        as rank 0 of a (2, 2) trace mesh: their collectives' calls and
-        wire bytes by kind, the link and the partitioned roofline."""
+        host-clock ms beside the one-device step's.  Then (``trace``) the
+        decode step (a cache of ``S``) and the train step (B x ``S``)
+        traced on meta as rank 0 of a (2, 2) trace mesh: their
+        collectives' calls and wire bytes by kind, the link and the
+        partitioned roofline."""
         import numpy as np
         import torch
 
@@ -3952,6 +3966,9 @@ class Smoke:
                    decode_ms_one_device=ms["one_device"])
         del sides, logits, params, shards
         torch.cuda.empty_cache()
+        if not trace:
+            emit({"lm_mesh": f"serving {cfg.name}", **out})
+            return out
 
         trace = LM.make_trace_mesh((2, 2))
         for kind in ("decode", "train"):

@@ -358,6 +358,8 @@ def _rank(pe_mesh, smoke, steps, store, parts):
                                                line_up)
     if "witness" in parts:
         out["witness"] = _rank_witness(mesh_of, W, smoke, dev)
+    if "ssm" in parts:
+        out["ssm"] = _rank_ssm(mesh_of, W, smoke, dev, line_up)
     return out
 
 
@@ -778,6 +780,391 @@ def compare_decode(one, got, W, smoke):
 
 
 # ---------------------------------------------------------------------------
+# The SSM mixers on a model axis: xlstm-350m and jamba-1.5-large
+# ---------------------------------------------------------------------------
+
+
+def _ssm_sizes(smoke):
+    """(decode B, xlstm's prompt, jamba's prompt, steps, cache length,
+    train B, train S, the 8-layer period's timed prompt).  jamba's stream
+    is shorter: the margin rule compares a row only while every routing
+    decision of its stream so far clears 1e-3 on both sides, which a long
+    prompt leaves few rows to do."""
+    return (4, 8, 8, 4, 32, 4, 64, 8) if smoke else \
+        (8, 64, 16, 16, 1024, 8, 1024, 64)
+
+
+def _ssm_cfgs(smoke):
+    """xlstm-350m; jamba-1.5-large cut to the first 4 layers of its period
+    at its published capacity; its whole 8-layer period at a capacity
+    that drops nothing (decode routes B tokens a step, the forward B x S:
+    their capacities differ, so drops would)."""
+    from repro_torch import configs
+
+    pick = configs.smoke_config if smoke else configs.get_config
+    jamba = pick("jamba-1.5-large-398b")
+    cut = dataclasses.replace(jamba, num_layers=4,
+                              layer_pattern=jamba.layer_pattern[:4])
+    period = dataclasses.replace(
+        jamba, num_layers=len(jamba.layer_pattern),
+        capacity_factor=jamba.num_experts / jamba.top_k)
+    return pick("xlstm-350m"), cut, period
+
+
+def _layerwise_params(cfg, dev, mesh=None):
+    """``cfg``'s parameters in the reference's layout (one repeat: a slot
+    a layer), layer i drawn from a generator seeded ``100 + i`` and the
+    embedding, head and final norm from seed 0; on ``mesh`` each leaf is
+    cut to this rank's shard as it is drawn, so the whole model is never
+    on one card (jamba's 8-layer period is about 88 GB in bf16)."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.models import serve as SV
+    from repro_torch.models import sharding as SH
+    from repro_torch.models.sharding import map_leaves
+
+    if cfg.repeats != 1 or cfg.tail_pattern:
+        raise ValueError("one layer a slot: num_layers == the pattern's")
+    specs = None if mesh is None else SV.param_specs_of(cfg, mesh)
+
+    def keep(tree, prefix):
+        if mesh is None:
+            return tree
+        return map_leaves(lambda path, t: SH.shard_leaf(
+            t, SH._spec_at(specs, prefix + path), mesh), tree)
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    out = {"embed": keep(L.init_embedding(cfg.vocab_size, cfg.d_model, g,
+                                          dev), ("embed",)),
+           "final_norm": L.init_rmsnorm(cfg.d_model, dev)}
+    if not cfg.tie_embeddings:
+        out["lm_head"] = keep({"table": L._normal(
+            (cfg.vocab_size, cfg.d_model), cfg.d_model ** -0.5, g, dev)},
+            ("lm_head",))
+    out["slots"] = {}
+    for i, block in enumerate(cfg.layer_pattern):
+        key = f"slot{i:02d}"
+        layer = M._init_block(cfg, block, torch.Generator(
+            device=dev).manual_seed(100 + i), dev)
+        out["slots"][key] = keep(map_leaves(lambda _, t: t.unsqueeze(0),
+                                            layer), ("slots", key))
+        del layer
+        _empty(dev)
+    return out
+
+
+@contextlib.contextmanager
+def _margins(record):
+    """Every routing decision's margin between a token's k-th and
+    (k+1)-th gate appended to ``record`` (one [tokens] tensor a call of
+    the router) while active."""
+    from repro_torch.models import moe as MOE
+
+    route = MOE._route
+
+    def recording(xt, router, cfg):
+        got = route(xt, router, cfg)
+        g = torch.sort(got[2], dim=-1, descending=True).values
+        record.append((g[:, cfg.top_k - 1] - g[:, cfg.top_k]).float().cpu())
+        return got
+
+    MOE._route = recording
+    try:
+        yield
+    finally:
+        MOE._route = route
+
+
+def _ssm_decode(step, params, toks, cache, P, dev, routed=False,
+                keep_from=None):
+    """Decode steps over ``toks`` (the cache built by the prompt's ``P``
+    steps): the logits from the prompt's last step on (from step
+    ``keep_from`` where given; on the host), the host-clock ms of each
+    step after the prompt, the cache, and (``routed``) each step's
+    smallest routing margin of each row [T, B]."""
+    keep_from = P - 1 if keep_from is None else keep_from
+    logits, ms, margins = [], [], []
+    with torch.no_grad():
+        for t in range(toks.shape[1]):
+            record = []
+            _sync(dev)
+            t0 = time.perf_counter()
+            with _margins(record) if routed else contextlib.nullcontext():
+                lg, cache = step(params, toks[:, t:t + 1], t, cache)
+            lg = lg.cpu()
+            if t >= P:
+                ms.append((time.perf_counter() - t0) * 1e3)
+            if t >= keep_from:
+                logits.append(lg)
+            if routed:
+                margins.append(torch.stack(record).amin(0))
+    return (torch.stack(logits), ms, cache,
+            torch.stack(margins) if routed else None)
+
+
+def _clear(margins):
+    """[T, B]: whether every routing decision of a row up to each step
+    cleared the next gate by 1e-3 (the margin rule)."""
+    return torch.cummin(margins, 0).values > 1e-3
+
+
+def one_card_ssm(args, dev):
+    """On card 0: xlstm-350m's decode of the stream, in bf16 and in f32
+    (the witness: f32 copies of the same parameters, ``_in_f32``), and
+    one train step (B x S, seed 0: its loss and ms); jamba's 4-layer
+    cut's decode with each step's routing margins."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import model as M
+    from repro_torch.models import serve as SV
+    from repro_torch.models import train as T
+
+    B, P, Pj, steps, L, Bt, St, _ = _ssm_sizes(args.smoke)
+    xcfg, cut, _ = _ssm_cfgs(args.smoke)
+    out = {}
+    t0 = time.perf_counter()
+    params = M.init_params(xcfg, torch.Generator(device=dev).manual_seed(0),
+                           dev)
+    toks = _decode_stream(xcfg, B, P + steps, dev)
+    step = SV.make_decode_step(xcfg)
+    logits, ms, _, _ = _ssm_decode(step, params, toks,
+                                   M.init_cache(xcfg, B, L, dev), P, dev)
+    out["xlstm_decode"] = {"logits": logits, "step_ms": ms}
+    params = _f32_leaves(params)
+    with _in_f32():
+        out["xlstm_decode"]["f32"] = _ssm_decode(
+            step, params, toks, M.init_cache(xcfg, B, L, dev), P, dev)[0]
+    del params
+    _empty(dev)
+    state = T.init_state(torch.Generator(device=dev).manual_seed(0), xcfg,
+                         device=dev)
+    batch = SyntheticLM(xcfg.vocab_size, Bt, St, seed=0,
+                        device=dev).batch_at(0)
+    _sync(dev)
+    t1 = time.perf_counter()
+    state, m = T.make_train_step(xcfg)(state, batch)
+    out["xlstm_train"] = {"loss": float(m["loss"]),
+                          "step_ms": (time.perf_counter() - t1) * 1e3}
+    del state
+    _empty(dev)
+    params = M.params_from_reference(_layerwise_params(cut, dev), cut, dev)
+    logits, ms, _, margins = _ssm_decode(
+        SV.make_decode_step(cut), params, _decode_stream(cut, B, Pj + steps,
+                                                         dev),
+        M.init_cache(cut, B, L, dev), Pj, dev, routed=True)
+    out["jamba4_decode"] = {"logits": logits, "step_ms": ms,
+                            "margins": margins}
+    del params
+    _empty(dev)
+    emit({"one_card": "ssm", "seconds": time.perf_counter() - t0,
+          "xlstm_train_loss": out["xlstm_train"]["loss"]})
+    return out
+
+
+def _rank_ssm_decode(mesh, cfg, params, B, P, steps, L, dev, line_up,
+                     routed=False, keep_from=None):
+    """The partitioned decode of the stream on ``mesh`` from this rank's
+    ``params`` (the reference layout's shards): the logits (gathered over
+    the batch axes; on rank 0), the steps' ms, one step's calls and
+    bytes against the meta trace's on every rank, the margins."""
+    from repro_torch.models import model as M
+    from repro_torch.models import serve as SV
+
+    toks = _decode_stream(cfg, B, P + steps, dev)
+    cache = SV.shard_cache(M.init_cache(cfg, B, L, dev), cfg, mesh)
+    step = SV.make_decode_step(cfg, mesh, L)
+    line_up()
+    logits, ms, cache, margins = _ssm_decode(step, params, toks, cache, P,
+                                             dev, routed, keep_from)
+    mesh.reset_calls()
+    with torch.no_grad():
+        step(params, toks[:, P:P + 1], P, cache)
+    calls = {"calls": dict(mesh.calls), "bytes": dict(mesh.bytes)}
+    mesh.reset_calls()
+    traced = _trace_counts(cfg, "decode", L, B, tuple(mesh.shape.values()),
+                           mesh.rank, mesh.axis_names)
+    axes = mesh.for_batch(B).batch_axes()
+    logits = torch.stack([mesh.all_gather(lg.to(dev), axes, 0).cpu()
+                          for lg in logits])
+    return {"logits": logits if mesh.rank == 0 else None, "step_ms": ms,
+            "margins": margins, "step_calls": calls, "trace": traced,
+            "counts_equal_every_rank": _counts_equal(mesh, calls, traced,
+                                                     dev)}
+
+
+def _rank_ssm(mesh_of, W, smoke, dev, line_up):
+    """xlstm-350m's decode on (1, W) and (2, W/2) (on (1, W) also in f32
+    and with its bf16 sums taken in f32: the witness) and its train step
+    on (2, W/2); jamba's 4-layer cut's decode on (1, W) with each step's
+    margins; its whole 8-layer period on (1, W): the prefill step's
+    seconds, the decode's ms a step, each card's peak, and the decode's
+    logits at the prompt's last step against its own partitioned
+    forward's last position: the logits of every step against the
+    teacher-forced forward's at that position."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import model as M
+    from repro_torch.models import serve as SV
+    from repro_torch.models import train as T
+
+    B, P, Pj, steps, L, Bt, St, Pt = _ssm_sizes(smoke)
+    xcfg, cut, period = _ssm_cfgs(smoke)
+    out = {}
+    for shape in ((1, W), (2, W // 2)):
+        mesh = mesh_of(shape)
+        params = SV.shard_params(M.init_params(
+            xcfg, torch.Generator(device=dev).manual_seed(0), dev), xcfg,
+            mesh)
+        _empty(dev)
+        res = _rank_ssm_decode(mesh, xcfg, params, B, P, steps, L, dev,
+                               line_up)
+        if shape == (1, W):
+            toks = _decode_stream(xcfg, B, P + steps, dev)
+            step = SV.make_decode_step(xcfg, mesh, L)
+            cache = lambda: SV.shard_cache(M.init_cache(xcfg, B, L, dev),
+                                           xcfg, mesh)
+            axes = mesh.for_batch(B).batch_axes()
+            gather = lambda lg: mesh.all_gather(lg.to(dev), axes, 0).cpu()
+            with _f32_sums(mesh):
+                sums = _ssm_decode(step, params, toks, cache(), P, dev)[0]
+            params = _f32_leaves(params)
+            with _in_f32():
+                f32 = _ssm_decode(step, params, toks, cache(), P, dev)[0]
+            res.update(bf16_f32_sums=torch.stack([gather(t) for t in sums]),
+                       f32=torch.stack([gather(t) for t in f32]))
+            mesh.reset_calls()
+        out[("xlstm", shape)] = res
+        del params
+        _empty(dev)
+    mesh = mesh_of((2, W // 2))
+    state = T.init_state(torch.Generator(device=dev).manual_seed(0), xcfg,
+                         device=dev, mesh=mesh)
+    batch = SyntheticLM(xcfg.vocab_size, Bt, St, seed=0,
+                        device=dev).batch_at(0)
+    _peak_reset(dev)
+    line_up()
+    mesh.reset_calls()
+    t0 = time.perf_counter()
+    state, m = T.make_train_step(xcfg, mesh=mesh)(state, batch)
+    loss = float(m["loss"])
+    out["xlstm_train"] = {"loss": loss,
+                          "step_ms": (time.perf_counter() - t0) * 1e3,
+                          "calls": dict(mesh.calls),
+                          "bytes": dict(mesh.bytes),
+                          "peak_bytes_per_card": _gather_peaks(mesh, dev)}
+    del state
+    _empty(dev)
+
+    mesh = mesh_of((1, W))
+    params = _layerwise_params(cut, dev, mesh)
+    out["jamba4"] = _rank_ssm_decode(mesh, cut, params, B, Pj, steps, L,
+                                     dev, line_up, routed=True)
+    del params
+    _empty(dev)
+
+    _peak_reset(dev)
+    params = _layerwise_params(period, dev, mesh)
+    prefill = SV.make_prefill_step(period, mesh)
+    timed = _decode_stream(period, B, Pt, dev)
+    seconds = []
+    with torch.no_grad():
+        for _ in range(2):  # the first call, then a warm one
+            line_up()
+            t0 = time.perf_counter()
+            prefill(params, {"tokens": timed}).cpu()
+            seconds.append(time.perf_counter() - t0)
+    res = _rank_ssm_decode(mesh, period, params, B, Pj, steps, L, dev,
+                           line_up, routed=True, keep_from=0)
+    record = []
+    toks = _decode_stream(period, B, Pj + steps, dev)
+    with torch.no_grad(), _margins(record):
+        whole = SV._whole_params(params, SV.param_specs_of(period, mesh),
+                                 period, mesh)
+        forward = M.forward(whole, {"tokens": toks}, period, mesh)[0].cpu()
+        del whole
+    res.update(prefill_s=seconds, prefill_tokens=Pt,
+               forward=forward if mesh.rank == 0 else None,
+               forward_margins=torch.stack(
+                   [m.reshape(B, -1) for m in record]).amin(0),
+               peak_bytes_per_card=_gather_peaks(mesh, dev),
+               params_bytes_per_card=sum(
+                   t.numel() * t.element_size()
+                   for t in torch.utils._pytree.tree_leaves(params)))
+    out["jamba8"] = res
+    del params
+    _empty(dev)
+    return out
+
+
+def _logit_row(r, have, want, **extra):
+    """A decode row's record: errors at the LM bars, ms, calls, the meta
+    trace's roofline; ``ok`` where both bars and the counts hold."""
+    row = {"step_ms": r["step_ms"], "step_calls": r["step_calls"],
+           "counts_equal_every_rank": r["counts_equal_every_rank"],
+           "roofline_ms": {k: v * 1e3 for k, v in
+                           r["trace"]["roofline"].items()
+                           if k.endswith("_s")}, **extra}
+    ok = r["counts_equal_every_rank"] and have.numel() > 0
+    if have.numel():
+        row.update(max_rel_err=_rel(have, want), row_rms=_row_rms(have, want))
+        ok = ok and row["max_rel_err"] <= 1e-2 and row["row_rms"] <= 1e-2
+    return dict(row, ok=ok)
+
+
+def compare_ssm(one, got, smoke):
+    """The SSM part's rows: the decodes at the LM bars (jamba's only
+    where the margin rule clears a row so far on both sides), xlstm's
+    train loss within 1e-3 of one card's, every rank's calls equal its
+    meta trace's; the witness (xlstm on (1, W) in f32, and with f32
+    sums) reported beside them."""
+    W = max(k[1][1] for k in got if isinstance(k, tuple))
+    Pj = _ssm_sizes(smoke)[2]
+    report = {}
+    one_x = one["xlstm_decode"]
+    for shape in ((1, W), (2, W // 2)):
+        r = got[("xlstm", shape)]
+        extra = {"one_card_step_ms": one_x["step_ms"]}
+        if "f32" in r:
+            extra["witness"] = {
+                "f32_vs_one_card_f32": [_rel(r["f32"], one_x["f32"]),
+                                        _row_rms(r["f32"], one_x["f32"])],
+                "f32_sums_vs_one_card": [
+                    _rel(r["bf16_f32_sums"], one_x["logits"]),
+                    _row_rms(r["bf16_f32_sums"], one_x["logits"])],
+                "one_card_bf16_vs_f32": [_rel(one_x["logits"], one_x["f32"]),
+                                         _row_rms(one_x["logits"],
+                                                  one_x["f32"])]}
+        report[f"ssm xlstm-350m decode {shape}"] = _logit_row(
+            r, r["logits"], one_x["logits"], **extra)
+    t, w = got["xlstm_train"], one["xlstm_train"]
+    delta = abs(t["loss"] - w["loss"])
+    report[f"ssm xlstm-350m train {(2, W // 2)}"] = dict(
+        t, one_card_loss=w["loss"], one_card_step_ms=w["step_ms"],
+        loss_abs_delta=delta, ok=delta <= 1e-3 * abs(w["loss"]))
+    # the 4-layer cut against one card: each step's rows that clear so far
+    r, o = got["jamba4"], one["jamba4_decode"]
+    clear = _clear(torch.minimum(r["margins"], o["margins"]))[Pj - 1:]
+    report[f"ssm jamba 4 layers decode {(1, W)}"] = _logit_row(
+        r, r["logits"][clear], o["logits"][clear],
+        one_card_step_ms=o["step_ms"], pairs_compared=int(clear.sum()),
+        rows_clear_last_step=int(clear[-1].sum()))
+    # the 8-layer period: each decode step's logits against the
+    # teacher-forced forward's at that position (the forward's last
+    # position over the stream's prefix), on the pairs clear in both
+    r = got["jamba8"]
+    clear = _clear(r["margins"]) & _clear(r["forward_margins"].T)
+    forward = r["forward"].transpose(0, 1)[:, :, None]  # [T, B, 1, V]
+    report[f"ssm jamba 8-layer period decode {(1, W)} vs its forward"] = \
+        _logit_row(r, r["logits"][clear], forward[clear],
+                   pairs_compared=int(clear.sum()),
+                   rows_clear_last_step=int(clear[-1].sum()),
+                   prefill_s=r["prefill_s"],
+                   prefill_tokens=r["prefill_tokens"],
+                   peak_gb_per_card=[b / 1e9 for b in
+                                     r["peak_bytes_per_card"]],
+                   params_gb_per_card=r["params_bytes_per_card"] / 1e9)
+    return report
+
+
+# ---------------------------------------------------------------------------
 # The witness: gemma2-9b's head-parallel decode free of bf16 rounding
 # ---------------------------------------------------------------------------
 
@@ -985,13 +1372,13 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--parts", default="train,decode",
-                    help="train, decode, witness (comma-separated)")
+                    help="train, decode, witness, ssm (comma-separated)")
     ap.add_argument("--smoke", action="store_true",
                     help="a CPU rehearsal: 4 gloo ranks, smoke configs")
     args = ap.parse_args(argv)
     parts = tuple(args.parts.split(","))
-    if not set(parts) <= {"train", "decode", "witness"}:
-        ap.error(f"--parts {args.parts}: train, decode, witness")
+    if not set(parts) <= {"train", "decode", "witness", "ssm"}:
+        ap.error(f"--parts {args.parts}: train, decode, witness, ssm")
     from repro_torch.core import mesh as CM
 
     if args.smoke:
@@ -1012,6 +1399,8 @@ def main(argv=None) -> int:
         one["decode"] = one_card_decode(args, dev, W)
     if "witness" in parts:
         one["witness"] = one_card_witness(args, dev, W)
+    if "ssm" in parts:
+        one["ssm"] = one_card_ssm(args, dev)
     store = ROOT / "build" / "lm_mesh_cards_ckpt"  # git ignores build/
     shutil.rmtree(store, ignore_errors=True)
     t1 = time.perf_counter()
@@ -1026,6 +1415,8 @@ def main(argv=None) -> int:
         report.update(compare_decode(one["decode"], got, W, args.smoke))
     if "witness" in parts:
         report.update(compare_witness(one, got, W))
+    if "ssm" in parts:
+        report.update(compare_ssm(one["ssm"], got["ssm"], args.smoke))
     for key, row in report.items():
         emit({"part": key, **row})
     emit({"ranks": W, "seconds": time.perf_counter() - t0,

@@ -10,10 +10,7 @@ bottleneck and the ones whose per-device bytes pass the card's 80 GB.
 The port of ``benchmarks/roofline.py``.  A record carries the trace's
 seconds (``trace_s``) where the reference's carries ``compile_s``; a
 production-mesh record is rank 0's partitioned step, with the
-collectives' seconds on NVLink and InfiniBand in ``collective_s``.  An
-SSM cell on a model axis (no model-axis split yet, ROADMAP.md item 22)
-has per-device bytes and ``roofline: null``, and gives "-" in every
-column the roofline would fill.
+collectives' seconds on NVLink and InfiniBand in ``collective_s``.
 """
 
 from __future__ import annotations
@@ -46,9 +43,6 @@ def row(rec):
     mem_gb = (m["argument_bytes"] + (m["temp_bytes"] or 0)
               + m["output_bytes"] - m["alias_bytes"]) / 1e9
     rl = rec["roofline"]
-    if rl is None:
-        return (rec["mesh"], rec["arch"], rec["shape"], "-", "-", "-", "-",
-                "-", f"{mem_gb:.1f}", "-")
     u = rec.get("useful_flop_ratio")
     return (rec["mesh"], rec["arch"], rec["shape"],
             f"{rl['compute_s']:.4f}", f"{rl['memory_s']:.4f}",
@@ -67,11 +61,11 @@ def as_markdown(recs):
 
 
 def summarize(recs):
-    """Aggregate stats for run.py's CSV output, over the records with a
-    roofline.  ``most_collective_bound``: the cell whose collective share
+    """Aggregate stats for run.py's CSV output, over the traced records.
+    ``most_collective_bound``: the cell whose collective share
     of its three terms is the largest ("-" where no cell has collective
     time: one card runs none)."""
-    run = [r for r in recs if r.get("status") == "run" and r.get("roofline")]
+    run = [r for r in recs if r.get("status") == "run"]
     if not run:
         return {}
     worst = min(run, key=lambda r: r.get("useful_flop_ratio") or 1)
@@ -89,9 +83,8 @@ def summarize(recs):
 
 
 def by_mesh(recs):
-    """Per mesh: the traced cells by bottleneck, the ones that do not fit
-    (per-device bytes above the card's 80 GB), and the cells with no
-    roofline (an SSM family on a model axis)."""
+    """Per mesh: the traced cells by bottleneck and the ones that do not
+    fit (per-device bytes above the card's 80 GB)."""
     from repro_torch.launch.mesh import HBM_BYTES
 
     out = {}
@@ -99,14 +92,11 @@ def by_mesh(recs):
         if rec.get("status", "run") != "run":
             continue
         m = out.setdefault(rec["mesh"], {"bottleneck": collections.defaultdict(
-            list), "over_80gb": [], "no_roofline": []})
+            list), "over_80gb": []})
         cell = f"{rec['arch']}x{rec['shape']}"
         mem = rec["memory"]
         per_dev = (mem["argument_bytes"] + (mem["temp_bytes"] or 0)
                    + mem["output_bytes"] - mem["alias_bytes"])
-        if rec["roofline"] is None:
-            m["no_roofline"].append(cell)
-            continue
         m["bottleneck"][rec["roofline"]["bottleneck"]].append(cell)
         if per_dev > HBM_BYTES:
             m["over_80gb"].append(f"{cell} ({per_dev / 1e9:.1f} GB)")

@@ -42,10 +42,12 @@ Per cell this records:
     model_flops_* and useful_flop_ratio (per chip), trace_s (in place of
                 compile_s), and ``fits``: the peak within the card's 80 GB
 
-The SSM families (jamba, xlstm) have no model-axis split yet (ROADMAP.md
-item 22): on a model axis wider than 1 their record holds the spec
-tables' per-device bytes (``production_memory``) and ``roofline: null``
-with a note that names the item.
+A decode cell's SSM states sit where the mixers' model-axis split keeps
+them (``serve.cache_specs``), which is not where the reference's cache
+rule puts them (``serve.reference_cache_specs``, the spec tables'):
+``memory["state_gap_bytes"]`` names each cache leaf whose per-rank bytes
+differ and by how much, and the arguments less that gap must equal
+``production_memory``'s.
 """
 
 from __future__ import annotations
@@ -70,12 +72,9 @@ from repro_torch.models import model as M
 from repro_torch.models import serve as SV
 from repro_torch.models import train as T
 from repro_torch.models.config import SHAPES
-from repro_torch.models.sharding import param_specs
+from repro_torch.models.sharding import block_shape, param_specs
 
 MESHES = ("card", "pod16x16", "pod2x16x16")
-
-SSM_NOTE = ("the SSM mixers have no model-axis split (ROADMAP.md item 22): "
-            "per-device bytes of the spec tables only")
 
 
 def make_mesh(name):
@@ -177,24 +176,36 @@ def _spec_at(specs, path):
     return specs
 
 
+def _leaf_bytes(t, spec, mesh) -> int:
+    return math.prod(block_shape(tuple(t.shape), spec, mesh)) \
+        * t.element_size()
+
+
 def shard_bytes(tree, specs, mesh) -> int:
     """Bytes of one device's shard of every tensor of ``tree`` under the
     spec tree ``specs`` (a spec per leaf: ``None``, an axis name or a tuple
     of names per dim; missing trailing dims replicated)."""
-    sizes = dict(mesh.shape)
-    total = 0
-    for path, t in opanalysis.tree_leaves(tree):
-        spec = _spec_at(specs, path)
-        n = 1
-        for i, dim in enumerate(t.shape):
-            axes = spec[i] if i < len(spec) else None
-            names = (axes,) if isinstance(axes, str) else (axes or ())
-            div = math.prod(sizes[a] for a in names)
-            if dim % div:
-                raise ValueError(f"{path}: dim {dim} over {names}")
-            n *= dim // div
-        total += n * t.element_size()
-    return total
+    return sum(_leaf_bytes(t, _spec_at(specs, path), mesh)
+               for path, t in opanalysis.tree_leaves(tree))
+
+
+def state_gap(cfg, shape, mesh) -> dict:
+    """``{cache leaf: per-rank bytes where the mixers' split keeps it less
+    the spec tables'}`` for every decode-cache leaf where the two differ
+    (``serve.cache_specs`` against ``serve.reference_cache_specs``); empty
+    for a train or prefill cell."""
+    if shape.kind != "decode":
+        return {}
+    cache = M.abstract_cache(cfg, shape.global_batch, shape.seq_len)
+    port = SV.cache_specs(cache, cfg, mesh)
+    ref = SV.reference_cache_specs(cache, cfg, mesh)
+    out = {}
+    for path, t in opanalysis.tree_leaves(cache):
+        gap = _leaf_bytes(t, _spec_at(port, path), mesh) \
+            - _leaf_bytes(t, _spec_at(ref, path), mesh)
+        if gap:
+            out["/".join(map(str, path))] = gap
+    return out
 
 
 def production_memory(cfg, shape, mesh) -> dict:
@@ -222,7 +233,8 @@ def production_memory(cfg, shape, mesh) -> dict:
                     specs, T.batch_specs(specs, mesh), mesh),
                 "output_bytes": out_b, "alias_bytes": 0, "temp_bytes": None}
     cache = M.abstract_cache(cfg, B, shape.seq_len)
-    cache_b = shard_bytes(cache, SV.cache_specs(cache, cfg, mesh), mesh)
+    cache_b = shard_bytes(cache, SV.reference_cache_specs(cache, cfg, mesh),
+                          mesh)
     tok = {"tokens": specs["tokens"]}
     args = params_b + shard_bytes(tok, T.batch_specs(tok, mesh), mesh) \
         + 4 + cache_b  # pos: a replicated int32 scalar
@@ -309,35 +321,28 @@ def run_cell(arch: str, shape_name: str, mesh_name: str = "card",
             print(f"[{mesh_name}] {arch} x {shape_name}: SKIP ({status})")
         return rec
     mesh = None if mesh_name == "card" else make_mesh(mesh_name)
-    try:
-        M.check_mesh(cfg, mesh)
-    except NotImplementedError:
-        rec.update({"chips": mesh_chips(mesh),
-                    "memory": production_memory(cfg, shape, mesh),
-                    "roofline": None, "note": SSM_NOTE})
-    else:
-        rec.update(trace_cell(cfg, shape, mesh)[0])
-        rec["fits"] = per_device_bytes(rec["memory"]) <= HBM_BYTES
-        if mesh is not None:
-            want = production_memory(cfg, shape, mesh)["argument_bytes"]
-            if reference_argument_bytes(rec["memory"]) != want:
-                raise AssertionError(
-                    f"{arch} x {shape_name} on {mesh_name}: the traced "
-                    "step's argument bytes with the batch as the "
-                    f"reference's {reference_argument_bytes(rec['memory'])}"
-                    f" != the spec tables' {want}")
+    rec.update(trace_cell(cfg, shape, mesh)[0])
+    rec["fits"] = per_device_bytes(rec["memory"]) <= HBM_BYTES
+    if mesh is not None:
+        gap = state_gap(cfg, shape, mesh)
+        rec["memory"]["state_gap_bytes"] = gap
+        want = production_memory(cfg, shape, mesh)["argument_bytes"]
+        got = reference_argument_bytes(rec["memory"]) - sum(gap.values())
+        if got != want:
+            raise AssertionError(
+                f"{arch} x {shape_name} on {mesh_name}: the traced step's "
+                "argument bytes with the batch as the reference's, less "
+                f"the state gap, {got} != the spec tables' {want}")
     if verbose:
         gb = per_device_bytes(rec["memory"]) / 1e9
         rl = rec["roofline"]
-        line = f"[{mesh_name}] {arch} x {shape_name}: mem/dev={gb:.2f}GB"
-        if rl:
-            u = rec["useful_flop_ratio"]
-            line += (f" trace={rec['trace_s']:.1f}s "
-                     f"compute={rl['compute_s']:.4f}s "
-                     f"memory={rl['memory_s']:.4f}s "
-                     f"collective={rl['collective_s']:.4f}s "
-                     f"-> {rl['bottleneck']} useful={u and round(u, 3)}")
-        print(line, flush=True)
+        u = rec["useful_flop_ratio"]
+        print(f"[{mesh_name}] {arch} x {shape_name}: mem/dev={gb:.2f}GB "
+              f"trace={rec['trace_s']:.1f}s compute={rl['compute_s']:.4f}s "
+              f"memory={rl['memory_s']:.4f}s "
+              f"collective={rl['collective_s']:.4f}s "
+              f"-> {rl['bottleneck']} useful={u and round(u, 3)}",
+              flush=True)
     if outdir:
         os.makedirs(outdir, exist_ok=True)
         path = os.path.join(outdir, f"{mesh_name}__{arch}__{shape_name}.json")

@@ -16,8 +16,9 @@ The port of ``repro/launch/mesh.py``.  Two kinds of mesh, both with
                 LM's mesh paths call: the autograd pairs of
                 ``copy_to`` / ``reduce_from`` (Megatron's f and g),
                 ``gather_from`` / ``scatter_to`` (a dim split over
-                axes) and ``ring_shift`` (one hop of the model-axis
-                ring), plus the plain ``all_reduce``, ``all_gather`` and
+                axes), ``ring_shift`` (one hop of the model-axis ring)
+                and ``sum_parts`` (an all-reduce both ways),
+                plus the plain ``all_reduce``, ``all_gather`` and
                 ``reduce_scatter`` of the sharded train step.  A
                 collective over axes of total size 1 is no op at all, so
                 a one-rank mesh runs the one-device arithmetic.
@@ -472,6 +473,22 @@ class _ReduceFrom(torch.autograd.Function):
         return g, None, None
 
 
+class _SumParts(torch.autograd.Function):
+    """All-reduce forward and backward: each rank's partial summed into a
+    value that every rank then spends on its own part of the work (its
+    channels), so each rank's gradient of the sum is a part as well."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, names):
+        ctx.mesh, ctx.names = mesh, names
+        return mesh.all_reduce(x.contiguous().clone(), names)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_reduce(g.contiguous().clone(), ctx.names), \
+            None, None
+
+
 class _GatherFrom(torch.autograd.Function):
     """All-gather along ``dim`` forward.  Backward, this rank's block of
     the gradient where every rank holds the same (replicated) gradient,
@@ -532,6 +549,13 @@ def copy_to(x, mesh, names="model"):
 
 def reduce_from(x, mesh, names="model"):
     return x if _trivial(mesh, names) else _ReduceFrom.apply(x, mesh, names)
+
+
+def sum_parts(x, mesh, names="model"):
+    """``x`` summed over the named axes, its gradient summed too (see
+    ``_SumParts``; ``reduce_from``'s backward is the identity, right only
+    where every rank then computes the same thing from the sum)."""
+    return x if _trivial(mesh, names) else _SumParts.apply(x, mesh, names)
 
 
 def gather_from(x, mesh, names, dim, summed=False):

@@ -30,9 +30,8 @@ the port places tensors explicitly.  ``backbone`` / ``forward`` take
 then this rank's model-axis shards (the spec tables' ``"model"`` dims; the
 batch-axis ZeRO dims gathered by the caller) and the batch this rank's
 rows; every block runs tensor-, expert- or sequence-parallel over the
-model axis (``layers``, ``moe``), and the batch axes serve every family.
-The SSM mixers have no model-axis split: on a model axis wider than 1
-they raise ``NotImplementedError``.
+model axis (``layers``, ``moe``, ``ssm``), and the batch axes serve every
+family.
 """
 
 from __future__ import annotations
@@ -155,7 +154,8 @@ def params_from_reference(tree, cfg: ModelConfig, device=None):
 def params_to_reference(params, cfg: ModelConfig):
     """The inverse of ``params_from_reference``: the reference's layout
     (``slots`` stacked over ``repeats``, ``tail``), tensors on the
-    parameters' device (``meta`` tensors give the reference's shapes)."""
+    parameters' device (``meta`` tensors give the reference's shapes).  A
+    slot of one repeat is a view of its layer's leaf, not a copy."""
     out = {k: params[k] for k in ("embed", "final_norm", "lm_head")
            if k in params}
     per_slot, tail = {}, {}
@@ -169,6 +169,7 @@ def params_to_reference(params, cfg: ModelConfig):
         return {k: stack([lay[k] for lay in layers])
                 if isinstance(layers[0][k], dict)
                 else torch.stack([lay[k] for lay in layers])
+                if len(layers) > 1 else layers[0][k].unsqueeze(0)
                 for k in layers[0]}
 
     out["slots"] = {key: stack(layers) for key, layers in per_slot.items()}
@@ -197,7 +198,7 @@ def _apply_block(block, p, x, positions, cfg, xf=None, mesh=None):
     if mixer in ("attn", "local"):
         out, _ = L.attention_fwd(p["attn"], h, positions, cfg, mixer, mesh)
     else:
-        out = _MIXER_FWD[mixer](p[mixer], h, cfg)
+        out = _MIXER_FWD[mixer](p[mixer], h, cfg, mesh=mesh)
     return _residual_mlp(mlp, p, x, out, cfg, mesh)
 
 
@@ -294,21 +295,9 @@ def _embed_inputs(params, batch, cfg, mesh=None):
     return x
 
 
-def check_mesh(cfg: ModelConfig, mesh):
-    """Raise where ``cfg`` cannot run on ``mesh``: an SSM mixer on a model
-    axis wider than 1."""
-    ssm = sorted({m for _, _, (m, _) in layer_blocks(cfg)} & set(_MIXER_FWD))
-    if ssm and LM.model_size(mesh) > 1:
-        raise NotImplementedError(
-            f"{cfg.name}: the {'/'.join(ssm)} mixers have no model-axis "
-            "split (ROADMAP.md item 22); run them on a mesh whose model "
-            "axis is 1")
-
-
 def backbone(params, batch, cfg: ModelConfig, mesh=None):
     """Embed + stack + final norm -> (hidden [B,S,d], aux).  The LM head is
     applied separately (``forward`` / ``forward_last``)."""
-    check_mesh(cfg, mesh)
     x = _embed_inputs(params, batch, cfg, mesh)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     x, aux = _stack_fwd(params, x, positions, cfg, mesh)
@@ -415,7 +404,7 @@ def _decode_block(block, p, x, pos, cache, cfg, xf=None, mesh=None,
         out, _ = L.attention_decode(p["attn"], h, pos, cache["k"],
                                     cache["v"], cfg, mixer, mesh, W)
     else:
-        out, new = _MIXER_DECODE[mixer](p[mixer], h, cache, cfg)
+        out, new = _MIXER_DECODE[mixer](p[mixer], h, cache, cfg, mesh)
         for k, v in new.items():
             cache[k].copy_(v)
     # the decode step drops the MoE aux loss, as the reference's does
@@ -432,7 +421,6 @@ def decode_step(params, tokens, pos, cache, cfg: ModelConfig, mesh=None,
     ``serve.cache_specs`` places it, and ``max_len`` the whole cache's
     length (an attention cache whose sequence splits over the model axis
     holds a part of it); the logits are the rows' whole vocab."""
-    check_mesh(cfg, mesh)
     if LM.model_size(mesh) > 1 and max_len is None:
         raise ValueError("decode_step on a model axis needs max_len, the "
                          "whole cache's length")

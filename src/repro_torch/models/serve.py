@@ -146,42 +146,110 @@ def shard_cache(cache, cfg: ModelConfig, mesh):
     return SH.shard_tree(cache, cache_specs(cache, cfg, mesh), mesh)
 
 
-def cache_specs(cache_shape, cfg: ModelConfig, mesh):
-    """Spec tree for the decode cache (leaves with ``.shape``: the tensors
-    of ``model.abstract_cache``).
-
-    KV tensors are [repeats?, B, S, KV, hd]: batch over (pod,data), heads
-    over model when divisible, else seq over model (sequence parallelism --
-    the long_500k cells and kv=1 archs land here).  SSM states shard their
-    feature axis over model.
-    """
+def _placement(mesh):
+    """(the batch axes' names, their spec entry, their total size, the
+    model axis's size) of ``mesh``."""
     sizes = dict(mesh.shape)
     batch_names = tuple(n for n in ("pod", "data") if n in sizes)
-    model_n = sizes.get("model", 1)
     bsz = math.prod(sizes[n] for n in batch_names)
     batch_spec = batch_names if len(batch_names) > 1 else \
         (batch_names[0] if batch_names else None)
+    return batch_names, batch_spec, bsz, sizes.get("model", 1)
 
-    def leaf(_, x):
-        shape = tuple(x.shape)
-        nd = len(shape)
-        spec = [None] * nd
-        if nd >= 4:  # KV cache [*, B, S, KV, hd] or [B, S, KV, hd]
-            off = nd - 4
-            if batch_names and shape[off] % bsz == 0:
-                spec[off] = batch_spec
-            if model_n > 1 and shape[off + 2] % model_n == 0:
-                spec[off + 2] = "model"      # heads TP
-            elif model_n > 1 and shape[off + 1] % model_n == 0:
-                spec[off + 1] = "model"      # seq SP fallback (kv=1 archs)
-        elif nd >= 2:  # SSM states [*, B, di, N] / [*, B, di]
-            off = 1 if nd == 2 else nd - 3
-            if batch_names and shape[off] % bsz == 0:
-                spec[off] = batch_spec
-            for i in range(nd - 1, off, -1):
-                if model_n > 1 and shape[i] % model_n == 0:
-                    spec[i] = "model"
-                    break
+
+def _reference_leaf(shape, mesh):
+    """The reference's rule for one cache leaf (``cache_specs`` in
+    ``repro/models/serve.py``)."""
+    batch_names, batch_spec, bsz, model_n = _placement(mesh)
+    nd = len(shape)
+    spec = [None] * nd
+    if nd >= 4:  # KV cache [*, B, S, KV, hd] or [B, S, KV, hd]
+        off = nd - 4
+        if batch_names and shape[off] % bsz == 0:
+            spec[off] = batch_spec
+        if model_n > 1 and shape[off + 2] % model_n == 0:
+            spec[off + 2] = "model"      # heads TP
+        elif model_n > 1 and shape[off + 1] % model_n == 0:
+            spec[off + 1] = "model"      # seq SP fallback (kv=1 archs)
+    elif nd >= 2:  # SSM states [*, B, di, N] / [*, B, di]
+        off = 1 if nd == 2 else nd - 3
+        if batch_names and shape[off] % bsz == 0:
+            spec[off] = batch_spec
+        for i in range(nd - 1, off, -1):
+            if model_n > 1 and shape[i] % model_n == 0:
+                spec[i] = "model"
+                break
+    return tuple(spec)
+
+
+def reference_cache_specs(cache_shape, cfg: ModelConfig, mesh):
+    """The reference's spec tree for the decode cache, its rule copied:
+    KV tensors [repeats?, B, S, KV, hd] put the batch over (pod, data),
+    heads over model when divisible, else the sequence (the long_500k
+    cells and kv=1 archs); SSM states put their last divisible feature
+    dim over model.  The dry run prices the spec tables' per-device bytes
+    by it (``launch.dryrun.production_memory``); it is not where the
+    mixers' model-axis split keeps their states (``cache_specs``)."""
+    return map_leaves(lambda _, x: _reference_leaf(tuple(x.shape), mesh),
+                      cache_shape)
+
+
+# the batch dim of each SSM state, from the end: mamba conv [*, B, K-1, di]
+# and ssm [*, B, di, N], mLSTM C [*, B, H, dh, dh] and n [*, B, H, dh],
+# sLSTM's four [*, B, di]
+_STATE_BATCH = {("mamba", "conv"): -3, ("mamba", "ssm"): -3,
+                ("mlstm", "C"): -4, ("mlstm", "n"): -3}
+
+
+def _state_spec(mixer, name, shape, cfg, mesh):
+    """Where the mixer's model-axis split keeps one SSM state: the batch
+    over (pod, data) where it divides; mamba's by channel (``conv`` and
+    ``ssm``'s di), sLSTM's by channel, mLSTM's by head where the heads
+    divide the model axis, else (a head on each group of ``n / H``
+    ranks) ``C`` split along its value dim inside the head's group and
+    ``n`` whole on each of its ranks (``sharding.Spec``'s ``within``);
+    nothing over model where the mixer's ``"ff"`` dims do not split."""
+    batch_names, batch_spec, bsz, n = _placement(mesh)
+    spec = [None] * len(shape)
+    b = _STATE_BATCH.get((mixer, name), -2)
+    if batch_names and shape[b] % bsz == 0:
+        spec[b] = batch_spec
+    di = cfg.ssm_expand * cfg.d_model
+    if n == 1 or SH.resolve(("ff",), (di,), mesh) == (None,):
         return tuple(spec)
+    if mixer == "mamba":
+        spec[-1 if name == "conv" else -2] = "model"
+    elif mixer == "slstm":
+        spec[-1] = "model"
+    elif cfg.num_heads % n == 0:
+        spec[-3 if name == "C" else -2] = "model"
+    else:
+        within = (-3 if name == "C" else -2, cfg.num_heads, ("model",))
+        if name == "C":
+            spec[-1] = "model"
+        return SH.Spec(spec, within=within)
+    return tuple(spec)
+
+
+def cache_specs(cache_shape, cfg: ModelConfig, mesh):
+    """Spec tree for the decode cache (leaves with ``.shape``: the tensors
+    of ``model.abstract_cache``), as the model's mesh paths read it.
+
+    KV tensors follow the reference's rule (``reference_cache_specs``):
+    [repeats?, B, S, KV, hd], the batch over (pod, data), heads over model
+    when divisible, else the sequence (sequence parallelism -- the
+    long_500k cells and kv=1 archs land here).  SSM states sit where the
+    mixers' split keeps them (``_state_spec``): by channel or head over
+    model, the batch over (pod, data).
+    """
+    mixers = {f"slot{i:02d}": m for i, (m, _) in enumerate(cfg.layer_pattern)}
+    mixers.update({f"tail{i:02d}": m
+                   for i, (m, _) in enumerate(cfg.tail_pattern)})
+
+    def leaf(path, x):
+        mixer = mixers[path[0]]
+        if mixer in ("attn", "local"):
+            return _reference_leaf(tuple(x.shape), mesh)
+        return _state_spec(mixer, path[-1], tuple(x.shape), cfg, mesh)
 
     return map_leaves(leaf, cache_shape)

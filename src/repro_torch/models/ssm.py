@@ -20,6 +20,30 @@ f32 product of the bf16 operands (XLA folds the ``.astype(f32)`` of its
 compiled chunk body into the product), while mamba's ``x @ w_bc`` is
 rounded to bf16 before its cast (the cast is not folded there), and the
 elementwise steps of the causal conv and of ``silu`` round at each step.
+
+On an ``LmMesh`` whose model axis splits the mixers' ``"ff"`` dims
+(``mesh=``; the spec tables of ``models/sharding.py``, each fused
+projection cut by its parts), each rank runs its block of channels: the
+input enters through ``copy_to``, the row-split ``out_proj``'s partial
+is summed over the axis (``reduce_from``), as ``layers.mlp_fwd`` does.
+
+  mamba  the conv, ``dt``, ``A`` and the scan on the rank's channels;
+         ``B``/``C`` are shared across channels, so ``x @ w_bc`` is a
+         partial over them, summed over the axis in every chunk (and
+         every decode step) by ``sum_parts``, whose backward sums the
+         gradient's parts too (each rank's scan reads the sum for its own
+         channels only)
+  mlstm  heads over the axis where they divide it (the rank's q, k, v,
+         gates and state; no collective inside the mixer); where the
+         axis is wider than the heads, each head on ``n / H`` ranks: q
+         and k gathered over the axis (one ``gather_from``), v and the
+         state ``C`` split along their value dim
+  slstm  per channel: the rank's channels of each of the four gates
+
+The replicated ``w_gates`` / ``r_gates`` enter through ``copy_to`` and
+each rank reads its heads or channels.  Where the axis does not divide a
+mixer's ``"ff"`` dims, the spec tables keep them whole, and the mixer
+runs unsplit on every rank.
 """
 
 from __future__ import annotations
@@ -27,6 +51,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch import mesh as LM
 from repro_torch.models.layers import PDT, _normal, silu
 
 F32 = torch.float32
@@ -75,7 +100,13 @@ def _causal_conv(x, w, b, state=None):
 MAMBA_CHUNK = 256
 
 
-def _mamba_core(p, xc, z, cfg, h0=None):
+def _split(p, cfg) -> bool:
+    """Whether ``p`` holds a block of the mixer's channels (its
+    ``out_proj`` [di, d] split by rows over the model axis)."""
+    return p["out_proj"].shape[0] != cfg.ssm_expand * cfg.d_model
+
+
+def _mamba_core(p, xc, z, cfg, h0=None, mesh=None):
     """xc: [B,S,di] post-conv; returns y [B,S,di] and final state [B,di,N].
 
     The sequence is padded to a multiple of the chunk; each chunk folds the
@@ -85,6 +116,12 @@ def _mamba_core(p, xc, z, cfg, h0=None):
     returns it (each zero step decays it: past one chunk it is not the
     state after S steps).  At S = 1 (decode) this is one step of the
     recurrence from ``h0``.
+
+    With ``mesh`` the channels are this rank's block: its ``xci @ w_bc``
+    is rounded to bf16 as one device's whole product is, the partials are
+    summed in f32 over the model axis and the sum rounded to bf16 -- two
+    roundings where one device takes one (each partial's within half a
+    bf16 ulp of it, then the sum's).
     """
     N = cfg.ssm_state
     B, S, di = xc.shape
@@ -98,7 +135,10 @@ def _mamba_core(p, xc, z, cfg, h0=None):
     ys = []
     for start in range(0, S + pad, c):
         xci = xc[:, start:start + c]
-        bc = torch.einsum("bsd,dn->bsn", xci, p["w_bc"]).float()
+        bc = torch.einsum("bsd,dn->bsn", xci, p["w_bc"])
+        if mesh is not None:
+            bc = LM.sum_parts(bc.float(), mesh).to(bc.dtype)
+        bc = bc.float()
         xf = xci.float()
         Bt, Ct = bc[..., :N], bc[..., N:]
         dt = F.softplus(xf * p["w_dt"] + p["b_dt"])
@@ -116,14 +156,34 @@ def _mamba_core(p, xc, z, cfg, h0=None):
     return y.to(xc.dtype), h
 
 
-def mamba_fwd(p, x, cfg, want_cache=False):
-    di = cfg.ssm_expand * cfg.d_model
+def _mamba_in(p, x, cfg, mesh):
+    """(xin, z, the scan's mesh or None): the input projection's two
+    parts on this rank's channels."""
+    split = _split(p, cfg)
+    if split:
+        x = LM.copy_to(x, mesh)
     u = torch.einsum("bsd,de->bse", x, p["in_proj"])
-    xin, z = u[..., :di], u[..., di:]
+    di = u.shape[-1] // 2
+    return u[..., :di], u[..., di:], mesh if split else None
+
+
+def _out(p, y, cfg, mesh):
+    """``y @ out_proj``: where the mixer is split, the row-split
+    ``out_proj``'s partial summed over the model axis."""
+    return _summed(p, torch.einsum("bse,ed->bsd", y, p["out_proj"]), cfg,
+                   mesh)
+
+
+def _summed(p, out, cfg, mesh):
+    return LM.reduce_from(out, mesh) if _split(p, cfg) else out
+
+
+def mamba_fwd(p, x, cfg, want_cache=False, mesh=None):
+    xin, z, run = _mamba_in(p, x, cfg, mesh)
     xc, conv_state = _causal_conv(xin, p["conv_w"], p["conv_b"])
     xc = silu(xc)
-    y, h = _mamba_core(p, xc, z, cfg)
-    out = torch.einsum("bse,ed->bsd", y, p["out_proj"])
+    y, h = _mamba_core(p, xc, z, cfg, mesh=run)
+    out = _out(p, y, cfg, mesh)
     if want_cache:
         return out, {"conv": conv_state.to(PDT), "ssm": h}
     return out
@@ -137,17 +197,15 @@ def mamba_init_cache(cfg, batch, device, lead=()):
                                device=device)}
 
 
-def mamba_decode(p, x, cache, cfg):
-    """x: [B,1,d]; single-step recurrence.  Returns (out, new cache)."""
-    di = cfg.ssm_expand * cfg.d_model
-    u = torch.einsum("bsd,de->bse", x, p["in_proj"])
-    xin, z = u[..., :di], u[..., di:]
+def mamba_decode(p, x, cache, cfg, mesh=None):
+    """x: [B,1,d]; single-step recurrence.  Returns (out, new cache); on a
+    mesh the cache holds this rank's channels."""
+    xin, z, run = _mamba_in(p, x, cfg, mesh)
     xc, conv_state = _causal_conv(xin, p["conv_w"], p["conv_b"],
                                   cache["conv"])
     xc = silu(xc)
-    y, h = _mamba_core(p, xc, z, cfg, h0=cache["ssm"])
-    out = torch.einsum("bse,ed->bsd", y, p["out_proj"])
-    return out, {"conv": conv_state, "ssm": h}
+    y, h = _mamba_core(p, xc, z, cfg, h0=cache["ssm"], mesh=run)
+    return _out(p, y, cfg, mesh), {"conv": conv_state, "ssm": h}
 
 
 # ---------------------------------------------------------------------------
@@ -221,32 +279,67 @@ def _mlstm_chunk_scan(q, k, v, li, lf, C0, n0, final_state=True):
     return h, (C, n)
 
 
-def _mlstm_inputs(p, x, cfg):
-    """q, k, v [B,H,S,dh] (bf16) and the f32 gate pre-activations [B,S,2H]."""
-    B, S, d = x.shape
-    H = cfg.num_heads
-    dh = cfg.ssm_expand * d // H
-    qkv = torch.einsum("bsd,de->bse", x, p["w_qkv"])
-    q, k, v = (t.reshape(B, S, H, dh).transpose(1, 2)
-               for t in torch.chunk(qkv, 3, dim=-1))
-    gates = torch.einsum("bsd,dg->bsg", x.float(), p["w_gates"])
-    return q, k, v, gates
-
-
-def mlstm_fwd(p, x, cfg, want_cache=False):
+def _mlstm_inputs(p, x, cfg, mesh=None):
+    """q, k [B,Hl,S,dh] and v [B,Hl,S,dv] (bf16) of this rank's ``Hl``
+    heads (``dv``: the value channels it holds of each), and their f32
+    gate pre-activations [B,S,2Hl] (input gates, then forget gates).  One
+    device: every head, ``dv = dh``.  On a mesh the heads split over the
+    model axis where they divide it; where the axis (n) is wider, the
+    rank's channels lie inside head ``index // (n / H)``: q and k are
+    gathered over the axis (the rank's head needs its whole q and k) and
+    v keeps the rank's block.  Each rank takes the gates of its heads
+    from the replicated ``w_gates`` product."""
     B, S, d = x.shape
     H = cfg.num_heads
     di = cfg.ssm_expand * d
     dh = di // H
-    q, k, v, gates = _mlstm_inputs(p, x, cfg)
-    li = gates[..., :H].transpose(1, 2)  # log input gate (pre-exp)
-    lf = F.logsigmoid(gates[..., H:]).transpose(1, 2)
-    C0 = torch.zeros((B, H, dh, dh), dtype=F32, device=x.device)
-    n0 = torch.zeros((B, H, dh), dtype=F32, device=x.device)
+    split = _split(p, cfg)
+    if split:
+        x = LM.copy_to(x, mesh)
+    qkv = torch.einsum("bsd,de->bse", x, p["w_qkv"])
+    gates = torch.einsum("bsd,dg->bsg", x.float(),
+                         LM.copy_to(p["w_gates"], mesh) if split
+                         else p["w_gates"])
+    if not split:
+        q, k, v = (t.reshape(B, S, H, dh).transpose(1, 2)
+                   for t in torch.chunk(qkv, 3, dim=-1))
+        return q, k, v, gates
+    n, r = LM.model_size(mesh), mesh.axis_index("model")
+    dl = qkv.shape[-1] // 3
+    q, k, v = torch.chunk(qkv, 3, dim=-1)
+    if H % n == 0:  # the rank's H / n heads
+        Hl = H // n
+        first = r * Hl
+        q, k, v = (t.reshape(B, S, Hl, dh).transpose(1, 2)
+                   for t in (q, k, v))
+    elif n % H == 0:  # one head on each group of n / H ranks
+        m = n // H
+        Hl, first = 1, r // m
+        qk = LM.gather_from(torch.cat([q, k], -1), mesh, "model", 2,
+                            summed=True).unflatten(-1, (n, 2, dl))
+        qk = qk[:, :, first * m:(first + 1) * m]  # [B,S,m,2,dl]
+        q, k = (qk[..., i, :].reshape(B, S, 1, dh).transpose(1, 2)
+                for i in (0, 1))
+        v = v.reshape(B, S, 1, dl).transpose(1, 2)
+    else:
+        raise ValueError(f"mLSTM: {H} heads over a model axis of {n}: "
+                         "neither divides the other")
+    heads = list(range(first, first + Hl))
+    return q, k, v, gates[..., heads + [H + h for h in heads]]
+
+
+def mlstm_fwd(p, x, cfg, want_cache=False, mesh=None):
+    B, S, d = x.shape
+    q, k, v, gates = _mlstm_inputs(p, x, cfg, mesh)
+    Hl, dh, dv = q.shape[1], q.shape[3], v.shape[3]
+    li = gates[..., :Hl].transpose(1, 2)  # log input gate (pre-exp)
+    lf = F.logsigmoid(gates[..., Hl:]).transpose(1, 2)
+    C0 = torch.zeros((B, Hl, dh, dv), dtype=F32, device=x.device)
+    n0 = torch.zeros((B, Hl, dh), dtype=F32, device=x.device)
     h, state = _mlstm_chunk_scan(q, k, v, li, lf, C0, n0,
                                  final_state=want_cache)
-    h = h.transpose(1, 2).reshape(B, S, di).to(x.dtype)
-    out = torch.einsum("bse,ed->bsd", h, p["out_proj"])
+    h = h.transpose(1, 2).reshape(B, S, Hl * dv).to(x.dtype)
+    out = _out(p, h, cfg, mesh)
     if want_cache:
         C, n = state
         return out, {"C": C, "n": n}
@@ -261,14 +354,12 @@ def mlstm_init_cache(cfg, batch, device, lead=()):
             "n": torch.zeros(lead + (batch, H, dh), dtype=F32, device=device)}
 
 
-def mlstm_decode(p, x, cache, cfg):
+def mlstm_decode(p, x, cache, cfg, mesh=None):
     B = x.shape[0]
-    H = cfg.num_heads
-    di = cfg.ssm_expand * cfg.d_model
-    dh = di // H
-    q, k, v, gates = _mlstm_inputs(p, x, cfg)
+    q, k, v, gates = _mlstm_inputs(p, x, cfg, mesh)
+    Hl, dh = q.shape[1], q.shape[3]
     gates = gates[:, 0]
-    li, lf = gates[:, :H], F.logsigmoid(gates[:, H:])
+    li, lf = gates[:, :Hl], F.logsigmoid(gates[:, Hl:])
     f = torch.exp(torch.clamp(lf, _LOG_FLOOR, 0.0))[..., None]
     i = torch.exp(torch.clamp(li, _LOG_FLOOR, 20.0))[..., None]
     kf = k[:, :, 0].float()
@@ -278,8 +369,8 @@ def mlstm_decode(p, x, cache, cfg):
     qf = q[:, :, 0].float() * dh ** -0.5
     num = torch.einsum("bhd,bhde->bhe", qf, C)
     den = torch.clamp(torch.abs(torch.einsum("bhd,bhd->bh", qf, n)), min=1.0)
-    h = (num / den[..., None]).reshape(B, 1, di).to(x.dtype)
-    return torch.einsum("bse,ed->bsd", h, p["out_proj"]), {"C": C, "n": n}
+    h = (num / den[..., None]).reshape(B, 1, -1).to(x.dtype)
+    return _out(p, h, cfg, mesh), {"C": C, "n": n}
 
 
 # ---------------------------------------------------------------------------
@@ -297,9 +388,20 @@ def init_slstm(cfg, generator, device):
     }
 
 
-def _slstm_step(p, di, state, u):
+def _slstm_r(p, cfg, mesh):
+    """The recurrent weights [4, dl] of this rank's ``dl`` channels (each
+    gate's; the replicated ``r_gates`` enter through ``copy_to`` where
+    the mixer is split)."""
+    r = p["r_gates"].view(4, cfg.ssm_expand * cfg.d_model)
+    if not _split(p, cfg):
+        return r
+    dl = p["out_proj"].shape[0]
+    return LM.copy_to(r, mesh).narrow(1, mesh.axis_index("model") * dl, dl)
+
+
+def _slstm_step(r, state, u):
     c, n, m, h = state
-    r = p["r_gates"].view(4, di)
+    di = r.shape[1]
     pre = u.float() + (h[..., None, :] * r).flatten(-2)
     zt = torch.tanh(pre[..., :di])
     it = pre[..., di:2 * di]
@@ -314,18 +416,25 @@ def _slstm_step(p, di, state, u):
     return (c_new, n_new, m_new, h_new)
 
 
-def slstm_fwd(p, x, cfg, want_cache=False):
+def _slstm_in(p, x, cfg, mesh):
+    """The gate pre-activations [B,S,4dl] of this rank's channels and
+    their recurrent weights."""
+    if _split(p, cfg):
+        x = LM.copy_to(x, mesh)
+    return torch.einsum("bsd,de->bse", x, p["w_qkv"]), _slstm_r(p, cfg, mesh)
+
+
+def slstm_fwd(p, x, cfg, want_cache=False, mesh=None):
     B, S, d = x.shape
-    di = cfg.ssm_expand * d
-    u = torch.einsum("bsd,de->bse", x, p["w_qkv"])  # [B,S,4di]
-    state = tuple(torch.zeros((B, di), dtype=F32, device=x.device)
+    u, r = _slstm_in(p, x, cfg, mesh)  # [B,S,4di]
+    state = tuple(torch.zeros((B, r.shape[1]), dtype=F32, device=x.device)
                   for _ in range(4))
     hs = []
     for t in range(S):
-        state = _slstm_step(p, di, state, u[:, t])
+        state = _slstm_step(r, state, u[:, t])
         hs.append(state[3])
     h = torch.stack(hs, dim=1).to(x.dtype)  # [B,S,di]
-    out = torch.einsum("bse,ed->bsd", h, p["out_proj"])
+    out = _out(p, h, cfg, mesh)
     if want_cache:
         c, n, m, hf = state
         return out, {"c": c, "n": n, "m": m, "h": hf}
@@ -338,10 +447,9 @@ def slstm_init_cache(cfg, batch, device, lead=()):
             for k in ("c", "n", "m", "h")}
 
 
-def slstm_decode(p, x, cache, cfg):
-    di = cfg.ssm_expand * cfg.d_model
-    u = torch.einsum("bsd,de->bse", x, p["w_qkv"])[:, 0]
+def slstm_decode(p, x, cache, cfg, mesh=None):
+    u, r = _slstm_in(p, x, cfg, mesh)
     state = (cache["c"], cache["n"], cache["m"], cache["h"])
-    c, n, m, h = _slstm_step(p, di, state, u)
+    c, n, m, h = _slstm_step(r, state, u[:, 0])
     out = torch.einsum("be,ed->bd", h.to(x.dtype), p["out_proj"])[:, None]
-    return out, {"c": c, "n": n, "m": m, "h": h}
+    return _summed(p, out, cfg, mesh), {"c": c, "n": n, "m": m, "h": h}

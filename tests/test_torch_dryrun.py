@@ -440,7 +440,7 @@ def test_records_and_the_roofline_table(tmp_path, capsys):
         [("card", "xlstm-350m"), ("pod16x16", "gemma3-1b"),
          ("pod16x16", "xlstm-350m")]
     card, pod, ssm = recs
-    for rec in (card, pod):
+    for rec in (card, pod, ssm):
         assert set(rec) >= {"chips", "trace_s", "memory", "analysis",
                             "roofline", "model_flops_global",
                             "model_flops_per_chip", "useful_flop_ratio",
@@ -466,20 +466,38 @@ def test_records_and_the_roofline_table(tmp_path, capsys):
     assert pod["roofline"]["collective_s"] > 0
     assert pod["analysis"]["collective_count"] > 0
     assert set(pod["analysis"]["per_link"]) == {"ib"}
-    # an SSM cell on a model axis waits on ROADMAP item 22
-    assert ssm["roofline"] is None and ssm["chips"] == 256
-    assert "item 22" in ssm["note"]
+    # an SSM cell on a model axis: rank 0's partitioned decode (4 mLSTM
+    # heads on model=16: q and k gathered), priced; its arguments less the
+    # named state gap are the spec tables' bytes: the mLSTM normalizers
+    # (a head on each group of 4 ranks, batch over data) and the sLSTM
+    # states (by channel and batch) against the reference's rule, which
+    # splits the batch dim over model
+    assert ssm["chips"] == 256 and ssm["fits"]
+    assert ssm["roofline"]["collective_s"] > 0
+    assert ssm["analysis"]["collective_calls"]["all_gather"] > 0
+    xcfg = TC.get_config("xlstm-350m")
+    gap = D.state_gap(xcfg, SHAPES["decode_32k"], mesh)
+    assert ssm["memory"]["state_gap_bytes"] == gap
+    mixers = dict((f"slot{i:02d}", m)
+                  for i, (m, _) in enumerate(xcfg.layer_pattern))
+    assert {(mixers[k.split("/")[0]], k.split("/")[1]) for k in gap} == {
+        ("mlstm", "n"), ("slstm", "c"), ("slstm", "n"), ("slstm", "m"),
+        ("slstm", "h")}
+    assert D.reference_argument_bytes(ssm["memory"]) - sum(gap.values()) \
+        == D.production_memory(xcfg, SHAPES["decode_32k"],
+                               mesh)["argument_bytes"]
     rows = {r[:2]: r for r in map(TR.row, recs)}
-    assert rows[("pod16x16", "xlstm-350m")][3:8] == ("-",) * 5
+    assert rows[("pod16x16", "xlstm-350m")][5] == \
+        f"{ssm['roofline']['collective_s']:.4f}"
     assert rows[("pod16x16", "gemma3-1b")][5] == \
         f"{pod['roofline']['collective_s']:.4f}"
     assert rows[("card", "xlstm-350m")][6] == card["roofline"]["bottleneck"]
     table = TR.as_markdown(recs)
     assert table.splitlines()[2].startswith("| card | xlstm-350m")
     s = TR.summarize(recs)
-    assert s["cells_compiled"] == 2
+    assert s["cells_compiled"] == 3
     assert s["most_collective_bound"] == "gemma3-1bxdecode_32k"
-    worst = min((card, pod), key=lambda r: r["useful_flop_ratio"])
+    worst = min((card, pod, ssm), key=lambda r: r["useful_flop_ratio"])
     assert s["worst_useful_cell"] == f"{worst['arch']}x{worst['shape']}"
     assert {n: v for n, v, _ in brun.roofline_rows(out)} == \
         {f"roofline.{k}": v for k, v in s.items()}

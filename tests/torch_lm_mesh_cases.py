@@ -5,12 +5,15 @@ port's rank body (``world``, run on 8 gloo ranks by one spawn).
 
 The reference's side runs ``tests/test_multidevice.py`` sections 2-4 as
 written there, plus the ZeRO cell (section 3 at ``d_model=1024``, where
-the spec tables give parameters ``"data"`` dims) on (4, 2) and (8, 1).
+the spec tables give parameters ``"data"`` dims) on (4, 2) and (8, 1),
+and the SSM families' forward and train step on (2, 4).
 The rank body builds each mesh over the same 8 ranks in turn and returns,
 on rank 0, every result gathered whole.  Nothing here imports JAX at
 module level: the ranks import this module and must not load it.
 """
 
+import contextlib
+import dataclasses
 import os
 import pickle
 
@@ -50,15 +53,89 @@ WORLD = 8
 # divide: ``cache_specs`` replicates it) while its local rings split
 TRACE_ARCHS = ("gemma2-9b", "gemma3-1b", "kimi-k2-1t-a32b", "hubert-xlarge")
 TRACE_MESHES = ((2, 4), (4, 2))
+SSM_TRACE_MESH = (2, 4)  # the SSM families' partitioned steps, traced
 TRACE_B, TRACE_S = 8, 64
 DECODE_CASES = (("gemma2-9b", (2, 4), 32), ("gemma2-9b", (4, 2), 32),
                 ("gemma3-1b", (2, 4), 32), ("gemma2-9b", (2, 4), 30))
 DECODE_B, DECODE_PROMPT, DECODE_STEPS = 8, 16, 8
 # the reference's 8-device compiles of tests/test_dryrun_unit.py's serving
-# cells on (2, 4) (xlstm has no model-axis split in the port)
+# cells on (2, 4) but xlstm's (the SSM families' mesh steps are held by
+# value against the reference's partitioned jit and by their meta traces:
+# the SSM_* cells below)
 HLO_CELLS = (("gemma2-9b", "prefill"), ("kimi-k2-1t-a32b", "prefill"),
              ("hubert-xlarge", "prefill"), ("gemma2-9b", "decode"),
              ("kimi-k2-1t-a32b", "decode"))
+
+
+# the SSM mixers on a model axis: jamba's (mamba; its MoE at a capacity
+# that drops nothing, since the expert-parallel capacity is over each
+# data shard's tokens and one device's over the whole batch) and xlstm's
+# (mLSTM, sLSTM) smoke configs.  Forward on (2, 4) and (4, 2) (the heads
+# split 4 and 2 ways) and xlstm on (1, 8) (4 mLSTM heads on model=8: a
+# head on each pair of ranks); one train step on (2, 4); a prefill and
+# SSM_STEPS decode steps after a cache built by decode steps over the
+# prompt on (2, 4), and xlstm on (1, 8).  The parameters are the
+# reference's init (seed 0); the batch and the stream are numpy draws from
+# SSM_SEED, for jamba the first seed whose every routing decision in the
+# port's one-device run clears ROUTE_MARGIN (the margin rule;
+# ``test_ssm_data_clears_the_routing_margin``)
+SSM_ARCHS = ("jamba-1.5-large-398b", "xlstm-350m")
+SSM_FORWARD_MESHES = {"jamba-1.5-large-398b": ((2, 4), (4, 2)),
+                      "xlstm-350m": ((2, 4), (4, 2), (1, 8))}
+SSM_TRAIN_MESH = (2, 4)
+SSM_DECODE_MESHES = {"jamba-1.5-large-398b": ((2, 4),),
+                     "xlstm-350m": ((2, 4), (1, 8))}
+# the decode also run in f32 (``in_f32``) where its bf16 states are held
+# at SSM_STATE_REL: mLSTM's head on a pair of ranks
+SSM_F32_DECODE = {"xlstm-350m": (1, 8)}
+SSM_B, SSM_S = 2, 32
+SSM_DECODE_B, SSM_PROMPT, SSM_STEPS = 4, 16, 4
+SSM_SEED = {"jamba-1.5-large-398b": {"batch": 14, "stream": 9},
+            "xlstm-350m": {"batch": 0, "stream": 0}}
+ROUTE_MARGIN = 1e-3
+
+
+def ssm_config(arch, smoke_config):
+    """``arch``'s smoke config from ``smoke_config`` (either package's),
+    an MoE at the capacity that drops nothing (``E / top_k``)."""
+    cfg = smoke_config(arch)
+    if not cfg.num_experts:
+        return cfg
+    return dataclasses.replace(cfg,
+                               capacity_factor=cfg.num_experts / cfg.top_k)
+
+
+def port_ssm_config(arch):
+    from repro_torch import configs
+
+    return ssm_config(arch, configs.smoke_config)
+
+
+def ssm_tokens(arch, kind):
+    """The SSM cells' tokens (numpy int32): ``"batch"`` [SSM_B, SSM_S]
+    (the forward's input and the train step's, its labels the same), or
+    ``"stream"`` [SSM_DECODE_B, SSM_PROMPT + SSM_STEPS]."""
+    shape = (SSM_B, SSM_S) if kind == "batch" else \
+        (SSM_DECODE_B, SSM_PROMPT + SSM_STEPS)
+    return np.random.default_rng(SSM_SEED[arch][kind]).integers(
+        0, 512, shape, dtype=np.int32)
+
+
+@contextlib.contextmanager
+def in_f32():
+    """The model in f32 while active (activations, caches and the MoE and
+    mamba casts: ``PDT`` of ``layers``, ``moe`` and ``ssm``), so f32
+    parameters run the bf16 model's function without its roundings."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import ssm as SSM
+
+    saved = L.PDT
+    L.PDT = MOE.PDT = SSM.PDT = torch.float32
+    try:
+        yield
+    finally:
+        L.PDT = MOE.PDT = SSM.PDT = saved
 
 
 def trace_kinds(arch):
@@ -66,6 +143,14 @@ def trace_kinds(arch):
 
     return ("prefill", "train") if configs.smoke_config(arch).encoder_only \
         else ("prefill", "decode", "train")
+
+
+def trace_cells():
+    """``(arch, kind, mesh shape)`` of every traced partitioned step."""
+    cells = [(arch, kind, shape) for shape in TRACE_MESHES
+             for arch in TRACE_ARCHS for kind in trace_kinds(arch)]
+    return cells + [(arch, kind, SSM_TRACE_MESH) for arch in SSM_ARCHS
+                    for kind in trace_kinds(arch)]
 
 
 def decode_tokens(arch):
@@ -130,6 +215,9 @@ def inputs():
     for arch in sorted({a for a, _, _ in DECODE_CASES}):
         out[f"lm_{arch}"] = to_t(jax.jit(RM.init_params, static_argnums=1)(
             jax.random.key(0), smoke_config(arch)))
+    for arch in SSM_ARCHS:
+        out[f"ssm_{arch}"] = to_t(jax.jit(RM.init_params, static_argnums=1)(
+            jax.random.key(0), ssm_config(arch, smoke_config)))
     rng = np.random.default_rng(3)
     out["moe_cot"] = torch.from_numpy(
         rng.standard_normal((4, 16, 64)).astype(np.float32))
@@ -246,9 +334,55 @@ def reference_main(path):
 
     res["compress"] = f32(comp(xs))
     res["compress_exact"] = f32(xs.sum(axis=0))
+    res.update(_reference_ssm(leaves))
     res.update(_reference_serving())
     with open(path, "wb") as f:
         pickle.dump(res, f)
+
+
+def _reference_ssm(leaves):
+    """The SSM families' forward logits and one train step (its loss and
+    the parameters after it) under the reference's GSPMD partitioning on
+    SSM_TRAIN_MESH from the same init (seed 0): jitted with the spec
+    tables' shardings of the state (ZeRO on) and of the batch."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from repro import compat
+    from repro.configs import smoke_config
+    from repro.models import model as RM
+    from repro.models import train as T
+
+    named = lambda tree, mesh: jax.tree.map(
+        lambda s: NamedSharding(mesh, s), tree,
+        is_leaf=lambda s: isinstance(s, P))
+    res = {}
+    opt = T.make_optimizer(**LR)
+    mesh = compat.make_mesh(SSM_TRAIN_MESH, ("data", "model"),
+                            axis_types=compat.auto_axes(2))
+    for arch in SSM_ARCHS:
+        cfg = ssm_config(arch, smoke_config)
+        toks = jnp.asarray(ssm_tokens(arch, "batch"))
+        batch = {"tokens": toks, "labels": toks}
+        with compat.set_mesh(mesh):
+            init = lambda k, cfg=cfg: T.init_state(k, cfg, opt)
+            sh = named(T.train_state_specs(jax.eval_shape(
+                init, jax.random.key(0)), mesh, zero=True), mesh)
+            bsh = named(T.batch_specs(jax.eval_shape(lambda: batch), mesh),
+                        mesh)
+            state = jax.jit(init, out_shardings=sh)(jax.random.key(0))
+            batch = jax.device_put(batch, bsh)
+            logits, _ = jax.jit(lambda p, b: RM.forward(p, b, cfg),
+                                in_shardings=(sh.params, {
+                                    "tokens": bsh["tokens"]}))(
+                state.params, {"tokens": batch["tokens"]})
+            state, m = jax.jit(T.make_train_step(cfg, opt),
+                               in_shardings=(sh, bsh),
+                               out_shardings=(sh, None))(state, batch)
+        res[("ssm_forward", arch)] = np.asarray(logits, np.float32)
+        res[("ssm_train", arch)] = (float(m["loss"]), leaves(state.params))
+    return res
 
 
 def _reference_serving():
@@ -550,22 +684,125 @@ def _loop_cell(mesh_of, store):
     return {"history": first, "resumed": resumed}
 
 
-def _refusals(mesh_of):
-    """An SSM family on a model axis > 1 raises before any collective;
-    on a data-only mesh it runs."""
-    from repro_torch import configs
+def _ssm_forward_cell(mesh, inp, arch):
+    """``model.forward(mesh=)`` of an SSM family's smoke config on this
+    rank's rows (all of them where the batch does not split): the logits
+    gathered over the batch axes, and the calls of the forward."""
     from repro_torch.models import model as M
+    from repro_torch.models import sharding as SH
+    from repro_torch.models import train as T
 
-    out = {}
-    for arch in ("jamba-1.5-large-398b", "xlstm-350m"):
-        cfg = configs.smoke_config(arch)
-        try:
-            M.check_mesh(cfg, mesh_of((4, 2)))
-            out[arch] = None
-        except NotImplementedError as e:
-            out[arch] = str(e)
-        M.check_mesh(cfg, mesh_of((8, 1)))
+    cfg = port_ssm_config(arch)
+    params = inp[f"ssm_{arch}"]
+    specs = SH.param_specs(params, mesh)
+    shards = SH.shard_tree(params, specs, mesh)
+    toks = torch.from_numpy(ssm_tokens(arch, "batch"))
+    run = mesh.for_batch(toks.shape[0])
+    rows = T.batch_rows({"tokens": toks}, run)
+    mesh.reset_calls()
+    with torch.no_grad():
+        logits, _ = M.forward(T.model_params(
+            T.gather_zero(shards, specs, mesh), cfg), rows, cfg, run)
+    calls = dict(mesh.calls)
+    return {"logits": mesh.all_gather(logits, run.batch_axes(), 0),
+            "calls": calls}
+
+
+def _ssm_grads(mesh, params, batch, cfg):
+    """One rank's ``_sharded_grads`` of ``params`` (whole, placed here by
+    ``param_specs``) on ``batch``, gathered whole: ``{leaf: f32}``."""
+    from repro_torch.checkpoint.store import _key, _leaves
+    from repro_torch.models import sharding as SH
+    from repro_torch.models import train as T
+
+    specs = SH.param_specs(params, mesh)
+    grads, _ = T._sharded_grads(
+        SH.shard_tree(params, specs, mesh), batch, specs, mesh,
+        lambda p, b, run: T.value_and_grad(p, b, cfg, mesh=run)[::-1])
+    return {_key(p): _f32(v) for p, v in
+            _leaves(SH.gather_tree(grads, specs, mesh))}
+
+
+def _ssm_step_cell(mesh, inp, arch):
+    """One sharded train step of an SSM family from the reference's init
+    (``_step_cell``'s record: metrics, calls, the whole params after it,
+    the synced gradient) and, for xlstm, whose bf16 gradient is held
+    loosely (``SSM_GRAD_REL``), the same gradient in f32 (``in_f32``: f32
+    copies of the parameters)."""
+    from repro_torch.checkpoint.store import _key, _leaves
+    from repro_torch.models import sharding as SH
+    from repro_torch.models import train as T
+
+    cfg = port_ssm_config(arch)
+    opt = T.make_optimizer(**LR)
+    params = inp[f"ssm_{arch}"]
+    whole = T.TrainState(step=torch.zeros((), dtype=torch.int32),
+                         params=params, opt_state=opt.init(params))
+    state = T.shard_state(whole, cfg, mesh, opt)
+    toks = torch.from_numpy(ssm_tokens(arch, "batch"))
+    batch = {"tokens": toks, "labels": toks}
+    grads = _ssm_grads(mesh, params, batch, cfg)
+    grads32 = None
+    if arch in SSM_F32_DECODE:
+        with in_f32():
+            grads32 = _ssm_grads(mesh, SH.map_leaves(
+                lambda _, t: t.float(), params), batch, cfg)
+    mesh.reset_calls()
+    state, m = T.make_train_step(cfg, opt, mesh=mesh)(state, batch)
+    calls = dict(mesh.calls)
+    after = T.gather_state(state, cfg, mesh, opt)
+    return {"metrics": [{k: float(v) for k, v in m.items()}],
+            "calls": calls, "grads": grads, "grads_f32": grads32,
+            "params": {_key(p): _f32(v) for p, v in _leaves(after.params)}}
+
+
+def _ssm_decode_cell(mesh, inp, arch, f32=False):
+    """The partitioned serving steps of an SSM family: the prefill step's
+    last-position logits of the prompt, then the cache built by decode
+    steps over the prompt and SSM_STEPS more (the logits from the
+    prompt's last step on, gathered over the batch axes), the cache after
+    the last (gathered), and one step's calls; ``f32``: the same in f32
+    (``in_f32``, f32 copies of the parameters), its ``"f32"`` entry."""
+    out = _ssm_decode(mesh, inp[f"ssm_{arch}"], arch)
+    if f32:
+        from repro_torch.models import sharding as SH
+
+        with in_f32():
+            out["f32"] = _ssm_decode(mesh, SH.map_leaves(
+                lambda _, t: t.float(), inp[f"ssm_{arch}"]), arch)
     return out
+
+
+def _ssm_decode(mesh, whole_params, arch):
+    """``_ssm_decode_cell``'s record from ``whole_params``."""
+    from repro_torch.checkpoint.store import _key, _leaves
+    from repro_torch.models import model as M
+    from repro_torch.models import serve as SV
+    from repro_torch.models import sharding as SH
+
+    cfg = port_ssm_config(arch)
+    toks = torch.from_numpy(ssm_tokens(arch, "stream"))
+    B, L = toks.shape
+    params = SV.shard_params(whole_params, cfg, mesh)
+    axes = mesh.for_batch(B).batch_axes()
+    with torch.no_grad():
+        prefill = SV.make_prefill_step(cfg, mesh)(
+            params, {"tokens": toks[:, :SSM_PROMPT]})
+    whole = M.init_cache(cfg, B, L, "cpu")
+    specs = SV.cache_specs(whole, cfg, mesh)
+    cache = SV.shard_cache(whole, cfg, mesh)
+    step = SV.make_decode_step(cfg, mesh, L)
+    logits = []
+    for t in range(L):
+        mesh.reset_calls()
+        lg, cache = step(params, toks[:, t:t + 1], t, cache)
+        calls = dict(mesh.calls)
+        if t >= SSM_PROMPT - 1:
+            logits.append(mesh.all_gather(lg, axes, 0))
+    cache = SH.gather_tree(cache, specs, mesh)
+    return {"prefill": mesh.all_gather(prefill, axes, 0),
+            "logits": torch.stack(logits), "calls": calls,
+            "cache": {_key(p): v.clone() for p, v in _leaves(cache)}}
 
 
 def _real(leaf, cfg, gen):
@@ -673,12 +910,19 @@ def world(pe_mesh, inp, store):
                                       group=dp.group("dp"))
     out["ckpt"] = _ckpt_cell(mesh_of, inp, store)
     out["train_loop"] = _loop_cell(mesh_of, store)
-    out["refusals"] = _refusals(mesh_of)
-    for shape in TRACE_MESHES:
-        for arch in TRACE_ARCHS:
-            for kind in trace_kinds(arch):
-                out[("trace", arch, kind, shape)] = _trace_cell(
-                    mesh_of(shape), arch, kind)
+    for arch in SSM_ARCHS:
+        for shape in SSM_FORWARD_MESHES[arch]:
+            out[("ssm_forward", arch, shape)] = _ssm_forward_cell(
+                mesh_of(shape), inp, arch)
+        out[("ssm_train", arch)] = _ssm_step_cell(mesh_of(SSM_TRAIN_MESH),
+                                                  inp, arch)
+        for shape in SSM_DECODE_MESHES[arch]:
+            out[("ssm_decode", arch, shape)] = _ssm_decode_cell(
+                mesh_of(shape), inp, arch,
+                shape == SSM_F32_DECODE.get(arch))
+    for arch, kind, shape in trace_cells():
+        out[("trace", arch, kind, shape)] = _trace_cell(mesh_of(shape), arch,
+                                                        kind)
     for arch, shape, max_len in DECODE_CASES:
         out[("decode", arch, shape, max_len)] = _decode_cell(
             mesh_of(shape), inp, arch, max_len)
